@@ -1,0 +1,78 @@
+"""Json manifest dataset for offline features, length-sorted and filtered.
+
+Counterpart of `load_json_manifest` and `ArkDataset` in
+openasr_tpu/data/manifest.py.  Manifests carry `uttid / feat /
+feat_length / tokens / token_length` rows; a path may also be a directory
+of *.json files.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import List, Tuple
+
+logger = logging.getLogger(__name__)
+
+
+def load_json_manifest(
+    json_path: str,
+    x: str = "feat_length",
+    y: str = "token_length",
+    x_range: Tuple[int, int] = (1, 9999),
+    y_range: Tuple[int, int] = (1, 999),
+    rate: Tuple[float, float] = (1, 99),
+) -> List[dict]:
+    """Load sample dicts from a json file or a directory of json files,
+    filtering on input length, label length and in/out ratio (inclusive
+    bounds)."""
+    if os.path.isdir(json_path):
+        data: List[dict] = []
+        for d, dirs, files in os.walk(json_path):
+            dirs.sort()  # deterministic traversal order
+            for fn in sorted(files):
+                if fn.endswith(".json"):
+                    with open(os.path.join(d, fn)) as f:
+                        data.extend(json.load(f))
+    else:
+        with open(json_path) as f:
+            data = json.load(f)
+
+    kept = []
+    for sample in data:
+        len_x = float(sample[x])
+        len_y = float(sample.get(y, 1))
+        if not (x_range[0] <= len_x <= x_range[1]):
+            continue
+        if y in sample and not (y_range[0] <= len_y <= y_range[1]):
+            continue
+        if y in sample and not (rate[0] <= len_x / max(len_y, 1e-9) <= rate[1]):
+            continue
+        kept.append(sample)
+    logger.info(
+        "manifest %s: kept %d/%d samples", json_path, len(kept), len(data)
+    )
+    return kept
+
+
+class ArkDataset:
+    """Offline (precomputed Kaldi feature) dataset sorted by feat_length."""
+
+    def __init__(
+        self,
+        json_path: str,
+        feat_range=(1, 99999),
+        label_range=(1, 100),
+        rate_in_out=(4, 999),
+    ):
+        data = load_json_manifest(
+            json_path, x_range=feat_range, y_range=label_range, rate=rate_in_out
+        )
+        self.data = sorted(data, key=lambda s: float(s["feat_length"]))
+
+    def __getitem__(self, index: int) -> dict:
+        return self.data[index]
+
+    def __len__(self) -> int:
+        return len(self.data)

@@ -1,0 +1,47 @@
+"""Frame-budget batch sampler.
+
+Counterpart of `BudgetBatchSampler` / `FrameBasedSampler` in
+openasr_tpu/data/sampler.py: greedily pack length-sorted samples until a
+cumulative frame budget is met, with the batch size divisible by the
+data-parallel degree.  Batches come out in length order (the training
+slice brings the shuffle of whole batches).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence
+
+
+class FrameBasedSampler:
+    """Pack batches until cumulative feat_length >= `frames`, batch size
+    divisible by `ngpu`."""
+
+    def __init__(
+        self,
+        dataset: Sequence[dict],
+        frames: float = 200,
+        ngpu: int = 1,
+    ):
+        divisible_by = max(ngpu, 1)
+        batches: List[List[int]] = []
+        batch: List[int] = []
+        acc = 0.0
+        for idx in range(len(dataset)):
+            batch.append(idx)
+            acc += float(dataset[idx]["feat_length"])
+            if acc >= frames and len(batch) % divisible_by == 0:
+                batches.append(batch)
+                batch = []
+                acc = 0.0
+        if batch:
+            # trim the ragged tail so it stays divisible
+            keep = len(batch) // divisible_by * divisible_by
+            if keep:
+                batches.append(batch[len(batch) - keep :])
+        self.batches = batches
+
+    def __iter__(self) -> Iterator[List[int]]:
+        return iter(self.batches)
+
+    def __len__(self) -> int:
+        return len(self.batches)

@@ -1,0 +1,156 @@
+"""Model frameworks: an nn.Module + its configs + packaging.
+
+Counterpart of openasr_tpu/models/__init__.py.  A Framework owns the
+module, builds it from the YAML config sections (`create_model`) and
+reads/writes checkpoint packages in the JAX package's layout
+(`restore` / `package`, through openasr_torch/convert.py), so one package
+file serves both implementations.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from openasr_torch.config import Config
+
+# Config keys tolerated to differ between a checkpoint and the current model.
+VOLATILE_CONFIG_KEYS = {"dropout_rate", "spec_aug", "dither", "dropout"}
+
+MODEL_REGISTRY: Dict[str, type] = {}
+
+
+def register_model(name: str):
+    def wrap(cls):
+        cls.model_type = name
+        MODEL_REGISTRY[name] = cls
+        return cls
+
+    return wrap
+
+
+def _normalize(name: str) -> str:
+    return name.lower().replace("-", "_")
+
+
+def get_model_class(name: str) -> type:
+    """Resolve a model type, case-insensitive over '-'/'_'."""
+    import openasr_torch.models.speech  # noqa: F401  (fills the registry)
+
+    by_norm = {_normalize(k): k for k in MODEL_REGISTRY}
+    if _normalize(name) in by_norm:
+        return MODEL_REGISTRY[by_norm[_normalize(name)]]
+    raise ValueError(
+        f"Model type {name!r} is not ported; the port has {sorted(MODEL_REGISTRY)} "
+        "(ROADMAP queue 1 lists the other families)"
+    )
+
+
+def _check_config_compat(name: str, current: dict, saved: dict) -> None:
+    for key, value in (current or {}).items():
+        if key in VOLATILE_CONFIG_KEYS:
+            continue
+        if isinstance(value, dict):
+            _check_config_compat(f"{name}.{key}", value, (saved or {}).get(key) or {})
+            continue
+        if saved is None or saved.get(key) != value:
+            raise ValueError(
+                f"{name} config mismatch on {key!r}: "
+                f"current={value!r} saved={(saved or {}).get(key)!r}"
+            )
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Fill every parameter from `generator` (a CPU generator; no global
+    RNG): LayerNorm scales 1, biases 0, other weights Xavier-uniform."""
+    from openasr_torch.models.layers import LayerNorm
+
+    norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if id(p) in norms:
+                p.fill_(1.0)
+            elif name.endswith("bias") or p.dim() < 2:
+                p.zero_()
+            else:
+                fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
+                bound = (6.0 / (fan_in + fan_out)) ** 0.5
+                u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+                p.copy_(u * (2 * bound) - bound)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the module to `dtype`, keeping LayerNorm parameters (the norms
+    compute their statistics in f32 either way) and the decoder's
+    `out_bias` (added to f32 logits) in f32."""
+    from openasr_torch.models.decoder import TransformerDecoder
+    from openasr_torch.models.layers import LayerNorm
+
+    module.to(dtype)
+    for m in module.modules():
+        if isinstance(m, LayerNorm):
+            m.float()
+        elif isinstance(m, TransformerDecoder):
+            m.out_bias.data = m.out_bias.data.float()
+    return module
+
+
+class Framework:
+    """Base: owns module + configs."""
+
+    model_type: str = "base"
+
+    def __init__(self, module: nn.Module, configs: Config):
+        self.module = module
+        self.configs = configs if isinstance(configs, Config) else Config(configs)
+
+    @classmethod
+    def build_module(cls, configs: Config) -> nn.Module:
+        raise NotImplementedError
+
+    @classmethod
+    def create_model(cls, configs, device="cuda", dtype=torch.float32,
+                     generator: Optional[torch.Generator] = None):
+        """Build the module on `device` in `dtype`, parameters drawn from
+        `generator` (default: a CPU generator seeded 0), in eval mode."""
+        configs = Config(configs)
+        with torch.device("meta"):
+            module = cls.build_module(configs)
+        module = module.to_empty(device=device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_parameters(module, generator)
+        set_compute_dtype(module, dtype)
+        return cls(module.eval(), configs)
+
+    # ------------------------------------------------------------ packaging
+
+    def package(self) -> dict:
+        """Checkpoint package in the JAX layout: model type + configs +
+        per-component states as f32 NumPy."""
+        from openasr_torch.convert import state_dict_to_jax_components
+
+        return {
+            "model_type": self.model_type,
+            "configs": self.configs.to_dict(),
+            "components": state_dict_to_jax_components(
+                self.model_type, self.module.state_dict(), self.configs
+            ),
+        }
+
+    def restore(self, pkg: dict) -> None:
+        """Load a JAX-layout package after validating config compatibility."""
+        from openasr_torch.convert import jax_components_to_state_dict
+
+        saved_cfg = pkg.get("configs", {})
+        for section, cfg in self.configs.to_dict().items():
+            if isinstance(cfg, dict):
+                _check_config_compat(section, cfg, saved_cfg.get(section))
+        state = jax_components_to_state_dict(self.model_type, pkg["components"])
+        self.module.load_state_dict(state, strict=True)
+
+    def batch_inputs(self, batch: dict):
+        """Offline feature inputs of a collated batch."""
+        return batch["feats"], batch["feat_lengths"]

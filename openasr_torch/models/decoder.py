@@ -1,0 +1,91 @@
+"""Transformer decoder: weight-tied, with a KV-cached step.
+
+Counterpart of `TransformerDecoder` in openasr_tpu/models/decoder.py:
+embedding x sqrt(d) -> PE (which scales by sqrt(d) again) -> N post-LN
+decoder layers -> the tied output affine (embedding^T + out_bias).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from openasr_torch.models.layers import TransformerDecoderLayer, positional_encoding
+from openasr_torch.ops.masks import NEG_INF
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(
+        self,
+        vocab_size: int,
+        d_model: int,
+        nhead: int,
+        num_layers: int,
+        dim_feedforward: int,
+        activation: str = "relu",
+    ):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.emb = nn.Embedding(vocab_size, d_model)
+        self.out_bias = nn.Parameter(torch.zeros(vocab_size))
+        for i in range(num_layers):
+            self.add_module(
+                f"layer{i}",
+                TransformerDecoderLayer(d_model, nhead, dim_feedforward, activation),
+            )
+        self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
+
+    def _embed(self, ids: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        x = self.emb(ids.long()) * math.sqrt(self.d_model)
+        return positional_encoding(x, offset=offset)
+
+    def _output(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits: the tied product in the compute dtype, then the f32
+        `out_bias`."""
+        return (h @ self.emb.weight.t()).float() + self.out_bias
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
+                ids: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits [B, U, V] (causal self-attention; targets
+        are right-padded, so the causal mask alone keeps valid queries off
+        padded keys)."""
+        x = self._embed(ids)
+        for layer in self.layers:
+            x = layer(x, memory, memory_lengths, tgt_causal=True)
+        return self._output(x)
+
+    # ------------------------------------------------------- decode path
+
+    def init_cache(self, memory: torch.Tensor, max_len: int) -> List[dict]:
+        b = memory.shape[0]
+        return [layer.init_cache(b, max_len, memory) for layer in self.layers]
+
+    def step(self, tokens: torch.Tensor, index: int, cache: List[dict],
+             memory_bias: Optional[torch.Tensor], max_len: int) -> torch.Tensor:
+        """tokens [B] -> logits [B, V]; `index` is the 0-based position of
+        `tokens` in the output sequence.  Updates `cache` in place."""
+        x = self._embed(tokens[:, None], offset=index)
+        pos = torch.arange(max_len, device=tokens.device)
+        self_bias = torch.where(
+            pos <= index,
+            torch.zeros((), device=tokens.device),
+            torch.full((), NEG_INF, device=tokens.device),
+        )[None, None, None, :]
+        for layer, c in zip(self.layers, cache):
+            x = layer.step(x, c, index, self_bias, memory_bias)
+        return self._output(x)[:, 0]
+
+
+def transformer_decoder_from_config(cfg) -> TransformerDecoder:
+    return TransformerDecoder(
+        vocab_size=int(cfg["vocab_size"]),
+        d_model=int(cfg["d_model"]),
+        nhead=int(cfg["nhead"]),
+        num_layers=int(cfg["num_layers"]),
+        dim_feedforward=int(cfg["dim_feedforward"]),
+        activation=cfg.get("activation", "relu"),
+    )

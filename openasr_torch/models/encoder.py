@@ -1,0 +1,93 @@
+"""Transformer encoder with conv subsampling.
+
+Counterpart of `TransformerEncoder` in openasr_tpu/models/encoder.py, the
+per-layer path: subsample -> x * sqrt(d) + PE -> N post-LN layers (flash
+self-attention over the valid frames) -> final LayerNorm.  Streaming
+(chunk masks), pipeline (stacked layers) and MoE encoders are later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from openasr_torch.models.layers import (
+    LayerNorm,
+    TransformerEncoderLayer,
+    positional_encoding,
+)
+from openasr_torch.models.subsample import Conv2dSubsample, Conv2dSubsampleV2
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(
+        self,
+        input_dim: int,
+        d_model: int,
+        nhead: int,
+        dim_feedforward: int,
+        num_layers: int,
+        activation: str = "relu",
+        sub_type: str = "ConvV2",
+        sub_layer_num: int = 2,
+    ):
+        super().__init__()
+        if sub_type == "ConvV1":
+            self.sub = Conv2dSubsample(input_dim, d_model)
+        elif sub_type == "ConvV2":
+            self.sub = Conv2dSubsampleV2(input_dim, d_model, sub_layer_num)
+        else:
+            raise NotImplementedError(
+                f"encoder.sub.type {sub_type!r} is not ported yet (ROADMAP "
+                "queue 1 item 3: the port has ConvV1 and ConvV2; Stack and "
+                "no subsampler are to come)"
+            )
+        for i in range(num_layers):
+            self.add_module(
+                f"layer{i}",
+                TransformerEncoderLayer(d_model, nhead, dim_feedforward, activation),
+            )
+        self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
+        self.final_norm = LayerNorm(d_model)
+
+    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor):
+        """feats [B, T, F] -> (encoded [B, T', d_model], lengths [B])."""
+        x, lengths = self.sub(feats.to(self.compute_dtype), feat_lengths)
+        x = positional_encoding(x)
+        for layer in self.layers:
+            x = layer(x, kv_lengths=lengths)
+        return self.final_norm(x), lengths
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the model runs in: that of the subsampler's affine
+        (LayerNorm parameters stay f32)."""
+        return self.sub.affine.weight.dtype
+
+    @staticmethod
+    def from_config(cfg) -> "TransformerEncoder":
+        for key, item in (
+            ("streaming", "11 (streaming)"),
+            ("moe", "14 (MoE)"),
+        ):
+            if cfg.get(key):
+                raise NotImplementedError(
+                    f"encoder.{key} is not ported yet: ROADMAP queue 1 item {item}"
+                )
+        if cfg.get("pipeline"):
+            raise NotImplementedError(
+                "encoder.pipeline is not ported yet: ROADMAP queue 1 item 15 "
+                "(multi-device, GPipe)"
+            )
+        sub = cfg.get("sub") or {}
+        return TransformerEncoder(
+            input_dim=int(cfg["input_dim"]),
+            d_model=int(cfg["d_model"]),
+            nhead=int(cfg["nhead"]),
+            dim_feedforward=int(cfg["dim_feedforward"]),
+            num_layers=int(cfg["num_layers"]),
+            activation=cfg.get("activation", "relu"),
+            sub_type=sub.get("type"),
+            sub_layer_num=int(sub.get("layer_num", 2)),
+        )

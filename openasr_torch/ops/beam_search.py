@@ -1,0 +1,124 @@
+"""Batched attention beam search with KV-cached decoder steps.
+
+Counterpart of openasr_tpu/ops/beam_search.py (`batch_beam_search`,
+`beam_expand`) without LM fusion and hotword biasing.  The JAX
+`lax.while_loop` becomes a Python loop that keeps its all-finished early
+exit (one device->host read of the finished flags a step).  Kept as in
+the JAX package:
+
+  * initial scores [0, -inf, ...] per batch, so identical initial beams
+    don't duplicate;
+  * finished beams are forced to emit EOS with log-prob 0 (score freeze);
+  * a flat per-batch top-k over beam*beam candidates;
+  * every cache tensor is reordered by the source beam;
+  * lengths are the position of the first EOS;
+  * a final per-batch sort by score.
+
+Every top-k here is a stable descending sort, so ties resolve to the lower
+index first, as `lax.top_k` does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from openasr_torch.data.tokenizer import EOS_ID, SOS_ID
+from openasr_torch.ops.masks import NEG_INF
+
+
+def beam_expand(x: torch.Tensor, beam_size: int) -> torch.Tensor:
+    """[B, ...] -> [B*beam, ...] repeating each row `beam` times."""
+    return x.repeat_interleave(beam_size, dim=0)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest k along the last axis, ties to the lower index first."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _reorder(tree, idx: torch.Tensor):
+    """Gather rows `idx` of every tensor in a nest of lists and dicts."""
+    if isinstance(tree, dict):
+        return {k: _reorder(v, idx) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_reorder(v, idx) for v in tree)
+    return tree[idx]
+
+
+def batch_beam_search(
+    step_fn: Callable,
+    init_cache,
+    batch_size: int,
+    beam_size: int,
+    max_decode_len: int,
+    vocab_size: int,
+    device=None,
+):
+    """Run beam search.
+
+    Args:
+      step_fn: (tokens [BB], index, cache) -> (logits [BB, V], cache);
+        BB = batch*beam.  Must already close over beam-expanded memory.
+      init_cache: nest of tensors with leading dim BB.
+
+    Returns:
+      preds [B, beam, max_decode_len] (EOS-padded, no SOS),
+      lengths [B, beam] token counts before EOS,
+      scores [B, beam] sorted descending.
+    """
+    bb = batch_size * beam_size
+    tokens = torch.full((bb,), SOS_ID, dtype=torch.long, device=device)
+    preds = torch.full((bb, max_decode_len), EOS_ID, dtype=torch.long, device=device)
+    first = torch.full((beam_size,), NEG_INF, dtype=torch.float32, device=device)
+    first[0] = 0.0
+    scores = first.repeat(batch_size)
+    finished = torch.zeros((bb,), dtype=torch.bool, device=device)
+    base = (
+        torch.arange(batch_size, device=device)[:, None] * beam_size * beam_size
+    )
+    eos_row = torch.full((1, vocab_size), NEG_INF, dtype=torch.float32, device=device)
+    eos_row[0, EOS_ID] = 0.0
+
+    cache = init_cache
+    for step in range(max_decode_len):
+        if bool(finished.all()):
+            break
+        logits, cache = step_fn(tokens, step, cache)
+        z = torch.log_softmax(logits.float(), dim=-1)
+        # finished beams: force EOS with log-prob 0 (score freeze)
+        z = torch.where(finished[:, None], eos_row, z)
+
+        next_scores, next_tokens = _top_k(z, beam_size)  # [BB, beam]
+        comb = (scores[:, None] + next_scores).reshape(
+            batch_size, beam_size * beam_size
+        )
+        top_scores, k_idx = _top_k(comb, beam_size)  # [B, beam]
+        flat_k = (base + k_idx).reshape(-1)
+        beam_src = flat_k // beam_size
+
+        tokens = next_tokens.reshape(-1)[flat_k]
+        preds = preds[beam_src]
+        preds[:, step] = tokens
+        scores = top_scores.reshape(-1)
+        finished = finished[beam_src] | (tokens == EOS_ID)
+        cache = _reorder(cache, beam_src)
+
+    is_eos = (preds == EOS_ID).to(torch.int32)
+    lengths = torch.where(
+        is_eos.any(dim=1),
+        is_eos.argmax(dim=1),
+        torch.full((bb,), max_decode_len, device=device),
+    )
+
+    sorted_scores, order = _top_k(scores.reshape(batch_size, beam_size), beam_size)
+    gather = (
+        torch.arange(batch_size, device=device)[:, None] * beam_size + order
+    ).reshape(-1)
+    return (
+        preds[gather].reshape(batch_size, beam_size, max_decode_len),
+        lengths[gather].reshape(batch_size, beam_size),
+        sorted_scores,
+    )
