@@ -5,12 +5,21 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 `openasr_torch/kernels/csrc/`, holds each kernel against its plain PyTorch
-version on the card, then decodes 8 random-feature utterances through
-`openasr_torch.bin.infer` at the full width of the flagship
-conv-ctc-transformer (egs/aishell1/configs/conv-ctc-transformer.yaml:
+version on the card (forward and backward, with and without attention
+dropout), then drives the port's two main paths at the full width of the
+flagship conv-ctc-transformer (egs/aishell1/configs/conv-ctc-transformer.yaml:
 ConvV2, d512, 6+6 post-LN layers, 8 heads, GLU 2048, vocab 4233) with
-random weights from a fixed seed, in float32 and in bfloat16, and shows
-through the kernels' launch counters that the decode ran through them.
+random weights from a fixed seed, in float32 and in bfloat16:
+
+- decoding: 8 random-feature utterances through `openasr_torch.bin.infer`;
+- training: one epoch plus the dev pass through `openasr_torch.bin.train`
+  on 128 random-feature utterances of 400-512 frames, with the flagship
+  YAML's model and training sections as they are (dropout 0.1, SpecAugment,
+  batch_frames 36000, clip 50, label smoothing 0.1, lambda_ctc 1.0, Noam).
+
+Each path runs with the kernels' launch counters set to 0 just before it
+and read just after.  The f32 decoder logits and one f32 training step's
+gradients are also checked against the same model on the CPU.
 
 It prints the card's name and power limit, a `{"kernels": [...]}` line
 with each kernel's error, launches, times and bound, and last
@@ -33,6 +42,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+FLAGSHIP_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer.yaml")
 SEED = 1234
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
@@ -40,6 +50,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL_LN = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# backward: max abs error over max(1, largest plain magnitude).  f32 sums
+# (dgamma over thousands of rows, dk/dv over queries) in other orders; in
+# bf16 the outputs round to 8 bits and O, hence delta, differ by an ulp
+TOL_LN_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_FLASH_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+DROPOUT = 0.1
+DROPOUT_SEED = 987654321
 DTYPES = (torch.float32, torch.bfloat16)
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
@@ -79,6 +96,17 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def scaled_err(got: torch.Tensor, want: torch.Tensor):
+    """-> (max abs error, max(1, largest magnitude of `want`))."""
+    return max_err(got, want), max(1.0, float(want.float().abs().max()))
+
+
+def note_err(errs, key, abs_err, scaled) -> None:
+    """Keep a backward kernel's largest abs error and largest scaled one."""
+    a, r = errs.get(key, (0.0, 0.0))
+    errs[key] = (max(a, abs_err), max(r, scaled))
+
+
 def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     """Device time of one call: `calls` calls captured in one CUDA graph,
     replayed `reps` times between CUDA events, so no host work is timed.
@@ -111,6 +139,41 @@ def nvidia_smi() -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+def reset_counters():
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_bwd
+
+    torch.cuda.synchronize()
+    for fn, attr in ((fused_layer_norm, "launches"), (layer_norm_bwd, "launches"),
+                     (flash_attention, "launches"), (flash_attention, "dropout_launches"),
+                     (flash_attention_bwd_dkv, "launches"),
+                     (flash_attention_bwd_dq, "launches")):
+        setattr(fn, attr, 0)
+
+
+def read_counters() -> dict:
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_bwd
+
+    torch.cuda.synchronize()
+    return {
+        "layer_norm_fwd": fused_layer_norm.launches,
+        "layer_norm_bwd": layer_norm_bwd.launches,
+        "flash_attention_fwd": flash_attention.launches,
+        "flash_attention_fwd_dropout": flash_attention.dropout_launches,
+        "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches,
+        "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
+    }
 
 
 # --------------------------------------------------------------- phase 1
@@ -152,7 +215,44 @@ def phase_layer_norm(errs):
                   f"stats err {e_stats:.3g} (tol {tol})")
             require(e <= tol and e_stats <= 1e-5,
                     f"layer_norm [{n}, 512] {DTYPE_NAME[dtype]} disagrees")
-            errs[("layer_norm", dtype)] = max(errs.get(("layer_norm", dtype), 0.0), e)
+            errs[("layer_norm_fwd", dtype)] = max(errs.get(("layer_norm_fwd", dtype), 0.0), e)
+
+
+def phase_layer_norm_bwd(errs, rows_main):
+    """dx, dgamma, dbeta through torch.autograd.grad of the kernel against
+    the plain backward on the same inputs, both modes of the kernel."""
+    from openasr_torch.kernels.layer_norm import (
+        fused_layer_norm,
+        layer_norm_bwd,
+        layer_norm_bwd_reference,
+        layer_norm_reference,
+    )
+
+    rng = np.random.RandomState(SEED + 3)
+    for dtype in DTYPES:
+        tol = TOL_LN_BWD[dtype]
+        for n, d in ((rows_main, 512), (40, 512), (37, 64), (1, 1000)):
+            x, g, b = ln_inputs(n, d, dtype, rng)
+            dy = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to("cuda", dtype)
+            xr, gr, br = (t.clone().requires_grad_() for t in (x, g, b))
+            y, _, _ = fused_layer_norm(xr, gr, br)
+            got = torch.autograd.grad(y, (xr, gr, br), dy)
+            _, mean, rstd = layer_norm_reference(x, g, b)
+            want = layer_norm_bwd_reference(x, dy, g, mean, rstd)
+            dx_only, none_g, none_b = layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)
+            torch.cuda.synchronize()
+            require(none_g is None and none_b is None, "dx-only mode returned partials")
+            worst = 0.0
+            for name, t, w in zip(("dx", "dgamma", "dbeta", "dx(dx-only)"),
+                                  (*got, dx_only), (*want, want[0])):
+                e, scale = scaled_err(t, w)
+                require(e <= tol * scale,
+                        f"layer_norm_bwd [{n}, {d}] {DTYPE_NAME[dtype]} {name}: "
+                        f"err {e:.3g} > {tol} x {scale:.3g}")
+                worst = max(worst, e / scale)
+                note_err(errs, ("layer_norm_bwd", dtype), e, e / scale)
+            print(f"[layer_norm_bwd] [{n}, {d}] {DTYPE_NAME[dtype]}: worst err "
+                  f"{worst:.3g} of max(1, |grad|) (tol {tol})")
 
 
 # --------------------------------------------------------------- phase 3
@@ -197,60 +297,155 @@ def phase_flash(errs):
             require(e <= tol and e_lse <= 1e-3 and zero_row == 0.0,
                     f"flash {tq}x{tk} causal={causal} {DTYPE_NAME[dtype]} disagrees")
             if d == 64:
-                key = ("flash_attention", dtype)
+                key = ("flash_attention_fwd", dtype)
                 errs[key] = max(errs.get(key, 0.0), e)
 
 
-# --------------------------------------------------------------- phase 4
+def flash_train_case(b, h, d, tq, tk, dtype, rng, lens):
+    """Leaf q/k/v (strided views of packed projections, requiring grad) and
+    a dO whose layout is not contiguous (unit stride along D only)."""
+    packed = torch.from_numpy(rng.randn(b, tq, 3, h, d).astype(np.float32)).to("cuda", dtype)
+    packed.requires_grad_()
+    q = packed[:, :, 0]
+    if tq == tk:
+        k, v = packed[:, :, 1], packed[:, :, 2]
+    else:
+        kv = torch.from_numpy(rng.randn(b, tk, 2, h, d).astype(np.float32)).to("cuda", dtype)
+        kv.requires_grad_()
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    dout = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(
+        "cuda", dtype).transpose(1, 2)
+    if lens is not None:
+        lens = torch.as_tensor(np.asarray(lens, np.int32)).cuda()
+    return q, k, v, dout, lens
 
-def write_corpus(rng):
-    """8 utterances of 600-1200 random 80-dim frames as ark/scp + json,
-    and a 4229-character vocabulary (4233 ids with the specials)."""
-    from openasr_torch.data.kaldi_io import write_ark_scp
 
+def phase_flash_bwd(errs, shapes):
+    """Forward (with and without dropout) and dq / dk / dv through
+    torch.autograd.grad of the kernels against the plain forward and
+    backward on the same inputs and dropout seed."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    rng = np.random.RandomState(SEED + 4)
+    b, t, u, lens = shapes["b"], shapes["t"], shapes["u"], shapes["enc_lens"]
+
+    def ragged(n, tk):
+        x = rng.randint(1, tk + 1, size=n)
+        x[0], x[-1] = tk, 0   # a full row and an empty one
+        return x
+
+    cases = [  # b, h, d, tq, tk, causal, kv lengths
+        (4, 4, 32, 37, 37, False, ragged(4, 37)),
+        (4, 4, 32, 37, 37, True, ragged(4, 37)),
+        (4, 8, 64, 130, 130, True, None),
+        (4, 8, 64, 25, 127, False, ragged(4, 127)),
+        (2, 4, 128, 130, 130, False, ragged(2, 130)),
+        (2, 4, 128, 64, 200, False, ragged(2, 200)),
+        # the training path's own shapes: encoder self-attention, decoder
+        # causal self-attention, cross-attention (Tq != Tk)
+        (b, 8, 64, t, t, False, lens),
+        (b, 8, 64, u, u, True, None),
+        (b, 8, 64, u, t, False, lens),
+    ]
+    for dtype in DTYPES:
+        tol = TOL_FLASH_BWD[dtype]
+        for rate in (0.0, DROPOUT):
+            seed = DROPOUT_SEED if rate else None
+            for cb, h, d, tq, tk, causal, kvl in cases:
+                q, k, v, dout, kv = flash_train_case(cb, h, d, tq, tk, dtype, rng, kvl)
+                out, lse = flash_attention(q, k, v, kv_lengths=kv, causal=causal,
+                                           dropout_rate=rate, dropout_seed=seed)
+                got = torch.autograd.grad(out, (q, k, v), dout)
+                torch.cuda.synchronize()
+                qd, kd, vd = q.detach(), k.detach(), v.detach()
+                out_r, lse_r = flash_attention_reference(qd, kd, vd, kv, causal, None,
+                                                         rate, seed or 0)
+                want = flash_attention_bwd_reference(qd, kd, vd, out_r, lse_r, dout, kv,
+                                                     causal, None, rate, seed or 0)
+                e_out = max_err(out, out_r)
+                require(e_out <= TOL_FLASH[dtype],
+                        f"flash fwd dropout={rate} {DTYPE_NAME[dtype]} B{cb} Tq{tq} "
+                        f"Tk{tk}: out err {e_out:.3g}")
+                worst = 0.0
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    e, scale = scaled_err(g, w)
+                    require(e <= tol * scale,
+                            f"flash bwd dropout={rate} {DTYPE_NAME[dtype]} B{cb} H{h} "
+                            f"D{d} Tq{tq} Tk{tk} causal={causal}: {name} err {e:.3g} "
+                            f"> {tol} x {scale:.3g}")
+                    worst = max(worst, e / scale)
+                    if d == 64:
+                        kernel = "dq" if name == "dq" else "dkv"
+                        note_err(errs, (f"flash_attention_bwd_{kernel}", dtype), e, e / scale)
+                print(f"[flash_bwd] B{cb} H{h} D{d} Tq{tq} Tk{tk} causal={causal} "
+                      f"dropout={rate} {DTYPE_NAME[dtype]}: out err {e_out:.3g}, "
+                      f"worst grad err {worst:.3g} of max(1, |grad|) (tol {tol})")
+                if d == 64 and rate:
+                    key = ("flash_attention_fwd_dropout", dtype)
+                    errs[key] = max(errs.get(key, 0.0), e_out)
+
+
+# --------------------------------------------------------------- corpora
+
+def write_vocab():
     chars = [chr(0x4E00 + i) for i in range(4229)]
     vocab = os.path.join(WORK, "chars.txt")
     with open(vocab, "w", encoding="utf-8") as f:
         f.write("".join(c + "\n" for c in chars))
+    return vocab, chars
+
+
+def write_corpus(name, rng, chars, n_utts, frames, tokens):
+    """`n_utts` utterances of `frames` (lo, hi) random 80-dim frames with
+    `tokens` (lo, hi) random characters each, as ark/scp + json."""
+    from openasr_torch.data.kaldi_io import write_ark_scp
+
     feats = {
-        f"utt{i:02d}": rng.randn(int(rng.randint(600, 1201)), 80).astype(np.float32)
-        for i in range(8)
+        f"{name}{i:03d}": rng.randn(int(rng.randint(frames[0], frames[1] + 1)), 80)
+        .astype(np.float32)
+        for i in range(n_utts)
     }
-    write_ark_scp(os.path.join(WORK, "feats"), feats.items())
+    write_ark_scp(os.path.join(WORK, name), feats.items())
     rows = []
-    with open(os.path.join(WORK, "feats.scp")) as f:
+    with open(os.path.join(WORK, f"{name}.scp")) as f:
         for line in f:
             utt, path = line.split()
-            toks = " ".join(rng.choice(chars, size=12))
-            rows.append({"uttid": utt, "feat": path,
-                         "feat_length": feats[utt].shape[0],
-                         "tokens": toks, "token_length": 12})
-    manifest = os.path.join(WORK, "test.json")
+            n_tok = int(rng.randint(tokens[0], tokens[1] + 1))
+            rows.append({"uttid": utt, "feat": path, "feat_length": feats[utt].shape[0],
+                         "tokens": " ".join(rng.choice(chars, size=n_tok)),
+                         "token_length": n_tok})
+    manifest = os.path.join(WORK, f"{name}.json")
     with open(manifest, "w", encoding="utf-8") as f:
         json.dump(rows, f, ensure_ascii=False)
-    return vocab, manifest, feats
+    return manifest, feats
 
 
-def save_flagship_package():
+def save_flagship_package(path, solver_state=None):
     from openasr_torch.models import get_model_class
     from openasr_torch.utils.checkpoint import save_package
 
     model = get_model_class("conv-ctc-transformer").create_model(
         FLAGSHIP, device="cuda", generator=torch.Generator().manual_seed(SEED)
     )
-    path = os.path.join(WORK, "flagship.pkg")
-    save_package(model.package(), path)
-    return path
+    pkg = model.package()
+    if solver_state is not None:
+        pkg = {"model": pkg, "solver_state": solver_state, "optim_state": None}
+    save_package(pkg, path)
+    return pkg
 
 
-def phase_main_path(pkg, vocab, manifest, launches):
+# --------------------------------------------------------------- phase 4
+
+def phase_decode(pkg, vocab, manifest, launches):
     """Decode through the CLI in both dtypes; counters reset just before
     each run and read just after."""
     from openasr_torch.bin import infer
     from openasr_torch.data.manifest import ArkDataset
     from openasr_torch.data.sampler import FrameBasedSampler
-    from openasr_torch.kernels.flash_attention import flash_attention
-    from openasr_torch.kernels.layer_norm import fused_layer_norm
 
     n_batches = len(FrameBasedSampler(
         ArkDataset(manifest, feat_range=(1, 10**9), label_range=(0, 10**9),
@@ -263,19 +458,17 @@ def phase_main_path(pkg, vocab, manifest, launches):
                 "--offline", "--add_blk", "--nbest", "5", "--maxlen", "40",
                 "--batch_frames", "36000", "--dtype", DTYPE_NAME[dtype],
                 "--device", "cuda"]
-        torch.cuda.synchronize()
-        flash_attention.launches = 0
-        fused_layer_norm.launches = 0
+        reset_counters()
         t0 = time.time()
         infer.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        n_flash, n_ln = flash_attention.launches, fused_layer_norm.launches
-        launches[("flash_attention", dtype)] = n_flash
-        launches[("layer_norm", dtype)] = n_ln
+        n = read_counters()
+        n_flash, n_ln = n["flash_attention_fwd"], n["layer_norm_fwd"]
+        launches[("decode", dtype)] = n
         with open(hyp, encoding="utf-8") as f:
             lines = [line for line in f if line.strip()]
-        print(f"[main path] {DTYPE_NAME[dtype]}: {len(lines)} hyps in {wall:.2f}s wall, "
+        print(f"[decode path] {DTYPE_NAME[dtype]}: {len(lines)} hyps in {wall:.2f}s wall, "
               f"{n_batches} batch(es); launches: flash_attention {n_flash}, "
               f"layer_norm {n_ln}")
         require(len(lines) == n_utts, f"{len(lines)} hyp lines for {n_utts} utterances")
@@ -283,23 +476,30 @@ def phase_main_path(pkg, vocab, manifest, launches):
         require(n_ln >= 13 * n_batches, f"layer_norm launched {n_ln} times")
 
 
-def check_against_cpu(pkg, feats):
+def padded_batch(feats, utts, rng):
+    from openasr_torch.data.collate import gen_causal_targets, quantize
+
+    lengths = np.array([feats[u].shape[0] for u in utts], np.int32)
+    x = np.zeros((len(utts), quantize(int(lengths.max())), 80), np.float32)
+    for i, u in enumerate(utts):
+        x[i, : lengths[i]] = feats[u]
+    toks = [list(rng.randint(3, 4232, size=n)) for n in (22, 20)[: len(utts)]]
+    ids, labels, paddings = gen_causal_targets(toks, add_eos=True)
+    return {"feats": x, "feat_lengths": lengths, "ids": ids.astype(np.int64),
+            "labels": labels, "paddings": paddings}
+
+
+def check_logits_against_cpu(pkg, feats):
     """The card's f32 encoder and teacher-forced decoder (kernels) against
     the same package on the CPU (plain versions), on two utterances."""
     from openasr_torch.config import Config
-    from openasr_torch.data.collate import quantize
     from openasr_torch.models import get_model_class
     from openasr_torch.utils.checkpoint import load_package
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pkg = load_package(pkg)
-    utts = sorted(feats)[:2]
-    lengths = np.array([feats[u].shape[0] for u in utts], np.int32)
-    x = np.zeros((2, quantize(int(lengths.max())), 80), np.float32)
-    for i, u in enumerate(utts):
-        x[i, : lengths[i]] = feats[u]
-    ids = np.random.RandomState(SEED).randint(3, 4232, size=(2, 12)).astype(np.int64)
+    batch = padded_batch(feats, sorted(feats)[:2], np.random.RandomState(SEED))
     outs = {}
     for device in ("cuda", "cpu"):
         model = get_model_class("conv-ctc-transformer").create_model(
@@ -308,8 +508,8 @@ def check_against_cpu(pkg, feats):
         model.restore(pkg)
         with torch.inference_mode():
             ctc, elens, ce = model.module(
-                torch.from_numpy(x).to(device), torch.from_numpy(lengths).to(device),
-                torch.from_numpy(ids).to(device),
+                *(torch.from_numpy(batch[k]).to(device)
+                  for k in ("feats", "feat_lengths", "ids"))
             )
         outs[device] = (ctc.cpu(), elens.cpu(), ce.cpu())
     (ctc_g, el_g, ce_g), (ctc_c, el_c, ce_c) = outs["cuda"], outs["cpu"]
@@ -324,8 +524,172 @@ def check_against_cpu(pkg, feats):
 
 # --------------------------------------------------------------- phase 5
 
+def train_config(train_json, dev_json, vocab, exp_dir, dtype):
+    """The flagship YAML with its model and training sections unchanged but
+    for one epoch, a log line per step, this run's paths and `dtype`."""
+    import yaml
+
+    with open(FLAGSHIP_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(trainset=train_json, devset=dev_json, vocab_path=vocab)
+    cfg["training"].update(exp_dir=exp_dir, num_epoch=1, print_inteval=1,
+                           compute_dtype=DTYPE_NAME[dtype])
+    path = os.path.join(WORK, f"train_{DTYPE_NAME[dtype]}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def per_step_launches() -> dict:
+    """Kernel launches of one training step (and of one dev batch) of the
+    flagship: every LayerNorm and every attention of the module once."""
+    from openasr_torch.config import Config
+    from openasr_torch.models.layers import LayerNorm, MultiHeadAttention
+    from openasr_torch.models.speech import ConvCTCTransformerModule
+
+    with torch.device("meta"):
+        module = ConvCTCTransformerModule(Config(FLAGSHIP))
+    n_ln = sum(isinstance(m, LayerNorm) for m in module.modules())
+    n_attn = sum(isinstance(m, MultiHeadAttention) for m in module.modules())
+    return {"train": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+                      "flash_attention_fwd_dropout": n_attn,
+                      "flash_attention_bwd_dkv": n_attn, "flash_attention_bwd_dq": n_attn},
+            "dev": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn}}
+
+
+def leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def phase_train(train_json, dev_json, vocab, launches, shapes):
+    """Train one epoch + dev pass through the CLI in f32 and bf16, from one
+    initial package; counters reset just before each run and read just
+    after."""
+    from openasr_torch.bin import train
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    per = per_step_launches()
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        exp = os.path.join(WORK, f"exp_{name}")
+        os.makedirs(exp)
+        init = save_flagship_package(
+            os.path.join(exp, "last.pkg"),
+            {"epoch": 0, "step": 0, "tr_loss": [], "cv_loss": []})
+        cfg = train_config(train_json, dev_json, vocab, exp, dtype)
+        reset_counters()
+        t0 = time.time()
+        train.main([cfg, "--continue-training", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        tr = [r for r in rows if r["phase"] == "train"]
+        cv = [r for r in rows if r["phase"] == "cv"]
+        steps, dev_batches = len(tr), len(cv)
+        losses = [v for r in rows for k, v in r.items() if k.endswith("loss")]
+        step_s = [b["time"] - a["time"] for a, b in zip(tr, tr[1:])]
+        print(f"[train path] {name}: {steps} steps + {dev_batches} dev batch(es) in "
+              f"{wall:.2f}s wall; per-step host s after the first {step_s}; "
+              f"losses {[round(r['ctc_loss'], 4) for r in tr]} (ctc), "
+              f"{[round(r['ce_loss'], 4) for r in tr]} (ce); launches {n}")
+        require(steps >= 2 and dev_batches >= 1, f"{steps} steps, {dev_batches} dev batches")
+        require(all(np.isfinite(v) for v in losses), f"non-finite loss logged: {losses}")
+        want = {k: 0 for k in n}
+        for k, c in per["train"].items():
+            want[k] += c * steps
+        for k, c in per["dev"].items():
+            want[k] += c * dev_batches
+        require(n == want, f"launches {n} != {want} "
+                           f"({per['train']} a step, {per['dev']} a dev batch)")
+        require(min(n[k] for k in per["train"]) > 0, "a kernel of the path never launched")
+        launches[("train", dtype)] = {"total": n, "steps": steps, "dev_batches": dev_batches}
+
+        last = load_package(os.path.join(exp, "last.pkg"))
+        require(last["solver_state"]["step"] == steps and
+                last["optim_state"]["count"] == steps, "last.pkg holds the wrong step")
+        model = get_model_class("conv-ctc-transformer").create_model(FLAGSHIP, device="cuda")
+        model.restore(last["model"])
+        before = dict(leaves(init["model"]["components"]))
+        after = dict(leaves(last["model"]["components"]))
+        matrices = [k for k, v in before.items() if v.ndim >= 2]
+        changed = [k for k in matrices if not np.array_equal(before[k], after[k])]
+        finite = all(np.isfinite(v).all() for v in after.values())
+        print(f"[train path] {name}: last.pkg reloads at step {steps}; "
+              f"{len(changed)}/{len(matrices)} weight matrices changed; finite {finite}")
+        require(finite and len(changed) == len(matrices),
+                f"unchanged weights: {sorted(set(matrices) - set(changed))[:5]}")
+    return per
+
+
+def check_grads_against_cpu(pkg_path, feats):
+    """One f32 training step (dropout and SpecAugment off) on 2 utterances
+    at full width: every parameter's gradient on the card against the CPU,
+    TF32 off."""
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pkg = load_package(pkg_path)
+    batch = padded_batch(feats, sorted(feats)[:2], np.random.RandomState(SEED + 5))
+    grads = {}
+    for device in ("cuda", "cpu"):
+        model = get_model_class("conv-ctc-transformer").create_model(FLAGSHIP, device=device)
+        model.restore(pkg)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        losses = model.loss(tb, None, label_smooth=0.1,
+                            empty_rows=model.has_empty_rows(batch["feat_lengths"]))
+        total = losses["ce_loss"] / losses["n_tokens"] + losses["ctc_loss"] / losses["n_seqs"]
+        total.backward()
+        grads[device] = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+        print(f"[grad check] {device}: loss {float(total.detach()):.6f}")
+    worst, worst_name = 0.0, None
+    for name, want in grads["cpu"].items():
+        # an attention k-projection bias has an analytically zero gradient
+        # (softmax is shift-invariant), so its values are rounding noise:
+        # its error is measured against its projection weight's gradient
+        ref = grads["cpu"][name[: -len("bias")] + "weight"] if name.endswith(".k.bias") else want
+        scale = max(float(ref.abs().max()), 1e-30)
+        rel = max_err(grads["cuda"][name], want) / scale
+        if not rel <= worst:
+            worst, worst_name = rel, name
+    print(f"[grad check] f32 card vs CPU, 2 utts, {len(grads['cpu'])} parameters: worst "
+          f"err {worst:.3g} of the gradient's max abs ({worst_name}; tol 1e-3; "
+          f"k-projection biases against their weight's)")
+    require(worst <= 1e-3, f"gradient of {worst_name} disagrees: {worst:.3g}")
+
+
+# --------------------------------------------------------------- phase 6
+
+def train_shapes(train_json):
+    """The training path's largest batch: B, padded T' after ConvV2 and the
+    encoder lengths, and the decoder's U (ids width)."""
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.data.manifest import ArkDataset
+    from openasr_torch.data.sampler import FrameBasedSampler
+
+    ds = ArkDataset(train_json, feat_range=(1, 1200), label_range=(1, 60))
+    best = None
+    for batch in FrameBasedSampler(ds, 36000).batches:
+        lens = np.array([ds[i]["feat_length"] for i in batch])
+        t = quantize(int(lens.max()))
+        for _ in range(2):
+            t, lens = (t - 1) // 2, (lens - 1) // 2
+        u = quantize(max(int(ds[i]["token_length"]) for i in batch) + 2)
+        if best is None or len(batch) * t > best["b"] * best["t"]:
+            best = {"b": len(batch), "t": t, "enc_lens": lens, "u": u}
+    return best
+
+
 def encoder_shapes(feats):
-    """The main path's encoder batch: B, padded T' after ConvV2, lengths."""
+    """The decode path's encoder batch: B, padded T' after ConvV2, lengths."""
     from openasr_torch.data.collate import quantize
 
     lens = np.array([m.shape[0] for m in feats.values()])
@@ -342,6 +706,12 @@ def times(kernel, plain, library) -> dict:
             "library_ms": device_ms(library)}
 
 
+def bound(nbytes, flops, dtype) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def held_to_plain(name, kernel, plain, tol, errs, key) -> None:
     """Kernel against plain version at a main-path shape; the first
     outputs (y, O) are compared and the error joins the kernel's max."""
@@ -353,7 +723,18 @@ def held_to_plain(name, kernel, plain, tol, errs, key) -> None:
     errs[key] = max(errs[key], e)
 
 
-def kernel_rows(feats, errs, launches):
+def attention_pairs(tq, lens, causal) -> int:
+    """(query, key) pairs the masks leave valid, summed over the batch."""
+    q = np.arange(tq)[:, None]
+    total = 0
+    for n in lens:
+        k = np.arange(int(n))[None, :]
+        total += int(((k <= q) if causal else np.ones((tq, int(n)), bool)).sum())
+    return total
+
+
+def fwd_rows(feats, errs, launches):
+    """PR 1's rows: the forward kernels at the decode path's encoder shape."""
     import torch.nn.functional as F
 
     from openasr_torch.kernels.flash_attention import (
@@ -368,32 +749,30 @@ def kernel_rows(feats, errs, launches):
     rows = []
     for dtype in DTYPES:
         es = torch.tensor([], dtype=dtype).element_size()
+        dec, tr = launches[("decode", dtype)], launches[("train", dtype)]
         n = b * t
         x, g, beta = ln_inputs(n, dm, dtype, rng)
         g_l, b_l = g.to(dtype), beta.to(dtype)
         held_to_plain(f"layer_norm {DTYPE_NAME[dtype]} [{n}, {dm}]",
                       lambda: fused_layer_norm(x, g, beta),
                       lambda: layer_norm_reference(x, g, beta),
-                      TOL_LN[dtype], errs, ("layer_norm", dtype))
-        ln_bytes = 2 * n * dm * es + 2 * dm * 4 + 2 * n * 4
-        ln_flops = 8 * n * dm
-        ln_bound = max(ln_bytes / HBM_BYTES_PER_S, ln_flops / PEAK_FLOPS[torch.float32])
+                      TOL_LN[dtype], errs, ("layer_norm_fwd", dtype))
         rows.append({
             "name": f"layer_norm_fwd[{DTYPE_NAME[dtype]}]",
             "route": "cuda",
             "source": "openasr_torch/kernels/csrc/layer_norm.cu",
             "replaces": "openasr_tpu/kernels/layer_norm.py:56",
             "shape": [n, dm],
-            "launches": launches[("layer_norm", dtype)],
-            "max_abs_err": errs[("layer_norm", dtype)],
+            "launches": dec["layer_norm_fwd"],
+            "launches_train_path": tr["total"]["layer_norm_fwd"],
+            "max_abs_err": errs[("layer_norm_fwd", dtype)],
             "tol": TOL_LN[dtype],
             **times(
                 lambda: fused_layer_norm(x, g, beta),
                 lambda: layer_norm_reference(x, g, beta),
                 lambda: F.layer_norm(x, (dm,), g_l, b_l, 1e-6),
             ),
-            "bound_ms": ln_bound * 1e3,
-            "bound_by": "bytes" if ln_bytes / HBM_BYTES_PER_S >= ln_flops / PEAK_FLOPS[torch.float32] else "operations",
+            **bound(2 * n * dm * es + 2 * dm * 4 + 2 * n * 4, 8 * n * dm, torch.float32),
         })
 
         q, k, v = (
@@ -406,34 +785,211 @@ def kernel_rows(feats, errs, launches):
         held_to_plain(f"flash {DTYPE_NAME[dtype]} [{b}, {t}, {h}, {d}]",
                       lambda: flash_attention(q, k, v, kv_lengths=kv),
                       lambda: flash_attention_reference(q, k, v, kv),
-                      TOL_FLASH[dtype], errs, ("flash_attention", dtype))
+                      TOL_FLASH[dtype], errs, ("flash_attention_fwd", dtype))
         # Q read and O written over all rows; K and V read only over the
         # valid keys, where the kernel's key loop stops; lse f32, lengths
         valid = int(lens.clip(0, t).sum())
-        fa_bytes = es * (2 * b * t * h * d + 2 * valid * h * d) + 4 * b * h * t + 4 * b
-        fa_flops = 4 * t * valid * h * d
-        peak = PEAK_FLOPS[dtype]
         rows.append({
             "name": f"flash_attention_fwd[{DTYPE_NAME[dtype]}]",
             "route": "cuda",
             "source": "openasr_torch/kernels/csrc/flash_attention.cu",
             "replaces": "openasr_tpu/kernels/flash_attention.py:146",
             "shape": [b, t, h, d],
-            "launches": launches[("flash_attention", dtype)],
-            "max_abs_err": errs[("flash_attention", dtype)],
+            "launches": dec["flash_attention_fwd"],
+            "launches_train_path": tr["total"]["flash_attention_fwd"],
+            "max_abs_err": errs[("flash_attention_fwd", dtype)],
             "tol": TOL_FLASH[dtype],
             **times(
                 lambda: flash_attention(q, k, v, kv_lengths=kv),
                 lambda: flash_attention_reference(q, k, v, kv),
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
             ),
-            "bound_ms": max(fa_bytes / HBM_BYTES_PER_S, fa_flops / peak) * 1e3,
-            "bound_by": "bytes" if fa_bytes / HBM_BYTES_PER_S >= fa_flops / peak else "operations",
+            **bound(es * (2 * b * t * h * d + 2 * valid * h * d) + 4 * b * h * t + 4 * b,
+                    4 * t * valid * h * d, dtype),
         })
-    for r in rows:
-        print(f"[time] {r['name']} {r['shape']}: device ms kernel {r['ms']:.4f}, "
-              f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return rows
+
+
+def bwd_errs(err, tol) -> dict:
+    """Row keys of a backward kernel's errors over every checked case."""
+    return {"max_abs_err": err[0], "max_scaled_err": err[1], "tol": tol,
+            "tol_of": "max_scaled_err: max abs error over max(1, largest plain "
+                      "magnitude), gradients with and without dropout"}
+
+
+def backward_ms(fwd, inputs, grad_out) -> float:
+    """Device ms of the backward of `fwd`: forward + backward minus the
+    forward alone, both by CUDA-graph replay."""
+    def both():
+        torch.autograd.grad(fwd(), inputs, grad_out)
+
+    return device_ms(both) - device_ms(fwd)
+
+
+def train_rows(shapes, errs, launches, per):
+    """The training path's kernels at its encoder shape (largest batch)."""
+    import torch.nn.functional as F
+
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+        flash_delta,
+    )
+    from openasr_torch.kernels.layer_norm import (
+        layer_norm_bwd,
+        layer_norm_bwd_reference,
+        layer_norm_reference,
+    )
+
+    b, t, lens = shapes["b"], shapes["t"], shapes["enc_lens"]
+    h, d, dm = 8, 64, 512
+    rng = np.random.RandomState(SEED + 6)
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        es = torch.tensor([], dtype=dtype).element_size()
+        tr = launches[("train", dtype)]
+
+        def launch_keys(key):
+            return {"launches": tr["total"][key],
+                    "launches_per_step": per["train"][key]}
+
+        # LayerNorm backward over the encoder's rows
+        n = b * t
+        x, g, beta = ln_inputs(n, dm, dtype, rng)
+        dy = torch.from_numpy(rng.randn(n, dm).astype(np.float32)).to("cuda", dtype)
+        _, mean, rstd = layer_norm_reference(x, g, beta)
+        xl, gl, bl = (z.clone().requires_grad_() for z in (x, g.to(dtype), beta.to(dtype)))
+        rows.append({
+            "name": f"layer_norm_bwd[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/layer_norm.cu",
+            "replaces": "openasr_tpu/kernels/layer_norm.py:85 (and :69, the dx-only mode)",
+            "shape": [n, dm],
+            **launch_keys("layer_norm_bwd"),
+            **bwd_errs(errs[("layer_norm_bwd", dtype)], TOL_LN_BWD[dtype]),
+            "ms": device_ms(lambda: layer_norm_bwd(x, dy, g, mean, rstd)),
+            "plain_ms": device_ms(lambda: layer_norm_bwd_reference(x, dy, g, mean, rstd)),
+            "library_ms": backward_ms(lambda: F.layer_norm(xl, (dm,), gl, bl, 1e-6),
+                                      (xl, gl, bl), dy),
+            "library_is": "F.layer_norm forward + backward minus forward (graph replay)",
+            # x, dy read and dx written; mean, rstd, gamma read; dgamma, dbeta written
+            **bound(3 * n * dm * es + 2 * n * 4 + 3 * dm * 4, 13 * n * dm, torch.float32),
+        })
+
+        # attention at the encoder's self-attention shape
+        q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+                   .to("cuda", dtype) for _ in range(3))
+        dout = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
+        kv = torch.from_numpy(lens.astype(np.int32)).cuda()
+        mask = (torch.arange(t, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
+        qt, kt, vt, dot = (z.transpose(1, 2) for z in (q, k, v, dout))
+        qg, kg, vg = (z.detach().clone().requires_grad_() for z in (qt, kt, vt))
+        pairs = h * attention_pairs(t, lens, False)
+        valid = int(lens.sum())
+        qo_bytes = es * b * t * h * d                  # one [B, T, H, D] tensor
+        kv_bytes = es * valid * h * d                  # K or V over valid keys
+        stat_bytes = 4 * b * h * t                     # lse or delta
+        # the training path runs attention with dropout: time it so
+        rate, seed = DROPOUT, DROPOUT_SEED
+        out, lse = flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,
+                                   dropout_seed=seed)
+        delta = flash_delta(out, dout)
+        args = (q, k, v, out, lse, dout, kv, False, None, rate, seed)
+        kernel_args = args[:6] + (delta,) + args[6:]
+        plain_bwd_ms = device_ms(lambda: flash_attention_bwd_reference(*args))
+        lib_bwd_ms = backward_ms(
+            lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                   dropout_p=rate),
+            (qg, kg, vg), dot)
+        bwd_notes = {
+            "plain_is": "the whole plain backward (dq, dk, dv together), dropout 0.1",
+            "library_is": "F.scaled_dot_product_attention (bool mask, dropout_p 0.1) "
+                          "forward + backward minus forward (graph replay), dq dk dv "
+                          "together",
+        }
+        # the whole backward (delta, dK/dV, dQ), like for like with the plain
+        # backward and SDPA's: q, O, dO read; K, V over valid keys; lse; dQ,
+        # dK, dV written; five Tq.Tk.D products (S, dP, dV, dK, dQ)
+        rows.append({
+            "name": f"flash_attention_bwd[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327)",
+            "shape": [b, t, h, d],
+            **launch_keys("flash_attention_bwd_dkv"),
+            "launches_are": "backward calls, each launching the dK/dV and the dQ "
+                            "kernel once",
+            **bwd_errs(tuple(max(a, c) for a, c in zip(
+                errs[("flash_attention_bwd_dkv", dtype)],
+                errs[("flash_attention_bwd_dq", dtype)])), TOL_FLASH_BWD[dtype]),
+            "ms": device_ms(lambda: flash_attention_bwd(*args)),
+            "plain_ms": plain_bwd_ms,
+            "library_ms": lib_bwd_ms,
+            **bwd_notes,
+            **bound(6 * qo_bytes + 2 * kv_bytes + stat_bytes + 4 * b,
+                    5 * 2 * pairs * d, dtype),
+        })
+        # each kernel alone, for its launches and error; its plain and library
+        # times are those of the whole backward above
+        for kernel, fn, replaces, nbytes, products in (
+            ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
+             "openasr_tpu/kernels/flash_attention.py:238",
+             # q, dO, lse, delta read; K, V over valid keys; dK, dV written
+             2 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
+            ("flash_attention_bwd_dq", flash_attention_bwd_dq,
+             "openasr_tpu/kernels/flash_attention.py:327",
+             # q, dO, lse, delta read; K, V over valid keys; dQ written
+             3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes, 3),                 # S dP dQ
+        ):
+            rows.append({
+                "name": f"{kernel}[{name}]",
+                "route": "cuda",
+                "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+                "replaces": replaces,
+                "shape": [b, t, h, d],
+                **launch_keys(kernel),
+                **bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype]),
+                "ms": device_ms(lambda: fn(*kernel_args)),
+                "plain_ms": plain_bwd_ms,
+                "library_ms": lib_bwd_ms,
+                **bwd_notes,
+                **bound(nbytes, products * 2 * pairs * d, dtype),
+            })
+
+        held_to_plain(
+            f"flash dropout {name} [{b}, {t}, {h}, {d}]",
+            lambda: flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,
+                                    dropout_seed=seed),
+            lambda: flash_attention_reference(q, k, v, kv, False, None, rate, seed),
+            TOL_FLASH[dtype], errs, ("flash_attention_fwd_dropout", dtype))
+        rows.append({
+            "name": f"flash_attention_fwd_dropout[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:146 (hash dropout :78-134)",
+            "shape": [b, t, h, d],
+            **launch_keys("flash_attention_fwd_dropout"),
+            "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+            "tol": TOL_FLASH[dtype],
+            **times(
+                lambda: flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,
+                                        dropout_seed=seed),
+                lambda: flash_attention_reference(q, k, v, kv, False, None, rate, seed),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                       dropout_p=rate),
+            ),
+            "library_is": "F.scaled_dot_product_attention (bool mask, dropout_p 0.1; "
+                          "its own Philox mask)",
+            # S and P.V; the hash's integer operations are not counted
+            **bound(2 * qo_bytes + 2 * kv_bytes + stat_bytes + 4 * b,
+                    2 * 2 * pairs * d, dtype),
+        })
     return rows
 
 
@@ -450,21 +1006,43 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     errs, launches = {}, {}
+    t_start = time.time()
     try:
         phase_build()
-        phase_layer_norm(errs)
-        phase_flash(errs)
         rng = np.random.RandomState(SEED)
-        vocab, manifest, feats = write_corpus(rng)
-        pkg = save_flagship_package()
-        phase_main_path(pkg, vocab, manifest, launches)
-        check_against_cpu(pkg, feats)
-        rows = kernel_rows(feats, errs, launches)
+        vocab, chars = write_vocab()
+        test_json, test_feats = write_corpus("test", rng, chars, 8, (600, 1200), (12, 12))
+        train_json, train_feats = write_corpus("train", rng, chars, 128, (400, 512), (20, 24))
+        dev_json, _ = write_corpus("dev", rng, chars, 16, (400, 512), (20, 24))
+        shapes = train_shapes(train_json)
+        print(f"[shapes] training path's largest batch: B {shapes['b']}, T' {shapes['t']}, "
+              f"U {shapes['u']}")
+        phase_layer_norm(errs)
+        phase_layer_norm_bwd(errs, shapes["b"] * shapes["t"])
+        phase_flash(errs)
+        phase_flash_bwd(errs, shapes)
+        print(f"[time] kernel checks done at {time.time() - t_start:.1f}s")
+
+        pkg = os.path.join(WORK, "flagship.pkg")
+        save_flagship_package(pkg)
+        phase_decode(pkg, vocab, test_json, launches)
+        check_logits_against_cpu(pkg, test_feats)
+        print(f"[time] decode path done at {time.time() - t_start:.1f}s")
+        per = phase_train(train_json, dev_json, vocab, launches, shapes)
+        check_grads_against_cpu(pkg, train_feats)
+        print(f"[time] training path done at {time.time() - t_start:.1f}s")
+        rows = fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"[time] {r['name']} {r['shape']}: device ms kernel {r['ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}); launches {r['launches']}")
+    print(f"[time] total {time.time() - t_start:.1f}s")
     print(nvidia_smi())
     print(json.dumps({"kernels": rows}))
     # the run drives one card (cuda:0)

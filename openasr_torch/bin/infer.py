@@ -109,7 +109,7 @@ def resolve_device(name: str) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False; pass "
-            "--device cpu to decode on the CPU"
+            "--device cpu to run on the CPU"
         )
     return torch.device(name)
 
@@ -169,6 +169,7 @@ def main(argv=None):
                 torch.from_numpy(feats).to(device),
                 torch.from_numpy(lengths).to(device),
                 beam_size=args.nbest, max_decode_len=args.maxlen,
+                empty_rows=model.has_empty_rows(lengths),
             )
             pred_ids = pred_ids.cpu().numpy()
             len_dec = len_dec.cpu().numpy()

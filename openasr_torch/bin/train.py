@@ -1,0 +1,160 @@
+"""Supervised ASR training CLI.
+
+Counterpart of openasr_tpu/bin/train.py on one device, with the same YAML
+schema (data / model / training), model-type dispatch, `--continue-training`
+(restore exp_dir/last.pkg) and `training.pretrained_model` warm start (the
+output layers stay fresh, init_lr * 0.1).  It trains offline-feature
+models (conv-ctc-transformer, conv-transformer, conv-ctc) on the card by
+default, `--device cpu` on the CPU; without a card `--device cuda` raises.
+`training.compute_dtype: bfloat16` runs the forward in bf16 over f32
+weights.  The multi-device flags exit naming their ROADMAP item.
+
+  python -m openasr_torch.bin.train egs/aishell1/configs/conv-ctc-transformer.yaml
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import torch
+
+from openasr_torch.bin.infer import resolve_device
+from openasr_torch.config import load_config, parse_range, validate_config
+from openasr_torch.data.collate import FeatureCollate
+from openasr_torch.data.loader import DataLoader
+from openasr_torch.data.manifest import ArkDataset
+from openasr_torch.data.sampler import FrameBasedSampler
+from openasr_torch.data.tokenizer import CharTokenizer
+from openasr_torch.models import get_model_class
+from openasr_torch.solvers import DTYPES, get_solver_class
+from openasr_torch.utils.checkpoint import load_package
+
+REQUIRED = (
+    "data.trainset", "data.devset", "data.vocab_path", "model.type",
+    "training.exp_dir", "training.num_epoch", "training.init_lr",
+    "training.optimtype", "training.lr_scheduler.type",
+)
+
+
+def setup_logging():
+    level = os.environ.get("LAS_LOG_LEVEL", "INFO")
+    logging.basicConfig(
+        level=getattr(logging, level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(message)s",
+    )
+
+
+def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer):
+    """Train loader (batches shuffled per epoch) and dev loader (longest
+    utterances first), packed by cumulative frames."""
+    feat_range = parse_range(dataconfig.get("feat_range")) or (1, 99999)
+    label_range = parse_range(dataconfig.get("label_range")) or (1, 100)
+    label_type = trainingconfig.get("label_type", "tokens")
+    workers = int(dataconfig.get("fetchworker_num", 2))
+    frames = int(trainingconfig["batch_frames"])
+    train_set = ArkDataset(dataconfig["trainset"], feat_range=feat_range,
+                           label_range=label_range)
+    valid_set = ArkDataset(dataconfig["devset"], reverse=True)
+    collate = FeatureCollate(tokenizer, modelconfig.get("add_eos", False), label_type)
+    tr = DataLoader(train_set, FrameBasedSampler(train_set, frames, 1, shuffle=True),
+                    collate, num_workers=workers)
+    cv = DataLoader(valid_set, FrameBasedSampler(valid_set, frames, 1, shuffle=False),
+                    collate, num_workers=workers)
+    return tr, cv
+
+
+def check_ported(args, config) -> None:
+    """Exit naming the ROADMAP item for every path this port lacks."""
+    if args.model_parallel > 1 or args.pipeline > 1 or args.distributed:
+        raise SystemExit(
+            "--model-parallel / --pipeline / --distributed: the mesh, tensor, "
+            "sequence and pipeline parallelism and multi-host training are "
+            "ROADMAP queue 1 item 15 (multi-device)"
+        )
+    sig = config["model"].get("signal") or {}
+    if "feature_type" not in sig:
+        raise ValueError(
+            "config: model.signal.feature_type is required ('offline' for "
+            "precomputed features)"
+        )
+    if sig["feature_type"] != "offline":
+        raise SystemExit(
+            f"signal.feature_type {sig['feature_type']!r}: the online wave "
+            "frontend is ROADMAP queue 1 item 8"
+        )
+    if "batch_frames" not in config["training"]:
+        raise ValueError(
+            "config: training.batch_frames is required for the offline-feature "
+            "pipeline (cumulative frames per batch)"
+        )
+
+
+def main(argv=None):
+    setup_logging()
+    parser = argparse.ArgumentParser(description="Train an ASR model (PyTorch)")
+    parser.add_argument("config", help="path to YAML config")
+    parser.add_argument("--continue-training", action="store_true", default=False)
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        help="tensor-parallel degree (not ported)")
+    parser.add_argument("--pipeline", type=int, default=1,
+                        help="pipeline-parallel stage count (not ported)")
+    parser.add_argument("--distributed", action="store_true", default=False,
+                        help="multi-host training (not ported)")
+    parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
+                        help="train on the GPU (default) or, when asked, the CPU")
+    args = parser.parse_args(argv)
+
+    config = load_config(args.config)
+    validate_config(config, required=REQUIRED)
+    check_ported(args, config)
+    device = resolve_device(args.device)
+    dataconfig = config["data"]
+    trainingconfig = config["training"]
+    modelconfig = config["model"]
+
+    dtype_name = str(trainingconfig.get("compute_dtype", "float32"))
+    dtype = DTYPES[dtype_name]
+    if dtype == torch.float32:
+        # full f32: cuDNN would otherwise run the ConvV2 convolutions in TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    tokenizer = CharTokenizer(dataconfig["vocab_path"],
+                              add_blk=modelconfig.get("add_blk", False))
+    modelconfig["decoder"]["vocab_size"] = tokenizer.unit_num()
+    tr_loader, cv_loader = build_loaders(dataconfig, trainingconfig, modelconfig,
+                                         tokenizer)
+
+    model = get_model_class(modelconfig["type"]).create_model(
+        modelconfig, device=device, generator=torch.Generator().manual_seed(0)
+    )
+    logging.info("Model %s: %.2fM params on %s (compute %s)", modelconfig["type"],
+                 sum(p.numel() for p in model.module.parameters()) / 1e6, device,
+                 dtype_name)
+
+    pkg = None
+    if args.continue_training:
+        path = os.path.join(trainingconfig["exp_dir"], "last.pkg")
+        logging.info("Restoring from %s", path)
+        pkg = load_package(path)
+        model.restore(pkg["model"])
+    elif trainingconfig.get("pretrained_model"):
+        logging.info("Warm start from %s", trainingconfig["pretrained_model"])
+        pre = load_package(trainingconfig["pretrained_model"])
+        model.restore(pre["model"], without_fc=True)
+        trainingconfig["init_lr"] = float(trainingconfig["init_lr"]) * 0.1
+
+    solver = get_solver_class(modelconfig["type"])(
+        model, trainingconfig, tr_loader, cv_loader, device=device,
+        compute_dtype=dtype,
+    )
+    if pkg is not None:
+        solver.restore(pkg)
+    logging.info("Start training...")
+    solver.train()
+
+
+if __name__ == "__main__":
+    main()

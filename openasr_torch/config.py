@@ -1,15 +1,19 @@
 """Config system: attribute-accessible nested dicts loaded from YAML.
 
 Counterpart of openasr_tpu/config.py with the identical YAML schema
-(`data / training / model`, model subsections `signal / encoder / decoder`).
-The key-surface validation and MoE checks of the JAX module belong to the
-training slice and are not carried yet.
+(`data / training / model`, model subsections `signal / encoder / decoder`),
+its key-surface validation (`validate_config`, the same table of known
+keys) and `parse_range`.  The JAX module's MoE checks are not carried: the
+port rejects an `encoder.moe` section when it builds the model (ROADMAP
+queue 1 item 14).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Mapping
+import difflib
+import logging
+from typing import Any, Mapping, Sequence
 
 import yaml
 
@@ -87,6 +91,133 @@ class Config(dict):
             else:
                 self[k] = v
         return self
+
+
+# --------------------------------------------------------------- validation
+#
+# Unknown keys warn with a did-you-mean hint (a typo would otherwise train
+# with a default silently); missing required keys raise at load time.
+
+_KNOWN_KEYS: dict = {
+    "": {"data", "model", "training"},
+    "data": {
+        "trainset", "devset", "vocab_path", "vocab_phone", "vocab_char",
+        "feat_range", "label_range", "fetchworker_num", "acousticset",
+        "unpaired_phone", "unpaired_text",
+    },
+    "training": {
+        "label_type", "batch_frames", "batch_time", "batch_phones",
+        "batch_size", "unpaired_batch_size", "exp_dir", "print_inteval",
+        "num_epoch", "accumulate_grad_batch", "init_lr", "optimtype",
+        "grad_max_norm", "label_smooth", "num_last_ckpt_keep",
+        "lambda_ctc", "lambda_qua", "lambda_gp", "lr_scheduler",
+        "compute_dtype", "adam_mu_dtype", "adam_nu_dtype", "fused_adam",
+        "skip_nonfinite_grads", "zero1", "sequence_parallel",
+        "pipeline_microbatch",
+        "pretrained_model", "load_splayer", "G_path", "maxlen", "multi",
+        "tensorboard", "profile",
+    },
+    "training.lr_scheduler": {
+        "type", "warmup_step", "d_model", "x0", "y0", "x1", "y1",
+        "decay_coef", "tolerate",
+    },
+    "model": {
+        "type", "add_eos", "add_blk", "phone_size", "signal", "encoder",
+        "decoder", "assigner", "cpc", "G", "D",
+        # train_cpc's `sp` alias for `signal`; LM configs are flat at the
+        # model level (bin/train_lm.py)
+        "sp", "vocab_size", "d_model", "n_layers", "num_layers", "nhead",
+        "dim_feedforward", "activation", "dropout_rate",
+    },
+    "model.signal": {
+        "feature_type", "sample_rate", "num_mel_bins", "use_energy",
+        "dither", "spec_aug", "d_model",
+    },
+    "model.signal.spec_aug": {
+        "freq_mask_num", "freq_mask_width", "time_mask_num",
+        "time_mask_width",
+    },
+    "model.encoder": {
+        "type", "sub", "input_dim", "d_input", "d_model", "nhead",
+        "dim_feedforward", "activation", "num_layers", "n_layers",
+        "dropout_rate", "dropout", "remat", "pipeline", "vocab_size",
+        "conv_dim", "freeze_finetune_updates", "subsample", "context_width",
+        "streaming", "moe",
+    },
+    "model.encoder.sub": {"type", "layer_num"},
+    "model.encoder.streaming": {"chunk", "left_chunks"},
+    "model.encoder.moe": {
+        "num_experts", "top_k", "capacity_factor", "every", "aux_weight",
+        "router",
+    },
+    "model.decoder": {
+        "type", "vocab_size", "d_model", "nhead", "num_layers",
+        "encoder_dim", "dim_feedforward", "activation", "dropout_rate",
+        "remat",
+        # Embed_Decoder_CTC's 'decoder' section IS an encoder stack
+        # (reference naming, Text_Models.py:117-124) and may carry moe;
+        # validate_moe rejects it for every other model type
+        "moe", "input_dim", "sub",
+    },
+    "model.assigner": {"type", "d_model", "n_layers", "w_context", "dropout"},
+    "model.cpc": {"d_input", "d_coding", "n_layers", "n_steps"},
+}
+# the Embed_Decoder_CTC stack lives under 'decoder' and may carry moe;
+# give the nested block the same schema so typos warn there too
+_KNOWN_KEYS["model.decoder.moe"] = _KNOWN_KEYS["model.encoder.moe"]
+# G/D reuse the encoder/decoder schemas
+_KNOWN_KEYS["model.G"] = {"encoder", "decoder"}
+_KNOWN_KEYS["model.D"] = {"encoder"}
+_KNOWN_KEYS["model.G.encoder"] = _KNOWN_KEYS["model.encoder"]
+_KNOWN_KEYS["model.G.decoder"] = _KNOWN_KEYS["model.decoder"]
+_KNOWN_KEYS["model.G.encoder.moe"] = _KNOWN_KEYS["model.encoder.moe"]
+_KNOWN_KEYS["model.G.decoder.moe"] = _KNOWN_KEYS["model.encoder.moe"]
+# the discriminator front is a strided-conv stack, not a transformer
+_KNOWN_KEYS["model.D.encoder"] = {"d_input", "d_model", "layer_num"}
+
+
+def validate_config(config: Mapping, required: Sequence[str] = ()) -> list:
+    """Warn on keys outside the known surface (returned as dotted paths);
+    raise ValueError naming the first missing `required` dotted path."""
+    unknown = []
+
+    def walk(section: Mapping, path: str) -> None:
+        known = _KNOWN_KEYS.get(path)
+        if known is None:
+            return
+        for k, v in section.items():
+            full = f"{path}.{k}" if path else str(k)
+            if k not in known:
+                hint = difflib.get_close_matches(str(k), known, n=1)
+                msg = f"config: unrecognized key '{full}'"
+                if hint:
+                    msg += f" — did you mean '{hint[0]}'?"
+                logging.warning(msg)
+                unknown.append(full)
+            elif isinstance(v, Mapping):
+                walk(v, full)
+
+    walk(config, "")
+    for path in required:
+        node: Any = config
+        for part in path.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                raise ValueError(
+                    f"config: required key '{path}' is missing (stuck at '{part}')"
+                )
+            node = node[part]
+    return unknown
+
+
+def parse_range(value: Any) -> tuple | None:
+    """Parse ranges such as feat_range: "1,1000" (or a 2-list)."""
+    if value is None:
+        return None
+    if isinstance(value, (list, tuple)):
+        lo, hi = value
+        return int(lo), int(hi)
+    parts = str(value).split(",")
+    return int(parts[0]), int(parts[1])
 
 
 def load_config(path: str) -> Config:

@@ -15,7 +15,7 @@ in PyTorch's layouts:
                                           flattened from [B, T, C, F]
   LayerNorm scale                         LayerNorm weight
   Embed embedding [V, D] (tied output)    Embedding weight [V, D]
-  decoder out_bias, ctc_fc kernel         out_bias, ctc_fc weight
+  decoder out_bias, ctc_fc / fc kernel    out_bias, ctc_fc / fc weight
 
 Both directions are exact (pure transposes and reshapes).
 """
@@ -30,6 +30,7 @@ import torch
 COMPONENTS = {
     "conv-transformer": ("encoder", "decoder"),
     "conv-ctc-transformer": ("encoder", "decoder", "ctc_fc"),
+    "conv-ctc": ("encoder", "fc"),
 }
 _ATTENTION = ("self_attn", "cross_attn")
 
@@ -65,10 +66,12 @@ def _leaf_to_torch(path, arr: np.ndarray):
     return name, arr
 
 
-def jax_components_to_state_dict(model_type: str, components: dict) -> Dict[str, torch.Tensor]:
-    """JAX-layout package components -> the port's state_dict (CPU f32)."""
+def jax_components_to_state_dict(model_type: str, components: dict,
+                                 partial: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX-layout package components -> the port's state_dict (CPU f32).
+    `partial` accepts a subset of the model type's components."""
     expected = _components_of(model_type)
-    if set(components) != set(expected):
+    if set(components) - set(expected) or (not partial and set(components) != set(expected)):
         raise ValueError(
             f"{model_type} package components {sorted(components)} != "
             f"expected {sorted(expected)}"
@@ -84,7 +87,8 @@ def jax_components_to_state_dict(model_type: str, components: dict) -> Dict[str,
         state[".".join(path[:-1] + (leaf,))] = torch.tensor(arr)
 
     for name in expected:
-        walk(components[name], (name,))
+        if name in components:
+            walk(components[name], (name,))
     return state
 
 

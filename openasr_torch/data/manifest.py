@@ -57,7 +57,8 @@ def load_json_manifest(
 
 
 class ArkDataset:
-    """Offline (precomputed Kaldi feature) dataset sorted by feat_length."""
+    """Offline (precomputed Kaldi feature) dataset sorted by feat_length
+    (longest first with `reverse`, as the dev sets are read)."""
 
     def __init__(
         self,
@@ -65,11 +66,14 @@ class ArkDataset:
         feat_range=(1, 99999),
         label_range=(1, 100),
         rate_in_out=(4, 999),
+        reverse: bool = False,
     ):
         data = load_json_manifest(
             json_path, x_range=feat_range, y_range=label_range, rate=rate_in_out
         )
         self.data = sorted(data, key=lambda s: float(s["feat_length"]))
+        if reverse:
+            self.data.reverse()
 
     def __getitem__(self, index: int) -> dict:
         return self.data[index]

@@ -3,13 +3,16 @@
 Counterpart of `BudgetBatchSampler` / `FrameBasedSampler` in
 openasr_tpu/data/sampler.py: greedily pack length-sorted samples until a
 cumulative frame budget is met, with the batch size divisible by the
-data-parallel degree.  Batches come out in length order (the training
-slice brings the shuffle of whole batches).
+data-parallel degree.  With `shuffle`, every pass permutes the whole
+batches with one seeded `np.random.RandomState`, so the order matches the
+JAX package's epoch for epoch.
 """
 
 from __future__ import annotations
 
 from typing import Iterator, List, Sequence
+
+import numpy as np
 
 
 class FrameBasedSampler:
@@ -21,7 +24,11 @@ class FrameBasedSampler:
         dataset: Sequence[dict],
         frames: float = 200,
         ngpu: int = 1,
+        shuffle: bool = False,
+        seed: int = 0,
     ):
+        self.shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
         divisible_by = max(ngpu, 1)
         batches: List[List[int]] = []
         batch: List[int] = []
@@ -41,7 +48,11 @@ class FrameBasedSampler:
         self.batches = batches
 
     def __iter__(self) -> Iterator[List[int]]:
-        return iter(self.batches)
+        order = np.arange(len(self.batches))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for i in order:
+            yield self.batches[i]
 
     def __len__(self) -> int:
         return len(self.batches)

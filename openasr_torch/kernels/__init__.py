@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("layer_norm.cu", "flash_attention.cu")
+SOURCES = ("layer_norm.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -101,21 +101,43 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+        u32, i64p = ctypes.c_uint32, ctypes.POINTER(ctypes.c_int64)
         lib.openasr_layer_norm_fwd.argtypes = [
             p, p, p, p, p, p,        # x, gamma, beta, y, mean, rstd
             i, i, i64, i64,          # n_rows, d, x_row_stride, y_row_stride
             f, i, i, p,              # eps, dtype, device, stream
         ]
         lib.openasr_layer_norm_fwd.restype = i
+        lib.openasr_layer_norm_bwd.argtypes = [
+            p, p, p, p, p, p,        # x, dy, gamma, mean, rstd, dx
+            p, p,                    # dgamma_part, dbeta_part (or both null)
+            i, i, i64, i64, i64,     # n_rows, d, x/dy/dx row strides
+            i, i, i, p,              # n_blocks, dtype, device, stream
+        ]
+        lib.openasr_layer_norm_bwd.restype = i
         lib.openasr_flash_attention_fwd.argtypes = [
             p, p, p, p, p, p,        # q, k, v, kv_lengths, out, lse
             i, i, i, i, i,           # B, H, Tq, Tk, D
             i64, i64, i64,           # q strides (b, t, h)
             i64, i64, i64,           # k strides
             i64, i64, i64,           # v strides
-            f, i, i, i, p,           # sm_scale, causal, dtype, device, stream
+            f, i,                    # sm_scale, causal
+            u32, u32, f, i,          # dropout seed, keep threshold, scale, on
+            i, i, p,                 # dtype, device, stream
         ]
         lib.openasr_flash_attention_fwd.restype = i
+        bwd_tail = [
+            i, i, i, i, i,           # B, H, Tq, Tk, D
+            i64p,                    # q, k, v, dout strides (b, t, h) x 4
+            f, i,                    # sm_scale, causal
+            u32, u32, f, i,          # dropout seed, keep threshold, scale, on
+            i, i, p,                 # dtype, device, stream
+        ]
+        # q, k, v, dout, lse, delta, kv_lengths, then dk, dv / dq
+        lib.openasr_flash_attention_bwd_dkv.argtypes = [p] * 9 + bwd_tail
+        lib.openasr_flash_attention_bwd_dkv.restype = i
+        lib.openasr_flash_attention_bwd_dq.argtypes = [p] * 8 + bwd_tail
+        lib.openasr_flash_attention_bwd_dq.restype = i
         lib.openasr_cuda_error_string.argtypes = [i]
         lib.openasr_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

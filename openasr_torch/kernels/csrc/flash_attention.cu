@@ -5,9 +5,10 @@
 // attention over key tiles with key padding from kv_lengths, an optional
 // causal mask that skips key tiles wholly above the diagonal, and fully
 // masked rows giving O = 0 and lse = +inf (:218-230).  Outputs
-// O [B, Tq, H, D] in q's dtype and lse [B, H, Tq] f32.  The hash dropout of
-// the TPU kernel (:78-134) belongs to the training slice; the Python
-// wrapper rejects dropout_rate > 0.
+// O [B, Tq, H, D] in q's dtype and lse [B, H, Tq] f32.  With dropout
+// (:200-216) the keep mask is the positional hash of common.cuh: l sums the
+// undropped p, acc takes p * keep / (1 - rate), so O = (P o D) V with P the
+// normalized weights, as on the TPU.
 //
 // Bound on the H100: operations for long sequences, bytes for short ones.
 // The work is 4 * D flops per (query, valid key) pair against reading q, k,
@@ -45,7 +46,7 @@ constexpr float kNegInf = -1.0e30f;
 // every part starts 16-byte aligned for float4 reads.
 constexpr int kPart = 36;
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kBlockQ * (D / 32))
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -55,7 +56,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long q_sb, long long q_st, long long q_sh,
                            long long k_sb, long long k_st, long long k_sh,
                            long long v_sb, long long v_st, long long v_sh,
-                           float sm_scale, int causal) {
+                           float sm_scale, int causal, uint32_t seed,
+                           uint32_t keep_thresh, float drop_scale) {
   constexpr int kTpr = D / 32;             // lanes per query row
   constexpr int kThreads = kBlockQ * kTpr;
   constexpr int kRow = kTpr * kPart;       // floats per staged key
@@ -138,6 +140,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = l * alpha + p_sum;
     m = m_new;
+    if (kDropout) {
+#pragma unroll
+      for (int j = 0; j < kBlockK; ++j) {
+        const bool keep = dropout_keep(seed, (uint32_t)(b * H + h), (uint32_t)qpos,
+                                       (uint32_t)(k0 + j), keep_thresh);
+        s[j] = keep ? s[j] * drop_scale : 0.f;
+      }
+    }
 #pragma unroll
     for (int dd = 0; dd < 32; ++dd) acc[dd] *= alpha;
 #pragma unroll
@@ -171,13 +181,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int Tq, int Tk, long long q_sb, long long q_st, long long q_sh,
                    long long k_sb, long long k_st, long long k_sh, long long v_sb,
                    long long v_st, long long v_sh, float sm_scale, int causal,
-                   cudaStream_t stream) {
+                   const Dropout& drop, cudaStream_t stream) {
   const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, H, B);
   const dim3 block(kBlockQ * (D / 32));
-  flash_attention_fwd_kernel<T, D><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      kv_lengths, static_cast<T*>(out), lse, H, Tq, Tk, q_sb, q_st, q_sh, k_sb,
-      k_st, k_sh, v_sb, v_st, v_sh, sm_scale, causal);
+  if (drop.on)
+    flash_attention_fwd_kernel<T, D, true><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        kv_lengths, static_cast<T*>(out), lse, H, Tq, Tk, q_sb, q_st, q_sh, k_sb,
+        k_st, k_sh, v_sb, v_st, v_sh, sm_scale, causal, drop.seed, drop.thresh,
+        drop.scale);
+  else
+    flash_attention_fwd_kernel<T, D, false><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        kv_lengths, static_cast<T*>(out), lse, H, Tq, Tk, q_sb, q_st, q_sh, k_sb,
+        k_st, k_sh, v_sb, v_st, v_sh, sm_scale, causal, 0u, 0u, 1.f);
   return cudaGetLastError();
 }
 
@@ -188,20 +205,20 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        long long q_sh, long long k_sb, long long k_st,
                        long long k_sh, long long v_sb, long long v_st,
                        long long v_sh, float sm_scale, int causal,
-                       cudaStream_t stream) {
+                       const Dropout& drop, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k, v, kv_lengths, out, lse, B, H, Tq, Tk, q_sb,
                            q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-                           sm_scale, causal, stream);
+                           sm_scale, causal, drop, stream);
     case 64:
       return launch<T, 64>(q, k, v, kv_lengths, out, lse, B, H, Tq, Tk, q_sb,
                            q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-                           sm_scale, causal, stream);
+                           sm_scale, causal, drop, stream);
     case 128:
       return launch<T, 128>(q, k, v, kv_lengths, out, lse, B, H, Tq, Tk, q_sb,
                             q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
-                            sm_scale, causal, stream);
+                            sm_scale, causal, drop, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -215,15 +232,20 @@ extern "C" {
 // out, lse = attention(q, k, v).  q: [B, Tq, H, D], k/v: [B, Tk, H, D], each
 // addressed through its (batch, time, head) strides with unit stride along
 // D; kv_lengths: [B] int32 or null (= Tk); out: contiguous [B, Tq, H, D];
-// lse: contiguous [B, H, Tq] f32.
+// lse: contiguous [B, H, Tq] f32.  With `dropout` set, the weights are
+// dropped where the hash of (dropout_seed, b*H + h, qpos, kpos) is not below
+// keep_thresh and the kept ones scaled by drop_scale = 1 / (1 - rate).
 int openasr_flash_attention_fwd(const void* q, const void* k, const void* v,
                                 const void* kv_lengths, void* out, void* lse,
                                 int B, int H, int Tq, int Tk, int D,
                                 long long q_sb, long long q_st, long long q_sh,
                                 long long k_sb, long long k_st, long long k_sh,
                                 long long v_sb, long long v_st, long long v_sh,
-                                float sm_scale, int causal, int dtype,
-                                int device, void* stream) {
+                                float sm_scale, int causal,
+                                unsigned int dropout_seed,
+                                unsigned int keep_thresh, float drop_scale,
+                                int dropout, int dtype, int device,
+                                void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -231,15 +253,17 @@ int openasr_flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_lengths);
   float* lse_f = static_cast<float*>(lse);
+  const openasr::Dropout drop{dropout != 0, dropout_seed, keep_thresh, drop_scale};
   switch (dtype) {
     case openasr::kFloat32:
       return openasr::dispatch_d<float>(D, q, k, v, lens, out, lse_f, B, H, Tq,
                                         Tk, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-                                        v_sb, v_st, v_sh, sm_scale, causal, s);
+                                        v_sb, v_st, v_sh, sm_scale, causal,
+                                        drop, s);
     case openasr::kBFloat16:
       return openasr::dispatch_d<__nv_bfloat16>(
           D, q, k, v, lens, out, lse_f, B, H, Tq, Tk, q_sb, q_st, q_sh, k_sb,
-          k_st, k_sh, v_sb, v_st, v_sh, sm_scale, causal, s);
+          k_st, k_sh, v_sb, v_st, v_sh, sm_scale, causal, drop, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,18 +1,25 @@
-"""Flash attention forward: the Hopper kernel and its plain PyTorch version.
+"""Flash attention forward and backward: the Hopper kernels and their plain
+PyTorch versions.
 
 Counterpart of openasr_tpu/kernels/flash_attention.py (`flash_attention`
-:627, forward kernel `_fwd_kernel` :146) in the [B, T, H, D] layout:
+:627, forward `_fwd_kernel` :146, backward `_bwd_dkv_kernel` :238 and
+`_bwd_dq_kernel` :327, custom VJP :567-596) in the [B, T, H, D] layout:
 key padding from `kv_lengths`, an optional causal mask, sm_scale 1/sqrt(D)
-by default, fully masked rows giving O = 0 and lse = +inf.
+by default, fully masked rows giving O = 0 and lse = +inf, and attention
+dropout through the stateless positional hash mask (:78-134) that
+`attention_dropout_mask` reproduces bit for bit.
 
-`flash_attention` launches csrc/flash_attention.cu for CUDA tensors and
-runs `flash_attention_reference` for CPU tensors; there is no other route.
-Attention dropout (the TPU kernel's positional hash mask) belongs to the
-training slice and is rejected until then.
+`flash_attention` is differentiable: a `torch.autograd.Function` saves q,
+k, v, O and lse, and its backward launches the dK/dV kernel and the dQ
+kernel with delta = rowsum(dO o O) computed here.  Every wrapper launches
+csrc/flash_attention*.cu for CUDA tensors and runs its plain version for
+CPU tensors; there is no other route.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -22,8 +29,79 @@ from openasr_torch import kernels
 from openasr_torch.ops.masks import NEG_INF, causal_bias, combine_bias, padding_bias
 
 HEAD_DIMS = (32, 64, 128)
+_GOLDEN = 0x9E3779B9
+_MASK32 = 0xFFFFFFFF
 
 
+# ------------------------------------------------------------ dropout mask
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """uint32 keep threshold: a weight is kept where its hash is below it."""
+    return min(int(round((1.0 - dropout_rate) * 4294967296.0)), 4294967295)
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 on uint32 values held in int64: products wrap mod
+    2^64 and their low 32 bits stay exact, so masking after each multiply
+    gives the uint32 result."""
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _MASK32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _MASK32
+    return x ^ (x >> 16)
+
+
+def attention_dropout_mask(seed: int, b: int, h: int, tq: int, tk: int,
+                           dropout_rate: float, device=None) -> torch.Tensor:
+    """Keep mask bool [B, H, Tq, Tk] (True = keep) of the kernels' dropout:
+    the hash of (seed, b*H + h, qpos, kpos), equal bit for bit to the JAX
+    package's `attention_dropout_mask`."""
+    i64 = dict(dtype=torch.int64, device=device)
+    bh = (torch.arange(b, **i64)[:, None] * h + torch.arange(h, **i64)[None, :])
+    qpos = torch.arange(tq, **i64)[:, None]
+    kpos = torch.arange(tk, **i64)[None, :]
+    x = (qpos * 2654435761 + kpos) & _MASK32                      # [Tq, Tk]
+    mix = (int(seed) + bh * _GOLDEN) & _MASK32                     # [B, H]
+    x = x[None, None] ^ mix[:, :, None, None]
+    return _fmix32(x) < keep_threshold(dropout_rate)
+
+
+def draw_dropout_seed(generator: torch.Generator) -> int:
+    """A uint32 hash seed for one dropping call, drawn from the caller's
+    (CPU) generator, as the JAX layer draws its seed from the dropout rng."""
+    return int(torch.randint(0, 1 << 32, (1,), generator=generator, dtype=torch.int64))
+
+
+# ---------------------------------------------------------- plain versions
+#
+# The plain versions run in f32 with autocast off, as the kernels do: under
+# bf16 autocast (training in bfloat16) einsum would otherwise drop to bf16.
+
+
+def _f32_plain(fn):
+    @functools.wraps(fn)
+    def wrapped(q, *args, **kwargs):
+        with torch.autocast(q.device.type, enabled=False):
+            return fn(q, *args, **kwargs)
+
+    return wrapped
+
+
+def _bias(q, k, kv_lengths, causal):
+    b, tq = q.shape[:2]
+    tk = k.shape[1]
+    lengths = (
+        kv_lengths.to(q.device) if kv_lengths is not None
+        else torch.full((b,), tk, device=q.device)
+    )
+    return combine_bias(
+        padding_bias(lengths, tk),
+        causal_bias(max(tq, tk), q.device)[..., :tq, :tk] if causal else None,
+    )
+
+
+@_f32_plain
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -31,21 +109,17 @@ def flash_attention_reference(
     kv_lengths: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: int = 0,
 ):
-    """Plain version: additive bias + f32 softmax.  q [B, Tq, H, D],
-    k/v [B, Tk, H, D] -> (out [B, Tq, H, D] in q.dtype, lse [B, H, Tq] f32)."""
-    b, tq, _, d = q.shape
+    """Plain version: additive bias + f32 softmax, dropout on the normalized
+    weights.  q [B, Tq, H, D], k/v [B, Tk, H, D] -> (out [B, Tq, H, D] in
+    q.dtype, lse [B, H, Tq] f32)."""
+    b, tq, h, d = q.shape
     tk = k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    lengths = (
-        kv_lengths.to(q.device) if kv_lengths is not None
-        else torch.full((b,), tk, device=q.device)
-    )
-    bias = combine_bias(
-        padding_bias(lengths, tk),
-        causal_bias(max(tq, tk), q.device)[..., :tq, :tk] if causal else None,
-    )
+    bias = _bias(q, k, kv_lengths, causal)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     scores = scores + bias
     valid = (bias > 0.5 * NEG_INF).expand_as(scores)
@@ -54,6 +128,9 @@ def flash_attention_reference(
     l = p.sum(dim=-1, keepdim=True)
     has_any = l > 0
     probs = p / torch.where(has_any, l, torch.ones_like(l))
+    if dropout_rate > 0.0:
+        keep = attention_dropout_mask(dropout_seed, b, h, tq, tk, dropout_rate, q.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), torch.zeros_like(probs))
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     lse = torch.where(
         has_any, m + torch.log(l), torch.full_like(l, float("inf"))
@@ -61,30 +138,40 @@ def flash_attention_reference(
     return out.to(q.dtype), lse
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kv_lengths: Optional[torch.Tensor] = None,
-    causal: bool = False,
-    sm_scale: Optional[float] = None,
-    dropout_rate: float = 0.0,
-):
-    """Streaming masked attention -> (out [B, Tq, H, D], lse [B, H, Tq]).
-
-    q: [B, Tq, H, D]; k, v: [B, Tk, H, D], f32 or bf16, any strides with
-    unit stride along D (the projection views are read in place);
-    kv_lengths: optional [B] int — keys >= length are masked; causal:
-    query t attends to keys <= t; D in (32, 64, 128) on the card."""
+@_f32_plain
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
+                                  causal=False, sm_scale=None,
+                                  dropout_rate=0.0, dropout_seed=0):
+    """Plain version of the backward, the kernels' recompute in f32:
+    -> (dq, dk, dv) in the dtypes of q, k, v."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    bias = _bias(q, k, kv_lengths, causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale + bias
+    # lse = +inf on empty rows gives p = 0 there
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    p_drop = p
     if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "flash_attention: attention dropout is ported with the training "
-            "slice (ROADMAP queue 2, flash hash dropout)"
-        )
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_lengths, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+        keep = attention_dropout_mask(dropout_seed, b, h, tq, tk, dropout_rate, q.device)
+        scale = 1.0 / (1.0 - dropout_rate)
+        p_drop = torch.where(keep, p * scale, torch.zeros_like(p))
+        dp = torch.where(keep, dp * scale, torch.zeros_like(dp))
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]  # [B, H, Tq, 1]
+    ds = p * (dp - delta) * sm_scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------- the kernels
+
+
+def _check_qkv(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, T, H, D]")
     b, tq, h, d = q.shape
@@ -102,15 +189,35 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs unit stride along D")
-    dtype = kernels.dtype_code(q.dtype)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    lens_ptr = None
-    if kv_lengths is not None:
-        if kv_lengths.shape != (b,):
-            raise ValueError(f"flash_attention: kv_lengths must be [{b}]")
-        kv_lengths = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
-        lens_ptr = kv_lengths.data_ptr()
+
+
+def _lengths_arg(kv_lengths, b, device):
+    """-> (int32 lengths tensor or None, its pointer or None)."""
+    if kv_lengths is None:
+        return None, None
+    if kv_lengths.shape != (b,):
+        raise ValueError(f"flash_attention: kv_lengths must be [{b}]")
+    lens = kv_lengths.to(device=device, dtype=torch.int32).contiguous()
+    return lens, lens.data_ptr()
+
+
+def _dropout_args(dropout_rate, seed):
+    if dropout_rate <= 0.0:
+        return 0, 0, 1.0, 0
+    return seed, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
+
+
+def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
+    """The forward kernel (CUDA) or its plain version (CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_lengths, causal, sm_scale,
+                                         dropout_rate, seed)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+    _check_qkv(q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    lens, lens_ptr = _lengths_arg(kv_lengths, b, q.device)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if tk == 0:  # no keys at all: every row is fully masked
@@ -122,13 +229,176 @@ def flash_attention(
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(sm_scale), int(causal), dtype, q.device.index,
+            float(sm_scale), int(causal), *_dropout_args(dropout_rate, seed),
+            kernels.dtype_code(q.dtype), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         kernels.check(code, "flash_attention_fwd")
-        flash_attention.launches += 1
+        if dropout_rate > 0.0:
+            flash_attention.dropout_launches += 1
+        else:
+            flash_attention.launches += 1
     return out, lse
 
 
-# kernel launches since the last reset (the plain route never counts)
+def flash_delta(out, dout):
+    """delta = rowsum(dO o O) -> [B, H, Tq] f32, contiguous."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_inputs(q, k, v, out, lse, dout, delta, kv_lengths):
+    """Checked kernel inputs of the backward: (dout with unit D stride,
+    contiguous lse, contiguous delta, lengths, lengths pointer, the 12
+    strides)."""
+    _check_qkv(q, k, v)
+    b, tq, h, d = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or out.shape != q.shape:
+        raise ValueError("flash_attention bwd: dout and out must match q")
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, tq) or t.dtype != torch.float32:
+            raise ValueError(f"flash_attention bwd: {name} must be f32 [{b}, {h}, {tq}]")
+    lens, lens_ptr = _lengths_arg(kv_lengths, b, q.device)
+    strides = (ctypes.c_int64 * 12)(*(
+        s for t in (q, k, v, dout) for s in (t.stride(0), t.stride(1), t.stride(2))
+    ))
+    return dout, lse.contiguous(), delta.contiguous(), lens, lens_ptr, strides
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, kv_lengths=None,
+                            causal=False, sm_scale=None, dropout_rate=0.0,
+                            dropout_seed=0):
+    """dK, dV of `flash_attention` -> (dk [B, Tk, H, D], dv), in k's dtype,
+    with delta = `flash_delta(out, dout)`.  CUDA tensors launch the dK/dV
+    kernel; CPU tensors take the plain backward (which forms delta itself)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
+            dropout_rate, dropout_seed)[1:]
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dout, lse, delta, lens, lens_ptr, strides = _bwd_inputs(
+        q, k, v, out, lse, dout, delta, kv_lengths)
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
+    if b * tq * tk * h == 0:
+        return dk.zero_(), dv.zero_()
+    code = kernels.library().openasr_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lens_ptr, dk.data_ptr(), dv.data_ptr(),
+        b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(code, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, kv_lengths=None,
+                           causal=False, sm_scale=None, dropout_rate=0.0,
+                           dropout_seed=0):
+    """dQ of `flash_attention` -> dq [B, Tq, H, D] in q's dtype, with delta
+    = `flash_delta(out, dout)`.  CUDA tensors launch the dQ kernel; CPU
+    tensors take the plain backward."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
+            dropout_rate, dropout_seed)[0]
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dout, lse, delta, lens, lens_ptr, strides = _bwd_inputs(
+        q, k, v, out, lse, dout, delta, kv_lengths)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    if b * tq * tk * h == 0:
+        return dq.zero_()
+    code = kernels.library().openasr_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lens_ptr, dq.data_ptr(),
+        b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(code, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
+                        sm_scale=None, dropout_rate=0.0, dropout_seed=0):
+    """The whole backward of `flash_attention` -> (dq, dk, dv): on the card
+    delta, then the dK/dV kernel and the dQ kernel; on the CPU the plain
+    backward."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths,
+                                             causal, sm_scale, dropout_rate,
+                                             dropout_seed)
+    delta = flash_delta(out, dout)
+    args = (q, k, v, out, lse, dout, delta, kv_lengths, causal, sm_scale,
+            dropout_rate, dropout_seed)
+    dk, dv = flash_attention_bwd_dkv(*args)
+    return flash_attention_bwd_dq(*args), dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
+        out, lse = _flash_fwd(q, k, v, kv_lengths, causal, sm_scale,
+                              dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lengths)
+        ctx.args = (causal, sm_scale, dropout_rate, seed)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, kv_lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(q.dtype),
+                                         kv_lengths, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lengths: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+):
+    """Streaming masked attention -> (out [B, Tq, H, D], lse [B, H, Tq]),
+    differentiable in q, k and v.
+
+    q: [B, Tq, H, D]; k, v: [B, Tk, H, D], f32 or bf16, any strides with
+    unit stride along D (the projection views are read in place);
+    kv_lengths: optional [B] int — keys >= length are masked; causal:
+    query t attends to keys <= t; D in (32, 64, 128) on the card.
+    dropout_rate > 0 drops normalized weights by the positional hash mask
+    of `dropout_seed` (a uint32; `draw_dropout_seed` draws one)."""
+    seed = 0
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("flash_attention: dropout_rate > 0 needs a dropout_seed")
+        seed = int(dropout_seed) & _MASK32
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashFn.apply(q, k, v, kv_lengths, causal, float(sm_scale),
+                              float(dropout_rate), seed)
+    return _flash_fwd(q, k, v, kv_lengths, causal, float(sm_scale),
+                      float(dropout_rate), seed)
+
+
+# kernel launches since the last reset (the plain route never counts):
+# the forward kernel without and with dropout, and the two backward kernels
 flash_attention.launches = 0
+flash_attention.dropout_launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0

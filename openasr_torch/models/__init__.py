@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -82,15 +83,17 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the module to `dtype`, keeping LayerNorm parameters (the norms
-    compute their statistics in f32 either way) and the decoder's
-    `out_bias` (added to f32 logits) in f32."""
+    """Cast the module to `dtype` for inference, keeping in f32 the LayerNorm
+    parameters (the norms compute their statistics in f32 either way), the
+    decoder's `out_bias` (added to f32 logits) and the CTC heads (f32 as in
+    the JAX package).  Training keeps every weight f32 and runs bf16 under
+    autocast instead."""
     from openasr_torch.models.decoder import TransformerDecoder
     from openasr_torch.models.layers import LayerNorm
 
     module.to(dtype)
-    for m in module.modules():
-        if isinstance(m, LayerNorm):
+    for name, m in module.named_modules():
+        if isinstance(m, LayerNorm) or name in ("ctc_fc", "fc"):
             m.float()
         elif isinstance(m, TransformerDecoder):
             m.out_bias.data = m.out_bias.data.float()
@@ -140,17 +143,33 @@ class Framework:
             ),
         }
 
-    def restore(self, pkg: dict) -> None:
-        """Load a JAX-layout package after validating config compatibility."""
+    def restore(self, pkg: dict, without_fc: bool = False) -> None:
+        """Load a JAX-layout package after validating config compatibility.
+        `without_fc` keeps the current output layers (decoder, fc, ctc_fc)
+        for transfer learning."""
         from openasr_torch.convert import jax_components_to_state_dict
 
         saved_cfg = pkg.get("configs", {})
         for section, cfg in self.configs.to_dict().items():
             if isinstance(cfg, dict):
                 _check_config_compat(section, cfg, saved_cfg.get(section))
-        state = jax_components_to_state_dict(self.model_type, pkg["components"])
+        components = {
+            k: v for k, v in pkg["components"].items()
+            if not (without_fc and k in ("decoder", "fc", "ctc_fc"))
+        }
+        state = jax_components_to_state_dict(self.model_type, components,
+                                             partial=without_fc)
+        if without_fc:
+            state = {**self.module.state_dict(), **state}
         self.module.load_state_dict(state, strict=True)
 
     def batch_inputs(self, batch: dict):
         """Offline feature inputs of a collated batch."""
         return batch["feats"], batch["feat_lengths"]
+
+    def has_empty_rows(self, feat_lengths) -> bool:
+        """Whether an utterance of the host's (NumPy) `feat_lengths`
+        subsamples to no encoder frame: the `empty_rows` the forwards take,
+        so that they read nothing back from the card for it."""
+        lengths = self.module.encoder.sub.output_lengths(np.asarray(feat_lengths))
+        return bool((lengths <= 0).any())

@@ -1,8 +1,9 @@
 """Transformer decoder: weight-tied, with a KV-cached step.
 
 Counterpart of `TransformerDecoder` in openasr_tpu/models/decoder.py:
-embedding x sqrt(d) -> PE (which scales by sqrt(d) again) -> N post-LN
-decoder layers -> the tied output affine (embedding^T + out_bias).
+embedding x sqrt(d) -> PE (which scales by sqrt(d) again) -> dropout -> N
+post-LN decoder layers -> the tied output affine (embedding^T + out_bias).
+Given a `TrainRNG` the teacher-forced forward is the train-mode one.
 """
 
 from __future__ import annotations
@@ -13,7 +14,14 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from openasr_torch.models.layers import TransformerDecoderLayer, positional_encoding
+from openasr_torch.models.layers import (
+    TrainRNG,
+    TransformerDecoderLayer,
+    activation_dtype,
+    any_empty,
+    dropout,
+    positional_encoding,
+)
 from openasr_torch.ops.masks import NEG_INF
 
 
@@ -26,21 +34,25 @@ class TransformerDecoder(nn.Module):
         num_layers: int,
         dim_feedforward: int,
         activation: str = "relu",
+        dropout_rate: float = 0.1,
     ):
         super().__init__()
         self.vocab_size = vocab_size
+        self.dropout_rate = dropout_rate
         self.d_model = d_model
         self.emb = nn.Embedding(vocab_size, d_model)
         self.out_bias = nn.Parameter(torch.zeros(vocab_size))
         for i in range(num_layers):
             self.add_module(
                 f"layer{i}",
-                TransformerDecoderLayer(d_model, nhead, dim_feedforward, activation),
+                TransformerDecoderLayer(d_model, nhead, dim_feedforward, activation,
+                                        dropout_rate),
             )
         self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
 
     def _embed(self, ids: torch.Tensor, offset: int = 0) -> torch.Tensor:
-        x = self.emb(ids.long()) * math.sqrt(self.d_model)
+        x = self.emb(ids.long())
+        x = x.to(activation_dtype(x)) * math.sqrt(self.d_model)
         return positional_encoding(x, offset=offset)
 
     def _output(self, h: torch.Tensor) -> torch.Tensor:
@@ -49,13 +61,17 @@ class TransformerDecoder(nn.Module):
         return (h @ self.emb.weight.t()).float() + self.out_bias
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
-                ids: torch.Tensor) -> torch.Tensor:
+                ids: torch.Tensor, rng: Optional[TrainRNG] = None,
+                empty_rows: Optional[bool] = None) -> torch.Tensor:
         """Teacher-forced logits [B, U, V] (causal self-attention; targets
         are right-padded, so the causal mask alone keeps valid queries off
-        padded keys)."""
-        x = self._embed(ids)
+        padded keys).  `empty_rows`: whether some memory length is <= 0
+        (None: read it back)."""
+        x = dropout(self._embed(ids), self.dropout_rate, rng)
+        empty_rows = any_empty(memory_lengths, empty_rows)
         for layer in self.layers:
-            x = layer(x, memory, memory_lengths, tgt_causal=True)
+            x = layer(x, memory, memory_lengths, tgt_causal=True, rng=rng,
+                      empty_rows=empty_rows)
         return self._output(x)
 
     # ------------------------------------------------------- decode path
@@ -88,4 +104,5 @@ def transformer_decoder_from_config(cfg) -> TransformerDecoder:
         num_layers=int(cfg["num_layers"]),
         dim_feedforward=int(cfg["dim_feedforward"]),
         activation=cfg.get("activation", "relu"),
+        dropout_rate=float(cfg.get("dropout_rate", 0.1)),
     )

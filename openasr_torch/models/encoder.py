@@ -1,20 +1,26 @@
 """Transformer encoder with conv subsampling.
 
 Counterpart of `TransformerEncoder` in openasr_tpu/models/encoder.py, the
-per-layer path: subsample -> x * sqrt(d) + PE -> N post-LN layers (flash
-self-attention over the valid frames) -> final LayerNorm.  Streaming
+per-layer path: subsample -> x * sqrt(d) + PE -> dropout -> N post-LN
+layers (flash self-attention over the valid frames) -> final LayerNorm.
+Given a `TrainRNG` the forward is the train-mode one (dropout on).  Streaming
 (chunk masks), pipeline (stacked layers) and MoE encoders are later
 slices of the port.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from openasr_torch.models.layers import (
     LayerNorm,
+    TrainRNG,
     TransformerEncoderLayer,
+    any_empty,
+    dropout,
     positional_encoding,
 )
 from openasr_torch.models.subsample import Conv2dSubsample, Conv2dSubsampleV2
@@ -31,8 +37,10 @@ class TransformerEncoder(nn.Module):
         activation: str = "relu",
         sub_type: str = "ConvV2",
         sub_layer_num: int = 2,
+        dropout_rate: float = 0.1,
     ):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if sub_type == "ConvV1":
             self.sub = Conv2dSubsample(input_dim, d_model)
         elif sub_type == "ConvV2":
@@ -46,17 +54,22 @@ class TransformerEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(
                 f"layer{i}",
-                TransformerEncoderLayer(d_model, nhead, dim_feedforward, activation),
+                TransformerEncoderLayer(d_model, nhead, dim_feedforward, activation,
+                                        dropout_rate),
             )
         self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
         self.final_norm = LayerNorm(d_model)
 
-    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor):
-        """feats [B, T, F] -> (encoded [B, T', d_model], lengths [B])."""
+    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor,
+                rng: Optional[TrainRNG] = None, empty_rows: Optional[bool] = None):
+        """feats [B, T, F] -> (encoded [B, T', d_model], lengths [B]).
+        `empty_rows`: whether some utterance subsamples to no frame, as the
+        caller knows it from the host's lengths (None: read it back)."""
         x, lengths = self.sub(feats.to(self.compute_dtype), feat_lengths)
-        x = positional_encoding(x)
+        x = dropout(positional_encoding(x), self.dropout_rate, rng)
+        empty_rows = any_empty(lengths, empty_rows)
         for layer in self.layers:
-            x = layer(x, kv_lengths=lengths)
+            x = layer(x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows)
         return self.final_norm(x), lengths
 
     @property
@@ -90,4 +103,5 @@ class TransformerEncoder(nn.Module):
             activation=cfg.get("activation", "relu"),
             sub_type=sub.get("type"),
             sub_layer_num=int(sub.get("layer_num", 2)),
+            dropout_rate=float(cfg.get("dropout_rate", 0.1)),
         )

@@ -8,6 +8,12 @@ openasr_torch/convert.py maps one onto the other leaf by leaf.
 Positional encoding keeps the JAX package's double scaling:
 `positional_encoding` multiplies its input by sqrt(d_model) and the
 decoder pre-scales its embeddings by sqrt(d_model) too.
+
+Training mode is the `rng` argument (a `TrainRNG`), as `deterministic=False`
+plus the `dropout` rng are in the JAX package: with it, residual, FFN and
+embedding dropouts draw their masks from `rng.device` and the attention
+dropout its hash seed from `rng.host`; without it every layer is
+deterministic.  The modules' train()/eval() flag plays no part.
 """
 
 from __future__ import annotations
@@ -21,8 +27,55 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from openasr_torch.kernels.flash_attention import flash_attention
+from openasr_torch.kernels.flash_attention import (
+    attention_dropout_mask,
+    draw_dropout_seed,
+    flash_attention,
+)
 from openasr_torch.kernels.layer_norm import fused_layer_norm
+from openasr_torch.ops.masks import causal_bias, combine_bias, padding_bias
+
+
+class TrainRNG:
+    """The random streams of one training forward: `host`, a CPU generator
+    (attention-dropout seeds, SpecAugment draws), and `device`, a generator
+    on the compute device (dropout masks).  `reseed` restarts both, so a
+    step's randomness depends on its seed alone (the JAX solver folds the
+    step into its key the same way)."""
+
+    def __init__(self, seed: int, device) -> None:
+        self.host = torch.Generator()
+        self.device = torch.Generator(device=torch.device(device))
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> None:
+        self.host.manual_seed(int(seed))
+        self.device.manual_seed(int(seed) ^ 0x5DEECE66D)
+
+
+def any_empty(lengths, empty_rows: Optional[bool] = None) -> bool:
+    """`empty_rows` when the caller knows it from the host's lengths, else
+    whether some entry of `lengths` is <= 0, read back from its device."""
+    if empty_rows is not None:
+        return empty_rows
+    return bool((lengths <= 0).any())
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[TrainRNG]) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate and scale the kept
+    values by 1 / (1 - rate); the identity without `rng` or at rate 0."""
+    if rng is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def activation_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype activations run in: autocast's when it is on for x's
+    device (bf16 training keeps f32 weights), else x's own."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype
 
 
 class LayerNorm(nn.Module):
@@ -76,28 +129,66 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
+    keep: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
 ) -> torch.Tensor:
-    """Dense attention for the decode step: q [B,Tq,H,D], k/v [B,Tk,H,D],
-    bias [B|1, 1|H, Tq, Tk] -> [B,Tq,H,D].  Scores and softmax in f32
-    whatever q's dtype; P.V in q's dtype."""
+    """Dense attention: q [B,Tq,H,D], k/v [B,Tk,H,D], bias [B|1, 1|H, Tq, Tk]
+    -> [B,Tq,H,D].  Scores and softmax in f32 whatever q's dtype; P.V in
+    q's dtype.  `keep` [B, H, Tq, Tk] drops weights as dropout does."""
     depth = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(depth)
     if bias is not None:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if keep is not None:
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), torch.zeros_like(probs))
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _empty_rows_dense(out, q, k, v, kv_lengths, causal, dropout_rate, seed):
+    """Batch rows with no valid key (kv_length <= 0) take the JAX package's
+    dense-path value, which the flash kernel (O = 0 there) does not give:
+    softmax(scores + NEG_INF) in f32, which is the mean of V over all Tk
+    keys where |scores| < 32 and is skewed toward the largest scores where
+    the f32 sum rounds them to different multiples of 64.  The dense
+    attention runs on those rows only, with the hash dropout mask of the
+    flash call, and autograd carries its gradient into q, k and v as JAX's
+    autodiff of the dense path does.  Finding the rows reads them back to
+    the host, so callers run this only for a batch known to hold one."""
+    idx = (kv_lengths <= 0).nonzero()[:, 0].to(out.device)
+    bias = combine_bias(
+        padding_bias(kv_lengths[idx].to(out.device), k.shape[1]),
+        causal_bias(q.shape[1], out.device) if causal else None,
+    )
+    keep = None
+    if dropout_rate > 0.0:
+        b, tq, h, _ = q.shape
+        keep = attention_dropout_mask(seed, b, h, tq, k.shape[1], dropout_rate,
+                                      out.device)[idx]
+    dense = dot_product_attention(q[idx], k[idx], v[idx], bias, keep, dropout_rate)
+    return out.index_put((idx,), dense.to(out.dtype))
 
 
 class MultiHeadAttention(nn.Module):
     """Separate q/k/v/out projections.  The structured call (`kv_lengths`
-    and/or `causal`) goes through the flash-attention wrapper; the decode
-    step's `attend_step` attends densely against cached K/V."""
+    and/or `causal`) goes through the flash-attention wrapper, with
+    attention dropout when given an rng; the decode step's `attend_step`
+    attends densely against cached K/V.
 
-    def __init__(self, d_model: int, nhead: int):
+    `empty_rows` says that some kv_length may be <= 0.  The caller decides
+    it once per forward (see `any_empty`), so a batch without such a row
+    reads nothing back from the card.  With it, the empty rows take the
+    JAX dense path's value at every length: the JAX package attends densely
+    on the CPU, and on a TPU below its 384-frame flash crossover, while its
+    TPU flash route gives O = 0 from 384 up; the port keeps no TPU length
+    routing."""
+
+    def __init__(self, d_model: int, nhead: int, dropout_rate: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} not divisible by nhead {nhead}")
         self.nhead = nhead
+        self.dropout_rate = dropout_rate
         self.head_dim = d_model // nhead
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
@@ -117,10 +208,17 @@ class MultiHeadAttention(nn.Module):
         inputs_kv: torch.Tensor,
         kv_lengths: Optional[torch.Tensor] = None,
         causal: bool = False,
+        rng: Optional[TrainRNG] = None,
+        empty_rows: bool = False,
     ) -> torch.Tensor:
         q = self._heads(self.q(inputs_q))
         k, v = self.project_kv(inputs_kv)
-        out, _ = flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal)
+        rate = self.dropout_rate if rng is not None and self.dropout_rate > 0.0 else 0.0
+        seed = draw_dropout_seed(rng.host) if rate else 0
+        out, _ = flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal,
+                                 dropout_rate=rate, dropout_seed=seed)
+        if empty_rows and kv_lengths is not None:
+            out = _empty_rows_dense(out, q, k, v, kv_lengths, causal, rate, seed)
         return self._merge(out)
 
     def project_kv(self, inputs_kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,16 +251,18 @@ class FeedForward(nn.Module):
     """Position-wise FFN with relu / gelu (exact) / glu (glu doubles
     linear1's width and gates with a sigmoid)."""
 
-    def __init__(self, d_model: int, dim_feedforward: int, activation: str = "relu"):
+    def __init__(self, d_model: int, dim_feedforward: int, activation: str = "relu",
+                 dropout_rate: float = 0.0):
         super().__init__()
         if activation not in ("relu", "gelu", "glu"):
             raise ValueError(f"Unknown activation {activation}")
         self.activation = activation
+        self.dropout_rate = dropout_rate
         width = 2 * dim_feedforward if activation == "glu" else dim_feedforward
         self.linear1 = nn.Linear(d_model, width)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[TrainRNG] = None) -> torch.Tensor:
         h = self.linear1(x)
         if self.activation == "relu":
             h = F.relu(h)
@@ -171,25 +271,30 @@ class FeedForward(nn.Module):
         else:
             a, b = h.chunk(2, dim=-1)
             h = a * torch.sigmoid(b)
-        return self.linear2(h)
+        return self.linear2(dropout(h, self.dropout_rate, rng))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder layer: x = norm1(x + attn(x)); norm2(x + ffn(x))."""
+    """Post-LN encoder layer: x = norm1(x + drop(attn(x)));
+    norm2(x + drop(ffn(x)))."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout_rate: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FeedForward(d_model, dim_feedforward, activation)
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout_rate)
+        self.ffn = FeedForward(d_model, dim_feedforward, activation, dropout_rate)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, x: torch.Tensor,
                 kv_lengths: Optional[torch.Tensor] = None,
-                causal: bool = False) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, x, kv_lengths, causal))
-        return self.norm2(x + self.ffn(x))
+                causal: bool = False,
+                rng: Optional[TrainRNG] = None,
+                empty_rows: bool = False) -> torch.Tensor:
+        attn = self.self_attn(x, x, kv_lengths, causal, rng, empty_rows)
+        x = self.norm1(x + dropout(attn, self.dropout_rate, rng))
+        return self.norm2(x + dropout(self.ffn(x, rng), self.dropout_rate, rng))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -197,22 +302,30 @@ class TransformerDecoderLayer(nn.Module):
     `step` for one-token-at-a-time decoding."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout_rate: float = 0.0):
         super().__init__()
         self.nhead = nhead
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.cross_attn = MultiHeadAttention(d_model, nhead)
-        self.ffn = FeedForward(d_model, dim_feedforward, activation)
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout_rate)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout_rate)
+        self.ffn = FeedForward(d_model, dim_feedforward, activation, dropout_rate)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 memory_lengths: Optional[torch.Tensor] = None,
-                tgt_causal: bool = True) -> torch.Tensor:
-        x = self.norm1(tgt + self.self_attn(tgt, tgt, causal=tgt_causal))
-        x = self.norm2(x + self.cross_attn(x, memory, kv_lengths=memory_lengths))
-        return self.norm3(x + self.ffn(x))
+                tgt_causal: bool = True,
+                rng: Optional[TrainRNG] = None,
+                empty_rows: bool = False) -> torch.Tensor:
+        """`empty_rows`: some memory length may be <= 0."""
+        rate = self.dropout_rate
+        sa = self.self_attn(tgt, tgt, causal=tgt_causal, rng=rng)
+        x = self.norm1(tgt + dropout(sa, rate, rng))
+        ca = self.cross_attn(x, memory, kv_lengths=memory_lengths, rng=rng,
+                             empty_rows=empty_rows)
+        x = self.norm2(x + dropout(ca, rate, rng))
+        return self.norm3(x + dropout(self.ffn(x, rng), rate, rng))
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor) -> dict:
         """Growing self-attn K/V (zeros) plus precomputed cross-attn K/V."""

@@ -1,13 +1,17 @@
-"""Speech model families: conv-transformer and conv-ctc-transformer.
+"""Speech model families: conv-transformer, conv-ctc-transformer, conv-ctc.
 
-Counterpart of ConvTransformer / ConvCTCTransformer in
-openasr_tpu/models/speech.py, for decoding: the attention beam over the
-KV-cached decoder.  conv-ctc-transformer also carries `ctc_fc`, the CTC
-head that training and the CTC decoders read (the attention beam does
-not).  Losses and the other families follow in later slices.
+Counterpart of ConvTransformer / ConvCTCTransformer / ConvCTC in
+openasr_tpu/models/speech.py: the training losses (`loss`, raw sums plus
+token and sequence counts, as the JAX package returns them) and, for the
+attention families, the attention beam over the KV-cached decoder.
+conv-ctc-transformer also carries `ctc_fc`, the CTC head.  The CTC heads
+run in f32 also under bf16 autocast: flax's Dense without a dtype
+promotes the bf16 encoder output and the f32 kernel to f32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,24 +21,53 @@ from openasr_torch.models import Framework, register_model
 from openasr_torch.models.decoder import transformer_decoder_from_config
 from openasr_torch.models.encoder import TransformerEncoder
 from openasr_torch.models.frontend import SPLayer
+from openasr_torch.models.layers import TrainRNG, any_empty
 from openasr_torch.ops.beam_search import batch_beam_search, beam_expand
+from openasr_torch.ops.losses import cal_ce_loss, cal_ctc_loss
 from openasr_torch.ops.masks import padding_bias
+
+
+def target_lengths_of(paddings: torch.Tensor) -> torch.Tensor:
+    """sum(1 - paddings) as int32."""
+    return (1.0 - paddings.float()).sum(dim=-1).to(torch.int32)
+
+
+def splayer_from_config(signal_cfg) -> SPLayer:
+    signal_cfg = signal_cfg or {}
+    return SPLayer(signal_cfg.get("feature_type", "offline"), signal_cfg.get("spec_aug"))
+
+
+def _f32_head(head: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    with torch.autocast(x.device.type, enabled=False):
+        return head(x.float())
+
+
+def _counts(batch: dict) -> dict:
+    return {
+        "n_tokens": (1.0 - batch["paddings"].float()).sum(),
+        "n_seqs": torch.tensor(float(batch["ids"].shape[0]), device=batch["ids"].device),
+    }
 
 
 class ConvTransformerModule(nn.Module):
     def __init__(self, configs: Config):
         super().__init__()
-        self.splayer = SPLayer((configs.signal or {}).get("feature_type", "offline"))
+        self.splayer = splayer_from_config(configs.signal)
         self.encoder = TransformerEncoder.from_config(configs.encoder)
         self.decoder = transformer_decoder_from_config(configs.decoder)
 
-    def encode(self, inputs, input_lengths):
-        x, lens = self.splayer(inputs, input_lengths)
-        return self.encoder(x, lens)
+    def encode(self, inputs, input_lengths, rng: Optional[TrainRNG] = None,
+               empty_rows: Optional[bool] = None):
+        x, lens = self.splayer(inputs, input_lengths, rng)
+        return self.encoder(x, lens, rng, empty_rows)
 
-    def forward(self, inputs, input_lengths, ids):
-        enc, elens = self.encode(inputs, input_lengths)
-        return self.decoder(enc, elens, ids)
+    def forward(self, inputs, input_lengths, ids, rng: Optional[TrainRNG] = None,
+                empty_rows: Optional[bool] = None):
+        """`empty_rows` (some encoder length <= 0) is decided once, for the
+        encoder and the decoder's cross-attention."""
+        empty_rows = any_empty(self.encoder.sub.output_lengths(input_lengths), empty_rows)
+        enc, elens = self.encode(inputs, input_lengths, rng, empty_rows)
+        return self.decoder(enc, elens, ids, rng, empty_rows)
 
 
 class ConvCTCTransformerModule(ConvTransformerModule):
@@ -45,27 +78,79 @@ class ConvCTCTransformerModule(ConvTransformerModule):
             bias=False,
         )
 
-    def forward(self, inputs, input_lengths, ids):
-        """-> (ctc_logits [B, T', V], encoder lengths [B], ce_logits [B, U, V])."""
-        enc, elens = self.encode(inputs, input_lengths)
-        return self.ctc_fc(enc), elens, self.decoder(enc, elens, ids)
+    def forward(self, inputs, input_lengths, ids, rng: Optional[TrainRNG] = None,
+                empty_rows: Optional[bool] = None):
+        """-> (ctc_logits [B, T', V] f32, encoder lengths [B], ce_logits [B, U, V])."""
+        empty_rows = any_empty(self.encoder.sub.output_lengths(input_lengths), empty_rows)
+        enc, elens = self.encode(inputs, input_lengths, rng, empty_rows)
+        return (_f32_head(self.ctc_fc, enc), elens,
+                self.decoder(enc, elens, ids, rng, empty_rows))
 
 
-@register_model("conv-transformer")
-class ConvTransformer(Framework):
-    module_cls = ConvTransformerModule
+class ConvCTCModule(nn.Module):
+    def __init__(self, configs: Config):
+        super().__init__()
+        self.splayer = splayer_from_config(configs.signal)
+        self.encoder = TransformerEncoder.from_config(configs.encoder)
+        self.fc = nn.Linear(
+            int(configs.encoder["d_model"]), int(configs.decoder["vocab_size"]),
+            bias=False,
+        )
+
+    def forward(self, inputs, input_lengths, rng: Optional[TrainRNG] = None,
+                empty_rows: Optional[bool] = None):
+        """-> (logits [B, T', V] f32, lengths [B])."""
+        x, lens = self.splayer(inputs, input_lengths, rng)
+        enc, elens = self.encoder(x, lens, rng, empty_rows)
+        return _f32_head(self.fc, enc), elens
+
+
+class _SpeechFramework(Framework):
+    module_cls = nn.Module
 
     @classmethod
     def build_module(cls, configs: Config) -> nn.Module:
         return cls.module_cls(configs)
 
-    def encode(self, inputs: torch.Tensor, lengths: torch.Tensor):
-        return self.module.encode(inputs, lengths)
+
+@register_model("conv-ctc")
+class ConvCTC(_SpeechFramework):
+    module_cls = ConvCTCModule
+
+    def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
+             label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
+        """{ctc_loss, n_tokens, n_seqs}; `rng` makes it the train forward;
+        `empty_rows` is `has_empty_rows` of the batch (None: read back)."""
+        del label_smooth
+        inputs, lengths = self.batch_inputs(batch)
+        logits, len_logits = self.module(inputs, lengths, rng, empty_rows)
+        tlen = target_lengths_of(batch["paddings"])
+        ctc = cal_ctc_loss(logits, len_logits, batch["labels"], tlen)
+        return {"ctc_loss": ctc, **_counts(batch)}
+
+
+@register_model("conv-transformer")
+class ConvTransformer(_SpeechFramework):
+    module_cls = ConvTransformerModule
+
+    def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
+             label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
+        """{ce_loss, n_tokens, n_seqs}; `rng` makes it the train forward;
+        `empty_rows` is `has_empty_rows` of the batch (None: read back)."""
+        inputs, lengths = self.batch_inputs(batch)
+        logits = self.module(inputs, lengths, batch["ids"], rng, empty_rows)
+        ce = cal_ce_loss(logits, batch["labels"], batch["paddings"], label_smooth)
+        return {"ce_loss": ce, **_counts(batch)}
+
+    def encode(self, inputs: torch.Tensor, lengths: torch.Tensor,
+               empty_rows: Optional[bool] = None):
+        return self.module.encode(inputs, lengths, None, empty_rows)
 
     @torch.inference_mode()
-    def batch_beam_decode(self, inputs, lengths, beam_size=5, max_decode_len=100):
+    def batch_beam_decode(self, inputs, lengths, beam_size=5, max_decode_len=100,
+                          empty_rows: Optional[bool] = None):
         """-> (preds [B, beam, L], lengths [B, beam], scores [B, beam])."""
-        encoded, elens = self.encode(inputs, lengths)
+        encoded, elens = self.encode(inputs, lengths, empty_rows)
         return self.beam_decode_encoded(encoded, elens, beam_size, max_decode_len)
 
     @torch.inference_mode()
@@ -91,3 +176,16 @@ class ConvTransformer(Framework):
 @register_model("conv-ctc-transformer")
 class ConvCTCTransformer(ConvTransformer):
     module_cls = ConvCTCTransformerModule
+
+    def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
+             label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
+        """{ctc_loss, ce_loss, n_tokens, n_seqs}.  The CTC targets exclude
+        the trailing EOS: target lengths - 1, as the JAX package (and the
+        reference) count them."""
+        inputs, lengths = self.batch_inputs(batch)
+        ctc_logits, len_ctc, ce_logits = self.module(inputs, lengths, batch["ids"], rng,
+                                                     empty_rows)
+        tlen = target_lengths_of(batch["paddings"])
+        ctc = cal_ctc_loss(ctc_logits, len_ctc, batch["labels"], tlen - 1)
+        ce = cal_ce_loss(ce_logits, batch["labels"], batch["paddings"], label_smooth)
+        return {"ctc_loss": ctc, "ce_loss": ce, **_counts(batch)}

@@ -53,11 +53,15 @@ class Conv2dSubsample(_ConvSubsample):
     def __init__(self, d_input: int, d_model: int):
         super().__init__(d_input, d_model, 2, (2, 2))
 
-    def forward(self, feats, feat_lengths):
-        lengths = feat_lengths
+    @staticmethod
+    def output_lengths(lengths):
+        """Frames left after subsampling (torch or NumPy integers)."""
         for _ in range(2):
             lengths = (lengths - 3) // 2 + 1
-        return super().forward(feats), lengths
+        return lengths
+
+    def forward(self, feats, feat_lengths):
+        return super().forward(feats), self.output_lengths(feat_lengths)
 
 
 class Conv2dSubsampleV2(_ConvSubsample):
@@ -74,7 +78,11 @@ class Conv2dSubsampleV2(_ConvSubsample):
                 f"dim actually produced upstream ({feats.shape[-1]}) — check "
                 "model.encoder.input_dim against the offline feature width"
             )
-        lengths = feat_lengths
+        return super().forward(feats), self.output_lengths(feat_lengths)
+
+    def output_lengths(self, lengths):
+        """Frames left after subsampling (torch or NumPy integers), by the
+        JAX package's length rule."""
         for _ in range(self.layer_num):
-            lengths = (lengths - 1) // 2  # the JAX package's length rule
-        return super().forward(feats), lengths
+            lengths = (lengths - 1) // 2
+        return lengths

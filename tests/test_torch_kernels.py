@@ -15,14 +15,28 @@ import pytest
 import torch
 
 from openasr_torch.kernels.flash_attention import (
+    attention_dropout_mask,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_reference,
     flash_attention_reference,
+    flash_delta,
 )
-from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_reference
+from openasr_torch.kernels.layer_norm import (
+    fused_layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_reference,
+)
 
 # f32, same formula on both sides; only the summation order differs
 LN_TOL = 1e-6
 FLASH_TOL = 1e-5
+# gradients: f32, sums over rows (LN) or keys/queries (flash) in other orders
+LN_GRAD_TOL = 1e-5
+FLASH_GRAD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -126,9 +140,139 @@ def test_flash_plain_matches_jax(b, tq, tk, h, d, causal, lengths):
 
 
 def test_flash_rejects_dropout():
+    """Dropout needs a seed, as the JAX wrapper asserts `dropout_seed` for
+    dropout_rate > 0."""
     x = torch.zeros(1, 4, 2, 32)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(x, x, x, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("shape", [(16, 64), (37, 64), (2, 19, 64)])
+def test_layer_norm_grads_match_jax(shape):
+    """dx, dgamma, dbeta of the port (autograd through the plain backward)
+    against jax.vjp of the Pallas kernel in interpret mode."""
+    import jax
+
+    from openasr_tpu.kernels.layer_norm import fused_layer_norm as jax_fused_ln
+
+    x, g, b = _ln_inputs(shape, seed=7 + shape[0])
+    dy = np.random.RandomState(shape[0]).randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, g, b: jax_fused_ln(x, g, b, interpret=True), x, g, b)
+    want = [np.asarray(t) for t in vjp(dy)]
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    y, _, _ = fused_layer_norm(xt, gt, bt)
+    got = torch.autograd.grad(y, (xt, gt, bt), torch.from_numpy(dy))
+    for name, w, t in zip(("dx", "dgamma", "dbeta"), want, got):
+        assert t.shape == w.shape, name
+        assert np.abs(t.numpy() - w).max() <= LN_GRAD_TOL * max(1.0, np.abs(w).max()), name
+
+
+def test_layer_norm_bwd_dx_only_mode():
+    x, g, _ = _ln_inputs((9, 64), seed=3)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    _, mean, rstd = layer_norm_reference(xt, gt, torch.zeros(64))
+    dy = torch.randn(9, 64, generator=torch.Generator().manual_seed(0))
+    layer_norm_bwd.launches = 0
+    dx, dg, db = layer_norm_bwd(xt, dy, gt, mean, rstd, dgamma_dbeta=False)
+    assert dg is None and db is None and layer_norm_bwd.launches == 0
+    dx_full, _, _ = layer_norm_bwd_reference(xt, dy, gt, mean, rstd)
+    assert torch.equal(dx, dx_full)
+
+
+def _flash_grads_jax(q, k, v, dout, lens, causal, rate=0.0, seed=0):
+    import jax
+    import jax.numpy as jnp
+
+    from openasr_tpu.kernels.flash_attention import flash_attention as jax_flash
+
+    def f(q, k, v):
+        return jax_flash(q, k, v, kv_lengths=lens, causal=causal, interpret=True,
+                         block_q=8, block_k=8, dropout_rate=rate,
+                         dropout_seed=jnp.uint32(seed) if rate else None)
+
+    def out_and_grads(q, k, v):
+        out, vjp = jax.vjp(f, q, k, v)
+        return out, vjp(dout)
+
+    out, grads = jax.jit(out_and_grads)(q, k, v)
+    return np.asarray(out), [np.asarray(t) for t in grads]
+
+
+def _flash_grads_port(q, k, v, dout, lens, causal, rate=0.0, seed=0):
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, _ = flash_attention(
+        qt, kt, vt, kv_lengths=None if lens is None else torch.from_numpy(lens),
+        causal=causal, dropout_rate=rate, dropout_seed=seed if rate else None)
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", FLASH_CASES[1:])
+def test_flash_grads_match_jax(b, tq, tk, h, d, causal, lengths):
+    """dq, dk, dv through the port's autograd (plain backward) against
+    jax.vjp of the Pallas kernels in interpret mode: Tq != Tk, causal and a
+    zero-length row are among the cases."""
+    rng = np.random.RandomState(tq * 5 + tk)
+    q, k, v = (rng.randn(b, t, h, d).astype(np.float32) for t in (tq, tk, tk))
+    dout = rng.randn(b, tq, h, d).astype(np.float32)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    _, want = _flash_grads_jax(q, k, v, dout, lens, causal)
+    _, got = _flash_grads_port(q, k, v, dout, lens, causal)
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        assert np.abs(g - w).max() <= FLASH_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("seed,rate", [(0, 0.1), (123456789, 0.1), (4294967295, 0.3)])
+def test_dropout_mask_is_bit_exact(seed, rate):
+    from openasr_tpu.kernels.flash_attention import (
+        attention_dropout_mask as jax_mask,
+    )
+
+    want = np.asarray(jax_mask(seed, 3, 4, 37, 45, rate))
+    got = attention_dropout_mask(seed, 3, 4, 37, 45, rate).numpy()
+    assert np.array_equal(got, want)
+    assert abs(1.0 - got.mean() - rate) < 0.02
+
+
+@pytest.mark.parametrize("causal,tq,tk,lengths", [
+    (True, 19, 19, [19, 0]), (False, 11, 21, [21, 7]),
+])
+def test_flash_dropout_matches_jax(causal, tq, tk, lengths):
+    """Forward and grads with dropout 0.1 at one seed: the port's plain
+    versions against the JAX kernels in interpret mode, which draw the
+    same hash mask."""
+    rng = np.random.RandomState(tq + 100 * tk)
+    b, h, d = 2, 4, 32
+    q, k, v = (rng.randn(b, t, h, d).astype(np.float32) for t in (tq, tk, tk))
+    dout = rng.randn(b, tq, h, d).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    out_j, want = _flash_grads_jax(q, k, v, dout, lens, causal, 0.1, 2024)
+    out_t, got = _flash_grads_port(q, k, v, dout, lens, causal, 0.1, 2024)
+    assert np.abs(out_t - out_j).max() <= FLASH_TOL
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        assert np.abs(g - w).max() <= FLASH_GRAD_TOL, name
+
+
+def test_flash_bwd_wrappers_are_the_plain_backward_on_cpu():
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(2, t, 2, 32).astype(np.float32))
+               for t in (7, 9, 9))
+    lens = torch.tensor([9, 4])
+    out, lse = flash_attention_reference(q, k, v, lens, False, None, 0.1, 77)
+    dout = torch.from_numpy(rng.randn(2, 7, 2, 32).astype(np.float32))
+    dq, dk, dv = flash_attention_bwd_reference(q, k, v, out, lse, dout, lens,
+                                               False, None, 0.1, 77)
+    launches = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    delta = flash_delta(out, dout)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, lens, False,
+                                       None, 0.1, 77)
+    dq2 = flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, lens, False, None,
+                                 0.1, 77)
+    dq3, dk3, dv3 = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None,
+                                        0.1, 77)
+    assert (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches) == launches
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq3) and torch.equal(dk, dk3) and torch.equal(dv, dv3)
 
 
 # ------------------------------------------------------------ card only
@@ -172,3 +316,64 @@ def test_flash_kernel_matches_plain(cuda_card, dtype, tol, b, tq, tk, h, d,
     assert torch.equal(torch.isinf(lse), torch.isinf(lse_r))
     fin = torch.isfinite(lse_r)
     assert (lse[fin] - lse_r[fin]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("rows,d", [(8128, 512), (40, 512), (37, 64), (1, 1000)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_card, dtype, tol, rows, d):
+    """dx (both modes) and dgamma / dbeta against the plain backward; the
+    dgamma / dbeta tolerance is relative to their largest magnitude (sums
+    over `rows` rows in another order)."""
+    x, g, b = _ln_inputs((rows, d), seed=rows + d)
+    x = torch.from_numpy(x).to("cuda", dtype)
+    g = torch.from_numpy(g).cuda()
+    dy = torch.randn(rows, d, generator=torch.Generator().manual_seed(rows)).to("cuda", dtype)
+    _, mean, rstd = layer_norm_reference(x, g, torch.from_numpy(b).cuda())
+    before = layer_norm_bwd.launches
+    dx, dg, db = layer_norm_bwd(x, dy, g, mean, rstd)
+    dx1, none_g, none_b = layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)
+    assert layer_norm_bwd.launches == before + 2 and none_g is None and none_b is None
+    dx_r, dg_r, db_r = layer_norm_bwd_reference(x, dy, g, mean, rstd)
+    for got, want, rel in ((dx, dx_r, False), (dx1, dx_r, False), (dg, dg_r, True),
+                           (db, db_r, True)):
+        scale = want.float().abs().max().item() if rel else 1.0
+        assert (got.float() - want.float()).abs().max().item() <= tol * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", FLASH_CASES + [
+    (64, 127, 127, 8, 64, False, None),
+    (64, 25, 25, 8, 64, True, None),
+    (64, 25, 127, 8, 64, False, None),
+    (2, 130, 130, 4, 128, True, [130, 0]),
+])
+def test_flash_bwd_kernels_match_plain(cuda_card, dtype, tol, rate, b, tq, tk, h,
+                                       d, causal, lengths):
+    """Forward (with dropout) and dq / dk / dv through autograd on the card
+    against the plain versions on the same inputs and seed."""
+    gen = torch.Generator().manual_seed(tq * 3 + tk)
+    q, k, v = (
+        torch.randn(b, t, h, d, generator=gen).to("cuda", dtype).requires_grad_()
+        for t in (tq, tk, tk)
+    )
+    dout = torch.randn(b, tq, h, d, generator=gen).to("cuda", dtype)
+    lens = None if lengths is None else torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else None
+    before = (flash_attention.launches + flash_attention.dropout_launches,
+              flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    out, lse = flash_attention(q, k, v, kv_lengths=lens, causal=causal,
+                               dropout_rate=rate, dropout_seed=seed)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    after = (flash_attention.launches + flash_attention.dropout_launches,
+             flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    out_r, lse_r = flash_attention_reference(q, k, v, lens, causal, None, rate, seed or 0)
+    want = flash_attention_bwd_reference(q, k, v, out_r, lse_r, dout, lens, causal,
+                                         None, rate, seed or 0)
+    assert (out.float() - out_r.float()).abs().max().item() <= tol
+    for got, w in zip(grads, want):
+        assert (got.float() - w.float()).abs().max().item() <= tol * max(
+            1.0, w.float().abs().max().item())
