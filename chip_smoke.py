@@ -5,21 +5,31 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 `openasr_torch/kernels/csrc/`, holds each kernel against its plain PyTorch
-version on the card (forward and backward, with and without attention
-dropout), then drives the port's two main paths at the full width of the
-flagship conv-ctc-transformer (egs/aishell1/configs/conv-ctc-transformer.yaml:
-ConvV2, d512, 6+6 post-LN layers, 8 heads, GLU 2048, vocab 4233) with
-random weights from a fixed seed, in float32 and in bfloat16:
+version on the card (LayerNorm and flash attention forward and backward,
+with and without attention dropout; the fused fbank from strided waves and
+from dithered frames), then drives the port's main paths at the full width
+of the flagship conv-ctc-transformer (egs/aishell1/configs/
+conv-ctc-transformer.yaml: ConvV2, d512, 6+6 post-LN layers, 8 heads, GLU
+2048, vocab 4233) with random weights from a fixed seed, in float32 and in
+bfloat16:
 
-- decoding: 8 random-feature utterances through `openasr_torch.bin.infer`;
-- training: one epoch plus the dev pass through `openasr_torch.bin.train`
-  on 128 random-feature utterances of 400-512 frames, with the flagship
-  YAML's model and training sections as they are (dropout 0.1, SpecAugment,
-  batch_frames 36000, clip 50, label smoothing 0.1, lambda_ctc 1.0, Noam).
+- offline decoding: 8 random-feature utterances through
+  `openasr_torch.bin.infer --offline`;
+- offline training: one epoch plus the dev pass through
+  `openasr_torch.bin.train` on 128 random-feature utterances of 400-512
+  frames, with the flagship YAML's model and training sections as they are
+  (dropout 0.1, SpecAugment, batch_frames 36000, clip 50, label smoothing
+  0.1, lambda_ctc 1.0, Noam);
+- online decoding: 8 random-tone 16 kHz wav files of 10.0-13.6 s through
+  `openasr_torch.bin.infer` without `--offline` (the fbank frontend);
+- online training: one epoch plus the dev pass on 128 wav files of
+  4.0-5.2 s, with egs/aishell1/configs/conv-ctc-transformer-online.yaml
+  (the flagship's sections with the fbank signal, batch_time 5760000).
 
 Each path runs with the kernels' launch counters set to 0 just before it
-and read just after.  The f32 decoder logits and one f32 training step's
-gradients are also checked against the same model on the CPU.
+and read just after.  The f32 decoder logits, one f32 training step's
+gradients and the f32 fbank features are also checked against the same
+inputs on the CPU.
 
 It prints the card's name and power limit, a `{"kernels": [...]}` line
 with each kernel's error, launches, times and bound, and last
@@ -43,6 +53,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 FLAGSHIP_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer.yaml")
+ONLINE_YAML = os.path.join(ROOT, "egs", "aishell1", "configs",
+                           "conv-ctc-transformer-online.yaml")
 SEED = 1234
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
@@ -55,6 +67,17 @@ TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 the outputs round to 8 bits and O, hence delta, differ by an ulp
 TOL_LN_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_FLASH_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# log-mel, max abs.  Kernel against its plain version on the card: both sum
+# the same f32 products, in other orders (this script measured 1.9e-6 on an
+# H100, one ulp at the features' magnitude of ~16).  Card against CPU: the
+# CPU's GEMMs block the 400-term sums otherwise, and frames near silence
+# cancel most of each sum (8.2e-4 on the same run)
+TOL_FBANK = 1e-4
+TOL_FBANK_CPU = 2e-3
+# mel energies without the log (use_log_fbank false), max abs over the
+# largest energy: 1e-4 on the log is 1e-4 relative on every energy
+TOL_FBANK_REL = 1e-5
+RATE = 16000
 DROPOUT = 0.1
 DROPOUT_SEED = 987654321
 DTYPES = (torch.float32, torch.bfloat16)
@@ -142,6 +165,7 @@ def nvidia_smi() -> str:
 
 
 def reset_counters():
+    from openasr_torch.kernels.fbank import fused_fbank
     from openasr_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -151,13 +175,15 @@ def reset_counters():
 
     torch.cuda.synchronize()
     for fn, attr in ((fused_layer_norm, "launches"), (layer_norm_bwd, "launches"),
+                     (layer_norm_bwd, "dx_launches"),
                      (flash_attention, "launches"), (flash_attention, "dropout_launches"),
                      (flash_attention_bwd_dkv, "launches"),
-                     (flash_attention_bwd_dq, "launches")):
+                     (flash_attention_bwd_dq, "launches"), (fused_fbank, "launches")):
         setattr(fn, attr, 0)
 
 
 def read_counters() -> dict:
+    from openasr_torch.kernels.fbank import fused_fbank
     from openasr_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -169,10 +195,12 @@ def read_counters() -> dict:
     return {
         "layer_norm_fwd": fused_layer_norm.launches,
         "layer_norm_bwd": layer_norm_bwd.launches,
+        "layer_norm_bwd_dx": layer_norm_bwd.dx_launches,
         "flash_attention_fwd": flash_attention.launches,
         "flash_attention_fwd_dropout": flash_attention.dropout_launches,
         "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches,
         "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
+        "fbank": fused_fbank.launches,
     }
 
 
@@ -250,7 +278,8 @@ def phase_layer_norm_bwd(errs, rows_main):
                         f"layer_norm_bwd [{n}, {d}] {DTYPE_NAME[dtype]} {name}: "
                         f"err {e:.3g} > {tol} x {scale:.3g}")
                 worst = max(worst, e / scale)
-                note_err(errs, ("layer_norm_bwd", dtype), e, e / scale)
+                key = "layer_norm_bwd_dx" if name == "dx(dx-only)" else "layer_norm_bwd"
+                note_err(errs, (key, dtype), e, e / scale)
             print(f"[layer_norm_bwd] [{n}, {d}] {DTYPE_NAME[dtype]}: worst err "
                   f"{worst:.3g} of max(1, |grad|) (tol {tol})")
 
@@ -389,6 +418,99 @@ def phase_flash_bwd(errs, shapes):
                     errs[key] = max(errs.get(key, 0.0), e_out)
 
 
+def fbank_batch(waves, utts, n=None):
+    """Waves of `utts` padded to n samples (by default the collate's ladder
+    over the longest), and their sample counts."""
+    from openasr_torch.data.collate import quantize
+
+    lens = np.array([len(waves[u]) for u in utts], np.int32)
+    x = np.zeros((len(utts), n or quantize(int(lens.max()))), np.float32)
+    for i, u in enumerate(utts):
+        x[i, : lens[i]] = waves[u]
+    return x, lens
+
+
+def fbank_inputs(x, lens, cfg, dither):
+    """Frames on the card: a strided view of the waves, or (dither) the
+    materialized frames plus unit noise; and the frame counts."""
+    from openasr_torch.ops.fbank import frame_signal, num_frames_of
+
+    frames = frame_signal(torch.from_numpy(x).cuda(), cfg)
+    if dither:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        frames = frames + torch.randn(frames.shape, generator=gen, device="cuda")
+    return frames, num_frames_of(torch.from_numpy(lens).cuda(), cfg)
+
+
+def phase_fbank(errs, train_batch, test_waves):
+    """The fused fbank kernel against its plain version on the card, f32,
+    TF32 off: the training and decode paths' batches, an odd T that is not
+    a multiple of the 32-frame tile, 80 and 40 bins, frames read from the
+    strided waves or materialized with dither, utterances of 399 (0 frames)
+    and 400 samples (1 frame), and mel energies without the log (held by
+    the error over the largest energy)."""
+    from openasr_torch.kernels.fbank import fbank_reference, fused_fbank
+    from openasr_torch.ops.fbank import FbankConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 7)
+    short = {f"s{i}": (rng.randn(n) * 2000).astype(np.float32)
+             for i, n in enumerate((6160, 5000, 399, 400))}
+    cases = [  # name, waves, utterances, padded samples, mel bins, dither, log
+        ("training batch", train_batch["waves"], train_batch["utts"], None, 80, False, True),
+        ("training batch, dithered frames", train_batch["waves"], train_batch["utts"],
+         None, 80, True, True),
+        ("decode batch", test_waves, sorted(test_waves), None, 80, False, True),
+        ("odd T, 40 bins", short, sorted(short), 6160, 40, False, True),
+        ("odd T, dithered frames", short, sorted(short), 6160, 80, True, True),
+        ("one frame", short, ["s2", "s3"], 400, 80, False, True),
+        ("mel energies, no log", short, sorted(short), 6160, 80, False, False),
+    ]
+    worst = 0.0
+    for name, waves, utts, n, bins, dither, log in cases:
+        cfg = FbankConfig(num_mel_bins=bins, use_log_fbank=log)
+        x, lens = fbank_batch(waves, utts, n)
+        frames, feat_lens = fbank_inputs(x, lens, cfg, dither)
+        got = fused_fbank(frames, feat_lens, cfg)
+        torch.cuda.synchronize()
+        want = fbank_reference(frames, feat_lens, cfg)
+        e = max_err(got, want)
+        scale = 1.0 if log else max(1.0, float(want.abs().max()))
+        tol = TOL_FBANK if log else TOL_FBANK_REL
+        b, t, _ = frames.shape
+        valid = torch.arange(t, device="cuda")[None, :] < feat_lens[:, None]
+        pad_max = float(got[~valid].abs().max()) if bool((~valid).any()) else 0.0
+        print(f"[fbank] {name}: B{b} T{t} M{bins}, frame stride {frames.stride(1)}, "
+              f"frames {feat_lens.tolist() if b <= 4 else int(feat_lens.sum())}: "
+              + (f"err {e:.3g} (tol {tol})" if log else
+                 f"err {e:.3g} = {e / scale:.3g} of the largest energy {scale:.4g} "
+                 f"(tol {tol})")
+              + f", padding max {pad_max}")
+        require(e <= tol * scale and pad_max == 0.0 and bool(torch.isfinite(got).all()),
+                f"fbank {name} disagrees")
+        if log:
+            worst = max(worst, e)
+        else:
+            errs["fbank_mel_rel"] = e / scale
+    errs["fbank"] = worst
+
+
+def check_features_against_cpu(test_waves):
+    """The f32 features of 2 utterances through `ops.fbank.fbank` on the
+    card (the kernel) and on the CPU (the plain version)."""
+    from openasr_torch.ops.fbank import FbankConfig, fbank
+
+    x, lens = fbank_batch(test_waves, sorted(test_waves)[:2])
+    cfg = FbankConfig()
+    got, got_lens = fbank(torch.from_numpy(x).cuda(), torch.from_numpy(lens).cuda(), cfg)
+    want, want_lens = fbank(torch.from_numpy(x), torch.from_numpy(lens), cfg)
+    e = max_err(got.cpu(), want)
+    print(f"[check] f32 fbank features, card vs CPU, 2 utts {tuple(want.shape)}: "
+          f"err {e:.3g} (tol {TOL_FBANK_CPU})")
+    require(torch.equal(got_lens.cpu(), want_lens) and e <= TOL_FBANK_CPU,
+            "fbank features differ between card and CPU")
+
+
 # --------------------------------------------------------------- corpora
 
 def write_vocab():
@@ -424,12 +546,53 @@ def write_corpus(name, rng, chars, n_utts, frames, tokens):
     return manifest, feats
 
 
-def save_flagship_package(path, solver_state=None):
+def write_wave_corpus(name, rng, chars, n_utts, samples, tokens):
+    """`n_utts` 16 kHz PCM16 wav files of `samples` (lo, hi) samples -- three
+    random tones over noise, with a near-silent stretch -- and `tokens`
+    (lo, hi) random characters each, as a wave manifest."""
+    from openasr_torch.data.audio import write_wav
+
+    os.makedirs(os.path.join(WORK, name))
+    rows, waves = [], {}
+    for i in range(n_utts):
+        n = int(rng.randint(samples[0], samples[1] + 1))
+        t = np.arange(n) / RATE
+        w = 100.0 * rng.randn(n)
+        for f0 in rng.uniform(100.0, 4000.0, size=3):
+            w += 3000.0 * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 2 * np.pi))
+        quiet = int(rng.randint(0, n // 2))
+        w[quiet: quiet + n // 4] *= 0.01
+        utt = f"{name}{i:03d}"
+        path = os.path.join(WORK, name, f"{utt}.wav")
+        write_wav(path, RATE, w)
+        waves[utt] = np.clip(np.rint(w), -32768, 32767).astype(np.float32)
+        n_tok = int(rng.randint(tokens[0], tokens[1] + 1))
+        rows.append({"uttid": utt, "feat": path, "feat_length": n,
+                     "tokens": " ".join(rng.choice(chars, size=n_tok)),
+                     "token_length": n_tok})
+    manifest = os.path.join(WORK, f"{name}.json")
+    with open(manifest, "w", encoding="utf-8") as f:
+        json.dump(rows, f, ensure_ascii=False)
+    return manifest, waves
+
+
+def online_model() -> dict:
+    """The model section of the online flagship YAML (the flagship with the
+    fbank signal), at the flagship's vocabulary."""
+    import yaml
+
+    with open(ONLINE_YAML) as f:
+        model = yaml.safe_load(f)["model"]
+    model["decoder"]["vocab_size"] = FLAGSHIP["decoder"]["vocab_size"]
+    return model
+
+
+def save_flagship_package(path, solver_state=None, model_cfg=FLAGSHIP):
     from openasr_torch.models import get_model_class
     from openasr_torch.utils.checkpoint import save_package
 
     model = get_model_class("conv-ctc-transformer").create_model(
-        FLAGSHIP, device="cuda", generator=torch.Generator().manual_seed(SEED)
+        model_cfg, device="cuda", generator=torch.Generator().manual_seed(SEED)
     )
     pkg = model.package()
     if solver_state is not None:
@@ -440,24 +603,29 @@ def save_flagship_package(path, solver_state=None):
 
 # --------------------------------------------------------------- phase 4
 
-def phase_decode(pkg, vocab, manifest, launches):
-    """Decode through the CLI in both dtypes; counters reset just before
-    each run and read just after."""
+def phase_decode(pkg, vocab, manifest, launches, online=False):
+    """Decode through the CLI in both dtypes, from features (--offline,
+    36000 frames a batch) or from waves (5760000 samples a batch); counters
+    reset just before each run and read just after.  The flash kernel runs
+    once per encoder layer of a batch and the fbank kernel once per online
+    batch."""
     from openasr_torch.bin import infer
-    from openasr_torch.data.manifest import ArkDataset
-    from openasr_torch.data.sampler import FrameBasedSampler
+    from openasr_torch.data.manifest import ArkDataset, SpeechDataset
+    from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 
-    n_batches = len(FrameBasedSampler(
-        ArkDataset(manifest, feat_range=(1, 10**9), label_range=(0, 10**9),
-                   rate_in_out=(0, 10**9)), 36000))
+    dataset, sampler, budget = ((SpeechDataset, TimeBasedSampler, 5760000) if online
+                                else (ArkDataset, FrameBasedSampler, 36000))
+    n_batches = len(sampler(dataset(manifest, feat_range=(1, 10**9), label_range=(0, 10**9),
+                                    rate_in_out=(0, 10**9)), budget))
     n_utts = len(json.load(open(manifest)))
+    tag = "online decode" if online else "decode"
     for dtype in DTYPES:
-        hyp = os.path.join(WORK, f"hyp_{DTYPE_NAME[dtype]}.txt")
+        hyp = os.path.join(WORK, f"hyp_{tag.replace(' ', '_')}_{DTYPE_NAME[dtype]}.txt")
         argv = ["--model_type", "conv-ctc-transformer", "--model_pkg", pkg,
                 "--vocab_path", vocab, "--json_file", manifest, "--output", hyp,
-                "--offline", "--add_blk", "--nbest", "5", "--maxlen", "40",
-                "--batch_frames", "36000", "--dtype", DTYPE_NAME[dtype],
-                "--device", "cuda"]
+                "--add_blk", "--nbest", "5", "--maxlen", "40",
+                "--batch_frames", str(budget), "--dtype", DTYPE_NAME[dtype],
+                "--device", "cuda"] + ([] if online else ["--offline"])
         reset_counters()
         t0 = time.time()
         infer.main(argv)
@@ -465,15 +633,16 @@ def phase_decode(pkg, vocab, manifest, launches):
         wall = time.time() - t0
         n = read_counters()
         n_flash, n_ln = n["flash_attention_fwd"], n["layer_norm_fwd"]
-        launches[("decode", dtype)] = n
+        launches[(tag, dtype)] = n
         with open(hyp, encoding="utf-8") as f:
             lines = [line for line in f if line.strip()]
-        print(f"[decode path] {DTYPE_NAME[dtype]}: {len(lines)} hyps in {wall:.2f}s wall, "
+        print(f"[{tag} path] {DTYPE_NAME[dtype]}: {len(lines)} hyps in {wall:.2f}s wall, "
               f"{n_batches} batch(es); launches: flash_attention {n_flash}, "
-              f"layer_norm {n_ln}")
+              f"layer_norm {n_ln}, fbank {n['fbank']}")
         require(len(lines) == n_utts, f"{len(lines)} hyp lines for {n_utts} utterances")
-        require(n_flash >= 6 * n_batches, f"flash launched {n_flash} times")
+        require(n_flash == 6 * n_batches, f"flash launched {n_flash} times")
         require(n_ln >= 13 * n_batches, f"layer_norm launched {n_ln} times")
+        require(n["fbank"] == (n_batches if online else 0), f"fbank launched {n['fbank']} times")
 
 
 def padded_batch(feats, utts, rng):
@@ -524,37 +693,42 @@ def check_logits_against_cpu(pkg, feats):
 
 # --------------------------------------------------------------- phase 5
 
-def train_config(train_json, dev_json, vocab, exp_dir, dtype):
-    """The flagship YAML with its model and training sections unchanged but
+def train_config(train_json, dev_json, vocab, exp_dir, dtype, yaml_path=FLAGSHIP_YAML):
+    """A flagship YAML with its model and training sections unchanged but
     for one epoch, a log line per step, this run's paths and `dtype`."""
     import yaml
 
-    with open(FLAGSHIP_YAML) as f:
+    with open(yaml_path) as f:
         cfg = yaml.safe_load(f)
     cfg["data"].update(trainset=train_json, devset=dev_json, vocab_path=vocab)
     cfg["training"].update(exp_dir=exp_dir, num_epoch=1, print_inteval=1,
                            compute_dtype=DTYPE_NAME[dtype])
-    path = os.path.join(WORK, f"train_{DTYPE_NAME[dtype]}.yaml")
+    path = os.path.join(exp_dir, f"train_{DTYPE_NAME[dtype]}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path
 
 
-def per_step_launches() -> dict:
+def per_step_launches(model_cfg=FLAGSHIP) -> dict:
     """Kernel launches of one training step (and of one dev batch) of the
-    flagship: every LayerNorm and every attention of the module once."""
+    flagship: every LayerNorm and every attention of the module once, and
+    the fbank kernel once for an online model."""
     from openasr_torch.config import Config
     from openasr_torch.models.layers import LayerNorm, MultiHeadAttention
     from openasr_torch.models.speech import ConvCTCTransformerModule
 
     with torch.device("meta"):
-        module = ConvCTCTransformerModule(Config(FLAGSHIP))
+        module = ConvCTCTransformerModule(Config(model_cfg))
     n_ln = sum(isinstance(m, LayerNorm) for m in module.modules())
     n_attn = sum(isinstance(m, MultiHeadAttention) for m in module.modules())
-    return {"train": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
-                      "flash_attention_fwd_dropout": n_attn,
-                      "flash_attention_bwd_dkv": n_attn, "flash_attention_bwd_dq": n_attn},
-            "dev": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn}}
+    n_fbank = int(module.splayer.feature_type == "fbank")
+    per = {"train": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+                     "flash_attention_fwd_dropout": n_attn,
+                     "flash_attention_bwd_dkv": n_attn, "flash_attention_bwd_dq": n_attn},
+           "dev": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn}}
+    if n_fbank:
+        per["train"]["fbank"] = per["dev"]["fbank"] = n_fbank
+    return per
 
 
 def leaves(tree, prefix=""):
@@ -565,23 +739,26 @@ def leaves(tree, prefix=""):
         yield prefix, np.asarray(tree)
 
 
-def phase_train(train_json, dev_json, vocab, launches, shapes):
+def phase_train(train_json, dev_json, vocab, launches, online=False):
     """Train one epoch + dev pass through the CLI in f32 and bf16, from one
-    initial package; counters reset just before each run and read just
-    after."""
+    initial package, on offline features (the flagship YAML) or on waves
+    (the online flagship YAML); counters reset just before each run and
+    read just after."""
     from openasr_torch.bin import train
     from openasr_torch.models import get_model_class
     from openasr_torch.utils.checkpoint import load_package
 
-    per = per_step_launches()
+    model_cfg, yaml_path = (online_model(), ONLINE_YAML) if online else (FLAGSHIP, FLAGSHIP_YAML)
+    tag = "online train" if online else "train"
+    per = per_step_launches(model_cfg)
     for dtype in DTYPES:
         name = DTYPE_NAME[dtype]
-        exp = os.path.join(WORK, f"exp_{name}")
+        exp = os.path.join(WORK, f"exp_{tag.replace(' ', '_')}_{name}")
         os.makedirs(exp)
         init = save_flagship_package(
             os.path.join(exp, "last.pkg"),
-            {"epoch": 0, "step": 0, "tr_loss": [], "cv_loss": []})
-        cfg = train_config(train_json, dev_json, vocab, exp, dtype)
+            {"epoch": 0, "step": 0, "tr_loss": [], "cv_loss": []}, model_cfg)
+        cfg = train_config(train_json, dev_json, vocab, exp, dtype, yaml_path)
         reset_counters()
         t0 = time.time()
         train.main([cfg, "--continue-training", "--device", "cuda"])
@@ -595,7 +772,7 @@ def phase_train(train_json, dev_json, vocab, launches, shapes):
         steps, dev_batches = len(tr), len(cv)
         losses = [v for r in rows for k, v in r.items() if k.endswith("loss")]
         step_s = [b["time"] - a["time"] for a, b in zip(tr, tr[1:])]
-        print(f"[train path] {name}: {steps} steps + {dev_batches} dev batch(es) in "
+        print(f"[{tag} path] {name}: {steps} steps + {dev_batches} dev batch(es) in "
               f"{wall:.2f}s wall; per-step host s after the first {step_s}; "
               f"losses {[round(r['ctc_loss'], 4) for r in tr]} (ctc), "
               f"{[round(r['ce_loss'], 4) for r in tr]} (ce); launches {n}")
@@ -609,19 +786,19 @@ def phase_train(train_json, dev_json, vocab, launches, shapes):
         require(n == want, f"launches {n} != {want} "
                            f"({per['train']} a step, {per['dev']} a dev batch)")
         require(min(n[k] for k in per["train"]) > 0, "a kernel of the path never launched")
-        launches[("train", dtype)] = {"total": n, "steps": steps, "dev_batches": dev_batches}
+        launches[(tag, dtype)] = {"total": n, "steps": steps, "dev_batches": dev_batches}
 
         last = load_package(os.path.join(exp, "last.pkg"))
         require(last["solver_state"]["step"] == steps and
                 last["optim_state"]["count"] == steps, "last.pkg holds the wrong step")
-        model = get_model_class("conv-ctc-transformer").create_model(FLAGSHIP, device="cuda")
+        model = get_model_class("conv-ctc-transformer").create_model(model_cfg, device="cuda")
         model.restore(last["model"])
         before = dict(leaves(init["model"]["components"]))
         after = dict(leaves(last["model"]["components"]))
         matrices = [k for k, v in before.items() if v.ndim >= 2]
         changed = [k for k in matrices if not np.array_equal(before[k], after[k])]
         finite = all(np.isfinite(v).all() for v in after.values())
-        print(f"[train path] {name}: last.pkg reloads at step {steps}; "
+        print(f"[{tag} path] {name}: last.pkg reloads at step {steps}; "
               f"{len(changed)}/{len(matrices)} weight matrices changed; finite {finite}")
         require(finite and len(changed) == len(matrices),
                 f"unchanged weights: {sorted(set(matrices) - set(changed))[:5]}")
@@ -686,6 +863,25 @@ def train_shapes(train_json):
         if best is None or len(batch) * t > best["b"] * best["t"]:
             best = {"b": len(batch), "t": t, "enc_lens": lens, "u": u}
     return best
+
+
+def online_train_batch(train_json, waves):
+    """The online training path's largest batch (by padded samples): its
+    utterances and the corpus's waves."""
+    import yaml
+
+    from openasr_torch.config import parse_range
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.data.manifest import SpeechDataset
+    from openasr_torch.data.sampler import TimeBasedSampler
+
+    with open(ONLINE_YAML) as f:
+        cfg = yaml.safe_load(f)
+    ds = SpeechDataset(train_json, feat_range=parse_range(cfg["data"]["feat_range"]),
+                       label_range=parse_range(cfg["data"]["label_range"]))
+    batches = TimeBasedSampler(ds, int(cfg["training"]["batch_time"])).batches
+    best = max(batches, key=lambda b: len(b) * quantize(max(ds[i]["feat_length"] for i in b)))
+    return {"utts": [ds[i]["uttid"] for i in best], "waves": waves}
 
 
 def encoder_shapes(feats):
@@ -810,6 +1006,73 @@ def fwd_rows(feats, errs, launches):
     return rows
 
 
+def fbank_ops_per_frame(cfg) -> dict:
+    """Operations of one frame's log-mel: `function`, what the fbank needs
+    (DC removal, preemphasis and window, 5 a sample; a real FFT of nfft
+    points, 2.5 nfft log2 nfft; the power, 3 a bin; the mel product over
+    the banks' nonzeros, 2 each; max and log, 2 a bin), and `folded`, what
+    the kernel's folded products do (4 ws F for re and im, 2 F M)."""
+    from openasr_torch.ops.fbank import mel_banks
+
+    ws, nfft, m = cfg.window_size, cfg.padded_window_size, cfg.num_mel_bins
+    f = nfft // 2 + 1
+    nnz = int(np.count_nonzero(mel_banks(cfg)))
+    return {"function": 5 * ws + 2.5 * nfft * float(np.log2(nfft)) + 3 * f + 2 * nnz + 2 * m,
+            "folded": 4 * ws * f + 2 * f * m}
+
+
+def fbank_rows(train_batch, test_waves, errs, launches):
+    """The fused fbank kernel at the online paths' batches (f32 only: the
+    frontend always runs in f32)."""
+    from openasr_torch.kernels.fbank import fbank_reference, fused_fbank
+    from openasr_torch.ops.fbank import FbankConfig, rfft_fbank
+
+    cfg = FbankConfig()
+    ws, m = cfg.window_size, cfg.num_mel_bins
+    ops = fbank_ops_per_frame(cfg)
+    rows = []
+    for path, waves, utts in (("train", train_batch["waves"], train_batch["utts"]),
+                              ("decode", test_waves, sorted(test_waves))):
+        x, lens = fbank_batch(waves, utts)
+        frames, feat_lens = fbank_inputs(x, lens, cfg, False)
+        b, t, _ = frames.shape
+        run = launches[(f"online {path}", torch.float32)]
+        n_valid = int(feat_lens.sum())
+        # the composite computes every frame it is given: give it the valid
+        # ones only, gathered before the timing, as the kernel skips padding
+        valid = torch.arange(t, device="cuda")[None, :] < feat_lens[:, None]
+        valid_frames = frames[valid]
+        # samples read once, every output written, the frame counts read
+        nbytes = 4 * int(lens.sum()) + 4 * b * t * m + 4 * b
+        rows.append({
+            "name": f"fbank[{path}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/fbank.cu",
+            "replaces": "openasr_tpu/kernels/fbank_fused.py:90",
+            "shape": [b, t, ws],
+            "launches": run.get("total", run)["fbank"],
+            "launches_are": f"the online {path} path's, in f32 (in bf16 the same)",
+            "max_abs_err": errs["fbank"],
+            "tol": TOL_FBANK,
+            "max_rel_err_no_log": errs["fbank_mel_rel"],
+            "tol_no_log": TOL_FBANK_REL,
+            "valid_frames": n_valid,
+            **times(lambda: fused_fbank(frames, feat_lens, cfg),
+                    lambda: fbank_reference(frames, feat_lens, cfg),
+                    lambda: rfft_fbank(valid_frames, cfg)),
+            "plain_is": "the folded products over all B.T frames, then masked",
+            "library_is": "several calls, the cuFFT composite (ops.fbank.rfft_fbank): DC "
+                          "removal, preemphasis and window, torch.fft.rfft, power, the mel "
+                          "matmul and the log, over the valid frames only (gathered "
+                          "before the timing)",
+            # what the log-mel needs over the valid frames (an FFT, the mel
+            # banks' nonzeros); the kernel's folded products in their own key
+            **bound(nbytes, n_valid * ops["function"], torch.float32),
+            "folded_bound_ms": bound(nbytes, n_valid * ops["folded"], torch.float32)["bound_ms"],
+        })
+    return rows
+
+
 def bwd_errs(err, tol) -> dict:
     """Row keys of a backward kernel's errors over every checked case."""
     return {"max_abs_err": err[0], "max_scaled_err": err[1], "tol": tol,
@@ -856,7 +1119,7 @@ def train_rows(shapes, errs, launches, per):
 
         def launch_keys(key):
             return {"launches": tr["total"][key],
-                    "launches_per_step": per["train"][key]}
+                    "launches_per_step": per["train"].get(key, 0)}
 
         # LayerNorm backward over the encoder's rows
         n = b * t
@@ -864,6 +1127,7 @@ def train_rows(shapes, errs, launches, per):
         dy = torch.from_numpy(rng.randn(n, dm).astype(np.float32)).to("cuda", dtype)
         _, mean, rstd = layer_norm_reference(x, g, beta)
         xl, gl, bl = (z.clone().requires_grad_() for z in (x, g.to(dtype), beta.to(dtype)))
+        lib_ln_ms = backward_ms(lambda: F.layer_norm(xl, (dm,), gl, bl, 1e-6), (xl, gl, bl), dy)
         rows.append({
             "name": f"layer_norm_bwd[{name}]",
             "route": "cuda",
@@ -874,11 +1138,30 @@ def train_rows(shapes, errs, launches, per):
             **bwd_errs(errs[("layer_norm_bwd", dtype)], TOL_LN_BWD[dtype]),
             "ms": device_ms(lambda: layer_norm_bwd(x, dy, g, mean, rstd)),
             "plain_ms": device_ms(lambda: layer_norm_bwd_reference(x, dy, g, mean, rstd)),
-            "library_ms": backward_ms(lambda: F.layer_norm(xl, (dm,), gl, bl, 1e-6),
-                                      (xl, gl, bl), dy),
+            "library_ms": lib_ln_ms,
             "library_is": "F.layer_norm forward + backward minus forward (graph replay)",
             # x, dy read and dx written; mean, rstd, gamma read; dgamma, dbeta written
             **bound(3 * n * dm * es + 2 * n * 4 + 3 * dm * 4, 13 * n * dm, torch.float32),
+        })
+        # the same kernel's dx-only mode (the JAX package's _bwd_dx_kernel)
+        rows.append({
+            "name": f"layer_norm_bwd_dx[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/layer_norm.cu",
+            "replaces": "openasr_tpu/kernels/layer_norm.py:69",
+            "shape": [n, dm],
+            **launch_keys("layer_norm_bwd_dx"),
+            "launches_are": "the training path's (on no path of the port: the JAX package "
+                            "runs it under SPMD only)",
+            **bwd_errs(errs[("layer_norm_bwd_dx", dtype)], TOL_LN_BWD[dtype]),
+            "ms": device_ms(lambda: layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)),
+            "plain_ms": device_ms(lambda: layer_norm_bwd_reference(x, dy, g, mean, rstd,
+                                                                   dgamma_dbeta=False)),
+            "library_ms": lib_ln_ms,
+            "library_is": "F.layer_norm forward + backward minus forward (graph replay); "
+                          "it also computes dgamma and dbeta",
+            # x, dy read and dx written; mean, rstd, gamma read
+            **bound(3 * n * dm * es + 2 * n * 4 + dm * 4, 9 * n * dm, torch.float32),
         })
 
         # attention at the encoder's self-attention shape
@@ -1014,13 +1297,21 @@ def main() -> int:
         test_json, test_feats = write_corpus("test", rng, chars, 8, (600, 1200), (12, 12))
         train_json, train_feats = write_corpus("train", rng, chars, 128, (400, 512), (20, 24))
         dev_json, _ = write_corpus("dev", rng, chars, 16, (400, 512), (20, 24))
+        wtest_json, wtest = write_wave_corpus("wtest", rng, chars, 8, (160000, 217600),
+                                              (12, 12))
+        wtrain_json, wtrain = write_wave_corpus("wtrain", rng, chars, 128, (64000, 83200),
+                                                (20, 24))
+        wdev_json, _ = write_wave_corpus("wdev", rng, chars, 16, (64000, 83200), (20, 24))
         shapes = train_shapes(train_json)
+        wbatch = online_train_batch(wtrain_json, wtrain)
         print(f"[shapes] training path's largest batch: B {shapes['b']}, T' {shapes['t']}, "
-              f"U {shapes['u']}")
+              f"U {shapes['u']}; online: B {len(wbatch['utts'])}")
+        print(f"[time] corpora written at {time.time() - t_start:.1f}s")
         phase_layer_norm(errs)
         phase_layer_norm_bwd(errs, shapes["b"] * shapes["t"])
         phase_flash(errs)
         phase_flash_bwd(errs, shapes)
+        phase_fbank(errs, wbatch, wtest)
         print(f"[time] kernel checks done at {time.time() - t_start:.1f}s")
 
         pkg = os.path.join(WORK, "flagship.pkg")
@@ -1028,10 +1319,18 @@ def main() -> int:
         phase_decode(pkg, vocab, test_json, launches)
         check_logits_against_cpu(pkg, test_feats)
         print(f"[time] decode path done at {time.time() - t_start:.1f}s")
-        per = phase_train(train_json, dev_json, vocab, launches, shapes)
+        per = phase_train(train_json, dev_json, vocab, launches)
         check_grads_against_cpu(pkg, train_feats)
         print(f"[time] training path done at {time.time() - t_start:.1f}s")
-        rows = fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
+        online_pkg = os.path.join(WORK, "flagship_online.pkg")
+        save_flagship_package(online_pkg, model_cfg=online_model())
+        phase_decode(online_pkg, vocab, wtest_json, launches, online=True)
+        check_features_against_cpu(wtest)
+        print(f"[time] online decode path done at {time.time() - t_start:.1f}s")
+        phase_train(wtrain_json, wdev_json, vocab, launches, online=True)
+        print(f"[time] online training path done at {time.time() - t_start:.1f}s")
+        rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
+                + fbank_rows(wbatch, wtest, errs, launches))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

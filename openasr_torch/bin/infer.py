@@ -3,13 +3,16 @@
 Counterpart of openasr_tpu/bin/infer.py with the same flags, model
 reconstruction from the packaged configs (optional --config override),
 n-best logging and `utt hyp` output lines, plus `--device {cuda,cpu}`.
-It decodes offline features (`--offline`) with the attention beam of
-conv-transformer / conv-ctc-transformer.  The other paths of the JAX CLI
-exit with the ROADMAP item that will port them.
+It decodes with the attention beam of conv-transformer /
+conv-ctc-transformer, from offline features (`--offline`, batches of
+`--batch_frames` frames) or from wave manifests through the model's fbank
+frontend (no `--offline`; `--batch_frames` is then a budget of samples, so
+its default of 2000 gives each utterance a batch of its own).  The other
+paths of the JAX CLI exit with the ROADMAP item that will port them.
 
   python -m openasr_torch.bin.infer --model_type conv-ctc-transformer \\
       --model_pkg last.pkg --vocab_path chars.txt --json_file test.json \\
-      --output hyp.txt --offline --add_blk
+      --output hyp.txt --add_blk
 """
 
 from __future__ import annotations
@@ -24,10 +27,10 @@ import numpy as np
 import torch
 
 from openasr_torch.config import Config, load_config
-from openasr_torch.data.collate import FeatureCollate
+from openasr_torch.data.collate import FeatureCollate, WaveCollate
 from openasr_torch.data.loader import DataLoader
-from openasr_torch.data.manifest import ArkDataset
-from openasr_torch.data.sampler import FrameBasedSampler
+from openasr_torch.data.manifest import ArkDataset, SpeechDataset
+from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer
 from openasr_torch.models import get_model_class
 from openasr_torch.utils.checkpoint import load_package
@@ -97,11 +100,6 @@ def check_ported(args) -> None:
             "--context_file hotword biasing is ROADMAP queue 1 item 7 "
             "(Aho-Corasick biasing in ops/beam_search.py)"
         )
-    if not args.offline:
-        raise SystemExit(
-            "online wave input (no --offline) is ROADMAP queue 1 item 8 "
-            "(online frontend: fbank, fused fbank kernel)"
-        )
 
 
 def resolve_device(name: str) -> torch.device:
@@ -144,10 +142,21 @@ def main(argv=None):
     )
     model.restore(model_pkg)
 
-    test_set = ArkDataset(args.json_file, feat_range=(1, 10**9),
-                          label_range=(0, 10**9), rate_in_out=(0, 10**9))
-    collate = FeatureCollate(tokenizer, False, label_type=args.label_type)
-    sampler = FrameBasedSampler(test_set, args.batch_frames, 1)
+    ranges = {"feat_range": (1, 10**9), "label_range": (0, 10**9),
+              "rate_in_out": (0, 10**9)}
+    if args.offline:
+        test_set = ArkDataset(args.json_file, **ranges)
+        collate = FeatureCollate(tokenizer, False, label_type=args.label_type)
+        sampler = FrameBasedSampler(test_set, args.batch_frames, 1)
+    else:
+        signal = configs.signal or {}
+        test_set = SpeechDataset(args.json_file, **ranges)
+        collate = WaveCollate(
+            tokenizer, False, label_type=args.label_type,
+            expected_rate=signal.get("sample_rate", 16000)
+            if signal.get("feature_type") == "fbank" else None,
+        )
+        sampler = TimeBasedSampler(test_set, args.batch_frames, 1)
     loader = DataLoader(test_set, sampler, collate, num_workers=2)
 
     out_path = args.output.strip()
@@ -161,12 +170,12 @@ def main(argv=None):
     tot_utt = 0
     try:
         for batch in loader:
-            feats, lengths = model.batch_inputs(batch)
+            inputs, lengths = model.batch_inputs(batch)
             utts = batch["uttids"]
-            bucket = tuple(np.shape(feats))
+            bucket = tuple(np.shape(inputs))
             t_batch = time.time()
             pred_ids, len_dec, sc = model.batch_beam_decode(
-                torch.from_numpy(feats).to(device),
+                torch.from_numpy(inputs).to(device),
                 torch.from_numpy(lengths).to(device),
                 beam_size=args.nbest, max_decode_len=args.maxlen,
                 empty_rows=model.has_empty_rows(lengths),

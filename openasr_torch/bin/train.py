@@ -3,9 +3,12 @@
 Counterpart of openasr_tpu/bin/train.py on one device, with the same YAML
 schema (data / model / training), model-type dispatch, `--continue-training`
 (restore exp_dir/last.pkg) and `training.pretrained_model` warm start (the
-output layers stay fresh, init_lr * 0.1).  It trains offline-feature
-models (conv-ctc-transformer, conv-transformer, conv-ctc) on the card by
-default, `--device cpu` on the CPU; without a card `--device cuda` raises.
+output layers stay fresh, init_lr * 0.1).  It trains conv-ctc-transformer,
+conv-transformer and conv-ctc on offline features (`signal.feature_type:
+offline`, batches of `training.batch_frames` frames) or on raw waves
+through the fbank frontend (`feature_type: fbank`, batches of
+`training.batch_time` samples), on the card by default, `--device cpu` on
+the CPU; without a card `--device cuda` raises.
 `training.compute_dtype: bfloat16` runs the forward in bf16 over f32
 weights.  The multi-device flags exit naming their ROADMAP item.
 
@@ -22,10 +25,10 @@ import torch
 
 from openasr_torch.bin.infer import resolve_device
 from openasr_torch.config import load_config, parse_range, validate_config
-from openasr_torch.data.collate import FeatureCollate
+from openasr_torch.data.collate import FeatureCollate, WaveCollate
 from openasr_torch.data.loader import DataLoader
-from openasr_torch.data.manifest import ArkDataset
-from openasr_torch.data.sampler import FrameBasedSampler
+from openasr_torch.data.manifest import ArkDataset, SpeechDataset
+from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer
 from openasr_torch.models import get_model_class
 from openasr_torch.solvers import DTYPES, get_solver_class
@@ -48,19 +51,30 @@ def setup_logging():
 
 def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer):
     """Train loader (batches shuffled per epoch) and dev loader (longest
-    utterances first), packed by cumulative frames."""
+    utterances first): offline features packed by cumulative frames, or
+    waves packed by cumulative samples and checked against the signal's
+    sample rate."""
     feat_range = parse_range(dataconfig.get("feat_range")) or (1, 99999)
     label_range = parse_range(dataconfig.get("label_range")) or (1, 100)
     label_type = trainingconfig.get("label_type", "tokens")
     workers = int(dataconfig.get("fetchworker_num", 2))
-    frames = int(trainingconfig["batch_frames"])
-    train_set = ArkDataset(dataconfig["trainset"], feat_range=feat_range,
-                           label_range=label_range)
-    valid_set = ArkDataset(dataconfig["devset"], reverse=True)
-    collate = FeatureCollate(tokenizer, modelconfig.get("add_eos", False), label_type)
-    tr = DataLoader(train_set, FrameBasedSampler(train_set, frames, 1, shuffle=True),
+    add_eos = modelconfig.get("add_eos", False)
+    signal = modelconfig["signal"]
+    if signal["feature_type"] == "offline":
+        dataset, sampler = ArkDataset, FrameBasedSampler
+        budget = int(trainingconfig["batch_frames"])
+        collate = FeatureCollate(tokenizer, add_eos, label_type)
+    else:
+        dataset, sampler = SpeechDataset, TimeBasedSampler
+        budget = int(trainingconfig["batch_time"])
+        collate = WaveCollate(tokenizer, add_eos, label_type,
+                              expected_rate=signal.get("sample_rate", 16000))
+    train_set = dataset(dataconfig["trainset"], feat_range=feat_range,
+                        label_range=label_range)
+    valid_set = dataset(dataconfig["devset"], reverse=True)
+    tr = DataLoader(train_set, sampler(train_set, budget, 1, shuffle=True),
                     collate, num_workers=workers)
-    cv = DataLoader(valid_set, FrameBasedSampler(valid_set, frames, 1, shuffle=False),
+    cv = DataLoader(valid_set, sampler(valid_set, budget, 1, shuffle=False),
                     collate, num_workers=workers)
     return tr, cv
 
@@ -77,17 +91,20 @@ def check_ported(args, config) -> None:
     if "feature_type" not in sig:
         raise ValueError(
             "config: model.signal.feature_type is required ('offline' for "
-            "precomputed features)"
+            "precomputed features, 'fbank' for the online wave frontend)"
         )
-    if sig["feature_type"] != "offline":
+    if sig["feature_type"] in ("wave", "wav_conv"):
         raise SystemExit(
-            f"signal.feature_type {sig['feature_type']!r}: the online wave "
-            "frontend is ROADMAP queue 1 item 8"
+            f"signal.feature_type {sig['feature_type']!r}: the raw-wave encoders "
+            "(WavConv, GRU-CTC, CPC, wav2vec) are ROADMAP queue 1 item 13"
         )
-    if "batch_frames" not in config["training"]:
+    offline = sig["feature_type"] == "offline"
+    budget_key = "batch_frames" if offline else "batch_time"
+    if budget_key not in config["training"]:
         raise ValueError(
-            "config: training.batch_frames is required for the offline-feature "
-            "pipeline (cumulative frames per batch)"
+            f"config: training.{budget_key} is required for the "
+            f"{'offline-feature' if offline else 'online-wave'} pipeline "
+            f"({'cumulative frames' if offline else 'cumulative samples'} per batch)"
         )
 
 

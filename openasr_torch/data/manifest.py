@@ -1,9 +1,10 @@
-"""Json manifest dataset for offline features, length-sorted and filtered.
+"""Manifest datasets, length-sorted and filtered.
 
-Counterpart of `load_json_manifest` and `ArkDataset` in
-openasr_tpu/data/manifest.py.  Manifests carry `uttid / feat /
-feat_length / tokens / token_length` rows; a path may also be a directory
-of *.json files.
+Counterpart of `load_json_manifest`, `load_flist`, `SpeechDataset` and
+`ArkDataset` in openasr_tpu/data/manifest.py.  Json manifests carry
+`uttid / feat / feat_length / tokens / token_length` rows (for waves,
+`feat` is an audio path or scheme and `feat_length` its sample count); a
+path may also be a directory of *.json files.
 """
 
 from __future__ import annotations
@@ -56,21 +57,39 @@ def load_json_manifest(
     return kept
 
 
-class ArkDataset:
-    """Offline (precomputed Kaldi feature) dataset sorted by feat_length
-    (longest first with `reverse`, as the dev sets are read)."""
+def load_flist(flist_path: str, x_range=(1, 9999)) -> List[dict]:
+    """`path<TAB>num_samples` lists (wave lists without labels)."""
+    data = []
+    with open(flist_path) as f:
+        for i, line in enumerate(f):
+            fields = line.strip().split()
+            if len(fields) < 2:
+                continue
+            length = int(fields[1])
+            if x_range[0] <= length <= x_range[1]:
+                data.append({"uttid": str(i), "feat": fields[0], "feat_length": length})
+    return data
+
+
+class SpeechDataset:
+    """Online (wave) dataset from .json or .flist manifests, sorted by
+    feat_length, the sample count (longest first with `reverse`, as the
+    dev sets are read)."""
 
     def __init__(
         self,
-        json_path: str,
+        data_file: str,
         feat_range=(1, 99999),
         label_range=(1, 100),
-        rate_in_out=(4, 999),
+        rate_in_out=(4, 99999),
         reverse: bool = False,
     ):
-        data = load_json_manifest(
-            json_path, x_range=feat_range, y_range=label_range, rate=rate_in_out
-        )
+        if data_file.endswith(".flist"):
+            data = load_flist(data_file, x_range=feat_range)
+        else:
+            data = load_json_manifest(
+                data_file, x_range=feat_range, y_range=label_range, rate=rate_in_out
+            )
         self.data = sorted(data, key=lambda s: float(s["feat_length"]))
         if reverse:
             self.data.reverse()
@@ -80,3 +99,18 @@ class ArkDataset:
 
     def __len__(self) -> int:
         return len(self.data)
+
+
+class ArkDataset(SpeechDataset):
+    """Offline (precomputed Kaldi feature) dataset sorted by feat_length,
+    the frame count."""
+
+    def __init__(
+        self,
+        json_path: str,
+        feat_range=(1, 99999),
+        label_range=(1, 100),
+        rate_in_out=(4, 999),
+        reverse: bool = False,
+    ):
+        super().__init__(json_path, feat_range, label_range, rate_in_out, reverse)

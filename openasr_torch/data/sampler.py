@@ -1,11 +1,12 @@
-"""Frame-budget batch sampler.
+"""Budget batch samplers.
 
-Counterpart of `BudgetBatchSampler` / `FrameBasedSampler` in
-openasr_tpu/data/sampler.py: greedily pack length-sorted samples until a
-cumulative frame budget is met, with the batch size divisible by the
-data-parallel degree.  With `shuffle`, every pass permutes the whole
-batches with one seeded `np.random.RandomState`, so the order matches the
-JAX package's epoch for epoch.
+Counterpart of `BudgetBatchSampler`, `TimeBasedSampler` and
+`FrameBasedSampler` in openasr_tpu/data/sampler.py: greedily pack
+length-sorted samples until a cumulative `feat_length` budget is met
+(samples for wave datasets, frames for feature datasets), with the batch
+size divisible by the data-parallel degree.  With `shuffle`, every pass
+permutes the whole batches with one seeded `np.random.RandomState`, so the
+order matches the JAX package's epoch for epoch.
 """
 
 from __future__ import annotations
@@ -15,28 +16,27 @@ from typing import Iterator, List, Sequence
 import numpy as np
 
 
-class FrameBasedSampler:
-    """Pack batches until cumulative feat_length >= `frames`, batch size
-    divisible by `ngpu`."""
+class BudgetBatchSampler:
+    """Pack batches until cumulative `feat_length` >= budget, batch size
+    divisible by `divisible_by`."""
 
     def __init__(
         self,
         dataset: Sequence[dict],
-        frames: float = 200,
-        ngpu: int = 1,
+        budget: float,
+        divisible_by: int = 1,
         shuffle: bool = False,
         seed: int = 0,
     ):
         self.shuffle = shuffle
         self._rng = np.random.RandomState(seed)
-        divisible_by = max(ngpu, 1)
         batches: List[List[int]] = []
         batch: List[int] = []
         acc = 0.0
         for idx in range(len(dataset)):
             batch.append(idx)
             acc += float(dataset[idx]["feat_length"])
-            if acc >= frames and len(batch) % divisible_by == 0:
+            if acc >= budget and len(batch) % divisible_by == 0:
                 batches.append(batch)
                 batch = []
                 acc = 0.0
@@ -56,3 +56,19 @@ class FrameBasedSampler:
 
     def __len__(self) -> int:
         return len(self.batches)
+
+
+class TimeBasedSampler(BudgetBatchSampler):
+    """Budget in cumulative samples (online wave datasets)."""
+
+    def __init__(self, dataset, duration=200, ngpu=1, shuffle=False, seed=0):
+        super().__init__(dataset, budget=duration, divisible_by=max(ngpu, 1),
+                         shuffle=shuffle, seed=seed)
+
+
+class FrameBasedSampler(BudgetBatchSampler):
+    """Budget in cumulative frames (offline feature datasets)."""
+
+    def __init__(self, dataset, frames=200, ngpu=1, shuffle=False, seed=0):
+        super().__init__(dataset, budget=frames, divisible_by=max(ngpu, 1),
+                         shuffle=shuffle, seed=seed)

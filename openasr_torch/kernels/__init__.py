@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("layer_norm.cu", "flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("layer_norm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fbank.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -138,6 +138,13 @@ def library() -> ctypes.CDLL:
         lib.openasr_flash_attention_bwd_dkv.restype = i
         lib.openasr_flash_attention_bwd_dq.argtypes = [p] * 8 + bwd_tail
         lib.openasr_flash_attention_bwd_dq.restype = i
+        lib.openasr_fbank.argtypes = [
+            p, p, p, p, p,           # frames, cs, mel, feat_lengths, out
+            i, i, i, i, i,           # B, T, ws, K, M
+            i64, i64,                # frames' batch and frame strides
+            i, i, p,                 # use_log, device, stream
+        ]
+        lib.openasr_fbank.restype = i
         lib.openasr_cuda_error_string.argtypes = [i]
         lib.openasr_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

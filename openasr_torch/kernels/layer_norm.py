@@ -152,9 +152,10 @@ def layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta: bool = True):
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(code, "layer_norm_bwd")
-    layer_norm_bwd.launches += 1
     if not dgamma_dbeta:
+        layer_norm_bwd.dx_launches += 1
         return dx.reshape(x.shape), None, None
+    layer_norm_bwd.launches += 1
     return dx.reshape(x.shape), dg_part.sum(0), db_part.sum(0)
 
 
@@ -186,6 +187,8 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return _layer_norm_fwd(x, scale, bias, eps)
 
 
-# kernel launches since the last reset (the plain route never counts)
+# kernel launches since the last reset (the plain route never counts);
+# layer_norm_bwd counts its partials mode and its dx-only mode apart
 fused_layer_norm.launches = 0
 layer_norm_bwd.launches = 0
+layer_norm_bwd.dx_launches = 0

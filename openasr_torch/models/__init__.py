@@ -164,12 +164,19 @@ class Framework:
         self.module.load_state_dict(state, strict=True)
 
     def batch_inputs(self, batch: dict):
-        """Offline feature inputs of a collated batch."""
-        return batch["feats"], batch["feat_lengths"]
+        """The model's inputs of a collated batch: waves and sample counts
+        for an fbank frontend, else features and frame counts."""
+        if self.configs.signal and self.configs.signal.get("feature_type") == "fbank":
+            return batch["waves"], batch["wave_lengths"]
+        if "feats" in batch:
+            return batch["feats"], batch["feat_lengths"]
+        return batch["waves"], batch["wave_lengths"]
 
-    def has_empty_rows(self, feat_lengths) -> bool:
-        """Whether an utterance of the host's (NumPy) `feat_lengths`
-        subsamples to no encoder frame: the `empty_rows` the forwards take,
-        so that they read nothing back from the card for it."""
-        lengths = self.module.encoder.sub.output_lengths(np.asarray(feat_lengths))
+    def has_empty_rows(self, input_lengths) -> bool:
+        """Whether an utterance of the host's (NumPy) `input_lengths` (as
+        `batch_inputs` gives them: samples for an fbank frontend, frames
+        offline) subsamples to no encoder frame: the `empty_rows` the
+        forwards take, so that they read nothing back from the card for
+        it."""
+        lengths = self.module.encoder_lengths(np.asarray(input_lengths))
         return bool((lengths <= 0).any())

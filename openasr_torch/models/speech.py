@@ -23,6 +23,7 @@ from openasr_torch.models.encoder import TransformerEncoder
 from openasr_torch.models.frontend import SPLayer
 from openasr_torch.models.layers import TrainRNG, any_empty
 from openasr_torch.ops.beam_search import batch_beam_search, beam_expand
+from openasr_torch.ops.fbank import fbank_config_from_model_cfg
 from openasr_torch.ops.losses import cal_ce_loss, cal_ctc_loss
 from openasr_torch.ops.masks import padding_bias
 
@@ -33,8 +34,17 @@ def target_lengths_of(paddings: torch.Tensor) -> torch.Tensor:
 
 
 def splayer_from_config(signal_cfg) -> SPLayer:
+    """The frontend of `model.signal`: its feature type, the fbank config
+    of an online model, SpecAugment, and dither (off unless
+    `signal.dither` is set, though FbankConfig's own default is 1.0)."""
     signal_cfg = signal_cfg or {}
-    return SPLayer(signal_cfg.get("feature_type", "offline"), signal_cfg.get("spec_aug"))
+    feature_type = signal_cfg.get("feature_type", "offline")
+    return SPLayer(
+        feature_type,
+        fbank_config_from_model_cfg(signal_cfg) if feature_type == "fbank" else None,
+        signal_cfg.get("spec_aug"),
+        apply_dither=bool(signal_cfg.get("dither", False)),
+    )
 
 
 def _f32_head(head: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +66,11 @@ class ConvTransformerModule(nn.Module):
         self.encoder = TransformerEncoder.from_config(configs.encoder)
         self.decoder = transformer_decoder_from_config(configs.decoder)
 
+    def encoder_lengths(self, input_lengths):
+        """Encoder frames of the inputs' lengths (samples for an fbank
+        frontend, feature frames offline)."""
+        return self.encoder.sub.output_lengths(self.splayer.output_lengths(input_lengths))
+
     def encode(self, inputs, input_lengths, rng: Optional[TrainRNG] = None,
                empty_rows: Optional[bool] = None):
         x, lens = self.splayer(inputs, input_lengths, rng)
@@ -65,7 +80,7 @@ class ConvTransformerModule(nn.Module):
                 empty_rows: Optional[bool] = None):
         """`empty_rows` (some encoder length <= 0) is decided once, for the
         encoder and the decoder's cross-attention."""
-        empty_rows = any_empty(self.encoder.sub.output_lengths(input_lengths), empty_rows)
+        empty_rows = any_empty(self.encoder_lengths(input_lengths), empty_rows)
         enc, elens = self.encode(inputs, input_lengths, rng, empty_rows)
         return self.decoder(enc, elens, ids, rng, empty_rows)
 
@@ -81,7 +96,7 @@ class ConvCTCTransformerModule(ConvTransformerModule):
     def forward(self, inputs, input_lengths, ids, rng: Optional[TrainRNG] = None,
                 empty_rows: Optional[bool] = None):
         """-> (ctc_logits [B, T', V] f32, encoder lengths [B], ce_logits [B, U, V])."""
-        empty_rows = any_empty(self.encoder.sub.output_lengths(input_lengths), empty_rows)
+        empty_rows = any_empty(self.encoder_lengths(input_lengths), empty_rows)
         enc, elens = self.encode(inputs, input_lengths, rng, empty_rows)
         return (_f32_head(self.ctc_fc, enc), elens,
                 self.decoder(enc, elens, ids, rng, empty_rows))
@@ -96,6 +111,8 @@ class ConvCTCModule(nn.Module):
             int(configs.encoder["d_model"]), int(configs.decoder["vocab_size"]),
             bias=False,
         )
+
+    encoder_lengths = ConvTransformerModule.encoder_lengths
 
     def forward(self, inputs, input_lengths, rng: Optional[TrainRNG] = None,
                 empty_rows: Optional[bool] = None):

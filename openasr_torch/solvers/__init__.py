@@ -8,8 +8,10 @@ gradients of `accumulate_grad_batch` micro-batches summed, then one
 update), and the loss normalizations: CE by tokens, CTC by sequences,
 over each batch.
 
-Each train step runs the model's loss forward with a `TrainRNG` reseeded
-from the step (dropout, attention dropout, SpecAugment), then backward
+Batches carry offline features or raw waves, as the model's
+`batch_inputs` reads them.  Each train step runs the model's loss forward
+with a `TrainRNG` reseeded from the step (dropout, attention dropout,
+SpecAugment, dither), then backward
 through the Hopper kernels on the card.  `training.compute_dtype:
 bfloat16` keeps the f32 weights, gradients and optimizer and runs the
 forward under bf16 autocast, as the JAX package computes in bf16 over f32
@@ -205,7 +207,7 @@ class Solver:
         n_micro = 0
         for niter, batch in enumerate(loader, start=1):
             arrays = batch_to_device(batch, self.device)
-            empty_rows = self.model.has_empty_rows(batch["feat_lengths"])
+            empty_rows = self.model.has_empty_rows(self.model.batch_inputs(batch)[1])
             if cross_valid:
                 losses = self.eval_step(arrays, empty_rows)
             else:

@@ -111,11 +111,13 @@ def test_unported_flags_exit_naming_roadmap_item(corpus, extra, item):
 
 
 def test_online_input_and_other_families_exit(corpus):
+    """Online wave input (no --offline) is ported: it passes the checks
+    (tests/test_torch_online.py decodes it); the other families exit."""
+    from openasr_torch.bin.infer import check_ported, get_args
     from openasr_torch.bin.infer import main as torch_infer
 
     online = [a for a in _argv(corpus, "unused.txt") if a != "--offline"]
-    with pytest.raises(SystemExit, match="item 8"):
-        torch_infer(online + ["--device", "cpu"])
+    check_ported(get_args(online + ["--device", "cpu"]))
     other = _argv(corpus, "unused.txt") + ["--device", "cpu"]
     other[other.index("conv-ctc-transformer")] = "ctc_cif"
     with pytest.raises(SystemExit, match="items 9 \\(CIF\\)"):

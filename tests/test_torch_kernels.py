@@ -172,9 +172,10 @@ def test_layer_norm_bwd_dx_only_mode():
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     _, mean, rstd = layer_norm_reference(xt, gt, torch.zeros(64))
     dy = torch.randn(9, 64, generator=torch.Generator().manual_seed(0))
-    layer_norm_bwd.launches = 0
+    layer_norm_bwd.launches = layer_norm_bwd.dx_launches = 0
     dx, dg, db = layer_norm_bwd(xt, dy, gt, mean, rstd, dgamma_dbeta=False)
-    assert dg is None and db is None and layer_norm_bwd.launches == 0
+    assert dg is None and db is None
+    assert layer_norm_bwd.launches == 0 and layer_norm_bwd.dx_launches == 0
     dx_full, _, _ = layer_norm_bwd_reference(xt, dy, gt, mean, rstd)
     assert torch.equal(dx, dx_full)
 
@@ -330,10 +331,11 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_card, dtype, tol, rows, d):
     g = torch.from_numpy(g).cuda()
     dy = torch.randn(rows, d, generator=torch.Generator().manual_seed(rows)).to("cuda", dtype)
     _, mean, rstd = layer_norm_reference(x, g, torch.from_numpy(b).cuda())
-    before = layer_norm_bwd.launches
+    before, before_dx = layer_norm_bwd.launches, layer_norm_bwd.dx_launches
     dx, dg, db = layer_norm_bwd(x, dy, g, mean, rstd)
     dx1, none_g, none_b = layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)
-    assert layer_norm_bwd.launches == before + 2 and none_g is None and none_b is None
+    assert none_g is None and none_b is None
+    assert (layer_norm_bwd.launches, layer_norm_bwd.dx_launches) == (before + 1, before_dx + 1)
     dx_r, dg_r, db_r = layer_norm_bwd_reference(x, dy, g, mean, rstd)
     for got, want, rel in ((dx, dx_r, False), (dx1, dx_r, False), (dg, dg_r, True),
                            (db, db_r, True)):
