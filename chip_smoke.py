@@ -32,7 +32,10 @@ gradients and the f32 fbank features are also checked against the same
 inputs on the CPU.
 
 It prints the card's name and power limit, a `{"kernels": [...]}` line
-with each kernel's error, launches, times and bound, and last
+with each kernel's error, launches, times and bound (the attention
+backward at each of the training step's three shapes: encoder
+self-attention, decoder causal self-attention and cross-attention, and a
+`[time]` line with their total a step), and last
 `{"ok": true, "device": {...}}`.  Without a CUDA card it exits non-zero
 and prints no result; every phase that fails ends the run the same way.
 Scratch files go to `build/chip_smoke/` under the checkout.
@@ -60,6 +63,9 @@ SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the attention backward computes f32 products on the tensor cores as
+# 3xTF32, three TF32 products each (TF32: 495 TFLOP/s dense)
+BWD_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL_LN = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # backward: max abs error over max(1, largest plain magnitude).  f32 sums
@@ -206,6 +212,31 @@ def read_counters() -> dict:
 
 # --------------------------------------------------------------- phase 1
 
+def bwd_ptxas(log: str) -> list:
+    """(kernel, registers, spill bytes) of each instantiation of the
+    attention backward kernels, from nvcc's -Xptxas -v output in a build
+    log; spill bytes count stores and loads."""
+    import re
+
+    sec = log[log.index("== nvcc flash_attention_bwd.cu"):]
+    end = sec.find("== nvcc", 1)
+    out, name, spill = [], None, 0
+    for line in (sec if end < 0 else sec[:end]).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            d, drop = re.search(r"Li(\d+)ELb(\d)", fn).groups()
+            name = (f"{'dkv' if '_dkv_' in fn else 'dq'} "
+                    f"{'bf16' if 'Bf16Ops' in fn else 'f32'} D{d}"
+                    + (" dropout" if drop == "1" else ""))
+        elif "spill stores" in line:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and name:
+            out.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
+            name = None
+    return out
+
+
 def phase_build():
     from openasr_torch import kernels
 
@@ -215,6 +246,12 @@ def phase_build():
     secs = time.time() - t0
     print(f"[build] {so.name} in {secs:.1f}s (sm_90a)")
     print(nvidia_smi())
+    log = so.parent / so.name.replace("libopenasr_kernels-", "build-").replace(".so", ".log")
+    report = bwd_ptxas(log.read_text())
+    print("[ptxas] attention backward registers (spill bytes): " + ", ".join(
+        f"{n} {r} ({sp})" for n, r, sp in report))
+    require(len(report) == 24, f"{len(report)} backward kernels in the build log, not 24")
+    require(all(sp == 0 for _, _, sp in report), "a backward kernel spills registers")
 
 
 # --------------------------------------------------------------- phase 2
@@ -902,8 +939,8 @@ def times(kernel, plain, library) -> dict:
             "library_ms": device_ms(library)}
 
 
-def bound(nbytes, flops, dtype) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound(nbytes, flops, dtype, peaks=PEAK_FLOPS) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peaks[dtype]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1089,18 +1126,78 @@ def backward_ms(fwd, inputs, grad_out) -> float:
     return device_ms(both) - device_ms(fwd)
 
 
-def train_rows(shapes, errs, launches, per):
-    """The training path's kernels at its encoder shape (largest batch)."""
+def attention_bwd_shapes(shapes, model_cfg=FLAGSHIP):
+    """The training step's attention backward shapes: (name, Tq, Tk,
+    causal, kv lengths or None, calls a step), one call a layer."""
+    t, u, lens = shapes["t"], shapes["u"], shapes["enc_lens"]
+    n_enc, n_dec = model_cfg["encoder"]["num_layers"], model_cfg["decoder"]["num_layers"]
+    return [("encoder", t, t, False, lens, n_enc), ("decoder", u, u, True, None, n_dec),
+            ("cross", u, t, False, lens, n_dec)]
+
+
+def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
+    """The whole attention backward (delta, dK/dV, dQ) at one shape, with
+    dropout 0.1 as the training path runs it: device ms of the kernels,
+    the plain backward and SDPA's backward, the bound and the inputs."""
     import torch.nn.functional as F
 
     from openasr_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_delta,
+    )
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    q, dout = (torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32)).to("cuda", dtype)
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, tk, h, d).astype(np.float32)).to("cuda", dtype)
+            for _ in range(2))
+    kv = None if lens is None else torch.from_numpy(lens.astype(np.int32)).cuda()
+    qt, kt, vt, dot = (z.transpose(1, 2) for z in (q, k, v, dout))
+    qg, kg, vg = (z.detach().clone().requires_grad_() for z in (qt, kt, vt))
+    if kv is None:
+        sdpa = dict(is_causal=causal)
+    else:
+        sdpa = dict(attn_mask=(torch.arange(tk, device="cuda")[None, :]
+                               < kv[:, None])[:, None, None, :])
+    rate, seed = DROPOUT, DROPOUT_SEED
+    out, lse = flash_attention(q, k, v, kv_lengths=kv, causal=causal, dropout_rate=rate,
+                               dropout_seed=seed)
+    args = (q, k, v, out, lse, dout, kv, causal, None, rate, seed)
+    key_lens = [tk] * b if lens is None else [min(int(n), tk) for n in lens]
+    pairs = h * attention_pairs(tq, key_lens, causal)
+    qo_bytes = es * b * tq * h * d                 # one [B, Tq, H, D] tensor
+    kv_bytes = es * sum(key_lens) * h * d          # K or V over valid keys
+    stat_bytes = 4 * b * h * tq                    # lse or delta
+    # q, O, dO read; K, V over valid keys; lse and lengths; dQ written over
+    # every query, dK and dV over every key; five Tq.Tk.D products over the
+    # valid pairs (S, dP, dV, dK, dQ)
+    nbytes = 4 * qo_bytes + 2 * kv_bytes + 2 * es * b * tk * h * d + stat_bytes + 4 * b
+    return {
+        "shape": [b, tq, tk, h, d],
+        "ms": device_ms(lambda: flash_attention_bwd(*args)),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_reference(*args)),
+        "library_ms": backward_ms(
+            lambda: F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate, **sdpa),
+            (qg, kg, vg), dot),
+        **bound(nbytes, 5 * 2 * pairs * d, dtype, BWD_PEAK_FLOPS),
+        "kernel_args": args[:6] + (flash_delta(out, dout),) + args[6:],
+        "pairs": pairs, "qo_bytes": qo_bytes, "kv_bytes": kv_bytes, "stat_bytes": stat_bytes,
+    }
+
+
+def train_rows(shapes, errs, launches, per):
+    """The training path's kernels at its encoder shape (largest batch),
+    and the attention backward also at the decoder's and the
+    cross-attention's."""
+    import torch.nn.functional as F
+
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
-        flash_attention_bwd_reference,
         flash_attention_reference,
-        flash_delta,
     )
     from openasr_torch.kernels.layer_norm import (
         layer_norm_bwd,
@@ -1164,87 +1261,93 @@ def train_rows(shapes, errs, launches, per):
             **bound(3 * n * dm * es + 2 * n * 4 + dm * 4, 9 * n * dm, torch.float32),
         })
 
-        # attention at the encoder's self-attention shape
-        q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
-                   .to("cuda", dtype) for _ in range(3))
-        dout = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
-        kv = torch.from_numpy(lens.astype(np.int32)).cuda()
-        mask = (torch.arange(t, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
-        qt, kt, vt, dot = (z.transpose(1, 2) for z in (q, k, v, dout))
-        qg, kg, vg = (z.detach().clone().requires_grad_() for z in (qt, kt, vt))
-        pairs = h * attention_pairs(t, lens, False)
-        valid = int(lens.sum())
-        qo_bytes = es * b * t * h * d                  # one [B, T, H, D] tensor
-        kv_bytes = es * valid * h * d                  # K or V over valid keys
-        stat_bytes = 4 * b * h * t                     # lse or delta
-        # the training path runs attention with dropout: time it so
-        rate, seed = DROPOUT, DROPOUT_SEED
-        out, lse = flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,
-                                   dropout_seed=seed)
-        delta = flash_delta(out, dout)
-        args = (q, k, v, out, lse, dout, kv, False, None, rate, seed)
-        kernel_args = args[:6] + (delta,) + args[6:]
-        plain_bwd_ms = device_ms(lambda: flash_attention_bwd_reference(*args))
-        lib_bwd_ms = backward_ms(
-            lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                                   dropout_p=rate),
-            (qg, kg, vg), dot)
+        # the attention backward at the step's three shapes, with dropout as
+        # the training path runs it; the encoder's rows keep their older names
         bwd_notes = {
             "plain_is": "the whole plain backward (dq, dk, dv together), dropout 0.1",
-            "library_is": "F.scaled_dot_product_attention (bool mask, dropout_p 0.1) "
-                          "forward + backward minus forward (graph replay), dq dk dv "
-                          "together",
+            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1; a bool key "
+                          "mask, or is_causal for the decoder) forward + backward minus "
+                          "forward (graph replay), dq dk dv together",
         }
-        # the whole backward (delta, dK/dV, dQ), like for like with the plain
-        # backward and SDPA's: q, O, dO read; K, V over valid keys; lse; dQ,
-        # dK, dV written; five Tq.Tk.D products (S, dP, dV, dK, dQ)
-        rows.append({
-            "name": f"flash_attention_bwd[{name}]",
-            "route": "cuda",
-            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
-                        "delta :468, dK/dV :238, dQ :327)",
-            "shape": [b, t, h, d],
-            **launch_keys("flash_attention_bwd_dkv"),
-            "launches_are": "backward calls, each launching the dK/dV and the dQ "
-                            "kernel once",
-            **bwd_errs(tuple(max(a, c) for a, c in zip(
-                errs[("flash_attention_bwd_dkv", dtype)],
-                errs[("flash_attention_bwd_dq", dtype)])), TOL_FLASH_BWD[dtype]),
-            "ms": device_ms(lambda: flash_attention_bwd(*args)),
-            "plain_ms": plain_bwd_ms,
-            "library_ms": lib_bwd_ms,
-            **bwd_notes,
-            **bound(6 * qo_bytes + 2 * kv_bytes + stat_bytes + 4 * b,
-                    5 * 2 * pairs * d, dtype),
-        })
-        # each kernel alone, for its launches and error; its plain and library
-        # times are those of the whole backward above
-        for kernel, fn, replaces, nbytes, products in (
-            ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
-             "openasr_tpu/kernels/flash_attention.py:238",
-             # q, dO, lse, delta read; K, V over valid keys; dK, dV written
-             2 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
-            ("flash_attention_bwd_dq", flash_attention_bwd_dq,
-             "openasr_tpu/kernels/flash_attention.py:327",
-             # q, dO, lse, delta read; K, V over valid keys; dQ written
-             3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes, 3),                 # S dP dQ
-        ):
+        errs_bwd = tuple(max(a, c) for a, c in zip(errs[("flash_attention_bwd_dkv", dtype)],
+                                                    errs[("flash_attention_bwd_dq", dtype)]))
+        bwd_shapes = attention_bwd_shapes(shapes)
+        calls = [c for *_, c in bwd_shapes]
+        require(sum(calls) * tr["steps"] == tr["total"]["flash_attention_bwd_dkv"],
+                f"{calls} attention backward calls a step by the config, but "
+                f"{tr['total']['flash_attention_bwd_dkv']} dK/dV launches in {tr['steps']} steps")
+        step_ms = step_lib_ms = 0.0
+        for where, tq, tk, causal, kv_lens, n_calls in bwd_shapes:
+            at = attention_bwd_times(b, h, d, tq, tk, causal, kv_lens, dtype, rng)
+            step_ms += n_calls * at["ms"]
+            step_lib_ms += n_calls * at["library_ms"]
             rows.append({
-                "name": f"{kernel}[{name}]",
+                "name": (f"flash_attention_bwd[{name}]" if where == "encoder"
+                         else f"flash_attention_bwd_{where}[{name}]"),
                 "route": "cuda",
                 "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
-                "replaces": replaces,
-                "shape": [b, t, h, d],
-                **launch_keys(kernel),
-                **bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype]),
-                "ms": device_ms(lambda: fn(*kernel_args)),
-                "plain_ms": plain_bwd_ms,
-                "library_ms": lib_bwd_ms,
+                "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                            "delta :468, dK/dV :238, dQ :327)",
+                "shape": at["shape"],
+                "causal": causal,
+                **launch_keys("flash_attention_bwd_dkv"),
+                "calls_per_step_at_this_shape": n_calls,
+                "launches_are": "backward calls at the step's three shapes, each launching "
+                                "the dK/dV and the dQ kernel once",
+                **bwd_errs(errs_bwd, TOL_FLASH_BWD[dtype]),
+                **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")},
                 **bwd_notes,
-                **bound(nbytes, products * 2 * pairs * d, dtype),
+                "ops_peak_tflops": BWD_PEAK_FLOPS[dtype] / 1e12,
             })
+            if where != "encoder":
+                continue
+            # each kernel alone at the encoder shape, for its launches and
+            # error; its plain and library times are those of the whole
+            # backward above
+            kernel_args, pairs = at["kernel_args"], at["pairs"]
+            qo_bytes, kv_bytes, stat_bytes = at["qo_bytes"], at["kv_bytes"], at["stat_bytes"]
+            for kernel, fn, replaces, nbytes, products in (
+                ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
+                 "openasr_tpu/kernels/flash_attention.py:238",
+                 # q, dO, lse, delta read; K, V over valid keys; dK, dV written
+                 2 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
+                ("flash_attention_bwd_dq", flash_attention_bwd_dq,
+                 "openasr_tpu/kernels/flash_attention.py:327",
+                 # q, dO, lse, delta read; K, V over valid keys; dQ written
+                 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes, 3),                 # S dP dQ
+            ):
+                rows.append({
+                    "name": f"{kernel}[{name}]",
+                    "route": "cuda",
+                    "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "replaces": replaces,
+                    "shape": at["shape"],
+                    **launch_keys(kernel),
+                    **bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype]),
+                    "ms": device_ms(lambda: fn(*kernel_args)),
+                    "plain_ms": at["plain_ms"],
+                    "library_ms": at["library_ms"],
+                    **bwd_notes,
+                    "ops_peak_tflops": BWD_PEAK_FLOPS[dtype] / 1e12,
+                    **bound(nbytes, products * 2 * pairs * d, dtype, BWD_PEAK_FLOPS),
+                })
+        print(f"[time] attention backward a training step {name}, computed: each shape's "
+              f"device ms a call times its calls a step ({' + '.join(map(str, calls))}, the "
+              f"measured dK/dV launches a step; largest batch): kernels {step_ms:.4f} ms, "
+              f"SDPA {step_lib_ms:.4f} ms")
 
+        # the forward with dropout at the encoder's self-attention shape
+        q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+                   .to("cuda", dtype) for _ in range(3))
+        kv = torch.from_numpy(lens.astype(np.int32)).cuda()
+        mask = (torch.arange(t, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        pairs = h * attention_pairs(t, lens, False)
+        qo_bytes = es * b * t * h * d                  # one [B, T, H, D] tensor
+        kv_bytes = es * int(lens.sum()) * h * d        # K or V over valid keys
+        stat_bytes = 4 * b * h * t                     # lse
+        rate, seed = DROPOUT, DROPOUT_SEED
         held_to_plain(
             f"flash dropout {name} [{b}, {t}, {h}, {d}]",
             lambda: flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,

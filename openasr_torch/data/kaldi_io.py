@@ -2,18 +2,37 @@
 
 Counterpart of the matrix part of openasr_tpu/data/kaldi_io.py: binary
 float/double matrices, the three compressed-matrix formats, text-mode
-matrices and scp `path:offset` addressing, plus the binary float-matrix
-writer.  Pipe inputs and the int/float vector and posterior readers wait
-for the slices that need them.
+matrices, scp `path:offset` addressing and `cmd |` pipe inputs, plus the
+binary float-matrix writer.  Output pipes (`| cmd`) and the int/float
+vector and posterior readers wait for the slices that need them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import struct
+import subprocess
 import threading
-from typing import BinaryIO, Iterable, Tuple
+from typing import BinaryIO, Iterable, Iterator, Tuple
 
 import numpy as np
+
+
+def _is_pipe(path: str) -> bool:
+    return path.rstrip().endswith("|")
+
+
+@contextlib.contextmanager
+def open_or_fd(path: str) -> Iterator[BinaryIO]:
+    """A binary stream for reading 'file' or 'cmd |' (the command's standard
+    output, run by the shell).  The command is waited for on exit."""
+    if _is_pipe(path):
+        with subprocess.Popen(path.rstrip()[:-1], shell=True,
+                              stdout=subprocess.PIPE) as proc:
+            yield proc.stdout
+    else:
+        with open(path, "rb") as f:
+            yield f
 
 
 def _read_token(f: BinaryIO) -> bytes:
@@ -121,14 +140,15 @@ def _cached_ark_fd(path: str, offset: int) -> BinaryIO:
 
 
 def read_mat(path: str, writable: bool = True) -> np.ndarray:
-    """Read one matrix from 'file' or 'file:offset'."""
-    if ":" in path:
+    """Read one matrix from 'file', 'file:offset' or 'cmd |' (a ':' inside
+    a command is not an offset)."""
+    if ":" in path and not _is_pipe(path):
         head, tail = path.rsplit(":", 1)
         if tail.isdigit():
             return read_mat_fd(
                 _cached_ark_fd(head, int(tail)), writable=writable
             )
-    with open(path, "rb") as f:
+    with open_or_fd(path) as f:
         return read_mat_fd(f, writable=writable)
 
 

@@ -242,8 +242,29 @@ def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
 
 
 def flash_delta(out, dout):
-    """delta = rowsum(dO o O) -> [B, H, Tq] f32, contiguous."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    """delta = rowsum(dO o O) -> [B, H, Tq] f32, contiguous.  The product
+    is f32 (a bf16 O is widened inside the multiply, not copied first)."""
+    return (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
+
+
+def check_bwd_alignment(**views) -> None:
+    """The backward kernels copy rows of q, k, v and dO into shared memory
+    with 16-byte cp.async: each [B, T, H, D] view must start on a 16-byte
+    boundary, and its batch, time and head strides must be multiples of 16
+    bytes (8 bf16 or 4 f32 elements) where the dimension is longer than 1.
+    Raises ValueError naming the view and the condition."""
+    for name, t in views.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention bwd: {name} must start on a 16-byte boundary "
+                f"(its address is {t.data_ptr() % 16} bytes past one)")
+        # a dimension of size 1 never steps by its stride
+        if any(n > 1 and (s * t.element_size()) % 16
+               for n, s in zip(t.shape[:3], t.stride()[:3])):
+            raise ValueError(
+                f"flash_attention bwd: {name}'s batch, time and head strides "
+                f"{tuple(t.stride()[:3])} must be multiples of 16 bytes "
+                f"({16 // t.element_size()} elements)")
 
 
 def _bwd_inputs(q, k, v, out, lse, dout, delta, kv_lengths):
@@ -256,6 +277,7 @@ def _bwd_inputs(q, k, v, out, lse, dout, delta, kv_lengths):
         raise ValueError("flash_attention bwd: dout and out must match q")
     if dout.stride(3) != 1:
         dout = dout.contiguous()
+    check_bwd_alignment(q=q, k=k, v=v, dout=dout)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, h, tq) or t.dtype != torch.float32:
             raise ValueError(f"flash_attention bwd: {name} must be f32 [{b}, {h}, {tq}]")
@@ -377,7 +399,8 @@ def flash_attention(
     differentiable in q, k and v.
 
     q: [B, Tq, H, D]; k, v: [B, Tk, H, D], f32 or bf16, any strides with
-    unit stride along D (the projection views are read in place);
+    unit stride along D (the projection views are read in place; the
+    backward also needs 16-byte aligned rows, `check_bwd_alignment`);
     kv_lengths: optional [B] int — keys >= length are masked; causal:
     query t attends to keys <= t; D in (32, 64, 128) on the card.
     dropout_rate > 0 drops normalized weights by the positional hash mask

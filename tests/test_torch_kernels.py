@@ -16,6 +16,7 @@ import torch
 
 from openasr_torch.kernels.flash_attention import (
     attention_dropout_mask,
+    check_bwd_alignment,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -276,6 +277,44 @@ def test_flash_bwd_wrappers_are_the_plain_backward_on_cpu():
     assert torch.equal(dq, dq3) and torch.equal(dk, dk3) and torch.equal(dv, dv3)
 
 
+def _strided(shape, strides, offset, dtype):
+    """A [B, T, H, D] view with the given strides, `offset` elements into a
+    fresh (64-byte aligned) buffer."""
+    n = offset + 1 + sum((z - 1) * st for z, st in zip(shape, strides))
+    return torch.zeros(n, dtype=dtype).as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("case,shape,strides,offset,dtype,error", [
+    # the path's views: a packed [B, T, 3, H, D] projection, dO transposed
+    # from [B, H, T, D]
+    ("packed q", (2, 5, 4, 32), (5 * 3 * 128, 3 * 128, 32, 1), 0, torch.bfloat16, None),
+    ("transposed dO", (2, 5, 4, 32), (4 * 5 * 32, 32, 5 * 32, 1), 0, torch.bfloat16, None),
+    ("start 2 bytes off", (2, 5, 4, 32), (5 * 128, 128, 32, 1), 1, torch.bfloat16,
+     "16-byte boundary"),
+    ("time stride of 68", (2, 5, 2, 32), (5 * 68, 68, 32, 1), 0, torch.bfloat16,
+     r"multiples of 16 bytes \(8 elements\)"),
+    ("head stride of 36", (1, 3, 2, 32), (3 * 72, 72, 36, 1), 0, torch.bfloat16,
+     "multiples of 16 bytes"),
+    ("odd strides of size-1 dims", (1, 1, 1, 32), (3, 5, 7, 1), 0, torch.bfloat16, None),
+    ("f32 time stride of 68", (2, 5, 2, 32), (5 * 68, 68, 32, 1), 0, torch.float32, None),
+    ("f32 time stride of 66", (2, 5, 2, 32), (5 * 66, 66, 32, 1), 0, torch.float32,
+     r"multiples of 16 bytes \(4 elements\)"),
+    ("f32 start 4 bytes off", (2, 5, 2, 32), (5 * 64, 64, 32, 1), 1, torch.float32,
+     "16-byte boundary"),
+])
+def test_bwd_alignment_check(case, shape, strides, offset, dtype, error):
+    """The backward kernels' 16-byte cp.async needs 16-byte aligned rows;
+    the wrappers' check names the view and the condition."""
+    t = _strided(shape, strides, offset, dtype)
+    if error is None:
+        check_bwd_alignment(q=t)
+    else:
+        with pytest.raises(ValueError, match=f"q.*{error}"):
+            check_bwd_alignment(q=t)
+        # a fresh contiguous copy is aligned
+        check_bwd_alignment(q=t.clone(memory_format=torch.contiguous_format))
+
+
 # ------------------------------------------------------------ card only
 
 
@@ -379,3 +418,86 @@ def test_flash_bwd_kernels_match_plain(cuda_card, dtype, tol, rate, b, tq, tk, h
     for got, w in zip(grads, want):
         assert (got.float() - w.float()).abs().max().item() <= tol * max(
             1.0, w.float().abs().max().item())
+
+
+# the kernels' tile edges: T of 1, 15, 17, 63, 65 and 139 against 16-row
+# fragments, 32-row walk steps and 64-row blocks; lengths of 0, 1 and
+# partial; causal with Tq != Tk
+BWD_EDGE_CASES = [
+    # b, tq, tk, h, d, causal, kv_lengths
+    (2, 1, 1, 2, 64, False, None),
+    (2, 15, 17, 2, 32, False, [17, 0]),
+    (2, 17, 15, 2, 64, True, None),
+    (2, 63, 65, 2, 128, False, [65, 30]),
+    (2, 65, 63, 2, 64, True, [63, 1]),
+    (2, 139, 139, 2, 64, False, [139, 0]),
+    (3, 139, 65, 2, 128, False, [0, 64, 65]),
+    (2, 65, 139, 2, 32, True, [100, 139]),
+]
+
+
+def _bwd_case(b, tq, tk, h, d, dtype, seed):
+    """q, k, v as views of packed projections, dO transposed from
+    [B, H, Tq, D] (unit D stride only), on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, 3, h, d, generator=gen).to("cuda", dtype)[:, :, 0]
+    kv = torch.randn(b, tk, 2, h, d, generator=gen).to("cuda", dtype)
+    dout = torch.randn(b, h, tq, d, generator=gen).to("cuda", dtype).transpose(1, 2)
+    return q, kv[:, :, 0], kv[:, :, 1], dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", BWD_EDGE_CASES)
+def test_flash_bwd_kernels_tile_edges(cuda_card, dtype, tol, rate, b, tq, tk, h, d,
+                                      causal, lengths):
+    """dq, dk, dv of the backward kernels against the plain backward on the
+    same forward outputs, with a non-contiguous dO; keys past a length get
+    exactly zero gradients."""
+    q, k, v, dout = _bwd_case(b, tq, tk, h, d, dtype, tq * 7 + tk)
+    lens = None if lengths is None else torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else 0
+    out, lse = flash_attention_reference(q, k, v, lens, causal, None, rate, seed)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, lens, causal, None, rate, seed)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, dout, lens, causal, None,
+                                         rate, seed)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= tol * max(
+            1.0, w.float().abs().max().item())
+    if lens is not None:
+        for i, n in enumerate(lengths):
+            assert not got[1][i, n:].any() and not got[2][i, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(cuda_card, dtype):
+    """No atomics: two backward calls give bit-identical gradients."""
+    q, k, v, dout = _bwd_case(4, 139, 139, 8, 64, dtype, 11)
+    lens = torch.tensor([139, 100, 37, 0], device="cuda")
+    out, lse = flash_attention_reference(q, k, v, lens, False, None, 0.1, 5)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None, 0.1, 5)
+    second = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None, 0.1, 5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_misaligned_view_raises(cuda_card):
+    """A bf16 q that starts 2 bytes past a 16-byte boundary is refused by
+    the backward wrappers (the forward takes it)."""
+    b, t, h, d = 2, 17, 2, 64
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.randn(b * t * h * d + 1, generator=gen).to("cuda", torch.bfloat16)
+    q = flat[1:].view(b, t, h, d)
+    k, v, dout = (torch.randn(b, t, h, d, generator=gen).to("cuda", torch.bfloat16)
+                  for _ in range(3))
+    out, lse = flash_attention(q, k, v)
+    delta = flash_delta(out, dout)
+    for call in (lambda: flash_attention_bwd(q, k, v, out, lse, dout),
+                 lambda: flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta),
+                 lambda: flash_attention_bwd_dq(q, k, v, out, lse, dout, delta)):
+        with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
+            call()
