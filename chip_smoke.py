@@ -63,9 +63,9 @@ SEED = 1234
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# the attention backward computes f32 products on the tensor cores as
-# 3xTF32, three TF32 products each (TF32: 495 TFLOP/s dense)
-BWD_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+# the attention kernels, forward and backward, compute f32 products on the
+# tensor cores as 3xTF32, three TF32 products each (TF32: 495 TFLOP/s dense)
+MMA_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL_LN = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # backward: max abs error over max(1, largest plain magnitude).  f32 sums
@@ -212,28 +212,31 @@ def read_counters() -> dict:
 
 # --------------------------------------------------------------- phase 1
 
-def bwd_ptxas(log: str) -> list:
+def attention_ptxas(log: str) -> list:
     """(kernel, registers, spill bytes) of each instantiation of the
-    attention backward kernels, from nvcc's -Xptxas -v output in a build
-    log; spill bytes count stores and loads."""
+    attention kernels, forward and backward, from nvcc's -Xptxas -v output
+    in a build log; spill bytes count stores and loads."""
     import re
 
-    sec = log[log.index("== nvcc flash_attention_bwd.cu"):]
-    end = sec.find("== nvcc", 1)
-    out, name, spill = [], None, 0
-    for line in (sec if end < 0 else sec[:end]).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            fn = m.group(1)
-            d, drop = re.search(r"Li(\d+)ELb(\d)", fn).groups()
-            name = (f"{'dkv' if '_dkv_' in fn else 'dq'} "
-                    f"{'bf16' if 'Bf16Ops' in fn else 'f32'} D{d}"
-                    + (" dropout" if drop == "1" else ""))
-        elif "spill stores" in line:
-            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
-        elif "Used" in line and name:
-            out.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
-            name = None
+    out = []
+    for source in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        sec = log[log.index(f"== nvcc {source}"):]
+        end = sec.find("== nvcc", 1)
+        name, spill = None, 0
+        for line in (sec if end < 0 else sec[:end]).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                d, drop = re.search(r"Li(\d+)ELb(\d)", fn).groups()
+                kind = "fwd" if "_fwd_" in fn else "dkv" if "_dkv_" in fn else "dq"
+                name = (f"{kind} {'bf16' if 'Bf16Ops' in fn else 'f32'} D{d}"
+                        + (" dropout" if drop == "1" else ""))
+            elif "spill stores" in line:
+                spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            elif "Used" in line and name:
+                out.append((name, int(re.search(r"Used (\d+) registers", line).group(1)),
+                            spill))
+                name = None
     return out
 
 
@@ -247,11 +250,11 @@ def phase_build():
     print(f"[build] {so.name} in {secs:.1f}s (sm_90a)")
     print(nvidia_smi())
     log = so.parent / so.name.replace("libopenasr_kernels-", "build-").replace(".so", ".log")
-    report = bwd_ptxas(log.read_text())
-    print("[ptxas] attention backward registers (spill bytes): " + ", ".join(
+    report = attention_ptxas(log.read_text())
+    print("[ptxas] attention registers (spill bytes): " + ", ".join(
         f"{n} {r} ({sp})" for n, r, sp in report))
-    require(len(report) == 24, f"{len(report)} backward kernels in the build log, not 24")
-    require(all(sp == 0 for _, _, sp in report), "a backward kernel spills registers")
+    require(len(report) == 36, f"{len(report)} attention kernels in the build log, not 36")
+    require(all(sp == 0 for _, _, sp in report), "an attention kernel spills registers")
 
 
 # --------------------------------------------------------------- phase 2
@@ -348,23 +351,29 @@ def phase_flash(errs):
     cases += [(8, 8, 64, 37, 304, False), (4, 8, 32, 304, 304, False),
               (4, 4, 128, 304, 304, True)]
     for dtype in DTYPES:
-        for b, h, d, tq, tk, causal in cases:
-            q, k, v, lens = flash_case(b, h, d, tq, tk, dtype, rng)
-            out, lse = flash_attention(q, k, v, kv_lengths=lens, causal=causal)
-            torch.cuda.synchronize()
-            out_r, lse_r = flash_attention_reference(q, k, v, lens, causal)
-            e = max_err(out, out_r)
-            e_lse = max_err(lse, lse_r)
-            tol = TOL_FLASH[dtype]
-            zero_row = float(out[-1].float().abs().max())
-            print(f"[flash] B{b} H{h} D{d} Tq{tq} Tk{tk} causal={causal} "
-                  f"{DTYPE_NAME[dtype]}: out err {e:.3g}, lse err {e_lse:.3g} "
-                  f"(tol {tol})")
-            require(e <= tol and e_lse <= 1e-3 and zero_row == 0.0,
-                    f"flash {tq}x{tk} causal={causal} {DTYPE_NAME[dtype]} disagrees")
-            if d == 64:
-                key = ("flash_attention_fwd", dtype)
-                errs[key] = max(errs.get(key, 0.0), e)
+        for rate in (0.0, DROPOUT):
+            seed = DROPOUT_SEED if rate else None
+            for b, h, d, tq, tk, causal in cases:
+                q, k, v, lens = flash_case(b, h, d, tq, tk, dtype, rng)
+                out, lse = flash_attention(q, k, v, kv_lengths=lens, causal=causal,
+                                           dropout_rate=rate, dropout_seed=seed)
+                torch.cuda.synchronize()
+                out_r, lse_r = flash_attention_reference(q, k, v, lens, causal, None, rate,
+                                                         seed or 0)
+                e = max_err(out, out_r)
+                e_lse = max_err(lse, lse_r)
+                tol = TOL_FLASH[dtype]
+                zero_row = float(out[-1].float().abs().max())
+                print(f"[flash] B{b} H{h} D{d} Tq{tq} Tk{tk} causal={causal} "
+                      f"dropout={rate} {DTYPE_NAME[dtype]}: out err {e:.3g}, lse err "
+                      f"{e_lse:.3g} (tol {tol}, lse 1e-3)")
+                require(e <= tol and e_lse <= 1e-3 and zero_row == 0.0,
+                        f"flash {tq}x{tk} causal={causal} dropout={rate} "
+                        f"{DTYPE_NAME[dtype]} disagrees")
+                if d == 64:
+                    key = ("flash_attention_fwd_dropout" if rate else "flash_attention_fwd",
+                           dtype)
+                    errs[key] = max(errs.get(key, 0.0), e)
 
 
 def flash_train_case(b, h, d, tq, tk, dtype, rng, lens):
@@ -967,13 +976,9 @@ def attention_pairs(tq, lens, causal) -> int:
 
 
 def fwd_rows(feats, errs, launches):
-    """PR 1's rows: the forward kernels at the decode path's encoder shape."""
+    """The forward kernels (LayerNorm, attention) at the decode path's encoder shape."""
     import torch.nn.functional as F
 
-    from openasr_torch.kernels.flash_attention import (
-        flash_attention,
-        flash_attention_reference,
-    )
     from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_reference
 
     b, t, lens = encoder_shapes(feats)
@@ -1008,37 +1013,13 @@ def fwd_rows(feats, errs, launches):
             **bound(2 * n * dm * es + 2 * dm * 4 + 2 * n * 4, 8 * n * dm, torch.float32),
         })
 
-        q, k, v = (
-            torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
-            for _ in range(3)
-        )
-        kv = torch.from_numpy(lens.astype(np.int32)).cuda()
-        mask = (torch.arange(t, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
-        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-        held_to_plain(f"flash {DTYPE_NAME[dtype]} [{b}, {t}, {h}, {d}]",
-                      lambda: flash_attention(q, k, v, kv_lengths=kv),
-                      lambda: flash_attention_reference(q, k, v, kv),
-                      TOL_FLASH[dtype], errs, ("flash_attention_fwd", dtype))
-        # Q read and O written over all rows; K and V read only over the
-        # valid keys, where the kernel's key loop stops; lse f32, lengths
-        valid = int(lens.clip(0, t).sum())
         rows.append({
             "name": f"flash_attention_fwd[{DTYPE_NAME[dtype]}]",
-            "route": "cuda",
-            "source": "openasr_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "openasr_tpu/kernels/flash_attention.py:146",
-            "shape": [b, t, h, d],
+            **attention_fwd_row(b, h, d, t, t, False, lens, dtype, rng, errs, 0.0),
             "launches": dec["flash_attention_fwd"],
             "launches_train_path": tr["total"]["flash_attention_fwd"],
             "max_abs_err": errs[("flash_attention_fwd", dtype)],
             "tol": TOL_FLASH[dtype],
-            **times(
-                lambda: flash_attention(q, k, v, kv_lengths=kv),
-                lambda: flash_attention_reference(q, k, v, kv),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-            ),
-            **bound(es * (2 * b * t * h * d + 2 * valid * h * d) + 4 * b * h * t + 4 * b,
-                    4 * t * valid * h * d, dtype),
         })
     return rows
 
@@ -1126,9 +1107,10 @@ def backward_ms(fwd, inputs, grad_out) -> float:
     return device_ms(both) - device_ms(fwd)
 
 
-def attention_bwd_shapes(shapes, model_cfg=FLAGSHIP):
-    """The training step's attention backward shapes: (name, Tq, Tk,
-    causal, kv lengths or None, calls a step), one call a layer."""
+def attention_shapes(shapes, model_cfg=FLAGSHIP):
+    """The training step's attention shapes: (name, Tq, Tk, causal, kv
+    lengths or None, calls a step), one call a layer, forward and
+    backward."""
     t, u, lens = shapes["t"], shapes["u"], shapes["enc_lens"]
     n_enc, n_dec = model_cfg["encoder"]["num_layers"], model_cfg["decoder"]["num_layers"]
     return [("encoder", t, t, False, lens, n_enc), ("decoder", u, u, True, None, n_dec),
@@ -1181,7 +1163,7 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
         "library_ms": backward_ms(
             lambda: F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate, **sdpa),
             (qg, kg, vg), dot),
-        **bound(nbytes, 5 * 2 * pairs * d, dtype, BWD_PEAK_FLOPS),
+        **bound(nbytes, 5 * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
         "kernel_args": args[:6] + (flash_delta(out, dout),) + args[6:],
         "pairs": pairs, "qo_bytes": qo_bytes, "kv_bytes": kv_bytes, "stat_bytes": stat_bytes,
     }
@@ -1189,15 +1171,13 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
 
 def train_rows(shapes, errs, launches, per):
     """The training path's kernels at its encoder shape (largest batch),
-    and the attention backward also at the decoder's and the
+    and the attention forward and backward also at the decoder's and the
     cross-attention's."""
     import torch.nn.functional as F
 
     from openasr_torch.kernels.flash_attention import (
-        flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
-        flash_attention_reference,
     )
     from openasr_torch.kernels.layer_norm import (
         layer_norm_bwd,
@@ -1205,7 +1185,7 @@ def train_rows(shapes, errs, launches, per):
         layer_norm_reference,
     )
 
-    b, t, lens = shapes["b"], shapes["t"], shapes["enc_lens"]
+    b, t = shapes["b"], shapes["t"]
     h, d, dm = 8, 64, 512
     rng = np.random.RandomState(SEED + 6)
     rows = []
@@ -1271,7 +1251,7 @@ def train_rows(shapes, errs, launches, per):
         }
         errs_bwd = tuple(max(a, c) for a, c in zip(errs[("flash_attention_bwd_dkv", dtype)],
                                                     errs[("flash_attention_bwd_dq", dtype)]))
-        bwd_shapes = attention_bwd_shapes(shapes)
+        bwd_shapes = attention_shapes(shapes)
         calls = [c for *_, c in bwd_shapes]
         require(sum(calls) * tr["steps"] == tr["total"]["flash_attention_bwd_dkv"],
                 f"{calls} attention backward calls a step by the config, but "
@@ -1298,7 +1278,7 @@ def train_rows(shapes, errs, launches, per):
                 **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                             "bound_by")},
                 **bwd_notes,
-                "ops_peak_tflops": BWD_PEAK_FLOPS[dtype] / 1e12,
+                "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
             })
             if where != "encoder":
                 continue
@@ -1329,54 +1309,103 @@ def train_rows(shapes, errs, launches, per):
                     "plain_ms": at["plain_ms"],
                     "library_ms": at["library_ms"],
                     **bwd_notes,
-                    "ops_peak_tflops": BWD_PEAK_FLOPS[dtype] / 1e12,
-                    **bound(nbytes, products * 2 * pairs * d, dtype, BWD_PEAK_FLOPS),
+                    "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
+                    **bound(nbytes, products * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
                 })
         print(f"[time] attention backward a training step {name}, computed: each shape's "
               f"device ms a call times its calls a step ({' + '.join(map(str, calls))}, the "
               f"measured dK/dV launches a step; largest batch): kernels {step_ms:.4f} ms, "
               f"SDPA {step_lib_ms:.4f} ms")
 
-        # the forward with dropout at the encoder's self-attention shape
-        q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
-                   .to("cuda", dtype) for _ in range(3))
-        kv = torch.from_numpy(lens.astype(np.int32)).cuda()
-        mask = (torch.arange(t, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
-        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-        pairs = h * attention_pairs(t, lens, False)
-        qo_bytes = es * b * t * h * d                  # one [B, T, H, D] tensor
-        kv_bytes = es * int(lens.sum()) * h * d        # K or V over valid keys
-        stat_bytes = 4 * b * h * t                     # lse
-        rate, seed = DROPOUT, DROPOUT_SEED
-        held_to_plain(
-            f"flash dropout {name} [{b}, {t}, {h}, {d}]",
-            lambda: flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,
-                                    dropout_seed=seed),
-            lambda: flash_attention_reference(q, k, v, kv, False, None, rate, seed),
-            TOL_FLASH[dtype], errs, ("flash_attention_fwd_dropout", dtype))
-        rows.append({
-            "name": f"flash_attention_fwd_dropout[{name}]",
-            "route": "cuda",
-            "source": "openasr_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "openasr_tpu/kernels/flash_attention.py:146 (hash dropout :78-134)",
-            "shape": [b, t, h, d],
-            **launch_keys("flash_attention_fwd_dropout"),
-            "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
-            "tol": TOL_FLASH[dtype],
-            **times(
-                lambda: flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate,
-                                        dropout_seed=seed),
-                lambda: flash_attention_reference(q, k, v, kv, False, None, rate, seed),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                       dropout_p=rate),
-            ),
-            "library_is": "F.scaled_dot_product_attention (bool mask, dropout_p 0.1; "
-                          "its own Philox mask)",
-            # S and P.V; the hash's integer operations are not counted
-            **bound(2 * qo_bytes + 2 * kv_bytes + stat_bytes + 4 * b,
-                    2 * 2 * pairs * d, dtype),
-        })
+        # the forward with dropout at the step's three shapes
+        fwd_shapes = attention_shapes(shapes)
+        calls = [c for *_, c in fwd_shapes]
+        require(sum(calls) * tr["steps"] == tr["total"]["flash_attention_fwd_dropout"],
+                f"{calls} attention forward calls a step by the config, but "
+                f"{tr['total']['flash_attention_fwd_dropout']} dropout forward launches in "
+                f"{tr['steps']} steps")
+        step_ms = step_lib_ms = 0.0
+        for where, tq, tk, causal, kv_lens, n_calls in fwd_shapes:
+            row = attention_fwd_row(b, h, d, tq, tk, causal, kv_lens, dtype, rng, errs,
+                                    DROPOUT)
+            step_ms += n_calls * row["ms"]
+            step_lib_ms += n_calls * row["library_ms"]
+            rows.append({
+                "name": (f"flash_attention_fwd_dropout[{name}]" if where == "encoder"
+                         else f"flash_attention_fwd_dropout_{where}[{name}]"),
+                **row,
+                **launch_keys("flash_attention_fwd_dropout"),
+                "calls_per_step_at_this_shape": n_calls,
+                "launches_are": "dropout forward calls at the step's three shapes",
+                "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+                "tol": TOL_FLASH[dtype],
+            })
+        print(f"[time] attention forward a training step {name}, computed: each shape's "
+              f"device ms a call times its calls a step ({' + '.join(map(str, calls))}, the "
+              f"measured dropout forward launches a step; largest batch): kernels "
+              f"{step_ms:.4f} ms, SDPA {step_lib_ms:.4f} ms")
     return rows
+
+
+def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate) -> dict:
+    """The forward kernel at one shape, with dropout `rate` (0, or 0.1 as
+    the training path runs it): held to its plain version with the same
+    seed, then device ms of the kernel, the plain version and SDPA's
+    forward (dropout_p `rate`), and the bound."""
+    import torch.nn.functional as F
+
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    q = torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32)).to("cuda", dtype)
+    k, v = (torch.from_numpy(rng.randn(b, tk, h, d).astype(np.float32)).to("cuda", dtype)
+            for _ in range(2))
+    kv = None if lens is None else torch.from_numpy(lens.astype(np.int32)).cuda()
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    if kv is None:
+        sdpa = dict(is_causal=causal)
+    else:
+        sdpa = dict(attn_mask=(torch.arange(tk, device="cuda")[None, :]
+                               < kv[:, None])[:, None, None, :])
+    seed = DROPOUT_SEED if rate else None
+
+    def kernel():
+        return flash_attention(q, k, v, kv_lengths=kv, causal=causal, dropout_rate=rate,
+                               dropout_seed=seed)
+
+    def plain():
+        return flash_attention_reference(q, k, v, kv, causal, None, rate, seed or 0)
+
+    held_to_plain(
+        f"flash dropout={rate} {DTYPE_NAME[dtype]} [{b}, {tq}, {tk}, {h}, {d}] "
+        f"causal={causal}", kernel, plain, TOL_FLASH[dtype], errs,
+        ("flash_attention_fwd_dropout" if rate else "flash_attention_fwd", dtype))
+    key_lens = [tk] * b if lens is None else [min(int(n), tk) for n in lens]
+    pairs = h * attention_pairs(tq, key_lens, causal)
+    # q read and O written over every query; K and V over the valid keys,
+    # where the walk stops; lse written; lengths read.  S and P.V over the
+    # valid pairs; the hash's integer operations are not counted
+    nbytes = (2 * es * b * tq * h * d + 2 * es * sum(key_lens) * h * d + 4 * b * h * tq
+              + (0 if kv is None else 4 * b))
+    return {
+        "route": "cuda",
+        "source": "openasr_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "openasr_tpu/kernels/flash_attention.py:146"
+                    + (" (hash dropout :78-134)" if rate else ""),
+        "shape": [b, tq, tk, h, d],
+        "causal": causal,
+        "dropout_rate": rate,
+        **times(kernel, plain,
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate, **sdpa)),
+        "library_is": f"F.scaled_dot_product_attention (dropout_p {rate}"
+                      + (", its own Philox mask" if rate else "")
+                      + "; a bool key mask, or is_causal for the decoder)",
+        "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
+        **bound(nbytes, 2 * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
+    }
 
 
 # ------------------------------------------------------------------ main

@@ -16,7 +16,7 @@ import torch
 
 from openasr_torch.kernels.flash_attention import (
     attention_dropout_mask,
-    check_bwd_alignment,
+    check_flash_alignment,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -301,18 +301,22 @@ def _strided(shape, strides, offset, dtype):
      r"multiples of 16 bytes \(4 elements\)"),
     ("f32 start 4 bytes off", (2, 5, 2, 32), (5 * 64, 64, 32, 1), 1, torch.float32,
      "16-byte boundary"),
+    # the forward's views: the model's q/k/v, each its own nn.Linear output
+    # [B, T, H*D] viewed as [B, T, H, D], and k of a packed [B, T, 2, H, D]
+    ("projection view", (2, 5, 8, 64), (5 * 512, 512, 64, 1), 0, torch.bfloat16, None),
+    ("packed k", (2, 5, 8, 64), (5 * 1024, 1024, 64, 1), 512, torch.float32, None),
 ])
-def test_bwd_alignment_check(case, shape, strides, offset, dtype, error):
-    """The backward kernels' 16-byte cp.async needs 16-byte aligned rows;
-    the wrappers' check names the view and the condition."""
+def test_flash_alignment_check(case, shape, strides, offset, dtype, error):
+    """The forward and backward kernels' 16-byte cp.async needs 16-byte
+    aligned rows; the wrappers' check names the view and the condition."""
     t = _strided(shape, strides, offset, dtype)
     if error is None:
-        check_bwd_alignment(q=t)
+        check_flash_alignment(q=t)
     else:
         with pytest.raises(ValueError, match=f"q.*{error}"):
-            check_bwd_alignment(q=t)
+            check_flash_alignment(q=t)
         # a fresh contiguous copy is aligned
-        check_bwd_alignment(q=t.clone(memory_format=torch.contiguous_format))
+        check_flash_alignment(q=t.clone(memory_format=torch.contiguous_format))
 
 
 # ------------------------------------------------------------ card only
@@ -487,17 +491,88 @@ def test_flash_bwd_kernels_are_deterministic(cuda_card, dtype):
 @pytest.mark.cuda
 def test_flash_bwd_misaligned_view_raises(cuda_card):
     """A bf16 q that starts 2 bytes past a 16-byte boundary is refused by
-    the backward wrappers (the forward takes it)."""
+    the backward wrappers (out and lse from the plain forward, which takes
+    any view)."""
     b, t, h, d = 2, 17, 2, 64
     gen = torch.Generator().manual_seed(3)
     flat = torch.randn(b * t * h * d + 1, generator=gen).to("cuda", torch.bfloat16)
     q = flat[1:].view(b, t, h, d)
     k, v, dout = (torch.randn(b, t, h, d, generator=gen).to("cuda", torch.bfloat16)
                   for _ in range(3))
-    out, lse = flash_attention(q, k, v)
+    out, lse = flash_attention_reference(q, k, v)
     delta = flash_delta(out, dout)
     for call in (lambda: flash_attention_bwd(q, k, v, out, lse, dout),
                  lambda: flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta),
                  lambda: flash_attention_bwd_dq(q, k, v, out, lse, dout, delta)):
         with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
             call()
+
+
+@pytest.mark.cuda
+def test_flash_fwd_misaligned_view_raises(cuda_card):
+    """The forward refuses a bf16 view that starts 2 bytes past a 16-byte
+    boundary, and one whose time stride is not a multiple of 16 bytes,
+    without launching; the model's views (each projection's nn.Linear
+    output viewed as [B, T, H, D]) are aligned and launch."""
+    b, t, h, d = 2, 17, 2, 64
+    gen = torch.Generator().manual_seed(5)
+    flat = torch.randn(b * t * h * d + 1, generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn(b, t, h, d, generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    wide = torch.randn(b, t, h * d + 4, generator=gen).to("cuda", torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
+        flash_attention(flat[1:].view(b, t, h, d), k, v)
+    with pytest.raises(ValueError, match="k's batch, time and head strides"):
+        flash_attention(k, wide[..., : h * d].view(b, t, h, d), v)
+    assert flash_attention.launches == before
+    x = torch.randn(b, t, h * d, generator=gen).to("cuda", torch.bfloat16)
+    proj = [torch.nn.Linear(h * d, h * d).to("cuda", torch.bfloat16) for _ in range(3)]
+    with torch.no_grad():
+        q, k, v = (p(x).view(b, t, h, d) for p in proj)
+        out, lse = flash_attention(q, k, v, kv_lengths=torch.tensor([t, 9], device="cuda"))
+    assert flash_attention.launches == before + 1
+    out_r, _ = flash_attention_reference(q, k, v, torch.tensor([t, 9], device="cuda"))
+    assert (out.float() - out_r.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", BWD_EDGE_CASES)
+def test_flash_fwd_kernel_tile_edges(cuda_card, dtype, tol, rate, b, tq, tk, h, d,
+                                     causal, lengths):
+    """O and lse of the forward kernel against the plain version at the
+    tile edges (16-row fragments, 32-key steps, 64-query blocks), with the
+    same dropout seed on both sides; rows without a valid key give O = 0
+    and lse = +inf."""
+    q, k, v, _ = _bwd_case(b, tq, tk, h, d, dtype, tq * 5 + tk)
+    lens = None if lengths is None else torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else None
+    before = flash_attention.launches + flash_attention.dropout_launches
+    out, lse = flash_attention(q, k, v, kv_lengths=lens, causal=causal,
+                               dropout_rate=rate, dropout_seed=seed)
+    assert flash_attention.launches + flash_attention.dropout_launches == before + 1
+    out_r, lse_r = flash_attention_reference(q, k, v, lens, causal, None, rate, seed or 0)
+    assert out.shape == out_r.shape and out.dtype == out_r.dtype
+    assert (out.float() - out_r.float()).abs().max().item() <= tol
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_r))
+    fin = torch.isfinite(lse_r)
+    if bool(fin.any()):
+        assert (lse[fin] - lse_r[fin]).abs().max().item() <= 1e-3
+    if lens is not None:
+        for i, n in enumerate(lengths):
+            if n == 0:
+                assert not out[i].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_is_deterministic(cuda_card, dtype):
+    """Two forward launches give bit-identical O and lse."""
+    q, k, v, _ = _bwd_case(4, 139, 139, 8, 64, dtype, 13)
+    lens = torch.tensor([139, 100, 37, 0], device="cuda")
+    first = flash_attention(q, k, v, kv_lengths=lens, dropout_rate=0.1, dropout_seed=5)
+    second = flash_attention(q, k, v, kv_lengths=lens, dropout_rate=0.1, dropout_seed=5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
