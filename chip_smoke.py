@@ -5,9 +5,15 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 `openasr_torch/kernels/csrc/`, holds each kernel against its plain PyTorch
-version on the card (LayerNorm and flash attention forward and backward,
-with and without attention dropout; the fused fbank from strided waves and
-from dithered frames), then drives the port's main paths at the full width
+version on the card (LayerNorm forward and backward, also at D 1536, the
+backward's dgamma and dbeta bit-identical over two runs; flash attention
+forward and backward, with and without attention dropout, also at head
+dims 16 and 48, which the wrappers zero-pad, with the hash mask's dropped
+pairs kept; the fused fbank from strided waves and from dithered frames,
+also at 32 kHz, nfft 400, VTLN 0.9 and 40 bins, each log-mel case also
+against a float64 evaluation), trains two steps of
+egs/aishell1/configs/conv-ctc-transformer-test.yaml (head dim 16), then
+drives the port's main paths at the full width
 of the flagship conv-ctc-transformer (egs/aishell1/configs/
 conv-ctc-transformer.yaml: ConvV2, d512, 6+6 post-LN layers, 8 heads, GLU
 2048, vocab 4233) with random weights from a fixed seed, in float32 and in
@@ -58,11 +64,14 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 FLAGSHIP_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer.yaml")
 ONLINE_YAML = os.path.join(ROOT, "egs", "aishell1", "configs",
                            "conv-ctc-transformer-online.yaml")
+TEST_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer-test.yaml")
 SEED = 1234
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit).
+# Bounds take the rate of the type a function reads and writes; the fbank
+# kernel computes in float64 (34 TFLOP/s), its own choice, reported apart
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float64: 34e12}
 # the attention kernels, forward and backward, compute f32 products on the
 # tensor cores as 3xTF32, three TF32 products each (TF32: 495 TFLOP/s dense)
 MMA_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
@@ -73,13 +82,22 @@ TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 the outputs round to 8 bits and O, hence delta, differ by an ulp
 TOL_LN_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_FLASH_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-# log-mel, max abs.  Kernel against its plain version on the card: both sum
-# the same f32 products, in other orders (this script measured 1.9e-6 on an
-# H100, one ulp at the features' magnitude of ~16).  Card against CPU: the
-# CPU's GEMMs block the 400-term sums otherwise, and frames near silence
-# cancel most of each sum (8.2e-4 on the same run)
-TOL_FBANK = 1e-4
+# log-mel, max abs.  The kernel computes the FFT in float64, the plain
+# version the folded f32 products.  So the kernel is held against a
+# float64 evaluation of the same function (`fbank_float64`), to TOL_FBANK_F64
+# (a few f32 ulps at the features' magnitude of 16-32: 1.9e-6 measured on
+# an H100) and no farther from it than the plain version, case by case.
+# Kernel against plain is then held, case by case, to the plain version's
+# own error against float64 plus TOL_FBANK_F64 (the triangle inequality's
+# limit): the plain error reached 2.3e-3 on bins far below a frame's
+# loudest (near silence, beside tones) on the VTLN training batch.  Card
+# against CPU (the plain version on both): the CPU's GEMMs block the
+# 400-term sums otherwise (8.2e-4 measured)
+TOL_FBANK_F64 = 1e-5
 TOL_FBANK_CPU = 2e-3
+# where nfft is not a power of two the kernel sums the plain version's own
+# folded f32 products, in other orders (1.9e-6 measured)
+TOL_FBANK_FOLDED = 1e-4
 # mel energies without the log (use_log_fbank false), max abs over the
 # largest energy: 1e-4 on the log is 1e-4 relative on every energy
 TOL_FBANK_REL = 1e-5
@@ -240,6 +258,26 @@ def attention_ptxas(log: str) -> list:
     return out
 
 
+def ptxas_report(log: str, source: str) -> list:
+    """(kernel, registers, spill bytes) of every entry function that nvcc's
+    -Xptxas -v output lists for one source in a build log."""
+    import re
+
+    sec = log[log.index(f"== nvcc {source}"):]
+    end = sec.find("== nvcc", 1)
+    out, name, spill = [], None, 0
+    for line in (sec if end < 0 else sec[:end]).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and name:
+            out.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
+            name = None
+    return out
+
+
 def phase_build():
     from openasr_torch import kernels
 
@@ -255,6 +293,26 @@ def phase_build():
         f"{n} {r} ({sp})" for n, r, sp in report))
     require(len(report) == 36, f"{len(report)} attention kernels in the build log, not 36")
     require(all(sp == 0 for _, _, sp in report), "an attention kernel spills registers")
+    text = log.read_text()
+    for source, keys in (("fbank.cu", ("fbank_fft", "fbank_folded")),
+                         ("layer_norm.cu", ("layer_norm_bwd", "column_sum"))):
+        rows = [(short_name(n), r, sp) for n, r, sp in ptxas_report(text, source)
+                if any(k in n for k in keys)]
+        print(f"[ptxas] {source} registers (spill bytes): " + ", ".join(
+            f"{n} {r} ({sp})" for n, r, sp in rows))
+        require(rows, f"no kernel of {source} in the build log")
+
+
+def short_name(mangled: str) -> str:
+    """kernel<template arguments> of a mangled kernel name: bf16 or f32,
+    then its integer and bool arguments (VEC, NV, partials; R)."""
+    import re
+
+    name = re.search(r"(?<=\d)((?:layer_norm|fbank|column)_[a-z0-9_]*?kernel)(?=[IE])",
+                     mangled).group(1)
+    args = (["bf16"] if "nv_bfloat16" in mangled else ["f32"] if "IfL" in mangled else [])
+    args += re.findall(r"L[ib](\d+)E", mangled)
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 # --------------------------------------------------------------- phase 2
@@ -271,18 +329,18 @@ def phase_layer_norm(errs):
 
     rng = np.random.RandomState(SEED)
     for dtype in DTYPES:
-        for n in (2400, 40):
-            x, g, b = ln_inputs(n, 512, dtype, rng)
+        for n, d in ((2400, 512), (40, 512), (300, 1536)):
+            x, g, b = ln_inputs(n, d, dtype, rng)
             y, mu, rs = fused_layer_norm(x, g, b)
             torch.cuda.synchronize()
             y_r, mu_r, rs_r = layer_norm_reference(x, g, b)
             e = max_err(y, y_r)
             e_stats = max(max_err(mu, mu_r), max_err(rs, rs_r))
             tol = TOL_LN[dtype]
-            print(f"[layer_norm] [{n}, 512] {DTYPE_NAME[dtype]}: y err {e:.3g}, "
+            print(f"[layer_norm] [{n}, {d}] {DTYPE_NAME[dtype]}: y err {e:.3g}, "
                   f"stats err {e_stats:.3g} (tol {tol})")
             require(e <= tol and e_stats <= 1e-5,
-                    f"layer_norm [{n}, 512] {DTYPE_NAME[dtype]} disagrees")
+                    f"layer_norm [{n}, {d}] {DTYPE_NAME[dtype]} disagrees")
             errs[("layer_norm_fwd", dtype)] = max(errs.get(("layer_norm_fwd", dtype), 0.0), e)
 
 
@@ -299,7 +357,8 @@ def phase_layer_norm_bwd(errs, rows_main):
     rng = np.random.RandomState(SEED + 3)
     for dtype in DTYPES:
         tol = TOL_LN_BWD[dtype]
-        for n, d in ((rows_main, 512), (40, 512), (37, 64), (1, 1000)):
+        for n, d in ((rows_main, 512), (40, 512), (37, 64), (1, 1000), (1, 512), (5, 512),
+                     (1027, 512), (300, 1536)):
             x, g, b = ln_inputs(n, d, dtype, rng)
             dy = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to("cuda", dtype)
             xr, gr, br = (t.clone().requires_grad_() for t in (x, g, b))
@@ -322,6 +381,14 @@ def phase_layer_norm_bwd(errs, rows_main):
                 note_err(errs, (key, dtype), e, e / scale)
             print(f"[layer_norm_bwd] [{n}, {d}] {DTYPE_NAME[dtype]}: worst err "
                   f"{worst:.3g} of max(1, |grad|) (tol {tol})")
+            if n in (rows_main, 300):
+                again = layer_norm_bwd(x, dy, g, mean, rstd)
+                first = layer_norm_bwd(x, dy, g, mean, rstd)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, c) for a, c in zip(first, again)),
+                        f"layer_norm_bwd [{n}, {d}] {DTYPE_NAME[dtype]}: two runs differ")
+                print(f"[layer_norm_bwd] [{n}, {d}] {DTYPE_NAME[dtype]}: dx, dgamma, dbeta "
+                      f"bit-identical over two runs")
 
 
 # --------------------------------------------------------------- phase 3
@@ -350,6 +417,8 @@ def phase_flash(errs):
     cases = [(8, 8, 64, t, t, c) for t in (1, 37, 304, 1024) for c in (False, True)]
     cases += [(8, 8, 64, 37, 304, False), (4, 8, 32, 304, 304, False),
               (4, 4, 128, 304, 304, True)]
+    # head dims the wrappers zero-pad (16 -> 32, 48 -> 64), causal and padded
+    cases += [(4, 4, d, t, t, c) for d in (16, 48) for t in (37, 139) for c in (False, True)]
     for dtype in DTYPES:
         for rate in (0.0, DROPOUT):
             seed = DROPOUT_SEED if rate else None
@@ -374,6 +443,40 @@ def phase_flash(errs):
                     key = ("flash_attention_fwd_dropout" if rate else "flash_attention_fwd",
                            dtype)
                     errs[key] = max(errs.get(key, 0.0), e)
+        dropped_pairs(dtype)
+
+
+def dropped_pairs(dtype):
+    """At D = 16 (padded to 32) with dropout 0.1 and v[b, key, h] = e_key,
+    O[b, q, h, key] is the kept weight of (q, key): its zeros must be the
+    hash mask's dropped (and the causal mask's) pairs, as in the plain
+    version with the same seed."""
+    from openasr_torch.kernels.flash_attention import (
+        attention_dropout_mask,
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    b, h, d, tq, tk = 2, 2, 16, 37, 16
+    gen = torch.Generator().manual_seed(SEED)
+    for causal in (False, True):
+        q = torch.randn(b, tq, h, d, generator=gen).to("cuda", dtype)
+        k = torch.randn(b, tk, h, d, generator=gen).to("cuda", dtype)
+        v = torch.eye(tk)[None, :, None, :].expand(b, tk, h, d).to("cuda", dtype).contiguous()
+        out, _ = flash_attention(q, k, v, causal=causal, dropout_rate=DROPOUT,
+                                 dropout_seed=DROPOUT_SEED)
+        out_r, _ = flash_attention_reference(q, k, v, None, causal, None, DROPOUT,
+                                             DROPOUT_SEED)
+        torch.cuda.synchronize()
+        keep = attention_dropout_mask(DROPOUT_SEED, b, h, tq, tk, DROPOUT, "cuda")
+        if causal:
+            keep = keep & (torch.arange(tk, device="cuda")[None, :]
+                           <= torch.arange(tq, device="cuda")[:, None])
+        same = [torch.equal(o.permute(0, 2, 1, 3) != 0, keep) for o in (out, out_r)]
+        print(f"[flash] D16 dropout={DROPOUT} causal={causal} {DTYPE_NAME[dtype]}: "
+              f"{int((~keep).sum())} dropped or masked pairs of {keep.numel()}; the kernel's "
+              f"zeros are the hash mask's: {same[0]}, the plain version's: {same[1]}")
+        require(all(same), "the padded kernel's dropped pairs differ from the mask")
 
 
 def flash_train_case(b, h, d, tq, tk, dtype, rng, lens):
@@ -420,6 +523,11 @@ def phase_flash_bwd(errs, shapes):
         (4, 8, 64, 25, 127, False, ragged(4, 127)),
         (2, 4, 128, 130, 130, False, ragged(2, 130)),
         (2, 4, 128, 64, 200, False, ragged(2, 200)),
+        # head dims the wrappers zero-pad
+        (4, 2, 16, 37, 37, True, None),
+        (4, 2, 16, 25, 127, False, ragged(4, 127)),
+        (4, 2, 48, 130, 130, True, ragged(4, 130)),
+        (4, 2, 48, 25, 127, False, ragged(4, 127)),
         # the training path's own shapes: encoder self-attention, decoder
         # causal self-attention, cross-attention (Tq != Tk)
         (b, 8, 64, t, t, False, lens),
@@ -491,54 +599,96 @@ def fbank_inputs(x, lens, cfg, dither):
 def phase_fbank(errs, train_batch, test_waves):
     """The fused fbank kernel against its plain version on the card, f32,
     TF32 off: the training and decode paths' batches, an odd T that is not
-    a multiple of the 32-frame tile, 80 and 40 bins, frames read from the
+    a multiple of the kernels' 16- or 32-frame tiles, 80 and 40 bins, frames read from the
     strided waves or materialized with dither, utterances of 399 (0 frames)
-    and 400 samples (1 frame), and mel energies without the log (held by
-    the error over the largest energy)."""
-    from openasr_torch.kernels.fbank import fbank_reference, fused_fbank
+    and 400 samples (1 frame), mel energies without the log (held by the
+    error over the largest energy), and the training batch's waves at
+    32 kHz (nfft 1024, 512 bins), with nfft 400 (not a power of two: the
+    folded kernel), with VTLN warp 0.9 and with 40 bins; the decode batch's
+    waves read at 8 kHz (nfft 256; with 16 ms frames, nfft 128), with 100
+    ms frames (nfft 2048) and at 48 kHz with 50 ms frames (nfft 4096, the
+    shared-memory FFT kernel).  Each log-mel case is also held, kernel and
+    plain version alike, against `fbank_float64` (the same function in
+    float64 on the card)."""
+    from openasr_torch.kernels.fbank import (
+        fbank_float64,
+        fbank_reference,
+        fused_fbank,
+        is_power_of_two,
+    )
     from openasr_torch.ops.fbank import FbankConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(SEED + 7)
     short = {f"s{i}": (rng.randn(n) * 2000).astype(np.float32)
              for i, n in enumerate((6160, 5000, 399, 400))}
-    cases = [  # name, waves, utterances, padded samples, mel bins, dither, log
-        ("training batch", train_batch["waves"], train_batch["utts"], None, 80, False, True),
-        ("training batch, dithered frames", train_batch["waves"], train_batch["utts"],
-         None, 80, True, True),
-        ("decode batch", test_waves, sorted(test_waves), None, 80, False, True),
-        ("odd T, 40 bins", short, sorted(short), 6160, 40, False, True),
-        ("odd T, dithered frames", short, sorted(short), 6160, 80, True, True),
-        ("one frame", short, ["s2", "s3"], 400, 80, False, True),
-        ("mel energies, no log", short, sorted(short), 6160, 80, False, False),
+    train = (train_batch["waves"], train_batch["utts"], None)
+    decode = (test_waves, sorted(test_waves), None)
+    cases = [  # name, (waves, utterances, padded samples), config, dither
+        ("training batch", train, {}, False),
+        ("training batch, dithered frames", train, {}, True),
+        ("decode batch", decode, {}, False),
+        ("odd T, 40 bins", (short, sorted(short), 6160), {"num_mel_bins": 40}, False),
+        ("odd T, dithered frames", (short, sorted(short), 6160), {}, True),
+        ("one frame", (short, ["s2", "s3"], 400), {}, False),
+        ("mel energies, no log", (short, sorted(short), 6160), {"use_log_fbank": False},
+         False),
+        ("training batch at 32 kHz, nfft 1024", train, {"sample_rate": 32000.0}, False),
+        ("training batch, nfft 400 (folded kernel)", train, {"round_to_power_of_two": False},
+         False),
+        ("training batch, VTLN warp 0.9", train, {"vtln_warp": 0.9}, False),
+        ("training batch, 40 bins", train, {"num_mel_bins": 40}, False),
+        ("decode batch at 8 kHz, nfft 256", decode, {"sample_rate": 8000.0}, False),
+        ("decode batch at 8 kHz, 16 ms, nfft 128, 23 bins", decode,
+         {"sample_rate": 8000.0, "frame_length_ms": 16.0, "num_mel_bins": 23}, False),
+        ("decode batch, 100 ms, nfft 2048", decode, {"frame_length_ms": 100.0}, False),
+        ("decode batch at 48 kHz, 50 ms, nfft 4096", decode,
+         {"sample_rate": 48000.0, "frame_length_ms": 50.0}, False),
     ]
-    worst = 0.0
-    for name, waves, utts, n, bins, dither, log in cases:
-        cfg = FbankConfig(num_mel_bins=bins, use_log_fbank=log)
+    worst = worst_64 = worst_plain_64 = worst_margin = 0.0
+    for name, (waves, utts, n), kw, dither in cases:
+        cfg = FbankConfig(**kw)
         x, lens = fbank_batch(waves, utts, n)
         frames, feat_lens = fbank_inputs(x, lens, cfg, dither)
+        before = fused_fbank.launches
         got = fused_fbank(frames, feat_lens, cfg)
         torch.cuda.synchronize()
+        require(fused_fbank.launches == before + 1, f"fbank {name}: the kernel did not launch")
         want = fbank_reference(frames, feat_lens, cfg)
         e = max_err(got, want)
-        scale = 1.0 if log else max(1.0, float(want.abs().max()))
-        tol = TOL_FBANK if log else TOL_FBANK_REL
         b, t, _ = frames.shape
         valid = torch.arange(t, device="cuda")[None, :] < feat_lens[:, None]
         pad_max = float(got[~valid].abs().max()) if bool((~valid).any()) else 0.0
-        print(f"[fbank] {name}: B{b} T{t} M{bins}, frame stride {frames.stride(1)}, "
-              f"frames {feat_lens.tolist() if b <= 4 else int(feat_lens.sum())}: "
-              + (f"err {e:.3g} (tol {tol})" if log else
-                 f"err {e:.3g} = {e / scale:.3g} of the largest energy {scale:.4g} "
-                 f"(tol {tol})")
-              + f", padding max {pad_max}")
-        require(e <= tol * scale and pad_max == 0.0 and bool(torch.isfinite(got).all()),
-                f"fbank {name} disagrees")
-        if log:
-            worst = max(worst, e)
+        head = (f"[fbank] {name}: B{b} T{t} M{cfg.num_mel_bins} nfft "
+                f"{cfg.padded_window_size}, frame stride {frames.stride(1)}, frames "
+                f"{feat_lens.tolist() if b <= 4 else int(feat_lens.sum())}: ")
+        ok = pad_max == 0.0 and bool(torch.isfinite(got).all())
+        if cfg.use_log_fbank:
+            f64 = fbank_float64(frames, feat_lens, cfg)
+            e64, e_plain64 = max_err(got.double(), f64), max_err(want.double(), f64)
+            tol = (e_plain64 + TOL_FBANK_F64 if is_power_of_two(cfg.padded_window_size)
+                   else TOL_FBANK_FOLDED)
+            print(head + f"err {e:.3g} (tol {tol:.3g}); against float64: kernel "
+                  f"{e64:.3g} (tol {TOL_FBANK_F64}, and at most the plain version's), "
+                  f"plain {e_plain64:.3g}, padding max {pad_max}")
+            if is_power_of_two(cfg.padded_window_size):
+                ok = ok and e <= tol and e64 <= min(TOL_FBANK_F64, e_plain64)
+                worst, worst_64 = max(worst, e), max(worst_64, e64)
+                worst_plain_64 = max(worst_plain_64, e_plain64)
+                worst_margin = max(worst_margin, e / tol)
+            else:
+                ok = ok and e <= TOL_FBANK_FOLDED
+                errs["fbank_folded"] = e
         else:
+            scale = max(1.0, float(want.abs().max()))
+            print(head + f"err {e:.3g} = {e / scale:.3g} of the largest energy {scale:.4g} "
+                  f"(tol {TOL_FBANK_REL}), padding max {pad_max}")
+            ok = ok and e <= TOL_FBANK_REL * scale
             errs["fbank_mel_rel"] = e / scale
-    errs["fbank"] = worst
+        require(ok, f"fbank {name} disagrees")
+    errs["fbank"], errs["fbank_vs_f64"], errs["fbank_plain_vs_f64"] = (
+        worst, worst_64, worst_plain_64)
+    errs["fbank_of_tol"] = worst_margin
 
 
 def check_features_against_cpu(test_waves):
@@ -567,13 +717,13 @@ def write_vocab():
     return vocab, chars
 
 
-def write_corpus(name, rng, chars, n_utts, frames, tokens):
-    """`n_utts` utterances of `frames` (lo, hi) random 80-dim frames with
+def write_corpus(name, rng, chars, n_utts, frames, tokens, dim=80):
+    """`n_utts` utterances of `frames` (lo, hi) random `dim`-dim frames with
     `tokens` (lo, hi) random characters each, as ark/scp + json."""
     from openasr_torch.data.kaldi_io import write_ark_scp
 
     feats = {
-        f"{name}{i:03d}": rng.randn(int(rng.randint(frames[0], frames[1] + 1)), 80)
+        f"{name}{i:03d}": rng.randn(int(rng.randint(frames[0], frames[1] + 1)), dim)
         .astype(np.float32)
         for i in range(n_utts)
     }
@@ -851,6 +1001,44 @@ def phase_train(train_json, dev_json, vocab, launches, online=False):
     return per
 
 
+def phase_train_head_dim_16(vocab, chars, rng, launches):
+    """Two training steps and a dev pass of egs/aishell1/configs/
+    conv-ctc-transformer-test.yaml (d_model 32, 2 heads: head dim 16, which
+    the attention wrappers zero-pad to 32) through the CLI on the card, f32,
+    on 4 random 20-dim utterances: finite losses, and every attention
+    kernel launched."""
+    import yaml
+
+    from openasr_torch.bin import train
+
+    manifest, _ = write_corpus("htrain", rng, chars, 4, (80, 96), (4, 8), dim=20)
+    exp = os.path.join(WORK, "exp_head_dim_16")
+    os.makedirs(exp)
+    with open(TEST_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(trainset=manifest, devset=manifest, vocab_path=vocab)
+    cfg["training"].update(exp_dir=exp, num_epoch=1, print_inteval=1)
+    path = os.path.join(exp, "train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    reset_counters()
+    train.main([path, "--device", "cuda"])
+    n = read_counters()
+    launches[("head dim 16 train", torch.float32)] = n
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    tr = [r for r in rows if r["phase"] == "train"]
+    losses = [v for r in rows for k, v in r.items() if k.endswith("loss")]
+    print(f"[head dim 16 train path] {len(tr)} steps: losses "
+          f"{[round(r['ctc_loss'], 4) for r in tr]} (ctc), "
+          f"{[round(r['ce_loss'], 4) for r in tr]} (ce); launches {n}")
+    require(len(tr) >= 2, f"{len(tr)} training steps")
+    require(all(np.isfinite(v) for v in losses), f"non-finite loss logged: {losses}")
+    require(min(n[k] for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                               "flash_attention_bwd_dq", "layer_norm_bwd")) > 0,
+            "an attention or LayerNorm kernel never launched at head dim 16")
+
+
 def check_grads_against_cpu(pkg_path, feats):
     """One f32 training step (dropout and SpecAugment off) on 2 utterances
     at full width: every parameter's gradient on the card against the CPU,
@@ -1024,37 +1212,37 @@ def fwd_rows(feats, errs, launches):
     return rows
 
 
-def fbank_ops_per_frame(cfg) -> dict:
-    """Operations of one frame's log-mel: `function`, what the fbank needs
-    (DC removal, preemphasis and window, 5 a sample; a real FFT of nfft
-    points, 2.5 nfft log2 nfft; the power, 3 a bin; the mel product over
-    the banks' nonzeros, 2 each; max and log, 2 a bin), and `folded`, what
-    the kernel's folded products do (4 ws F for re and im, 2 F M)."""
+def fbank_ops_per_frame(cfg) -> float:
+    """Operations of one frame's log-mel, what the fbank needs: DC removal,
+    preemphasis and window, 5 a sample; a real FFT of nfft points, 2.5 nfft
+    log2 nfft; the power, 3 a bin; the mel product over the banks'
+    nonzeros, 2 each; max and log, 2 a bin."""
     from openasr_torch.ops.fbank import mel_banks
 
     ws, nfft, m = cfg.window_size, cfg.padded_window_size, cfg.num_mel_bins
-    f = nfft // 2 + 1
     nnz = int(np.count_nonzero(mel_banks(cfg)))
-    return {"function": 5 * ws + 2.5 * nfft * float(np.log2(nfft)) + 3 * f + 2 * nnz + 2 * m,
-            "folded": 4 * ws * f + 2 * f * m}
+    return 5 * ws + 2.5 * nfft * float(np.log2(nfft)) + 3 * (nfft // 2 + 1) + 2 * nnz + 2 * m
 
 
 def fbank_rows(train_batch, test_waves, errs, launches):
     """The fused fbank kernel at the online paths' batches (f32 only: the
-    frontend always runs in f32)."""
+    frontend always runs in f32): the FFT kernel, which those paths run,
+    and at the decode batch with nfft 400 (round_to_power_of_two false) the
+    folded kernel, which no path of the smoke test runs."""
     from openasr_torch.kernels.fbank import fbank_reference, fused_fbank
     from openasr_torch.ops.fbank import FbankConfig, rfft_fbank
 
-    cfg = FbankConfig()
-    ws, m = cfg.window_size, cfg.num_mel_bins
-    ops = fbank_ops_per_frame(cfg)
     rows = []
-    for path, waves, utts in (("train", train_batch["waves"], train_batch["utts"]),
-                              ("decode", test_waves, sorted(test_waves))):
+    for path, waves, utts, kw in (
+        ("train", train_batch["waves"], train_batch["utts"], {}),
+        ("decode", test_waves, sorted(test_waves), {}),
+        ("decode, nfft 400", test_waves, sorted(test_waves), {"round_to_power_of_two": False}),
+    ):
+        cfg = FbankConfig(**kw)
+        ws, m = cfg.window_size, cfg.num_mel_bins
         x, lens = fbank_batch(waves, utts)
         frames, feat_lens = fbank_inputs(x, lens, cfg, False)
         b, t, _ = frames.shape
-        run = launches[(f"online {path}", torch.float32)]
         n_valid = int(feat_lens.sum())
         # the composite computes every frame it is given: give it the valid
         # ones only, gathered before the timing, as the kernel skips padding
@@ -1062,16 +1250,33 @@ def fbank_rows(train_batch, test_waves, errs, launches):
         valid_frames = frames[valid]
         # samples read once, every output written, the frame counts read
         nbytes = 4 * int(lens.sum()) + 4 * b * t * m + 4 * b
+        if kw:
+            name, kernel = "fbank_folded[decode, nfft 400]", "fbank_folded_kernel"
+            counted = {"launches": 0,
+                       "launches_are": "the online paths' configs (nfft 512) take the FFT "
+                                       "kernel; this one runs where nfft is not a power of "
+                                       "two (the [fbank] phase's nfft 400 case)"}
+        else:
+            name, kernel = f"fbank[{path}]", "fbank_fft_kernel"
+            run = launches[(f"online {path}", torch.float32)]
+            counted = {"launches": run.get("total", run)["fbank"],
+                       "launches_are": f"the online {path} path's, in f32 (in bf16 the same)"}
         rows.append({
-            "name": f"fbank[{path}]",
+            "name": name,
             "route": "cuda",
-            "source": "openasr_torch/kernels/csrc/fbank.cu",
+            "source": f"openasr_torch/kernels/csrc/fbank.cu:{kernel}",
             "replaces": "openasr_tpu/kernels/fbank_fused.py:90",
             "shape": [b, t, ws],
-            "launches": run.get("total", run)["fbank"],
-            "launches_are": f"the online {path} path's, in f32 (in bf16 the same)",
-            "max_abs_err": errs["fbank"],
-            "tol": TOL_FBANK,
+            "nfft": cfg.padded_window_size,
+            **counted,
+            **({"max_abs_err": errs["fbank_folded"], "tol": TOL_FBANK_FOLDED} if kw else {
+                "max_abs_err": errs["fbank"],
+                "tol_is": "per case, the plain version's max_abs_err against float64 plus "
+                          "tol_vs_float64",
+                "largest_share_of_tol": errs["fbank_of_tol"],
+                "max_abs_err_vs_float64": errs["fbank_vs_f64"],
+                "tol_vs_float64": TOL_FBANK_F64,
+                "plain_max_abs_err_vs_float64": errs["fbank_plain_vs_f64"]}),
             "max_rel_err_no_log": errs["fbank_mel_rel"],
             "tol_no_log": TOL_FBANK_REL,
             "valid_frames": n_valid,
@@ -1084,9 +1289,12 @@ def fbank_rows(train_batch, test_waves, errs, launches):
                           "matmul and the log, over the valid frames only (gathered "
                           "before the timing)",
             # what the log-mel needs over the valid frames (an FFT, the mel
-            # banks' nonzeros); the kernel's folded products in their own key
-            **bound(nbytes, n_valid * ops["function"], torch.float32),
-            "folded_bound_ms": bound(nbytes, n_valid * ops["folded"], torch.float32)["bound_ms"],
+            # banks' nonzeros), at the rate of the f32 it reads and writes
+            **bound(nbytes, n_valid * fbank_ops_per_frame(cfg), torch.float32),
+            **({} if kw else {"float64_ops_bound_ms": n_valid * fbank_ops_per_frame(cfg)
+                              / PEAK_FLOPS[torch.float64] * 1e3,
+                              "float64_ops_bound_is": "the same operations at float64's "
+                                                      "rate, the type the kernel computes in"}),
         })
     return rows
 
@@ -1347,6 +1555,64 @@ def train_rows(shapes, errs, launches, per):
     return rows
 
 
+def head_dim_rows(shapes, errs, launches):
+    """The attention kernels at head dim 16 (zero-padded to 32 by the
+    wrappers) at the training encoder's shape with dropout 0.1, forward and
+    whole backward, beside the same kernels at 32 on the inputs padded
+    beforehand (`at_32_ms`: what the pad and the slices cost is the
+    difference)."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        pad_head_dim,
+    )
+
+    b, t, lens = shapes["b"], shapes["t"], shapes["enc_lens"]
+    h, d = 8, 16
+    rng = np.random.RandomState(SEED + 8)
+    run = launches[("head dim 16 train", torch.float32)]
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        row = attention_fwd_row(b, h, d, t, t, False, lens, dtype, rng, errs, DROPOUT)
+        q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
+                   for _ in range(3))
+        kv = torch.from_numpy(lens.astype(np.int32)).cuda()
+        qp, kp, vp = (pad_head_dim(z, 32) for z in (q, k, v))
+        scale = 1.0 / np.sqrt(d)
+        fwd_32 = device_ms(lambda: flash_attention(qp, kp, vp, kv_lengths=kv, sm_scale=scale,
+                                                   dropout_rate=DROPOUT,
+                                                   dropout_seed=DROPOUT_SEED))
+        rows.append({"name": f"flash_attention_fwd_dropout_d16[{name}]", **row,
+                     "launches": run["flash_attention_fwd"],
+                     "launches_are": "the head-dim-16 test config's two steps and dev pass "
+                                     "(its dropout is 0)",
+                     "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+                     "tol": TOL_FLASH[dtype], "at_32_ms": fwd_32})
+        at = attention_bwd_times(b, h, d, t, t, False, lens, dtype, rng)
+        args = at["kernel_args"]
+        q, k, v, out, lse, dout = (pad_head_dim(z, 32) if z.dim() == 4 else z
+                                   for z in args[:6])
+        bwd_32 = device_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, kv, False,
+                                                       scale, DROPOUT, DROPOUT_SEED))
+        err = tuple(max(a, c) for a, c in zip(errs[("flash_attention_bwd_dkv", dtype)],
+                                               errs[("flash_attention_bwd_dq", dtype)]))
+        rows.append({
+            "name": f"flash_attention_bwd_d16[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327)",
+            "shape": at["shape"],
+            "launches": run["flash_attention_bwd_dkv"],
+            "launches_are": "dK/dV launches of the head-dim-16 test config's two steps",
+            **bwd_errs(err, TOL_FLASH_BWD[dtype]),
+            **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "at_32_ms": bwd_32,
+        })
+    return rows
+
+
 def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate) -> dict:
     """The forward kernel at one shape, with dropout `rate` (0, or 0.1 as
     the training path runs it): held to its plain version with the same
@@ -1445,6 +1711,7 @@ def main() -> int:
         phase_flash_bwd(errs, shapes)
         phase_fbank(errs, wbatch, wtest)
         print(f"[time] kernel checks done at {time.time() - t_start:.1f}s")
+        phase_train_head_dim_16(vocab, chars, rng, launches)
 
         pkg = os.path.join(WORK, "flagship.pkg")
         save_flagship_package(pkg)
@@ -1462,7 +1729,7 @@ def main() -> int:
         phase_train(wtrain_json, wdev_json, vocab, launches, online=True)
         print(f"[time] online training path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
-                + fbank_rows(wbatch, wtest, errs, launches))
+                + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

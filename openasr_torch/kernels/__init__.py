@@ -110,9 +110,9 @@ def library() -> ctypes.CDLL:
         lib.openasr_layer_norm_fwd.restype = i
         lib.openasr_layer_norm_bwd.argtypes = [
             p, p, p, p, p, p,        # x, dy, gamma, mean, rstd, dx
-            p, p,                    # dgamma_part, dbeta_part (or both null)
+            p, p, p, i,              # dgamma, dbeta, scratch, its rows
             i, i, i64, i64, i64,     # n_rows, d, x/dy/dx row strides
-            i, i, i, p,              # n_blocks, dtype, device, stream
+            i, i, p,                 # dtype, device, stream
         ]
         lib.openasr_layer_norm_bwd.restype = i
         lib.openasr_flash_attention_fwd.argtypes = [
@@ -139,10 +139,13 @@ def library() -> ctypes.CDLL:
         lib.openasr_flash_attention_bwd_dq.argtypes = [p] * 8 + bwd_tail
         lib.openasr_flash_attention_bwd_dq.restype = i
         lib.openasr_fbank.argtypes = [
-            p, p, p, p, p,           # frames, cs, mel, feat_lengths, out
-            i, i, i, i, i,           # B, T, ws, K, M
+            p, p, p,                 # frames, feat_lengths, out
+            p, p, p,                 # window, twiddle, twiddle_lo
+            p, p, p, p,              # mel_idx, mel_w, mel_order, cs (or null)
+            i, i, i, i, i, i,        # B, T, ws, nfft, M, mel weights
             i64, i64,                # frames' batch and frame strides
-            i, i, p,                 # use_log, device, stream
+            ctypes.c_double,         # preemphasis
+            i, i, i, p,              # remove_dc, use_log, device, stream
         ]
         lib.openasr_fbank.restype = i
         lib.openasr_cuda_error_string.argtypes = [i]

@@ -9,6 +9,12 @@ by default, fully masked rows giving O = 0 and lse = +inf, and attention
 dropout through the stateless positional hash mask (:78-134) that
 `attention_dropout_mask` reproduces bit for bit.
 
+The kernels are instantiated at D = 32, 64 and 128.  On the card the
+wrappers zero-pad any other D up to the next of them, as the JAX wrapper
+pads to a lane width (:670-672): zero columns of q and k leave QK^T as it
+is, the extra columns of O, dQ, dK and dV are sliced off, sm_scale comes
+from the true D, and the hash mask keys on positions, not on D.
+
 `flash_attention` is differentiable: a `torch.autograd.Function` saves q,
 k, v, O and lse, and its backward launches the dK/dV kernel and the dQ
 kernel with delta = rowsum(dO o O) computed here.  Every wrapper launches
@@ -171,6 +177,23 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
 # ----------------------------------------------------------- the kernels
 
 
+def padded_head_dim(d: int) -> int:
+    """The kernel instantiation a head dim `d` runs at: the least of
+    HEAD_DIMS that is >= d.  Raises ValueError above the largest."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention: head dim {d} above the largest kernel's "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """[B, T, H, D] -> [B, T, H, dp], zero columns past D (t itself when D is
+    dp already)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
 def _check_qkv(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, T, H, D]")
@@ -182,7 +205,8 @@ def _check_qkv(q, k, v):
             f"v {tuple(v.shape)} disagree"
         )
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention: the kernels take a head dim in {HEAD_DIMS}, "
+                         f"got {d} (pad_head_dim pads it)")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must match q's dtype and device")
@@ -214,6 +238,12 @@ def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
                                          dropout_rate, seed)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp != d:
+        out, lse = _flash_fwd(*(pad_head_dim(t, dp) for t in (q, k, v)), kv_lengths,
+                              causal, sm_scale, dropout_rate, seed)
+        return out[..., :d], lse
     _check_qkv(q, k, v)
     check_flash_alignment(q=q, k=k, v=v)
     b, tq, h, d = q.shape
@@ -300,10 +330,17 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, kv_lengths=None,
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
             dropout_rate, dropout_seed)[1:]
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
+    d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    dp = padded_head_dim(d)
+    if dp != d:
+        dk, dv = flash_attention_bwd_dkv(
+            *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
+            delta, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
+        return dk[..., :d], dv[..., :d]
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
     dout, lse, delta, lens, lens_ptr, strides = _bwd_inputs(
         q, k, v, out, lse, dout, delta, kv_lengths)
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
@@ -332,10 +369,16 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, kv_lengths=None,
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
             dropout_rate, dropout_seed)[0]
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
+    d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    dp = padded_head_dim(d)
+    if dp != d:
+        return flash_attention_bwd_dq(
+            *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
+            delta, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)[..., :d]
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
     dout, lse, delta, lens, lens_ptr, strides = _bwd_inputs(
         q, k, v, out, lse, dout, delta, kv_lengths)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
@@ -362,6 +405,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
         return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths,
                                              causal, sm_scale, dropout_rate,
                                              dropout_seed)
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dp = padded_head_dim(d)
+    if dp != d:  # pad once for both kernels
+        grads = flash_attention_bwd(
+            *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
+            kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
+        return tuple(g[..., :d] for g in grads)
     delta = flash_delta(out, dout)
     args = (q, k, v, out, lse, dout, delta, kv_lengths, causal, sm_scale,
             dropout_rate, dropout_seed)
@@ -404,7 +456,8 @@ def flash_attention(
     unit stride along D and 16-byte aligned rows on the card (the
     projection views are read in place; `check_flash_alignment`);
     kv_lengths: optional [B] int — keys >= length are masked; causal:
-    query t attends to keys <= t; D in (32, 64, 128) on the card.
+    query t attends to keys <= t; D <= 128 on the card (any other D than
+    32, 64 or 128 runs zero-padded to the next of them).
     dropout_rate > 0 drops normalized weights by the positional hash mask
     of `dropout_seed` (a uint32; `draw_dropout_seed` draws one)."""
     seed = 0

@@ -7,8 +7,8 @@ x's dtype.  Unlike torch.nn.LayerNorm (eps 1e-5, two-pass variance) this
 is the JAX package's exact formula.
 
 `fused_layer_norm` is differentiable: a `torch.autograd.Function` saves x,
-gamma, mean and rstd, and its backward is `layer_norm_bwd` (dx plus the
-per-block dgamma / dbeta partials of one kernel, summed here).  Each
+gamma, mean and rstd, and its backward is `layer_norm_bwd` (dx, dgamma and
+dbeta from one library call: the row kernel and its column sum).  Each
 wrapper launches csrc/layer_norm.cu for a CUDA tensor and runs its plain
 version for a CPU tensor; there is no other route.
 """
@@ -18,9 +18,6 @@ from __future__ import annotations
 import torch
 
 from openasr_torch import kernels
-
-# rows of one LayerNorm block (csrc/layer_norm.cu kRowsPerBlock)
-_ROWS_PER_BLOCK = 4
 
 
 def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -66,8 +63,8 @@ def _check_params(x, **params):
             raise ValueError(f"layer_norm: {name} must be [{d}], got {tuple(t.shape)}")
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"layer_norm: {name} must be contiguous float32 on {x.device}")
-    if not 1 <= d <= 1024:
-        raise ValueError(f"layer_norm: last dim {d} outside [1, 1024]")
+    if d < 1:
+        raise ValueError(f"layer_norm: last dim {d} is empty")
 
 
 def _layer_norm_fwd(x, scale, bias, eps):
@@ -97,21 +94,26 @@ def _layer_norm_fwd(x, scale, bias, eps):
     return y.reshape(*lead, d), mean.reshape(lead), rstd.reshape(lead)
 
 
-def _partial_blocks(n: int, device: torch.device) -> int:
-    """Blocks of the partials mode: two per SM (each warp then strides over
-    several rows), never more than one row per warp."""
+def _partial_rows_at_most(n: int, d: int, device) -> int:
+    """The most partial rows the backward's partials mode writes for n rows
+    of d: one a block of 4 warps (csrc/layer_norm.cu, kWarps), with at most
+    a block for every 4 rows and as many blocks as 2048 threads an SM hold;
+    one a warp for rows wider than 1024 (kMaxRegD)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // _ROWS_PER_BLOCK), 2 * sms))
+    blocks = min(-(-n // 4), sms * 2048 // 128)
+    return blocks * (4 if d > 1024 else 1)
 
 
 def layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta: bool = True):
     """LayerNorm backward -> (dx in x.dtype, dgamma f32, dbeta f32).
 
-    x, dy: [..., D] (f32 or bf16, D <= 1024 on the card); scale f32 [D];
-    mean, rstd: f32, shaped like x without its last axis (the forward's).
-    One kernel gives dx and per-block dgamma / dbeta partials, summed here.
-    `dgamma_dbeta=False` is the same kernel's dx-only mode (the counterpart
-    of the JAX package's `_bwd_dx_kernel`): it returns (dx, None, None).
+    x, dy: [..., D] (f32 or bf16); scale f32 [D]; mean, rstd: f32, shaped
+    like x without its last axis (the forward's).  One library call gives
+    all three: the row kernel writes dx and per-block dgamma / dbeta
+    partials into a scratch buffer, and a second kernel sums them in a
+    fixed order.
+    `dgamma_dbeta=False` is the library's dx-only mode (the counterpart of
+    the JAX package's `_bwd_dx_kernel`): it returns (dx, None, None).
     CUDA tensors launch csrc/layer_norm.cu; CPU tensors take
     `layer_norm_bwd_reference`."""
     if x.device.type == "cpu":
@@ -138,25 +140,26 @@ def layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta: bool = True):
         zero = torch.zeros((d,), dtype=torch.float32, device=x.device)
         return dx.reshape(x.shape), *((zero, zero.clone()) if dgamma_dbeta else (None, None))
     if dgamma_dbeta:
-        blocks = _partial_blocks(n, x.device)
-        dg_part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-        db_part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-        parts = (dg_part.data_ptr(), db_part.data_ptr())
+        rows = _partial_rows_at_most(n, d, x.device)
+        # (the launch uses its first 2 * r * d floats, as [2, r, d], r <= rows)
+        scratch = torch.empty((2 * rows * d,), dtype=torch.float32, device=x.device)
+        dg = torch.empty((d,), dtype=torch.float32, device=x.device)
+        db = torch.empty((d,), dtype=torch.float32, device=x.device)
+        outs = (dg.data_ptr(), db.data_ptr(), scratch.data_ptr(), rows)
     else:
-        blocks = -(-n // _ROWS_PER_BLOCK)
-        parts = (None, None)
+        outs = (None, None, None, 0)
     code = kernels.library().openasr_layer_norm_bwd(
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), dx.data_ptr(), *parts, n, d, x2.stride(0),
-        dy2.stride(0), dx.stride(0), blocks, kernels.dtype_code(x.dtype),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        stats[1].data_ptr(), dx.data_ptr(), *outs, n, d, x2.stride(0), dy2.stride(0),
+        dx.stride(0), kernels.dtype_code(x.dtype), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(code, "layer_norm_bwd")
     if not dgamma_dbeta:
         layer_norm_bwd.dx_launches += 1
         return dx.reshape(x.shape), None, None
     layer_norm_bwd.launches += 1
-    return dx.reshape(x.shape), dg_part.sum(0), db_part.sum(0)
+    return dx.reshape(x.shape), dg, db
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -178,7 +181,7 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float = 1e-6):
     """LayerNorm over the last axis: -> (y, mean, rstd) as
     `layer_norm_reference`, differentiable in x, scale and bias.  CUDA
-    tensors go through the kernels (x f32 or bf16, last dim <= 1024;
+    tensors go through the kernels (x f32 or bf16, any last dim;
     scale/bias f32); CPU tensors through the plain versions."""
     if torch.is_grad_enabled() and (
         x.requires_grad or scale.requires_grad or bias.requires_grad

@@ -30,7 +30,16 @@ import pytest
 import torch
 
 from openasr_torch.data.audio import load_wave, write_wav
-from openasr_torch.kernels.fbank import fbank_reference, fused_fbank, fused_matrices
+from openasr_torch.kernels.fbank import (
+    fbank_float64,
+    fbank_reference,
+    folded_matrices64,
+    fused_fbank,
+    fused_matrices,
+    kernel_tables,
+    sparse_mel,
+    twiddles,
+)
 from openasr_torch.ops import fbank as P
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -45,6 +54,21 @@ CONFIGS = {
     "vtln_down": {"vtln_warp": 0.9},
     "hamming": {"window_type": "hamming"},
     "8k": {"sample_rate": 8000.0},
+}
+
+# the configs the kernel's tables are checked at: the flagship's, 40 bins,
+# VTLN, 32 kHz (nfft 1024, 512 bins), nfft not a power of two (400), and
+# nfft 128, 256, 2048 and 4096 (8 kHz; 100 ms frames; 48 kHz, 50 ms)
+KERNEL_CONFIGS = {
+    "default": {},
+    "mel40": {"num_mel_bins": 40},
+    "vtln_down": {"vtln_warp": 0.9},
+    "32k": {"sample_rate": 32000.0},
+    "nfft400": {"round_to_power_of_two": False},
+    "8k": {"sample_rate": 8000.0},
+    "8k_nfft128": {"sample_rate": 8000.0, "frame_length_ms": 16.0, "num_mel_bins": 23},
+    "nfft2048": {"frame_length_ms": 100.0},
+    "48k_nfft4096": {"sample_rate": 48000.0, "frame_length_ms": 50.0},
 }
 
 
@@ -224,6 +248,71 @@ def test_load_wave_matches_the_jax_loader(tmp_path):
         assert np.array_equal(jax_load_wave(spec)[1], got)
 
 
+@pytest.mark.parametrize("name", sorted(KERNEL_CONFIGS))
+def test_sparse_mel_tables_rebuild_the_banks(name):
+    """The kernel's mel layout (first bin, count, packed weights) gives back
+    `mel_banks` exactly, its offsets packed bin after bin."""
+    cfg = P.FbankConfig(**KERNEL_CONFIGS[name])
+    idx, w = sparse_mel(cfg)
+    banks = P.mel_banks(cfg)
+    assert idx.dtype == np.int32 and w.dtype == np.float32 and idx.shape == (3, banks.shape[0])
+    lo, n, off = idx
+    assert np.array_equal(off, np.concatenate([[0], np.cumsum(n)[:-1]])) and w.size == n.sum()
+    dense = np.zeros_like(banks)
+    for m in range(banks.shape[0]):
+        dense[m, lo[m]: lo[m] + n[m]] = w[off[m]: off[m] + n[m]]
+    assert np.array_equal(dense, banks)
+    assert (lo + n).max() <= cfg.padded_window_size // 2  # never the Nyquist bin
+    order = kernel_tables(cfg)["mel_order"]  # the lanes' order: a permutation
+    assert order.dtype == np.int32 and np.array_equal(np.sort(order), np.arange(len(n)))
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CONFIGS))
+def test_float64_pipeline_equals_the_folded_matrices(name):
+    """In float64, DC removal -> preemphasis -> window -> rfft of random
+    frames (the kernel's order of steps) equals the frames times the folded
+    matrices to 1e-9 of the spectrum's largest magnitude; those matrices,
+    cast, are the JAX package's `_fused_matrices` columns bit for bit; and
+    the port's float64 oracle `fbank_float64` is that spectrum's log-mel."""
+    J, K, jnp = jax_side()
+    cfg = P.FbankConfig(**KERNEL_CONFIGS[name])
+    jcfg = J.FbankConfig(**KERNEL_CONFIGS[name])
+    ws, nfft = cfg.window_size, cfg.padded_window_size
+    frames = np.random.RandomState(3).randn(2, 5, ws) * 1000.0
+    x = frames - frames.mean(-1, keepdims=True)
+    x = np.concatenate([x[..., :1] * (1 - cfg.preemphasis),
+                        x[..., 1:] - cfg.preemphasis * x[..., :-1]], axis=-1)
+    x = x * P.feature_window(cfg).astype(np.float64)
+    spec = np.fft.rfft(x, n=nfft, axis=-1)
+    mc, ms = folded_matrices64(cfg)
+    scale = np.abs(spec).max()
+    assert np.abs(frames @ mc - spec.real).max() <= 1e-9 * scale
+    assert np.abs(frames @ ms + spec.imag).max() <= 1e-9 * scale
+    jmc, jms, _ = K._fused_matrices(jcfg)
+    f = nfft // 2 + 1
+    assert np.array_equal(mc.astype(np.float32), jmc[:, :f])
+    assert np.array_equal(ms.astype(np.float32), jms[:, :f])
+    power = np.abs(spec) ** 2
+    want = np.log(np.maximum(power @ P.mel_banks(cfg).astype(np.float64).T,
+                             np.finfo(np.float32).eps))
+    got = fbank_float64(torch.from_numpy(frames), torch.tensor([5, 5], dtype=torch.int32), cfg)
+    assert got.dtype == torch.float64 and np.abs(got.numpy() - want).max() <= 1e-9
+
+
+@pytest.mark.parametrize("name", ["default", "32k", "nfft400"])
+def test_twiddles_are_float64_to_one_ulp(name):
+    """The f32 twiddle table is cos / sin of 2 pi k / nfft to one f32 ulp,
+    and its float64 remainder carries the rest."""
+    cfg = P.FbankConfig(**KERNEL_CONFIGS[name])
+    nfft = cfg.padded_window_size
+    hi, lo = twiddles(cfg)
+    ang = 2.0 * np.pi * np.arange(nfft // 2, dtype=np.float64) / nfft
+    want = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    assert hi.dtype == lo.dtype == np.float32 and hi.shape == (nfft // 2, 2)
+    assert (np.abs(hi - want) <= np.spacing(np.abs(hi))).all()
+    assert np.abs(hi.astype(np.float64) + lo - want).max() <= 1e-14
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dither", [False, True])
 def test_kernel_matches_plain_on_the_card(cuda_card, dither):
@@ -248,3 +337,35 @@ def test_kernel_matches_plain_on_the_card(cuda_card, dither):
     assert got.shape == want.shape == (4, 99, 80)
     assert (got - want).abs().max().item() <= 1e-4
     assert not got[2].any() and not got[3, 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL_CONFIGS))
+def test_kernel_across_configs_on_the_card(cuda_card, name):
+    """The kernel at the flagship's config, 40 bins, VTLN 0.9, 32 kHz (nfft
+    1024), nfft 128, 256, 2048 and 4096 (the last two the shared-memory FFT
+    kernel) and nfft 400 (the folded kernel) against the plain version on
+    strided wave frames with a 0-frame and a 1-frame utterance: the log-mel
+    within 1e-4, the FFT kernel (float64 inside) within 1e-5 of the float64
+    evaluation and no farther from it than the plain version, zero past
+    each frame count."""
+    cfg = P.FbankConfig(**KERNEL_CONFIGS[name])
+    ws, hop = cfg.window_size, cfg.window_shift
+    n = ws + 60 * hop + 7
+    rng = np.random.RandomState(5)
+    waves = torch.from_numpy((rng.randn(4, n) * 800).astype(np.float32)).cuda()
+    lens = torch.tensor([n, n // 2, ws - 1, ws], device="cuda")
+    frames = P.frame_signal(waves, cfg)
+    feat_lens = P.num_frames_of(lens, cfg)
+    fused_fbank.launches = 0
+    got = fused_fbank(frames, feat_lens, cfg)
+    torch.cuda.synchronize()
+    assert fused_fbank.launches == 1
+    want = fbank_reference(frames, feat_lens, cfg)
+    f64 = fbank_float64(frames, feat_lens, cfg)
+    assert got.shape == want.shape == (4, 61, cfg.num_mel_bins)
+    assert (got - want).abs().max().item() <= 1e-4
+    if name != "nfft400":  # the folded kernel sums the plain version's products
+        err64 = (got.double() - f64).abs().max().item()
+        assert err64 <= 1e-5 and err64 <= (want.double() - f64).abs().max().item()
+    assert not got[2].any() and not got[3, 1:].any() and not got[1, feat_lens[1]:].any()

@@ -24,6 +24,8 @@ from openasr_torch.kernels.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_reference,
     flash_delta,
+    pad_head_dim,
+    padded_head_dim,
 )
 from openasr_torch.kernels.layer_norm import (
     fused_layer_norm,
@@ -319,6 +321,55 @@ def test_flash_alignment_check(case, shape, strides, offset, dtype, error):
         check_flash_alignment(q=t.clone(memory_format=torch.contiguous_format))
 
 
+# the head dims the kernels take by zero padding: 16 -> 32, 48 -> 64
+PAD_CASES = [
+    # b, tq, tk, h, d, causal, kv_lengths
+    (2, 19, 19, 2, 16, True, None),
+    (2, 11, 21, 2, 16, False, [21, 7]),
+    (2, 19, 19, 2, 48, True, [19, 0]),
+    (2, 11, 21, 2, 48, False, [21, 7]),
+]
+
+
+def test_padded_head_dim():
+    assert [padded_head_dim(d) for d in (1, 16, 32, 33, 48, 64, 65, 96, 128)] == [
+        32, 32, 32, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="above the largest"):
+        padded_head_dim(129)
+    x = torch.ones(1, 2, 1, 16)
+    assert pad_head_dim(x, 16) is x
+    assert torch.equal(pad_head_dim(x, 32)[..., :16], x) and not pad_head_dim(x, 32)[..., 16:].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", PAD_CASES)
+def test_head_dim_padding_is_exact(rate, b, tq, tk, h, d, causal, lengths):
+    """What the wrappers do on the card, through the plain path: attention
+    on q, k, v zero-padded to the kernel's head dim, with the true D's
+    sm_scale and the same dropout seed, sliced back, equals attention at D
+    (O, lse, dq, dk, dv to 1e-6), and the padded columns of O are zero."""
+    rng = np.random.RandomState(d * 10 + tq)
+    q, k, v = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+               for t in (tq, tk, tk))
+    dout = torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32))
+    lens = None if lengths is None else torch.tensor(lengths)
+    dp, scale, seed = padded_head_dim(d), 1.0 / np.sqrt(d), 2024
+    out, lse = flash_attention_reference(q, k, v, lens, causal, None, rate, seed)
+    grads = flash_attention_bwd_reference(q, k, v, out, lse, dout, lens, causal, None,
+                                          rate, seed)
+    qp, kp, vp, dop = (pad_head_dim(t, dp) for t in (q, k, v, dout))
+    out_p, lse_p = flash_attention_reference(qp, kp, vp, lens, causal, scale, rate, seed)
+    grads_p = flash_attention_bwd_reference(qp, kp, vp, out_p, lse_p, dop, lens, causal,
+                                            scale, rate, seed)
+    assert out_p.shape[-1] == dp and not out_p[..., d:].any()
+    assert (out_p[..., :d] - out).abs().max().item() <= 1e-6
+    assert torch.equal(torch.isinf(lse_p), torch.isinf(lse))
+    fin = torch.isfinite(lse)
+    assert (lse_p[fin] - lse[fin]).abs().max().item() <= 1e-6
+    for name, g, gp in zip(("dq", "dk", "dv"), grads, grads_p):
+        assert (gp[..., :d] - g).abs().max().item() <= 1e-6, name
+
+
 # ------------------------------------------------------------ card only
 
 
@@ -576,3 +627,109 @@ def test_flash_fwd_kernel_is_deterministic(cuda_card, dtype):
     second = flash_attention(q, k, v, kv_lengths=lens, dropout_rate=0.1, dropout_seed=5)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,tol_bwd", [(torch.float32, 2e-5, 1e-4),
+                                               (torch.bfloat16, 2e-2, 5e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", PAD_CASES)
+def test_flash_kernels_at_padded_head_dims(cuda_card, dtype, tol, tol_bwd, rate, b, tq, tk,
+                                           h, d, causal, lengths):
+    """D = 16 and 48, zero-padded to 32 and 64 by the wrappers: O, lse and
+    dq, dk, dv through autograd on the card against the plain versions at
+    D, one launch of each kernel."""
+    gen = torch.Generator().manual_seed(tq * 3 + d)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype).requires_grad_()
+               for t in (tq, tk, tk))
+    dout = torch.randn(b, tq, h, d, generator=gen).to("cuda", dtype)
+    lens = None if lengths is None else torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else None
+    before = (flash_attention.launches + flash_attention.dropout_launches,
+              flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    out, lse = flash_attention(q, k, v, kv_lengths=lens, causal=causal,
+                               dropout_rate=rate, dropout_seed=seed)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    after = (flash_attention.launches + flash_attention.dropout_launches,
+             flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    out_r, lse_r = flash_attention_reference(q, k, v, lens, causal, None, rate, seed or 0)
+    want = flash_attention_bwd_reference(q, k, v, out_r, lse_r, dout, lens, causal, None,
+                                         rate, seed or 0)
+    assert out.shape == out_r.shape and (out.float() - out_r.float()).abs().max().item() <= tol
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_r))
+    fin = torch.isfinite(lse_r)
+    assert (lse[fin] - lse_r[fin]).abs().max().item() <= 1e-3
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        assert (got.float() - w.float()).abs().max().item() <= tol_bwd * max(
+            1.0, w.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_padded_head_dim_keeps_dropped_pairs(cuda_card, dtype, causal):
+    """At D = 16 (padded to 32) with dropout 0.1, v[b, key, h] = e_key makes
+    O[b, q, h, key] the kept weight of (q, key): its zeros are the dropped
+    (or masked) pairs, and they are the hash mask's, as in the plain
+    version with the same seed."""
+    b, h, d, tq, tk, seed = 2, 2, 16, 37, 16, 4242
+    gen = torch.Generator().manual_seed(7)
+    q, k = (torch.randn(b, tq if i == 0 else tk, h, d, generator=gen).to("cuda", dtype)
+            for i in range(2))
+    v = torch.eye(tk)[None, :, None, :].expand(b, tk, h, d).to("cuda", dtype).contiguous()
+    out, _ = flash_attention(q, k, v, causal=causal, dropout_rate=0.1, dropout_seed=seed)
+    out_r, _ = flash_attention_reference(q, k, v, None, causal, None, 0.1, seed)
+    keep = attention_dropout_mask(seed, b, h, tq, tk, 0.1, "cuda")
+    if causal:
+        keep = keep & (torch.arange(tk, device="cuda")[None, :]
+                       <= torch.arange(tq, device="cuda")[:, None])
+    assert 0 < int((~keep).sum()) < keep.numel()
+    for o in (out, out_r):
+        assert torch.equal(o.permute(0, 2, 1, 3) != 0, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,d", [(11398, 512), (1, 512), (5, 512), (1027, 512),
+                                    (300, 1536)])
+def test_layer_norm_bwd_partials_mode(cuda_card, dtype, tol, rows, d):
+    """The partials mode (dx, dgamma, dbeta in one call) at the training
+    path's [11398, 512], at odd row counts and at D = 1536 (beyond the
+    rows held in registers; the forward too), against the plain versions:
+    dx to tol, dgamma and dbeta to tol of their largest magnitude."""
+    x, g, b = _ln_inputs((rows, d), seed=rows + d)
+    x = torch.from_numpy(x).to("cuda", dtype)
+    g, b = torch.from_numpy(g).cuda(), torch.from_numpy(b).cuda()
+    dy = torch.randn(rows, d, generator=torch.Generator().manual_seed(rows)).to("cuda", dtype)
+    y, mean, rstd = fused_layer_norm(x, g, b)
+    y_r, mean_r, rstd_r = layer_norm_reference(x, g, b)
+    assert (y.float() - y_r.float()).abs().max().item() <= (1e-5 if dtype == torch.float32
+                                                             else 2e-2)
+    assert (mean - mean_r).abs().max().item() <= 1e-5
+    before = layer_norm_bwd.launches
+    dx, dg, db = layer_norm_bwd(x, dy, g, mean_r, rstd_r)
+    assert layer_norm_bwd.launches == before + 1
+    dx_r, dg_r, db_r = layer_norm_bwd_reference(x, dy, g, mean_r, rstd_r)
+    for got, want, rel in ((dx, dx_r, False), (dg, dg_r, True), (db, db_r, True)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        scale = want.float().abs().max().item() if rel else 1.0
+        assert (got.float() - want.float()).abs().max().item() <= tol * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(11398, 512), (300, 1536)])
+def test_layer_norm_bwd_is_deterministic(cuda_card, dtype, rows, d):
+    """dgamma and dbeta are summed in a fixed order: two runs give the same
+    bits (and so does dx)."""
+    x, g, b = _ln_inputs((rows, d), seed=3)
+    x = torch.from_numpy(x).to("cuda", dtype)
+    g = torch.from_numpy(g).cuda()
+    dy = torch.randn(rows, d, generator=torch.Generator().manual_seed(9)).to("cuda", dtype)
+    _, mean, rstd = layer_norm_reference(x, g, torch.from_numpy(b).cuda())
+    first = layer_norm_bwd(x, dy, g, mean, rstd)
+    second = layer_norm_bwd(x, dy, g, mean, rstd)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
