@@ -30,7 +30,18 @@ bfloat16:
   `openasr_torch.bin.infer` without `--offline` (the fbank frontend);
 - online training: one epoch plus the dev pass on 128 wav files of
   4.0-5.2 s, with egs/aishell1/configs/conv-ctc-transformer-online.yaml
-  (the flagship's sections with the fbank signal, batch_time 5760000).
+  (the flagship's sections with the fbank signal, batch_time 5760000);
+- conv-ctc decoding: the offline decode's 8 utterances through
+  `openasr_torch.bin.infer --model_type conv-ctc --offline` with
+  egs/hkust/configs/ctc.yaml's model section as it is (ConvV2, d512, 6
+  post-LN layers, 8 heads, GLU 2048) at vocab 4233: greedy, the native
+  host prefix beam (`--ctc_beam 10`), the device prefix beam
+  (`--ctc_beam_device`, f32 and bf16) and the device beam with a hotword
+  file (`--context_file`).  Then the device beam against the host beam on
+  the card: on seeded peaky log-probs of the decode's shape the n-best
+  lists must be equal (scores within 1e-4); on the random-weight model's
+  own log-probs the 1-best scores within 1e-3 (the share of equal 1-best
+  token lists is reported); and each beam's ms per batch.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
@@ -65,7 +76,15 @@ FLAGSHIP_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-trans
 ONLINE_YAML = os.path.join(ROOT, "egs", "aishell1", "configs",
                            "conv-ctc-transformer-online.yaml")
 TEST_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer-test.yaml")
+CTC_YAML = os.path.join(ROOT, "egs", "hkust", "configs", "ctc.yaml")
 SEED = 1234
+CTC_BEAM = 10
+# device beam against the native host beam: on peaky log-probs the same
+# n-best lists, scores summed in f32 in the same order; on the random-weight
+# model's flatter log-probs the 1-best scores, which near-tied prefixes may
+# reach by other tokens (scores of hundreds of nats, f32 ulps of 1e-5-1e-4)
+TOL_BEAM_PEAKY = 1e-4
+TOL_BEAM_TOP1 = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit).
 # Bounds take the rate of the type a function reads and writes; the fbank
@@ -279,13 +298,21 @@ def ptxas_report(log: str, source: str) -> list:
 
 
 def phase_build():
+    """The CUDA kernels (nvcc, a process per source) and, alongside them,
+    the native CTC decoder (g++)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from openasr_torch import kernels
+    from openasr_torch.ops.prefix_beam import build_native
 
     t0 = time.time()
-    so = kernels.build_library()
-    kernels.library()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native)
+        so = kernels.build_library()
+        kernels.library()
+        native_so = native.result()
     secs = time.time() - t0
-    print(f"[build] {so.name} in {secs:.1f}s (sm_90a)")
+    print(f"[build] {so.name} (sm_90a) and {native_so.name} (g++) in {secs:.1f}s")
     print(nvidia_smi())
     log = so.parent / so.name.replace("libopenasr_kernels-", "build-").replace(".so", ".log")
     report = attention_ptxas(log.read_text())
@@ -887,6 +914,191 @@ def check_logits_against_cpu(pkg, feats):
     require(e_ctc <= 1e-3 and e_ce <= 1e-3, "card and CPU disagree")
 
 
+def ctc_model() -> dict:
+    """The model section of egs/hkust/configs/ctc.yaml as it is, at the
+    smoke test's vocabulary."""
+    import yaml
+
+    with open(CTC_YAML) as f:
+        model = yaml.safe_load(f)["model"]
+    model["decoder"]["vocab_size"] = FLAGSHIP["decoder"]["vocab_size"]
+    return model
+
+
+def save_ctc_package(path):
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import save_package
+
+    model = get_model_class("conv-ctc").create_model(
+        ctc_model(), device="cuda", generator=torch.Generator().manual_seed(SEED))
+    save_package(model.package(), path)
+
+
+def ctc_decode_launches() -> dict:
+    """Kernel launches of one conv-ctc decode batch: every LayerNorm and
+    every attention of the module once."""
+    from openasr_torch.config import Config
+    from openasr_torch.models.layers import LayerNorm, MultiHeadAttention
+    from openasr_torch.models.speech import ConvCTCModule
+
+    with torch.device("meta"):
+        module = ConvCTCModule(Config(ctc_model()))
+    return {"layer_norm_fwd": sum(isinstance(m, LayerNorm) for m in module.modules()),
+            "flash_attention_fwd": sum(isinstance(m, MultiHeadAttention)
+                                       for m in module.modules())}
+
+
+def phase_ctc_decode(pkg, vocab, chars, manifest, launches):
+    """conv-ctc through the CLI in its four modes (greedy, host beam, device
+    beam, device beam with hotwords) in f32, and the device beam in bf16;
+    counters reset just before each run and read just after."""
+    from openasr_torch.bin import infer
+
+    hot = os.path.join(WORK, "hotwords.txt")
+    with open(hot, "w", encoding="utf-8") as f:
+        f.write("".join(" ".join(chars[i: i + n]) + "\n" for i, n in ((5, 2), (100, 3), (7, 2))))
+    n_utts = len(json.load(open(manifest)))
+    per = ctc_decode_launches()
+    beam = ["--ctc_beam", str(CTC_BEAM)]
+    modes = [("greedy", [], torch.float32), ("host beam", beam, torch.float32),
+             ("device beam", beam + ["--ctc_beam_device"], torch.float32),
+             ("device beam, hotwords", beam + ["--ctc_beam_device", "--context_file", hot],
+              torch.float32),
+             ("device beam", beam + ["--ctc_beam_device"], torch.bfloat16)]
+    for mode, extra, dtype in modes:
+        hyp = os.path.join(WORK, f"hyp_ctc_{mode.replace(' ', '_').replace(',', '')}_"
+                                 f"{DTYPE_NAME[dtype]}.txt")
+        argv = ["--model_type", "conv-ctc", "--model_pkg", pkg, "--vocab_path", vocab,
+                "--json_file", manifest, "--output", hyp, "--offline", "--add_blk",
+                "--batch_frames", "36000", "--dtype", DTYPE_NAME[dtype],
+                "--device", "cuda"] + extra
+        reset_counters()
+        t0 = time.time()
+        infer.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        launches.setdefault(("ctc decode", dtype), {})[mode] = n
+        with open(hyp, encoding="utf-8") as f:
+            lines = [line for line in f if line.strip()]
+        print(f"[ctc decode path] {mode} {DTYPE_NAME[dtype]}: {len(lines)} hyps in {wall:.2f}s "
+              f"wall; launches: flash_attention {n['flash_attention_fwd']}, layer_norm "
+              f"{n['layer_norm_fwd']}")
+        require(len(lines) == n_utts, f"{len(lines)} hyp lines for {n_utts} utterances")
+        want = {k: 0 for k in n}
+        want.update(per)   # the 8 utterances are one batch
+        require(n == want, f"ctc decode {mode}: launches {n} != {want}")
+
+
+def host_nbest(decoder, log_probs, lengths):
+    """The native decoder's n-best of card log-probs, as (tokens, score)
+    lists, and its wall ms."""
+    lp, lens = log_probs.cpu().numpy(), lengths.cpu().numpy()
+    t0 = time.perf_counter()
+    nbest = decoder.decode_batch(lp, lens)
+    ms = (time.perf_counter() - t0) * 1e3
+    return [[(tuple(int(c) for c in h.tokens), h.score) for h in n] for n in nbest], ms
+
+
+def device_nbest(log_probs, lengths):
+    """The device beam's n-best (sentinel rows dropped), its device ms
+    between CUDA events, and the host ms to enqueue it (the search reads
+    nothing back, so the call returns once every launch is queued: where
+    that is about the device ms, the host's launches bound the search)."""
+    from openasr_torch.ops.ctc_beam_device import ctc_prefix_beam_device
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    toks, tlens, sc = ctc_prefix_beam_device(log_probs, lengths, blank=log_probs.shape[-1] - 1,
+                                             beam=CTC_BEAM)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    toks, tlens, sc = toks.cpu().numpy(), tlens.cpu().numpy(), sc.cpu().numpy()
+    return [[(tuple(int(c) for c in toks[i, n, : tlens[i, n]]), float(sc[i, n]))
+             for n in range(CTC_BEAM) if sc[i, n] > -1e29]
+            for i in range(len(toks))], (start.elapsed_time(end), enqueue_ms)
+
+
+def check_ctc_beams(pkg, feats):
+    """The device beam against the native host beam on the card's log-probs
+    at the decode's shape [8, 339, 4233], beam 10, the CLI's cutoffs: on
+    seeded peaky log-probs (each frame 8 nats up on blank, 60%, or a random
+    character) every n-best list equal, scores within TOL_BEAM_PEAKY; on
+    the random-weight conv-ctc model's own log-probs the share of equal
+    1-best token lists, and the 1-best scores within TOL_BEAM_TOP1.  Each
+    beam is timed on both, two runs after a warm one (their mean): device
+    ms between CUDA events and the host's enqueue ms, host wall ms."""
+    from openasr_torch.config import Config
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.models import get_model_class
+    from openasr_torch.ops.prefix_beam import make_decoder
+    from openasr_torch.utils.checkpoint import load_package
+
+    b, t, enc_lens = encoder_shapes(feats)
+    v = FLAGSHIP["decoder"]["vocab_size"]
+    decoder = make_decoder(beam_width=CTC_BEAM, blank_id=v - 1)
+    rng = np.random.RandomState(SEED + 9)
+    x = rng.randn(b, t, v).astype(np.float32)
+    target = np.where(rng.rand(b, t) < 0.6, v - 1, rng.randint(3, v - 1, size=(b, t)))
+    x[np.arange(b)[:, None], np.arange(t)[None, :], target] += 8.0
+    peaky = torch.log_softmax(torch.from_numpy(x).cuda(), dim=-1)
+    lengths = torch.from_numpy(enc_lens.astype(np.int32)).cuda()
+
+    utts = sorted(feats)
+    n_frames = np.array([feats[u].shape[0] for u in utts], np.int32)
+    padded = np.zeros((len(utts), quantize(int(n_frames.max())), 80), np.float32)
+    for i, u in enumerate(utts):
+        padded[i, : n_frames[i]] = feats[u]
+    pkg = load_package(pkg)
+    model = get_model_class("conv-ctc").create_model(Config(pkg["configs"]), device="cuda")
+    model.restore(pkg)
+    logits, model_lens = model.get_logits(torch.from_numpy(padded).cuda(),
+                                          torch.from_numpy(n_frames).cuda())
+    own = torch.log_softmax(logits.float(), dim=-1)
+    require(tuple(own.shape) == (b, t, v)
+            and torch.equal(model_lens.cpu().long(), lengths.cpu().long()),
+            f"conv-ctc log-probs {tuple(own.shape)}, lengths {model_lens.tolist()}")
+
+    out = {}
+    for name, lp, lens in (("peaky", peaky, lengths), ("model", own, model_lens)):
+        dev, dev_times = zip(*(device_nbest(lp, lens) for _ in range(3)))
+        dev_ms, enqueue_ms = zip(*dev_times)
+        host, host_ms = zip(*(host_nbest(decoder, lp, lens) for _ in range(3)))
+        require(all(d == dev[0] for d in dev) and all(h == host[0] for h in host),
+                f"{name}: a beam's runs differ")
+        dev, host = dev[0], host[0]
+        same_nbest = sum([tok for tok, _ in d] == [tok for tok, _ in h]
+                         for d, h in zip(dev, host))
+        same_top1 = sum(d[0][0] == h[0][0] for d, h in zip(dev, host))
+        top1_diff = max(abs(d[0][1] - h[0][1]) for d, h in zip(dev, host))
+        score_diff = max((abs(sd - sh) for d, h in zip(dev, host)
+                          if [tok for tok, _ in d] == [tok for tok, _ in h]
+                          for (_, sd), (_, sh) in zip(d, h)), default=float("inf"))
+        out[name] = {"device_ms": float(np.median(dev_ms[1:])),
+                     "enqueue_ms": float(np.median(enqueue_ms[1:])),
+                     "host_ms": float(np.median(host_ms[1:])),
+                     "same_nbest": same_nbest, "same_top1": same_top1,
+                     "top1_score_diff": top1_diff, "nbest_score_diff": score_diff,
+                     "top1_lengths": [len(d[0][0]) for d in dev]}
+        print(f"[ctc beams] {name} log-probs [{b}, {t}, {v}], beam {CTC_BEAM}: n-best equal "
+              f"{same_nbest}/{b}, 1-best tokens equal {same_top1}/{b} (lengths "
+              f"{out[name]['top1_lengths']}), 1-best score diff {top1_diff:.3g}, n-best score "
+              f"diff where equal {score_diff:.3g}; device beam {out[name]['device_ms']:.2f} ms "
+              f"a batch (CUDA events; the host enqueued it in "
+              f"{out[name]['enqueue_ms']:.2f} ms), host beam {out[name]['host_ms']:.2f} ms "
+              f"(wall; runs {[round(m, 2) for m in dev_ms]} / "
+              f"{[round(m, 2) for m in host_ms]})")
+    require(out["peaky"]["same_nbest"] == b
+            and out["peaky"]["nbest_score_diff"] <= TOL_BEAM_PEAKY,
+            "device and host beams disagree on peaky log-probs")
+    require(out["model"]["top1_score_diff"] <= TOL_BEAM_TOP1,
+            "device and host 1-best scores disagree on the model's log-probs")
+    return out
+
+
 # --------------------------------------------------------------- phase 5
 
 def train_config(train_json, dev_json, vocab, exp_dir, dtype, yaml_path=FLAGSHIP_YAML):
@@ -1176,6 +1388,7 @@ def fwd_rows(feats, errs, launches):
     for dtype in DTYPES:
         es = torch.tensor([], dtype=dtype).element_size()
         dec, tr = launches[("decode", dtype)], launches[("train", dtype)]
+        ctc = launches[("ctc decode", dtype)]
         n = b * t
         x, g, beta = ln_inputs(n, dm, dtype, rng)
         g_l, b_l = g.to(dtype), beta.to(dtype)
@@ -1191,6 +1404,7 @@ def fwd_rows(feats, errs, launches):
             "shape": [n, dm],
             "launches": dec["layer_norm_fwd"],
             "launches_train_path": tr["total"]["layer_norm_fwd"],
+            "launches_ctc_decode_path": {m: c["layer_norm_fwd"] for m, c in ctc.items()},
             "max_abs_err": errs[("layer_norm_fwd", dtype)],
             "tol": TOL_LN[dtype],
             **times(
@@ -1206,6 +1420,7 @@ def fwd_rows(feats, errs, launches):
             **attention_fwd_row(b, h, d, t, t, False, lens, dtype, rng, errs, 0.0),
             "launches": dec["flash_attention_fwd"],
             "launches_train_path": tr["total"]["flash_attention_fwd"],
+            "launches_ctc_decode_path": {m: c["flash_attention_fwd"] for m, c in ctc.items()},
             "max_abs_err": errs[("flash_attention_fwd", dtype)],
             "tol": TOL_FLASH[dtype],
         })
@@ -1718,6 +1933,11 @@ def main() -> int:
         phase_decode(pkg, vocab, test_json, launches)
         check_logits_against_cpu(pkg, test_feats)
         print(f"[time] decode path done at {time.time() - t_start:.1f}s")
+        ctc_pkg = os.path.join(WORK, "ctc.pkg")
+        save_ctc_package(ctc_pkg)
+        phase_ctc_decode(ctc_pkg, vocab, chars, test_json, launches)
+        beams = check_ctc_beams(ctc_pkg, test_feats)
+        print(f"[time] ctc decode path done at {time.time() - t_start:.1f}s")
         per = phase_train(train_json, dev_json, vocab, launches)
         check_grads_against_cpu(pkg, train_feats)
         print(f"[time] training path done at {time.time() - t_start:.1f}s")
@@ -1741,6 +1961,10 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f}, library {lib}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}); launches {r['launches']}")
     print(f"[time] total {time.time() - t_start:.1f}s")
+    print(f"[time] ctc beams a batch of 8 (339 frames, vocab 4233, beam {CTC_BEAM}): " + "; ".join(
+        f"{k} log-probs: device {r['device_ms']:.2f} ms (enqueued in {r['enqueue_ms']:.2f}), "
+        f"host {r['host_ms']:.2f} ms"
+        for k, r in beams.items()))
     print(nvidia_smi())
     print(json.dumps({"kernels": rows}))
     # the run drives one card (cuda:0)

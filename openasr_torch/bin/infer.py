@@ -1,18 +1,26 @@
-"""Batch beam-search decoding CLI.
+"""Batch decoding CLI.
 
 Counterpart of openasr_tpu/bin/infer.py with the same flags, model
 reconstruction from the packaged configs (optional --config override),
 n-best logging and `utt hyp` output lines, plus `--device {cuda,cpu}`.
-It decodes with the attention beam of conv-transformer /
-conv-ctc-transformer, from offline features (`--offline`, batches of
-`--batch_frames` frames) or from wave manifests through the model's fbank
-frontend (no `--offline`; `--batch_frames` is then a budget of samples, so
-its default of 2000 gives each utterance a batch of its own).  The other
-paths of the JAX CLI exit with the ROADMAP item that will port them.
+From offline features (`--offline`, batches of `--batch_frames` frames) or
+from wave manifests through the model's fbank frontend (no `--offline`;
+`--batch_frames` is then a budget of samples, so its default of 2000 gives
+each utterance a batch of its own), it decodes
 
-  python -m openasr_torch.bin.infer --model_type conv-ctc-transformer \\
+  * conv-transformer / conv-ctc-transformer with the attention beam;
+  * conv-ctc greedily (`--ctc_beam 0`), with the native host prefix beam
+    (`--ctc_beam N`), or with the prefix beam on the device
+    (`--ctc_beam N --ctc_beam_device`);
+
+and biases the attention beam or the device CTC beam toward the phrases of
+`--context_file`.  The log-probs of the CTC beams are the f32 log-softmax
+of the logits, also under `--dtype bfloat16`.  LM fusion and the other
+model families exit with the ROADMAP item that will port them.
+
+  python -m openasr_torch.bin.infer --model_type conv-ctc \\
       --model_pkg last.pkg --vocab_path chars.txt --json_file test.json \\
-      --output hyp.txt --add_blk
+      --output hyp.txt --offline --add_blk --ctc_beam 10 --ctc_beam_device
 """
 
 from __future__ import annotations
@@ -31,11 +39,15 @@ from openasr_torch.data.collate import FeatureCollate, WaveCollate
 from openasr_torch.data.loader import DataLoader
 from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
-from openasr_torch.data.tokenizer import CharTokenizer
+from openasr_torch.data.tokenizer import CharTokenizer, load_context_phrases
 from openasr_torch.models import get_model_class
+from openasr_torch.ops.ctc_beam_device import build_context_tables, ctc_prefix_beam_device
+from openasr_torch.ops.prefix_beam import make_decoder
 from openasr_torch.utils.checkpoint import load_package
 
 ATTENTION_BEAM_TYPES = ("conv_transformer", "conv_ctc_transformer")
+CTC_TYPES = ("conv_ctc", "gru_ctc", "wav2vec_ctc")
+PORTED_TYPES = ATTENTION_BEAM_TYPES + ("conv_ctc",)
 
 
 def get_args(argv=None):
@@ -55,14 +67,22 @@ def get_args(argv=None):
     parser.add_argument("--add_blk", action="store_true", default=False)
     parser.add_argument("--split_token", action="store_true", default=False)
     parser.add_argument("--context_file", default=None,
-                        help="hotword biasing (not ported yet)")
+                        help="hotword biasing (Aho-Corasick): a text file with one "
+                             "phrase per line, tokenized like transcripts; tokens "
+                             "that advance a phrase's match earn --context_weight, "
+                             "a broken match rolls back to its failure-link state. "
+                             "Runs in the attention beam and in the device CTC beam")
     parser.add_argument("--context_weight", type=float, default=2.0)
     parser.add_argument("--ctc_beam_device", action="store_true", default=False,
-                        help="on-device CTC prefix beam (not ported yet)")
+                        help="run the CTC prefix beam on the device instead of the "
+                             "native host decoder")
     parser.add_argument("--ctc_beam", type=int, default=0,
-                        help="CTC prefix beam width (not ported yet)")
-    parser.add_argument("--cutoff_top_n", type=int, default=40)
-    parser.add_argument("--cutoff_logp", type=float, default=-20.0)
+                        help="CTC prefix beam width (conv-ctc; 0 = greedy)")
+    parser.add_argument("--cutoff_top_n", type=int, default=40,
+                        help="CTC beam frame cutoff: keep the top-n symbols of a "
+                             "frame (blank always kept)")
+    parser.add_argument("--cutoff_logp", type=float, default=-20.0,
+                        help="CTC beam frame cutoff: the log-prob floor")
     parser.add_argument("--lm_pkg", type=str, default=None,
                         help="LM package for shallow fusion (not ported yet)")
     parser.add_argument("--lm_weight", type=float, default=0.0)
@@ -76,29 +96,35 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
+def is_ctc_type(model_type: str) -> bool:
+    return model_type.lower().replace("-", "_") in CTC_TYPES
+
+
 def check_ported(args) -> None:
-    """Exit naming the ROADMAP item for every path this port lacks."""
-    model_type = args.model_type.lower().replace("-", "_")
-    if model_type not in ATTENTION_BEAM_TYPES:
+    """Exit, before anything loads, on flags that would silently decode with
+    another decoder than asked (the JAX CLI's own exits), and name the
+    ROADMAP item for every path this port lacks."""
+    is_ctc = is_ctc_type(args.model_type)
+    if args.ctc_beam_device and not (is_ctc and args.ctc_beam > 0):
         raise SystemExit(
-            f"--model_type {args.model_type}: only conv-transformer and "
-            "conv-ctc-transformer decode in the port so far; the other "
-            "families are ROADMAP queue 1 items 9 (CIF), 13 (GRU-CTC, "
-            "wav2vec, text) and 7 (CTC decoders for conv-ctc)"
+            "--ctc_beam_device needs a CTC model type AND --ctc_beam N > 0 (it "
+            "selects the on-device prefix beam; without --ctc_beam the run would "
+            "silently fall back to greedy)"
         )
-    if args.ctc_beam > 0 or args.ctc_beam_device:
+    if args.context_file and is_ctc and not args.ctc_beam_device:
         raise SystemExit(
-            "--ctc_beam/--ctc_beam_device: the CTC prefix beams are ROADMAP "
-            "queue 1 item 7 (ops/prefix_beam.py, ops/ctc_beam_device.py)"
+            "--context_file hotword biasing for CTC models runs in the on-device "
+            "prefix beam: add --ctc_beam N --ctc_beam_device"
+        )
+    if args.model_type.lower().replace("-", "_") not in PORTED_TYPES:
+        raise SystemExit(
+            f"--model_type {args.model_type}: conv-transformer, conv-ctc-transformer "
+            "and conv-ctc decode in the port so far; the other families are ROADMAP "
+            "queue 1 items 9 (CIF) and 13 (GRU-CTC, wav2vec, text)"
         )
     if args.lm_pkg and args.lm_weight != 0.0:
         raise SystemExit(
             "--lm_pkg shallow fusion is ROADMAP queue 1 item 10 (LMs and fusion)"
-        )
-    if args.context_file:
-        raise SystemExit(
-            "--context_file hotword biasing is ROADMAP queue 1 item 7 "
-            "(Aho-Corasick biasing in ops/beam_search.py)"
         )
 
 
@@ -142,6 +168,25 @@ def main(argv=None):
     )
     model.restore(model_pkg)
 
+    is_ctc = is_ctc_type(args.model_type)
+    blank = tokenizer.unit_num() - 1
+    # the hotword automaton, built once for every batch (the attention beam
+    # and the device CTC beam run the same one)
+    ctx_tables = None
+    if args.context_file:
+        try:
+            phrases = load_context_phrases(tokenizer, args.context_file)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        ctx_tables = build_context_tables(phrases, tokenizer.unit_num())
+        logging.info("hotword biasing: %d phrases, weight %.2f",
+                     phrases.shape[0], args.context_weight)
+    host_decoder = None
+    if is_ctc and args.ctc_beam > 0 and not args.ctc_beam_device:
+        host_decoder = make_decoder(beam_width=args.ctc_beam, blank_id=blank,
+                                    cutoff_top_n=args.cutoff_top_n,
+                                    cutoff_logp=args.cutoff_logp)
+
     ranges = {"feat_range": (1, 10**9), "label_range": (0, 10**9),
               "rate_in_out": (0, 10**9)}
     if args.offline:
@@ -166,6 +211,37 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         fd = open(out_path, "w", encoding="utf8")
 
+    def decode(inputs, lengths, empty_rows):
+        """-> per utterance, its n-best token rows, lengths and scores."""
+        if not is_ctc:
+            preds, lens, scores = (t.cpu().numpy() for t in model.batch_beam_decode(
+                inputs, lengths, beam_size=args.nbest, max_decode_len=args.maxlen,
+                empty_rows=empty_rows, context_tables=ctx_tables,
+                context_weight=args.context_weight))
+            return preds, lens, scores
+        if args.ctc_beam == 0:
+            ids, idlens = (t.cpu().numpy() for t in model.greedy_decode(
+                inputs, lengths, empty_rows))
+            return ids[:, None], idlens[:, None], np.zeros((len(ids), 1), np.float32)
+        logits, len_logits = model.get_logits(inputs, lengths, empty_rows)
+        log_probs = torch.log_softmax(logits.float(), dim=-1)
+        if host_decoder is not None:
+            nbest = host_decoder.decode_batch(log_probs.cpu().numpy(),
+                                              len_logits.cpu().numpy())
+            return ([[h.tokens for h in n] for n in nbest],
+                    [[len(h.tokens) for h in n] for n in nbest],
+                    [[h.score for h in n] for n in nbest])
+        toks, tlens, sc = (t.cpu().numpy() for t in ctc_prefix_beam_device(
+            log_probs, len_logits, blank=blank, beam=args.ctc_beam,
+            cutoff_top_n=args.cutoff_top_n, cutoff_logp=args.cutoff_logp,
+            context_tables=ctx_tables, context_weight=args.context_weight))
+        # drop never-populated sentinel rows (fewer live prefixes than the
+        # beam width), which the host decoders never emit
+        live = sc > -1e29
+        return ([toks[i][live[i]] for i in range(len(toks))],
+                [tlens[i][live[i]] for i in range(len(toks))],
+                [sc[i][live[i]] for i in range(len(toks))])
+
     seen_buckets = set()
     tot_utt = 0
     try:
@@ -174,15 +250,9 @@ def main(argv=None):
             utts = batch["uttids"]
             bucket = tuple(np.shape(inputs))
             t_batch = time.time()
-            pred_ids, len_dec, sc = model.batch_beam_decode(
-                torch.from_numpy(inputs).to(device),
-                torch.from_numpy(lengths).to(device),
-                beam_size=args.nbest, max_decode_len=args.maxlen,
-                empty_rows=model.has_empty_rows(lengths),
-            )
-            pred_ids = pred_ids.cpu().numpy()
-            len_dec = len_dec.cpu().numpy()
-            sc = sc.cpu().numpy()
+            preds, lens, scores = decode(
+                torch.from_numpy(inputs).to(device), torch.from_numpy(lengths).to(device),
+                model.has_empty_rows(lengths))
             dt_batch = time.time() - t_batch
             if bucket not in seen_buckets:
                 seen_buckets.add(bucket)
@@ -192,11 +262,9 @@ def main(argv=None):
 
             for i, utt in enumerate(utts):
                 msg = f"Results for {utt}:\n"
-                for j, (pred, ln, score) in enumerate(
-                    zip(pred_ids[i], len_dec[i], sc[i])
-                ):
+                for j, (pred, ln, score) in enumerate(zip(preds[i], lens[i], scores[i])):
                     hyp = tokenizer.decode(
-                        list(pred[: int(ln)]), split_token=args.split_token
+                        list(np.asarray(pred)[: int(ln)]), split_token=args.split_token
                     )
                     msg += f"top{j + 1}: {hyp} score: {float(score):.10f}\n"
                     if j == 0:

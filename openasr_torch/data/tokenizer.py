@@ -3,12 +3,15 @@
 Counterpart of openasr_tpu/data/tokenizer.py: id 0 = <unk>, 1 = <sos>,
 2 = <eos>, then one unit per vocab-file line (first whitespace-separated
 field), and — with ``add_blk`` — a trailing <blk> as the LAST id, so the
-CTC blank is always ``vocab_size - 1``.
+CTC blank is always ``vocab_size - 1``.  `load_context_phrases` reads a
+hotword file into the phrase table the biased beams take.
 """
 
 from __future__ import annotations
 
 from typing import Iterable, List
+
+import numpy as np
 
 UNK_SYM = "<unk>"
 SOS_SYM = "<sos>"
@@ -62,3 +65,33 @@ class CharTokenizer:
 
     def unit_num(self) -> int:
         return len(self.id2unit)
+
+
+def load_context_phrases(tokenizer: CharTokenizer, path: str) -> np.ndarray:
+    """Hotword phrases for biased decoding, one a line (tokenized like
+    transcripts), as an int32 [P, L] table padded with -1.
+
+    A phrase with an out-of-vocabulary token is rejected: encoded as <unk>
+    it would boost <unk> paths and never complete."""
+    unk = tokenizer.unit2id[UNK_SYM]
+    phrases = []
+    with open(path, encoding="utf-8") as f:
+        for lineno, line in enumerate(f, 1):
+            ids = tokenizer.encode(line)
+            if not ids:
+                continue
+            if unk in ids:
+                bad = [tok for tok in line.strip().split()
+                       if tokenizer.unit2id.get(tok, unk) == unk]
+                raise ValueError(
+                    f"{path}:{lineno}: phrase {line.strip()!r} contains "
+                    f"out-of-vocabulary token(s) {bad}: it would boost <unk> paths "
+                    "and never match; fix the phrase or the vocabulary"
+                )
+            phrases.append(ids)
+    if not phrases:
+        raise ValueError(f"{path}: no usable context phrases")
+    table = np.full((len(phrases), max(len(p) for p in phrases)), -1, np.int32)
+    for i, p in enumerate(phrases):
+        table[i, : len(p)] = p
+    return table

@@ -2,8 +2,10 @@
 
 Counterpart of ConvTransformer / ConvCTCTransformer / ConvCTC in
 openasr_tpu/models/speech.py: the training losses (`loss`, raw sums plus
-token and sequence counts, as the JAX package returns them) and, for the
-attention families, the attention beam over the KV-cached decoder.
+token and sequence counts, as the JAX package returns them); for the
+attention families, the attention beam over the KV-cached decoder (with
+optional hotword biasing); for conv-ctc, its logits and greedy decode
+(the CLI drives the CTC prefix beams over those logits).
 conv-ctc-transformer also carries `ctc_fc`, the CTC head.  The CTC heads
 run in f32 also under bf16 autocast: flax's Dense without a dtype
 promotes the bf16 encoder output and the f32 kernel to f32.
@@ -23,6 +25,7 @@ from openasr_torch.models.encoder import TransformerEncoder
 from openasr_torch.models.frontend import SPLayer
 from openasr_torch.models.layers import TrainRNG, any_empty
 from openasr_torch.ops.beam_search import batch_beam_search, beam_expand
+from openasr_torch.ops.ctc_decode import ctc_greedy_decode
 from openasr_torch.ops.fbank import fbank_config_from_model_cfg
 from openasr_torch.ops.losses import cal_ce_loss, cal_ctc_loss
 from openasr_torch.ops.masks import padding_bias
@@ -145,6 +148,16 @@ class ConvCTC(_SpeechFramework):
         ctc = cal_ctc_loss(logits, len_logits, batch["labels"], tlen)
         return {"ctc_loss": ctc, **_counts(batch)}
 
+    @torch.inference_mode()
+    def get_logits(self, inputs, lengths, empty_rows: Optional[bool] = None):
+        """-> (logits [B, T', V] f32, encoder lengths [B])."""
+        return self.module(inputs, lengths, None, empty_rows)
+
+    @torch.inference_mode()
+    def greedy_decode(self, inputs, lengths, empty_rows: Optional[bool] = None):
+        """-> (collapsed ids [B, T'], their counts [B])."""
+        return ctc_greedy_decode(*self.get_logits(inputs, lengths, empty_rows))
+
 
 @register_model("conv-transformer")
 class ConvTransformer(_SpeechFramework):
@@ -165,13 +178,18 @@ class ConvTransformer(_SpeechFramework):
 
     @torch.inference_mode()
     def batch_beam_decode(self, inputs, lengths, beam_size=5, max_decode_len=100,
-                          empty_rows: Optional[bool] = None):
-        """-> (preds [B, beam, L], lengths [B, beam], scores [B, beam])."""
+                          empty_rows: Optional[bool] = None, context_tables=None,
+                          context_weight: float = 0.0):
+        """-> (preds [B, beam, L], lengths [B, beam], scores [B, beam]);
+        `context_tables` (ops.ctc_beam_device.build_context_tables) and
+        `context_weight` bias the beam toward hotwords."""
         encoded, elens = self.encode(inputs, lengths, empty_rows)
-        return self.beam_decode_encoded(encoded, elens, beam_size, max_decode_len)
+        return self.beam_decode_encoded(encoded, elens, beam_size, max_decode_len,
+                                        context_tables, context_weight)
 
     @torch.inference_mode()
-    def beam_decode_encoded(self, encoded, elens, beam_size=5, max_decode_len=100):
+    def beam_decode_encoded(self, encoded, elens, beam_size=5, max_decode_len=100,
+                            context_tables=None, context_weight: float = 0.0):
         """Beam search over precomputed encoder states."""
         b = encoded.shape[0]
         enc_bb = beam_expand(encoded, beam_size)
@@ -187,6 +205,7 @@ class ConvTransformer(_SpeechFramework):
         return batch_beam_search(
             step_fn, cache, b, beam_size, max_decode_len,
             decoder.vocab_size, device=encoded.device,
+            context_tables=context_tables, context_weight=context_weight,
         )
 
 

@@ -1,7 +1,8 @@
 """Batched attention beam search with KV-cached decoder steps.
 
 Counterpart of openasr_tpu/ops/beam_search.py (`batch_beam_search`,
-`beam_expand`) without LM fusion and hotword biasing.  The JAX
+`beam_expand`) with Aho-Corasick hotword biasing, without LM fusion
+(ROADMAP queue 1 item 10).  The JAX
 `lax.while_loop` becomes a Python loop that keeps its all-finished early
 exit (one device->host read of the finished flags a step).  Kept as in
 the JAX package:
@@ -12,7 +13,12 @@ the JAX package:
   * a flat per-batch top-k over beam*beam candidates;
   * every cache tensor is reordered by the source beam;
   * lengths are the position of the first EOS;
-  * a final per-batch sort by score.
+  * a final per-batch sort by score;
+  * biasing runs the device CTC beam's automaton (ops/ctc_beam_device.py):
+    each beam carries a match state per phrase, reordered with the beams;
+    every token's score gains context_weight times its boost delta, and
+    EOS (forced EOS on finished beams too) neither earns nor rolls back
+    boost and leaves the automaton as it was.
 
 Every top-k here is a stable descending sort, so ties resolve to the lower
 index first, as `lax.top_k` does.
@@ -25,6 +31,11 @@ from typing import Callable, Tuple
 import torch
 
 from openasr_torch.data.tokenizer import EOS_ID, SOS_ID
+from openasr_torch.ops.ctc_beam_device import (
+    context_advance,
+    context_boost,
+    context_tensors,
+)
 from openasr_torch.ops.masks import NEG_INF
 
 
@@ -56,13 +67,18 @@ def batch_beam_search(
     max_decode_len: int,
     vocab_size: int,
     device=None,
+    context_tables=None,
+    context_weight: float = 0.0,
 ):
-    """Run beam search.
+    """Run beam search, optionally with hotword biasing.
 
     Args:
       step_fn: (tokens [BB], index, cache) -> (logits [BB, V], cache);
         BB = batch*beam.  Must already close over beam-expanded memory.
       init_cache: nest of tensors with leading dim BB.
+      context_tables, context_weight: hotword biasing, the tables of
+        ops.ctc_beam_device.build_context_tables (off when either is
+        None or 0).
 
     Returns:
       preds [B, beam, max_decode_len] (EOS-padded, no SOS),
@@ -81,6 +97,10 @@ def batch_beam_search(
     )
     eos_row = torch.full((1, vocab_size), NEG_INF, dtype=torch.float32, device=device)
     eos_row[0, EOS_ID] = 0.0
+    ctx = None
+    if context_tables is not None and context_weight != 0.0:
+        ctx = context_tensors(context_tables, device)
+        cmatch = torch.zeros((bb, ctx["plen"].shape[0]), dtype=torch.long, device=device)
 
     cache = init_cache
     for step in range(max_decode_len):
@@ -90,6 +110,10 @@ def batch_beam_search(
         z = torch.log_softmax(logits.float(), dim=-1)
         # finished beams: force EOS with log-prob 0 (score freeze)
         z = torch.where(finished[:, None], eos_row, z)
+        if ctx is not None:
+            bias = context_weight * context_boost(ctx, cmatch)  # [BB, V]
+            bias[:, EOS_ID] = 0.0
+            z = z + bias
 
         next_scores, next_tokens = _top_k(z, beam_size)  # [BB, beam]
         comb = (scores[:, None] + next_scores).reshape(
@@ -105,6 +129,10 @@ def batch_beam_search(
         scores = top_scores.reshape(-1)
         finished = finished[beam_src] | (tokens == EOS_ID)
         cache = _reorder(cache, beam_src)
+        if ctx is not None:
+            pmatch = cmatch[beam_src]
+            cmatch = torch.where((tokens == EOS_ID)[:, None], pmatch,
+                                 context_advance(ctx, pmatch, tokens))
 
     is_eos = (preds == EOS_ID).to(torch.int32)
     lengths = torch.where(

@@ -18,11 +18,13 @@ forward under bf16 autocast, as the JAX package computes in bf16 over f32
 parameters.  Totals stay on the device and are read back only at print
 intervals and epoch ends.
 
+The CTC solver logs the greedy decode of the first dev utterance
+(`dev sample greedy ids: [...]`) after the first dev batch.
+
 Not ported here (ROADMAP): the mesh and its parallelisms (data, tensor,
 sequence, pipeline, ZeRO-1), MoE auxiliaries, batch_stats models, the
-preemption handler, the profiler window, asynchronous checkpoint writes,
-the stock-optax optimizers (sgd, fused_adam: false) and the CTC solver's
-sample decode.
+preemption handler, the profiler window, asynchronous checkpoint writes
+and the stock-optax optimizers (sgd, fused_adam: false).
 """
 
 from __future__ import annotations
@@ -157,6 +159,10 @@ class Solver:
     def eval_step(self, batch: dict, empty_rows: bool) -> dict:
         return self.model_losses(batch, None, empty_rows)
 
+    def sample_decode(self, arrays: dict, empty_rows: bool) -> None:
+        """Hook: log a sample decode of the first dev batch (none by
+        default)."""
+
     # ----------------------------------------------------------- epoch loop
 
     def _totals_update(self, totals, losses):
@@ -210,6 +216,8 @@ class Solver:
             empty_rows = self.model.has_empty_rows(self.model.batch_inputs(batch)[1])
             if cross_valid:
                 losses = self.eval_step(arrays, empty_rows)
+                if niter == 1:
+                    self.sample_decode(arrays, empty_rows)
             else:
                 self._niter = niter
                 losses = self.grad_step(arrays, empty_rows)
@@ -331,6 +339,14 @@ class CTCSolver(Solver):
 
     def mix_losses(self, losses):
         return losses["ctc_loss"] / losses["n_seqs"]
+
+    def sample_decode(self, arrays: dict, empty_rows: bool) -> None:
+        """Log the greedy ids of the batch's first utterance."""
+        inputs, lengths = self.model.batch_inputs(arrays)
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == torch.bfloat16):
+            ids, lens = self.model.greedy_decode(inputs, lengths, empty_rows)
+        logger.info("dev sample greedy ids: %s", ids[0, : int(lens[0])].tolist())
 
 
 SOLVER_REGISTRY = {

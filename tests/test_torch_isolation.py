@@ -25,7 +25,8 @@ def test_importing_every_port_module_loads_no_jax():
     for name in ("bin.infer", "bin.train", "kernels.flash_attention", "kernels.layer_norm",
                  "solvers", "ops.fused_adam", "ops.losses", "ops.schedules", "ops.specaug",
                  "utils.checkpoint", "config", "data.sampler", "data.audio", "ops.fbank",
-                 "kernels.fbank"):
+                 "kernels.fbank", "ops.ctc_decode", "ops.prefix_beam", "ops.ctc_beam_device",
+                 "utils.metrics", "bin.wer"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

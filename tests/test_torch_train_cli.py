@@ -146,6 +146,24 @@ def test_bfloat16_compute_trains_with_finite_losses(corpus, tmp_path):
     assert leaves and all(v.dtype == "float32" and (abs(v) < 1e30).all() for v in leaves)
 
 
+def test_ctc_solver_logs_a_dev_sample_decode(corpus, tmp_path, caplog):
+    """conv-ctc (the test config's encoder with a CTC head): the dev pass
+    logs the greedy ids of its first utterance."""
+    cfg_path = tmp_path / "ctc.yaml"
+    cfg = write_config(corpus, tmp_path / "exp", cfg_path, num_epoch=1)
+    cfg["model"]["type"] = "conv-ctc"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    caplog.set_level("INFO")
+    port_train.main([str(cfg_path), "--device", "cpu"])
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("dev sample greedy ids: [")]
+    assert len(lines) == 1
+    ids = json.loads(lines[0].split(": ", 1)[1])
+    # 3 specials + 4 characters + blank (7), which the collapse drops
+    assert all(isinstance(i, int) and 0 <= i < 7 for i in ids)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
