@@ -43,6 +43,26 @@ bfloat16:
   own log-probs the 1-best scores within 1e-3 (the share of equal 1-best
   token lists is reported); and each beam's ms per batch.
 
+Then the recipe gate and the solver's paths:
+
+- the recipe gate's chain at a cut (egs/aishell1/run_recipe_gate_torch.sh,
+  in process): `openasr_torch.bin.gen_mini_corpus --wave` (256
+  utterances, the dev set cut to 8, the train rows repeated 4 times), the
+  train CLI with the gate YAML's model and training sections for 2 epochs
+  (online fbank kernel, SpecAugment, bf16, newbob), the infer CLI in bf16
+  with the device CTC prefix beam of 4, and the scorer: one hyp line per
+  test row, every kernel of the path launched, the CER printed;
+- the stock optimizers (`optimtype: sgd`, `fused_adam: false`): 3 steps
+  of conv-ctc-transformer-test.yaml on the card against the CPU;
+- preemption: SIGTERM to a training subprocess on the card, then
+  `--continue-training` to the end;
+- a one-step `training.profile` window on the flagship's bf16 training
+  run, with the port's kernels that its trace holds device time for;
+- the attention backward in a saturated softmax (one-hot rows, as at the
+  recipe gate's first layer): dQ and dK exactly 0, as the true gradient;
+- tests/data/jax_solver_conv_ctc_transformer_test.pkg, which the JAX
+  solver wrote, read here without jax and continued one step on the card.
+
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
 gradients and the f32 fbank features are also checked against the same
@@ -213,6 +233,7 @@ def reset_counters():
         flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
+        flash_bwd_stats,
     )
     from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_bwd
 
@@ -220,7 +241,7 @@ def reset_counters():
     for fn, attr in ((fused_layer_norm, "launches"), (layer_norm_bwd, "launches"),
                      (layer_norm_bwd, "dx_launches"),
                      (flash_attention, "launches"), (flash_attention, "dropout_launches"),
-                     (flash_attention_bwd_dkv, "launches"),
+                     (flash_bwd_stats, "launches"), (flash_attention_bwd_dkv, "launches"),
                      (flash_attention_bwd_dq, "launches"), (fused_fbank, "launches")):
         setattr(fn, attr, 0)
 
@@ -231,6 +252,7 @@ def read_counters() -> dict:
         flash_attention,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
+        flash_bwd_stats,
     )
     from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_bwd
 
@@ -241,6 +263,7 @@ def read_counters() -> dict:
         "layer_norm_bwd_dx": layer_norm_bwd.dx_launches,
         "flash_attention_fwd": flash_attention.launches,
         "flash_attention_fwd_dropout": flash_attention.dropout_launches,
+        "flash_bwd_stats": flash_bwd_stats.launches,
         "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches,
         "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
         "fbank": fused_fbank.launches,
@@ -265,7 +288,8 @@ def attention_ptxas(log: str) -> list:
             if m:
                 fn = m.group(1)
                 d, drop = re.search(r"Li(\d+)ELb(\d)", fn).groups()
-                kind = "fwd" if "_fwd_" in fn else "dkv" if "_dkv_" in fn else "dq"
+                kind = ("fwd" if "_fwd_" in fn else "dkv" if "_dkv_" in fn
+                        else "stats" if "_stats_" in fn else "dq")
                 name = (f"{kind} {'bf16' if 'Bf16Ops' in fn else 'f32'} D{d}"
                         + (" dropout" if drop == "1" else ""))
             elif "spill stores" in line:
@@ -318,7 +342,7 @@ def phase_build():
     report = attention_ptxas(log.read_text())
     print("[ptxas] attention registers (spill bytes): " + ", ".join(
         f"{n} {r} ({sp})" for n, r, sp in report))
-    require(len(report) == 36, f"{len(report)} attention kernels in the build log, not 36")
+    require(len(report) == 48, f"{len(report)} attention kernels in the build log, not 48")
     require(all(sp == 0 for _, _, sp in report), "an attention kernel spills registers")
     text = log.read_text()
     for source, keys in (("fbank.cu", ("fbank_fft", "fbank_folded")),
@@ -533,6 +557,8 @@ def phase_flash_bwd(errs, shapes):
         flash_attention,
         flash_attention_bwd_reference,
         flash_attention_reference,
+        flash_bwd_stats,
+        flash_bwd_stats_reference,
     )
 
     rng = np.random.RandomState(SEED + 4)
@@ -576,6 +602,15 @@ def phase_flash_bwd(errs, shapes):
                                                          rate, seed or 0)
                 want = flash_attention_bwd_reference(qd, kd, vd, out_r, lse_r, dout, kv,
                                                      causal, None, rate, seed or 0)
+                # the statistics pass alone, from the kernel forward's lse
+                stat_args = (qd, kd, vd, lse.detach(), dout, kv, causal, None, rate, seed or 0)
+                e_st, scale_st = scaled_err(flash_bwd_stats(*stat_args),
+                                            flash_bwd_stats_reference(*stat_args))
+                require(e_st <= tol * scale_st,
+                        f"flash bwd statistics dropout={rate} {DTYPE_NAME[dtype]} B{cb} H{h} "
+                        f"D{d} Tq{tq} Tk{tk}: err {e_st:.3g} > {tol} x {scale_st:.3g}")
+                if d == 64:
+                    note_err(errs, ("flash_bwd_stats", dtype), e_st, e_st / scale_st)
                 e_out = max_err(out, out_r)
                 require(e_out <= TOL_FLASH[dtype],
                         f"flash fwd dropout={rate} {DTYPE_NAME[dtype]} B{cb} Tq{tq} "
@@ -1101,9 +1136,11 @@ def check_ctc_beams(pkg, feats):
 
 # --------------------------------------------------------------- phase 5
 
-def train_config(train_json, dev_json, vocab, exp_dir, dtype, yaml_path=FLAGSHIP_YAML):
+def train_config(train_json, dev_json, vocab, exp_dir, dtype, yaml_path=FLAGSHIP_YAML,
+                 profile=None):
     """A flagship YAML with its model and training sections unchanged but
-    for one epoch, a log line per step, this run's paths and `dtype`."""
+    for one epoch, a log line per step, this run's paths and `dtype` (and a
+    `training.profile` window when given)."""
     import yaml
 
     with open(yaml_path) as f:
@@ -1111,6 +1148,8 @@ def train_config(train_json, dev_json, vocab, exp_dir, dtype, yaml_path=FLAGSHIP
     cfg["data"].update(trainset=train_json, devset=dev_json, vocab_path=vocab)
     cfg["training"].update(exp_dir=exp_dir, num_epoch=1, print_inteval=1,
                            compute_dtype=DTYPE_NAME[dtype])
+    if profile is not None:
+        cfg["training"]["profile"] = profile
     path = os.path.join(exp_dir, f"train_{DTYPE_NAME[dtype]}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -1132,7 +1171,8 @@ def per_step_launches(model_cfg=FLAGSHIP) -> dict:
     n_fbank = int(module.splayer.feature_type == "fbank")
     per = {"train": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
                      "flash_attention_fwd_dropout": n_attn,
-                     "flash_attention_bwd_dkv": n_attn, "flash_attention_bwd_dq": n_attn},
+                     "flash_bwd_stats": n_attn, "flash_attention_bwd_dkv": n_attn,
+                     "flash_attention_bwd_dq": n_attn},
            "dev": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn}}
     if n_fbank:
         per["train"]["fbank"] = per["dev"]["fbank"] = n_fbank
@@ -1166,7 +1206,10 @@ def phase_train(train_json, dev_json, vocab, launches, online=False):
         init = save_flagship_package(
             os.path.join(exp, "last.pkg"),
             {"epoch": 0, "step": 0, "tr_loss": [], "cv_loss": []}, model_cfg)
-        cfg = train_config(train_json, dev_json, vocab, exp, dtype, yaml_path)
+        # the offline bf16 run's step 1 (its second) under a profiler window
+        profile = ({"start_step": 1, "num_steps": 1, "logdir": os.path.join(exp, "profile")}
+                   if not online and dtype == torch.bfloat16 else None)
+        cfg = train_config(train_json, dev_json, vocab, exp, dtype, yaml_path, profile)
         reset_counters()
         t0 = time.time()
         train.main([cfg, "--continue-training", "--device", "cuda"])
@@ -1195,6 +1238,11 @@ def phase_train(train_json, dev_json, vocab, launches, online=False):
                            f"({per['train']} a step, {per['dev']} a dev batch)")
         require(min(n[k] for k in per["train"]) > 0, "a kernel of the path never launched")
         launches[(tag, dtype)] = {"total": n, "steps": steps, "dev_batches": dev_batches}
+        if profile is not None:
+            found = profile_report(profile["logdir"])
+            print(f"[profile] {tag} {name}, step 1: the trace holds device time for "
+                  + ("; ".join(f"{k} {c} call(s) {us:.1f} us" for k, c, us in found)
+                     or "none of the port's kernels"))
 
         last = load_package(os.path.join(exp, "last.pkg"))
         require(last["solver_state"]["step"] == steps and
@@ -1541,7 +1589,7 @@ def attention_shapes(shapes, model_cfg=FLAGSHIP):
 
 
 def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
-    """The whole attention backward (delta, dK/dV, dQ) at one shape, with
+    """The whole attention backward (statistics, dK/dV, dQ) at one shape, with
     dropout 0.1 as the training path runs it: device ms of the kernels,
     the plain backward and SDPA's backward, the bound and the inputs."""
     import torch.nn.functional as F
@@ -1550,7 +1598,7 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_reference,
-        flash_delta,
+        flash_bwd_stats,
     )
 
     es = torch.tensor([], dtype=dtype).element_size()
@@ -1587,7 +1635,8 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
             lambda: F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate, **sdpa),
             (qg, kg, vg), dot),
         **bound(nbytes, 5 * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
-        "kernel_args": args[:6] + (flash_delta(out, dout),) + args[6:],
+        "kernel_args": args[:6] + (flash_bwd_stats(q, k, v, lse, dout, kv, causal, None,
+                                                   rate, seed),) + args[6:],
         "pairs": pairs, "qo_bytes": qo_bytes, "kv_bytes": kv_bytes, "stat_bytes": stat_bytes,
     }
 
@@ -1601,6 +1650,8 @@ def train_rows(shapes, errs, launches, per):
     from openasr_torch.kernels.flash_attention import (
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
+        flash_bwd_stats,
+        flash_bwd_stats_reference,
     )
     from openasr_torch.kernels.layer_norm import (
         layer_norm_bwd,
@@ -1710,16 +1761,27 @@ def train_rows(shapes, errs, launches, per):
             # backward above
             kernel_args, pairs = at["kernel_args"], at["pairs"]
             qo_bytes, kv_bytes, stat_bytes = at["qo_bytes"], at["kv_bytes"], at["stat_bytes"]
+            q_, k_, v_, _, lse_, dout_, _, kv_, causal_, sms_, rate_, seed_ = kernel_args
+
+            def stats_of(*_args):
+                return flash_bwd_stats(q_, k_, v_, lse_, dout_, kv_, causal_, sms_, rate_, seed_)
+
             for kernel, fn, replaces, nbytes, products in (
+                ("flash_bwd_stats", stats_of,
+                 "openasr_tpu/kernels/flash_attention.py:468 (delta, now with the rows' "
+                 "sums of P)",
+                 # q, dO, lse read; K, V over valid keys; sums, reciprocals, deltas written
+                 2 * qo_bytes + 2 * kv_bytes + 4 * stat_bytes, 2),                 # S dP
                 ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
                  "openasr_tpu/kernels/flash_attention.py:238",
-                 # q, dO, lse, delta read; K, V over valid keys; dK, dV written
-                 2 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
+                 # q, dO, lse, the three statistics read; K, V over valid keys; dK, dV written
+                 2 * qo_bytes + 2 * kv_bytes + 4 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
                 ("flash_attention_bwd_dq", flash_attention_bwd_dq,
                  "openasr_tpu/kernels/flash_attention.py:327",
-                 # q, dO, lse, delta read; K, V over valid keys; dQ written
-                 3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes, 3),                 # S dP dQ
+                 # q, dO, lse, the three statistics read; K, V over valid keys; dQ written
+                 3 * qo_bytes + 2 * kv_bytes + 4 * stat_bytes, 3),                 # S dP dQ
             ):
+                alone = kernel == "flash_bwd_stats"
                 rows.append({
                     "name": f"{kernel}[{name}]",
                     "route": "cuda",
@@ -1729,9 +1791,15 @@ def train_rows(shapes, errs, launches, per):
                     **launch_keys(kernel),
                     **bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype]),
                     "ms": device_ms(lambda: fn(*kernel_args)),
-                    "plain_ms": at["plain_ms"],
-                    "library_ms": at["library_ms"],
                     **bwd_notes,
+                    # the statistics have a plain version of their own and no
+                    # one-call library counterpart
+                    "plain_ms": (device_ms(lambda: flash_bwd_stats_reference(
+                        q_, k_, v_, lse_, dout_, kv_, causal_, sms_, rate_, seed_)) if alone
+                        else at["plain_ms"]),
+                    "plain_is": ("flash_bwd_stats_reference" if alone
+                                 else bwd_notes["plain_is"]),
+                    "library_ms": None if alone else at["library_ms"],
                     "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
                     **bound(nbytes, products * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
                 })
@@ -1889,6 +1957,402 @@ def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate) -> 
     }
 
 
+# --------------------------------------------------------------- phase 7
+
+GATE_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-recipe-gate.yaml")
+COMMITTED_JAX_PKG = os.path.join(ROOT, "tests", "data", "jax_solver_conv_ctc_transformer_test.pkg")
+GATE_EPOCHS = 2
+GATE_REPEAT = 4
+JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "openasr_tpu")
+
+
+def module_launches(module) -> dict:
+    """Kernel launches of one forward of `module` (every LayerNorm, every
+    attention, the fbank kernel for an fbank frontend), and of its
+    training step, which adds each one's backward."""
+    from openasr_torch.models.layers import LayerNorm, MultiHeadAttention
+
+    n_ln = sum(isinstance(m, LayerNorm) for m in module.modules())
+    n_attn = sum(isinstance(m, MultiHeadAttention) for m in module.modules())
+    n_fbank = int(module.splayer.feature_type == "fbank")
+    return {"forward": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn, "fbank": n_fbank},
+            "step": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+                     "flash_attention_fwd_dropout": n_attn, "flash_attention_bwd_dkv": n_attn,
+                     "flash_attention_bwd_dq": n_attn, "flash_bwd_stats": n_attn,
+                     "fbank": n_fbank}}
+
+
+def test_config(exp, train_json, dev_json, vocab, **training) -> str:
+    """egs/aishell1/configs/conv-ctc-transformer-test.yaml with this run's
+    data, exp dir, a log line a step and `training` changes."""
+    import yaml
+
+    with open(TEST_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(trainset=train_json, devset=dev_json, vocab_path=vocab)
+    cfg["training"].update(exp_dir=exp, print_inteval=1, **training)
+    os.makedirs(exp, exist_ok=True)
+    path = os.path.join(exp, "train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def read_metrics(exp) -> list:
+    path = os.path.join(exp, "metrics.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def phase_recipe_gate() -> dict:
+    """egs/aishell1/run_recipe_gate_torch.sh's chain at a cut, in process:
+    the jax-free generator's 256 waves (dev cut to 8, the train rows
+    repeated GATE_REPEAT times), the train CLI with the gate YAML's model
+    and training sections but GATE_EPOCHS epochs, the infer CLI (bf16,
+    device CTC prefix beam of 4), the scorer.  Counters reset just before
+    the train and the decode runs and read just after."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from openasr_torch.bin import gen_mini_corpus, infer, train, wer
+    from openasr_torch.config import Config
+    from openasr_torch.data.tokenizer import CharTokenizer
+    from openasr_torch.models.speech import ConvCTCModule
+
+    data = os.path.join(WORK, "gate")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_mini_corpus.main(["--out", data, "--wave", "--num_utts", "256"])
+    with open(os.path.join(data, "dev_wav.json")) as f:
+        dev = json.load(f)[:8]
+    with open(os.path.join(data, "dev_wav.json"), "w") as f:
+        json.dump(dev, f)
+    with open(os.path.join(data, "train_wav.json")) as f:
+        rows = json.load(f)
+    with open(os.path.join(data, "train_wav.json"), "w") as f:
+        json.dump([dict(r, uttid=f"{r['uttid']}_r{rep}") for rep in range(GATE_REPEAT)
+                   for r in rows], f)
+    with open(GATE_YAML) as f:
+        cfg = yaml.safe_load(f)
+    exp = os.path.join(WORK, "exp_gate")
+    cfg["data"].update(trainset=os.path.join(data, "train_wav.json"),
+                       devset=os.path.join(data, "dev_wav.json"),
+                       vocab_path=os.path.join(data, "train_chars.txt"))
+    cfg["training"].update(exp_dir=exp, num_epoch=GATE_EPOCHS)
+    os.makedirs(exp)
+    path = os.path.join(exp, "gate.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    vocab = os.path.join(data, "train_chars.txt")
+    model_cfg = dict(cfg["model"],
+                     decoder={"vocab_size": CharTokenizer(vocab, add_blk=True).unit_num()})
+    with torch.device("meta"):
+        per = module_launches(ConvCTCModule(Config(model_cfg)))
+
+    reset_counters()
+    t0 = time.time()
+    train.main([path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    n = read_counters()
+    rows = read_metrics(exp)
+    epochs = [r for r in rows if r["phase"] == "epoch"]
+    steps = epochs[-1]["step"]
+    losses = [v for r in rows for k, v in r.items() if k.endswith("loss")]
+    # the dev forwards (dev batches and the CTC solver's sample decode) are
+    # what the forward-only launches leave after the steps'
+    dev_fwd = n["fbank"] - per["step"]["fbank"] * steps
+    want = {k: 0 for k in n}
+    for k, c in per["step"].items():
+        want[k] += c * steps
+    for k, c in per["forward"].items():
+        want[k] += c * dev_fwd
+    print(f"[recipe gate] train: {steps} steps in {GATE_EPOCHS} epochs, {dev_fwd} dev forwards, "
+          f"{train_s:.2f}s wall (s an epoch {[round(r['minutes'] * 60, 2) for r in epochs]}); "
+          f"tr {[round(r['tr_loss'], 4) for r in epochs]}, cv "
+          f"{[round(r['cv_loss'], 4) for r in epochs]}; launches {n}; a step {per['step']}")
+    require(len(epochs) == GATE_EPOCHS and steps > 0 and dev_fwd > 0,
+            f"{len(epochs)} epochs, {steps} steps, {dev_fwd} dev forwards")
+    require(all(np.isfinite(v) for v in losses), "non-finite loss logged")
+    require(n == want, f"gate launches {n} != {want}")
+    require(min(n[k] for k in per["step"]) > 0, "a kernel of the gate's path never launched")
+
+    beam_calls = [0]
+    device_beam = infer.ctc_prefix_beam_device
+
+    def counted(*args, **kwargs):
+        beam_calls[0] += 1
+        return device_beam(*args, **kwargs)
+
+    hyp = os.path.join(exp, "hyp.txt")
+    infer.ctc_prefix_beam_device = counted
+    try:
+        reset_counters()
+        t0 = time.time()
+        infer.main(["--model_type", "conv-ctc", "--model_pkg", os.path.join(exp, "last.pkg"),
+                    "--vocab_path", vocab,
+                    "--json_file", os.path.join(data, "test_wav.json"), "--output", hyp,
+                    "--batch_frames", "1000000", "--ctc_beam", "4", "--ctc_beam_device",
+                    "--add_blk", "--split_token", "--dtype", "bfloat16", "--device", "cuda"])
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+        dn = read_counters()
+    finally:
+        infer.ctc_prefix_beam_device = device_beam
+    with open(os.path.join(data, "test_wav.json")) as f:
+        n_test = len(json.load(f))
+    with open(hyp) as f:
+        hyps = [line for line in f if line.strip()]
+    score = io.StringIO()
+    with contextlib.redirect_stdout(score):
+        wer.main(["--cer", "--hyp", hyp, "--ref", os.path.join(data, "test_text.txt")])
+    cer = float(score.getvalue().split()[1])
+    print(f"[recipe gate] decode: {len(hyps)} hyps for {n_test} test rows in {decode_s:.2f}s "
+          f"wall, {beam_calls[0]} device-beam batch(es); launches {dn}; "
+          f"{score.getvalue().strip()}")
+    require(len(hyps) == n_test, f"{len(hyps)} hyp lines for {n_test} test rows")
+    require(beam_calls[0] > 0, "the device beam never ran")
+    require(min(dn[k] for k in per["forward"]) > 0, "a kernel of the gate's decode never launched")
+    return {"cer": cer, "steps": steps, "per_step": per["step"], "train_s": train_s,
+            "decode_s": decode_s}
+
+
+def check_saturated_attention():
+    """The attention backward where every softmax row is one-hot (each
+    query near one valid key, scaled by 300: scores of about 5e5, as the
+    recipe gate's layer 0 reaches 4e4 at its initialization), at the gate's
+    layer-0 shape: the true dQ and dK are 0.  The statistics pass and the
+    dQ kernel take P and delta from the same products, so their dQ is
+    exactly 0; the dK/dV kernel computes them with the operands' roles
+    swapped, which the symmetric products keep the same bits, so its dK is
+    0 too.  dV against the plain version to the backward tolerance."""
+    from openasr_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    g = torch.Generator().manual_seed(SEED)
+    b, t, h, d = 26, 17, 4, 32
+    lens = torch.tensor([17, 15, 13] * 8 + [17, 9], dtype=torch.int32)
+    k = torch.randn(b, t, h, d, generator=g) * 300.0
+    match = torch.arange(t)[None, :] % lens[:, None].long()
+    q = k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=g)
+    v, dout = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+    for dtype in DTYPES:
+        for rate in (0.0, DROPOUT):
+            grads = {}
+            for name, fn in (("kernel", flash_attention), ("plain", flash_attention_reference)):
+                leaves = [x.to("cuda", dtype).clone().requires_grad_() for x in (q, k, v)]
+                out, _ = fn(*leaves, kv_lengths=lens.cuda(), dropout_rate=rate,
+                            dropout_seed=DROPOUT_SEED)
+                (out.float() * dout.cuda()).sum().backward()
+                grads[name] = [x.grad.float() for x in leaves]
+            kq, kk, kv = grads["kernel"]
+            pq, pk, pv = grads["plain"]
+            dv_err = max_err(kv, pv) / max(1.0, float(pv.abs().max()))
+            print(f"[saturated softmax] {DTYPE_NAME[dtype]}, dropout {rate}: max |dQ|, |dK| "
+                  f"kernel {float(kq.abs().max()):.3e}, {float(kk.abs().max()):.3e} "
+                  f"(plain {float(pq.abs().max()):.3e}, {float(pk.abs().max()):.3e}; true 0); "
+                  f"dV kernel vs plain {dv_err:.3e} of max(1, |dV|) "
+                  f"(tol {TOL_FLASH_BWD[dtype]})")
+            require(float(pq.abs().max()) == 0.0 and float(pk.abs().max()) == 0.0,
+                    "the plain backward left a residue in a saturated softmax")
+            require(float(kq.abs().max()) == 0.0 and float(kk.abs().max()) == 0.0,
+                    f"the kernels left a residue in a saturated softmax ({DTYPE_NAME[dtype]}, "
+                    f"dropout {rate})")
+            require(dv_err <= TOL_FLASH_BWD[dtype], f"dV off by {dv_err:.3g}")
+
+
+def small_corpus(name, rng, chars, n_utts=16):
+    """`n_utts` random 20-dim utterances for the test configs."""
+    manifest, feats = write_corpus(name, rng, chars, n_utts, (80, 96), (4, 8), dim=20)
+    return manifest, feats
+
+
+def phase_stock_optimizers(vocab, chars, rng):
+    """3 steps of the test config with `optimtype: sgd` and with
+    `fused_adam: false` (apply_if_finite over clip + sgd / adam) from one
+    package, on the card and on the CPU in lockstep (TF32 off, the config
+    has no dropout): each step's gradients within 1e-3 of their largest
+    magnitude, the gradient check's tolerance, the optimizer counts equal
+    and every parameter finite.  The parameters' largest difference is
+    reported against the largest step: Adam moves an element by about lr
+    whatever its gradient, so where a gradient is near 0 (the label
+    smoothing's target for an unseen token) the two devices' roundings move
+    it apart."""
+    import yaml
+
+    from openasr_torch.bin.train import build_loaders
+    from openasr_torch.data.tokenizer import CharTokenizer
+    from openasr_torch.models import get_model_class
+    from openasr_torch.solvers import batch_to_device, get_solver_class
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    manifest, _ = small_corpus("stock", rng, chars)
+    with open(TEST_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(trainset=manifest, devset=manifest, vocab_path=vocab)
+    model_cfg = cfg["model"]
+    tok = CharTokenizer(vocab, add_blk=True)
+    model_cfg["decoder"]["vocab_size"] = tok.unit_num()
+    loader, _ = build_loaders(cfg["data"], cfg["training"], model_cfg, tok)
+    batches = list(loader)[:3]
+    require(len(batches) == 3, f"{len(batches)} batches")
+    pkg = get_model_class(model_cfg["type"]).create_model(
+        model_cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)).package()
+    for name, change in (("sgd", {"optimtype": "sgd"}), ("adam", {"fused_adam": False})):
+        solvers, start = {}, {}
+        for device in ("cuda", "cpu"):
+            model = get_model_class(model_cfg["type"]).create_model(model_cfg, device=device)
+            model.restore(pkg)
+            training = dict(cfg["training"], exp_dir=os.path.join(WORK, f"exp_stock_{name}"),
+                            **change)
+            solvers[device] = get_solver_class(model_cfg["type"])(model, training, None, None,
+                                                                 device=device)
+            start[device] = {k: p.detach().cpu().clone()
+                             for k, p in model.module.named_parameters()}
+        worst, worst_name = 0.0, None
+        for batch in batches:
+            grads = {}
+            for device, solver in solvers.items():
+                empty = solver.model.has_empty_rows(solver.model.batch_inputs(batch)[1])
+                solver.grad_step(batch_to_device(batch, torch.device(device)), empty)
+                grads[device] = {k: p.grad.detach().cpu() for k, p in solver.params.items()}
+                solver.apply_update()
+            for k, want in grads["cpu"].items():
+                # a k-projection bias has an analytically zero gradient:
+                # measured against its weight's
+                ref = grads["cpu"][k[: -len("bias")] + "weight"] if k.endswith(".k.bias") else want
+                rel = max_err(grads["cuda"][k], want) / max(float(ref.abs().max()), 1e-30)
+                if not rel <= worst:
+                    worst, worst_name = rel, k
+        params = {d: {k: p.detach().cpu() for k, p in s.params.items()}
+                  for d, s in solvers.items()}
+        step = max(float((params["cpu"][k] - start["cpu"][k]).abs().max()) for k in params["cpu"])
+        drift = max(max_err(params["cuda"][k], params["cpu"][k]) for k in params["cpu"])
+        counts = {d: int(s.optimizer.count) for d, s in solvers.items()}
+        finite = all(torch.isfinite(p).all() for p in params["cuda"].values())
+        print(f"[stock optimizers] {name}: 3 steps, card vs CPU, {len(params['cpu'])} "
+              f"parameters: worst gradient err {worst:.3g} of its largest magnitude "
+              f"({worst_name}; tol 1e-3); parameters apart by at most {drift:.3g}, "
+              f"the largest step {step:.3g}; counts {counts}")
+        require(worst <= 1e-3, f"{name}: the gradient of {worst_name} disagrees, {worst:.3g}")
+        require(counts == {"cuda": 3, "cpu": 3} and finite, f"{name}: counts {counts}, "
+                f"finite {finite}")
+
+
+def phase_preemption(vocab, chars, rng):
+    """SIGTERM to a training subprocess on the card at its second step:
+    it saves last.pkg and exits 0; `--continue-training` then restarts the
+    interrupted epoch and ends at the last epoch, with the steps of the
+    interrupted part-epoch on top of the whole epochs'."""
+    import signal
+
+    from openasr_torch.bin import train
+    from openasr_torch.utils.checkpoint import load_package
+
+    manifest, _ = small_corpus("preempt", rng, chars)
+    exp = os.path.join(WORK, "exp_preempt")
+    epochs = 40
+    cfg = test_config(exp, manifest, manifest, vocab, num_epoch=epochs)
+    proc = subprocess.Popen([sys.executable, "-m", "openasr_torch.bin.train", cfg,
+                             "--device", "cuda"], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 300
+        while not any(r["phase"] == "train" and r["step"] >= 2 for r in read_metrics(exp)):
+            require(proc.poll() is None and time.time() < deadline,
+                    "the training subprocess ended before its second step")
+            time.sleep(0.005)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    require(proc.returncode == 0 and "preemption: saved last.pkg" in out,
+            f"rc {proc.returncode}: {out[-2000:]}")
+    saved = load_package(os.path.join(exp, "last.pkg"))["solver_state"]
+    require(saved["epoch"] < epochs - 1, f"stopped at epoch {saved['epoch']} of {epochs}")
+    before = len(read_metrics(exp))
+    train.main([cfg, "--continue-training", "--device", "cuda"])
+    resumed = read_metrics(exp)[before:]
+    first = [r for r in resumed if r["phase"] == "train"][0]
+    ends = [r for r in resumed if r["phase"] == "epoch"]
+    per_epoch = ends[1]["step"] - ends[0]["step"]
+    part = saved["step"] - saved["epoch"] * per_epoch
+    print(f"[preemption] SIGTERM at epoch {saved['epoch'] + 1}: last.pkg at epoch "
+          f"{saved['epoch']}, step {saved['step']}; resumed at epoch {first['epoch']} "
+          f"batch {first['batch']} step {first['step']}, ended at epoch {ends[-1]['epoch']} "
+          f"step {ends[-1]['step']} ({per_epoch} steps an epoch, {part} of the interrupted "
+          f"epoch's before the stop)")
+    require(first["epoch"] == saved["epoch"] + 1 and first["batch"] == 1
+            and first["step"] == saved["step"] + 1, f"resumed at {first}")
+    require(ends[-1]["epoch"] == epochs and ends[-1]["step"] == epochs * per_epoch + part
+            and 0 <= part <= per_epoch, f"ended at {ends[-1]}")
+
+
+def profile_report(logdir) -> list:
+    """The port's kernels with device time in a Chrome trace of the
+    profiler window: (name, calls, device us)."""
+    names = ("layer_norm_fwd", "layer_norm_bwd", "column_sum", "flash_attention_fwd",
+             "flash_attention_bwd_stats", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq", "fbank")
+    traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    require(len(traces) == 1, f"profile traces {traces}")
+    with open(os.path.join(logdir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    found = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for n in names:
+            if n in e.get("name", ""):
+                calls, us = found.get(n, (0, 0.0))
+                found[n] = (calls + 1, us + float(e.get("dur", 0.0)))
+    return [(n, c, us) for n, (c, us) in sorted(found.items())]
+
+
+def phase_jax_package():
+    """The committed package that the JAX solver wrote (test config, fused
+    clip + Adam, 1 epoch of 4 steps), read on this machine, which has no
+    jax, and continued one step on the card."""
+    import contextlib
+    import io
+    import shutil as sh
+
+    from openasr_torch.bin import gen_mini_corpus, train
+    from openasr_torch.utils.checkpoint import load_package
+
+    data = os.path.join(WORK, "jaxpkg")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_mini_corpus.main(["--out", data])
+    with open(os.path.join(data, "train.json")) as f:
+        rows = json.load(f)[:2]
+    one = os.path.join(data, "one_batch.json")
+    with open(one, "w") as f:
+        json.dump(rows, f)
+    exp = os.path.join(WORK, "exp_jaxpkg")
+    cfg = test_config(exp, one, one, os.path.join(data, "chars.txt"), num_epoch=2)
+    sh.copy(COMMITTED_JAX_PKG, os.path.join(exp, "last.pkg"))
+    before = load_package(os.path.join(exp, "last.pkg"))
+    train.main([cfg, "--continue-training", "--device", "cuda"])
+    after = load_package(os.path.join(exp, "last.pkg"))
+    rows = [r for r in read_metrics(exp) if r["phase"] == "train"]
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
+    print(f"[jax package] {os.path.relpath(COMMITTED_JAX_PKG, ROOT)}: "
+          f"{type(before['optim_state']).__name__} at step {before['solver_state']['step']} -> "
+          f"{len(rows)} step(s) on the card, ctc {[round(r['ctc_loss'], 4) for r in rows]}, "
+          f"now step {after['solver_state']['step']}, optimizer count "
+          f"{after['optim_state']['count']}; jax modules loaded: {loaded}")
+    require(type(before["optim_state"]).__name__ == "FusedClipAdamState",
+            "the committed package holds no FusedClipAdamState")
+    require(len(rows) == 1 and after["optim_state"]["count"] == after["solver_state"]["step"]
+            == before["solver_state"]["step"] + 1, "the package did not continue one step")
+    require(all(np.isfinite(r["ctc_loss"]) for r in rows), "non-finite loss")
+    require(loaded == [], f"jax modules were imported: {loaded}")
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1948,6 +2412,14 @@ def main() -> int:
         print(f"[time] online decode path done at {time.time() - t_start:.1f}s")
         phase_train(wtrain_json, wdev_json, vocab, launches, online=True)
         print(f"[time] online training path done at {time.time() - t_start:.1f}s")
+        gate = phase_recipe_gate()
+        check_saturated_attention()
+        print(f"[time] recipe gate done at {time.time() - t_start:.1f}s")
+        phase_stock_optimizers(vocab, chars, rng)
+        phase_preemption(vocab, chars, rng)
+        phase_jax_package()
+        print(f"[time] stock optimizers, preemption and jax package done at "
+              f"{time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches))
     except PhaseError as e:
@@ -1965,6 +2437,9 @@ def main() -> int:
         f"{k} log-probs: device {r['device_ms']:.2f} ms (enqueued in {r['enqueue_ms']:.2f}), "
         f"host {r['host_ms']:.2f} ms"
         for k, r in beams.items()))
+    print(f"[recipe gate] CER {gate['cer']} after {gate['steps']} steps "
+          f"({GATE_EPOCHS} epochs, train rows x{GATE_REPEAT}); train {gate['train_s']:.2f}s, "
+          f"decode {gate['decode_s']:.2f}s wall; launches a step {gate['per_step']}")
     print(nvidia_smi())
     print(json.dumps({"kernels": rows}))
     # the run drives one card (cuda:0)

@@ -11,6 +11,7 @@ in PyTorch's layouts:
   DenseGeneral q/k/v bias [H, hd]         Linear bias [H*hd]
   DenseGeneral out kernel [H, hd, D]      Linear weight [D, H*hd]
   Conv kernel HWIO over NHWC [B, T, F, 1] Conv2d weight OIHW over [B, 1, T, F]
+  Conv kernel WIO over [B, T, F] (Stack)  Conv1d weight OIW over [B, F, T]
   _FoldedAffine kernel [C*F, M]           Linear weight [M, C*F], input
                                           flattened from [B, T, C, F]
   LayerNorm scale                         LayerNorm weight
@@ -18,6 +19,11 @@ in PyTorch's layouts:
   decoder out_bias, ctc_fc / fc kernel    out_bias, ctc_fc / fc weight
 
 Both directions are exact (pure transposes and reshapes).
+
+The optimizer states bridge the same way (`jax_optim_state_to_port`,
+`port_optim_state_to_jax`): their moments are elementwise in the weights,
+so each moment tree maps through the weights' own path mapping and
+layout transposes, and the counters carry over.
 """
 
 from __future__ import annotations
@@ -26,6 +32,16 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from openasr_torch.ops.fused_adam import FusedClipAdamState
+from openasr_torch.ops.optimizers import (
+    ApplyIfFiniteState,
+    EmptyState,
+    MaskedState,
+    ScaleByAdamState,
+    ScaleByScheduleState,
+    TraceState,
+)
 
 COMPONENTS = {
     "conv-transformer": ("encoder", "decoder"),
@@ -48,12 +64,18 @@ def _is_norm(module_name: str) -> bool:
     return module_name.startswith("norm") or module_name.endswith("_norm")
 
 
+def _in_attention(path) -> bool:
+    return len(path) > 2 and path[-3] in _ATTENTION
+
+
 def _leaf_to_torch(path, arr: np.ndarray):
     """(flax path, array) -> (torch leaf name, array in torch layout)."""
     name, parent = path[-1], path[-2] if len(path) > 1 else ""
     if name == "kernel":
         if arr.ndim == 4:  # HWIO -> OIHW
             return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 3 and not _in_attention(path):  # WIO -> OIW
+            return "weight", arr.transpose(2, 1, 0)
         if arr.ndim == 3 and parent == "out":  # [H, hd, D] -> [D, H*hd]
             return "weight", arr.reshape(-1, arr.shape[-1]).T
         if arr.ndim == 3:  # [D, H, hd] -> [H*hd, D]
@@ -104,7 +126,7 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
             raise ValueError(f"state_dict key {key!r} outside {expected}")
         arr = tensor.detach().float().cpu().numpy()
         leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
-        attention = len(path) > 2 and path[-3] in _ATTENTION
+        attention = _in_attention(path)
         if attention:
             heads = int(configs[path[0]]["nhead"])
         if leaf == "weight":
@@ -116,6 +138,8 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
                 leaf = "kernel"
                 if arr.ndim == 4:  # OIHW -> HWIO
                     arr = arr.transpose(2, 3, 1, 0)
+                elif arr.ndim == 3:  # OIW -> WIO
+                    arr = arr.transpose(2, 1, 0)
                 elif attention and parent == "out":  # [D, H*hd] -> [H, hd, D]
                     arr = arr.T.reshape(heads, -1, arr.shape[0])
                 elif attention:  # [H*hd, D] -> [D, H, hd]
@@ -129,3 +153,85 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
     return components
+
+
+# ------------------------------------------------------- optimizer states
+
+def _moments_to_port(model_type: str, tree) -> Dict[str, np.ndarray]:
+    return {k: v.numpy() for k, v in jax_components_to_state_dict(model_type, tree).items()}
+
+
+def _moments_to_jax(model_type: str, moments: dict, configs) -> dict:
+    tensors = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in moments.items()}
+    return state_dict_to_jax_components(model_type, tensors, configs)
+
+
+def jax_optim_state_to_port(model_type: str, state) -> dict:
+    """The JAX package's optimizer state (as `load_package` reads it) ->
+    the port's optimizer `state_dict`: FusedClipAdamState -> `count`,
+    `notfinite`, `mu`, `nu`; optax's apply_if_finite(chain(clip, sgd |
+    adam)) -> `count`, `trace` or `mu` and `nu`, and apply_if_finite's
+    `notfinite` (its total_notfinite), `notfinite_count`, `last_finite`.
+    The moments come keyed by torch parameter name, in torch layouts,
+    f32."""
+    if isinstance(state, FusedClipAdamState):
+        return {
+            "count": int(state.count),
+            "notfinite": 0 if state.notfinite is None else int(state.notfinite),
+            "mu": _moments_to_port(model_type, state.mu),
+            "nu": _moments_to_port(model_type, state.nu),
+        }
+    out: dict = {}
+    if isinstance(state, ApplyIfFiniteState):
+        out.update(notfinite=int(state.total_notfinite),
+                   notfinite_count=int(state.notfinite_count),
+                   last_finite=bool(state.last_finite))
+        state = state.inner_state
+    if isinstance(state, MaskedState):
+        raise NotImplementedError(
+            "the optimizer state masks frozen components, which only the "
+            "wav2vec family has (ROADMAP queue 1 item 13)"
+        )
+    # optax.chain([clip_by_global_norm,] sgd | adam): (EmptyState(), opt) or (opt,)
+    parts = [s for s in state if not isinstance(s, EmptyState)]
+    if len(parts) != 1 or len(parts[0]) != 2 or not isinstance(parts[0][1], ScaleByScheduleState):
+        raise ValueError(f"unknown optimizer state layout: {state!r:.200}")
+    inner, schedule = parts[0]
+    out["count"] = int(schedule.count)
+    if isinstance(inner, TraceState):
+        out["trace"] = _moments_to_port(model_type, inner.trace)
+    elif isinstance(inner, ScaleByAdamState):
+        if int(inner.count) != out["count"]:
+            raise ValueError(f"Adam's count {int(inner.count)} != the schedule's {out['count']}")
+        out["mu"] = _moments_to_port(model_type, inner.mu)
+        out["nu"] = _moments_to_port(model_type, inner.nu)
+    else:
+        raise ValueError(f"unknown optimizer state {type(inner).__name__}")
+    return out
+
+
+def port_optim_state_to_jax(model_type: str, state: dict, configs, clip: bool):
+    """The inverse of `jax_optim_state_to_port`: the port's optimizer
+    `state_dict` -> the JAX solver's state, in the port's NamedTuples of
+    the same fields (the JAX solver restores a state by its leaves).
+    `clip`: the chain holds clip_by_global_norm (grad_max_norm > 0)."""
+    count = np.asarray(state["count"], np.int32)
+    if "notfinite" in state and "last_finite" not in state:
+        return FusedClipAdamState(
+            count, _moments_to_jax(model_type, state["mu"], configs),
+            _moments_to_jax(model_type, state["nu"], configs),
+            np.asarray(state["notfinite"], np.int32),
+        )
+    if "trace" in state:
+        inner = TraceState(_moments_to_jax(model_type, state["trace"], configs))
+    else:
+        inner = ScaleByAdamState(count, _moments_to_jax(model_type, state["mu"], configs),
+                                 _moments_to_jax(model_type, state["nu"], configs))
+    opt = (inner, ScaleByScheduleState(count))
+    chain = (EmptyState(), opt) if clip else (opt,)
+    if "last_finite" not in state:
+        return chain
+    return ApplyIfFiniteState(
+        np.asarray(state["notfinite_count"], np.int32), np.asarray(state["last_finite"]),
+        np.asarray(state["notfinite"], np.int32), chain,
+    )

@@ -80,6 +80,10 @@ struct Bf16Ops {
   static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
     mma_bf16(d, a.r, b.r[0], b.r[1]);
   }
+  // one mma: the same bits with the operands' roles swapped
+  static __device__ __forceinline__ void mma_sym(float (&d)[4], const A& a, const B& b) {
+    mma_bf16(d, a.r, b.r[0], b.r[1]);
+  }
   // two adjacent outputs
   static __device__ __forceinline__ void store2(Elem* p, float x, float y) {
     *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
@@ -140,6 +144,18 @@ struct Tf32x3Ops {
   static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
     mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
     mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+    mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+  }
+  // The same product, the same bits with the operands' roles swapped: the
+  // two cross products are summed on their own before they join d.  The
+  // backward kernels compute S and dP as A B in one kernel and as B^T A^T
+  // in the other and need them equal.
+  static __device__ __forceinline__ void mma_sym(float (&d)[4], const A& a, const B& b) {
+    float c1[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(c1, a.lo, b.hi[0], b.hi[1]);
+    mma_tf32(c2, a.hi, b.lo[0], b.lo[1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += __fadd_rn(c1[e], c2[e]);
     mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
   }
   static __device__ __forceinline__ void store2(Elem* p, float x, float y) {

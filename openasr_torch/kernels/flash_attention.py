@@ -16,8 +16,11 @@ is, the extra columns of O, dQ, dK and dV are sliced off, sm_scale comes
 from the true D, and the hash mask keys on positions, not on D.
 
 `flash_attention` is differentiable: a `torch.autograd.Function` saves q,
-k, v, O and lse, and its backward launches the dK/dV kernel and the dQ
-kernel with delta = rowsum(dO o O) computed here.  Every wrapper launches
+k, v, O and lse, and its backward launches three kernels: the statistics
+pass (each query row's sum of P = exp(S scale - lse) and delta =
+rowsum(P o dP o D) with P divided by that sum), then dK/dV and dQ, which
+take P and delta from the same products, bit for bit, so that dS is
+exactly 0 where a softmax row is one-hot.  Every wrapper launches
 csrc/flash_attention*.cu for CUDA tensors and runs its plain version for
 CPU tensors; there is no other route.
 """
@@ -148,8 +151,14 @@ def flash_attention_reference(
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
                                   causal=False, sm_scale=None,
                                   dropout_rate=0.0, dropout_seed=0):
-    """Plain version of the backward, the kernels' recompute in f32:
-    -> (dq, dk, dv) in the dtypes of q, k, v."""
+    """Plain version of the backward in f32 -> (dq, dk, dv) in the dtypes
+    of q, k, v: the softmax gradient dS = P o (dP - delta) with P
+    recomputed as the forward computes it (rows summing to 1) and delta =
+    rowsum(P o dP) from the same dP, as autograd of the forward takes it.
+    So where a row is one-hot (scores of 1e4 and more, as at the recipe
+    gate's first layer), dP - delta cancels exactly and dS is 0, as in the
+    kernels, which take P from lse divided by its row's sum and delta from
+    the same P and dP (`flash_bwd_stats`)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if sm_scale is None:
@@ -157,8 +166,13 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     bias = _bias(q, k, kv_lengths, causal)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale + bias
-    # lse = +inf on empty rows gives p = 0 there
-    p = torch.exp(s - lse[..., None])
+    # the forward's probabilities, recomputed as the forward computes them
+    # (rows sum to 1, so delta below cancels dp exactly where a row is
+    # one-hot); lse = +inf on empty rows gives p = 0 there
+    valid = (bias > 0.5 * NEG_INF).expand_as(s) & torch.isfinite(lse)[..., None]
+    e = torch.where(valid, torch.exp(s - s.max(dim=-1, keepdim=True).values),
+                    torch.zeros_like(s))
+    p = e / torch.clamp_min(e.sum(dim=-1, keepdim=True), torch.finfo(e.dtype).tiny)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     p_drop = p
     if dropout_rate > 0.0:
@@ -166,7 +180,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
         scale = 1.0 / (1.0 - dropout_rate)
         p_drop = torch.where(keep, p * scale, torch.zeros_like(p))
         dp = torch.where(keep, dp * scale, torch.zeros_like(dp))
-    delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]  # [B, H, Tq, 1]
+    delta = (p * dp).sum(-1, keepdim=True)  # [B, H, Tq, 1]
     ds = p * (dp - delta) * sm_scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
@@ -272,10 +286,67 @@ def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
     return out, lse
 
 
-def flash_delta(out, dout):
-    """delta = rowsum(dO o O) -> [B, H, Tq] f32, contiguous.  The product
-    is f32 (a bf16 O is widened inside the multiply, not copied first)."""
-    return (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
+@_f32_plain
+def flash_bwd_stats_reference(q, k, v, lse, dout, kv_lengths=None, causal=False,
+                              sm_scale=None, dropout_rate=0.0, dropout_seed=0):
+    """Plain version of the statistics pass: -> [3, B, H, Tq] f32, each
+    query row's sum of P = exp(S scale - lse), its reciprocal and delta =
+    rowsum(P o dP o D) with P divided by that sum (0, 0, 0 on an empty
+    row)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    bias = _bias(q, k, kv_lengths, causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    valid = (bias > 0.5 * NEG_INF).expand_as(s)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    total = p.sum(-1, keepdim=True)
+    inv = torch.where(total > 0, 1.0 / torch.where(total > 0, total, torch.ones_like(total)),
+                      torch.zeros_like(total))
+    p = torch.where((p == total) & (p > 0), torch.ones_like(p), p * inv)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    if dropout_rate > 0.0:
+        keep = attention_dropout_mask(dropout_seed, b, h, tq, tk, dropout_rate, q.device)
+        dp = torch.where(keep, dp / (1.0 - dropout_rate), torch.zeros_like(dp))
+    return torch.stack([total[..., 0], inv[..., 0], (p * dp).sum(-1)])
+
+
+def flash_bwd_stats(q, k, v, lse, dout, kv_lengths=None, causal=False, sm_scale=None,
+                    dropout_rate=0.0, dropout_seed=0):
+    """The backward's row statistics -> [3, B, H, Tq] f32, contiguous: the
+    sums of P = exp(S scale - lse), their reciprocals and the deltas =
+    rowsum(P o dP o D), P divided by its row's sum.  The dK/dV and dQ kernels take both and
+    recompute P and dP as this kernel does, bit for bit.  CUDA tensors
+    launch the statistics pass of csrc/flash_attention_bwd.cu; CPU tensors
+    take `flash_bwd_stats_reference`."""
+    if q.device.type == "cpu":
+        return flash_bwd_stats_reference(q, k, v, lse, dout, kv_lengths, causal, sm_scale,
+                                         dropout_rate, dropout_seed)
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dp = padded_head_dim(d)
+    if dp != d:
+        return flash_bwd_stats(*(pad_head_dim(t, dp) for t in (q, k, v)), lse,
+                               pad_head_dim(dout, dp), kv_lengths, causal, sm_scale,
+                               dropout_rate, dropout_seed)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    stats = torch.zeros((3, b, h, tq), dtype=torch.float32, device=q.device)
+    dout, lse, _, lens, lens_ptr, strides = _bwd_inputs(q, k, v, dout, lse, dout, stats,
+                                                        kv_lengths)
+    if b * tq * tk * h == 0:
+        return stats
+    code = kernels.library().openasr_flash_attention_bwd_stats(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        stats.data_ptr(), lens_ptr, b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(code, "flash_bwd_stats")
+    flash_bwd_stats.launches += 1
+    return stats
 
 
 def check_flash_alignment(**views) -> None:
@@ -299,9 +370,9 @@ def check_flash_alignment(**views) -> None:
                 f"({16 // t.element_size()} elements)")
 
 
-def _bwd_inputs(q, k, v, out, lse, dout, delta, kv_lengths):
+def _bwd_inputs(q, k, v, out, lse, dout, stats, kv_lengths):
     """Checked kernel inputs of the backward: (dout with unit D stride,
-    contiguous lse, contiguous delta, lengths, lengths pointer, the 12
+    contiguous lse, contiguous stats, lengths, lengths pointer, the 12
     strides)."""
     _check_qkv(q, k, v)
     b, tq, h, d = q.shape
@@ -310,22 +381,24 @@ def _bwd_inputs(q, k, v, out, lse, dout, delta, kv_lengths):
     if dout.stride(3) != 1:
         dout = dout.contiguous()
     check_flash_alignment(q=q, k=k, v=v, dout=dout)
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != (b, h, tq) or t.dtype != torch.float32:
-            raise ValueError(f"flash_attention bwd: {name} must be f32 [{b}, {h}, {tq}]")
+    if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention bwd: lse must be f32 [{b}, {h}, {tq}]")
+    if stats.shape != (3, b, h, tq) or stats.dtype != torch.float32:
+        raise ValueError(f"flash_attention bwd: stats must be f32 [3, {b}, {h}, {tq}]")
     lens, lens_ptr = _lengths_arg(kv_lengths, b, q.device)
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, dout) for s in (t.stride(0), t.stride(1), t.stride(2))
     ))
-    return dout, lse.contiguous(), delta.contiguous(), lens, lens_ptr, strides
+    return dout, lse.contiguous(), stats.contiguous(), lens, lens_ptr, strides
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, kv_lengths=None,
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
                             causal=False, sm_scale=None, dropout_rate=0.0,
                             dropout_seed=0):
     """dK, dV of `flash_attention` -> (dk [B, Tk, H, D], dv), in k's dtype,
-    with delta = `flash_delta(out, dout)`.  CUDA tensors launch the dK/dV
-    kernel; CPU tensors take the plain backward (which forms delta itself)."""
+    with stats = `flash_bwd_stats(...)` of the same inputs.  CUDA tensors
+    launch the dK/dV kernel; CPU tensors take the plain backward (which
+    forms its statistics itself)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
@@ -337,19 +410,19 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, kv_lengths=None,
     if dp != d:
         dk, dv = flash_attention_bwd_dkv(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
-            delta, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
+            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
         return dk[..., :d], dv[..., :d]
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    dout, lse, delta, lens, lens_ptr, strides = _bwd_inputs(
-        q, k, v, out, lse, dout, delta, kv_lengths)
+    dout, lse, stats, lens, lens_ptr, strides = _bwd_inputs(
+        q, k, v, out, lse, dout, stats, kv_lengths)
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
     if b * tq * tk * h == 0:
         return dk.zero_(), dv.zero_()
     code = kernels.library().openasr_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), lens_ptr, dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), stats.data_ptr(), lens_ptr, dk.data_ptr(), dv.data_ptr(),
         b, h, tq, tk, d, strides, float(sm_scale), int(causal),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
@@ -359,12 +432,12 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, kv_lengths=None,
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, kv_lengths=None,
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
                            causal=False, sm_scale=None, dropout_rate=0.0,
                            dropout_seed=0):
-    """dQ of `flash_attention` -> dq [B, Tq, H, D] in q's dtype, with delta
-    = `flash_delta(out, dout)`.  CUDA tensors launch the dQ kernel; CPU
-    tensors take the plain backward."""
+    """dQ of `flash_attention` -> dq [B, Tq, H, D] in q's dtype, with stats
+    = `flash_bwd_stats(...)` of the same inputs.  CUDA tensors launch the
+    dQ kernel; CPU tensors take the plain backward."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
@@ -376,17 +449,17 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, kv_lengths=None,
     if dp != d:
         return flash_attention_bwd_dq(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
-            delta, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)[..., :d]
+            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)[..., :d]
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    dout, lse, delta, lens, lens_ptr, strides = _bwd_inputs(
-        q, k, v, out, lse, dout, delta, kv_lengths)
+    dout, lse, stats, lens, lens_ptr, strides = _bwd_inputs(
+        q, k, v, out, lse, dout, stats, kv_lengths)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if b * tq * tk * h == 0:
         return dq.zero_()
     code = kernels.library().openasr_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), lens_ptr, dq.data_ptr(),
+        lse.data_ptr(), stats.data_ptr(), lens_ptr, dq.data_ptr(),
         b, h, tq, tk, d, strides, float(sm_scale), int(causal),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
@@ -399,8 +472,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, kv_lengths=None,
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
                         sm_scale=None, dropout_rate=0.0, dropout_seed=0):
     """The whole backward of `flash_attention` -> (dq, dk, dv): on the card
-    delta, then the dK/dV kernel and the dQ kernel; on the CPU the plain
-    backward."""
+    the statistics pass, then the dK/dV kernel and the dQ kernel; on the CPU
+    the plain backward."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths,
                                              causal, sm_scale, dropout_rate,
@@ -414,8 +487,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
             kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
         return tuple(g[..., :d] for g in grads)
-    delta = flash_delta(out, dout)
-    args = (q, k, v, out, lse, dout, delta, kv_lengths, causal, sm_scale,
+    stats = flash_bwd_stats(q, k, v, lse, dout, kv_lengths, causal, sm_scale,
+                            dropout_rate, dropout_seed)
+    args = (q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
             dropout_rate, dropout_seed)
     dk, dv = flash_attention_bwd_dkv(*args)
     return flash_attention_bwd_dq(*args), dk, dv
@@ -475,8 +549,9 @@ def flash_attention(
 
 
 # kernel launches since the last reset (the plain route never counts):
-# the forward kernel without and with dropout, and the two backward kernels
+# the forward kernel without and with dropout, and the three backward ones
 flash_attention.launches = 0
 flash_attention.dropout_launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_bwd_stats.launches = 0

@@ -9,6 +9,8 @@ file serves both implementations.
 
 from __future__ import annotations
 
+import inspect
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,6 +38,15 @@ def _normalize(name: str) -> str:
     return name.lower().replace("-", "_")
 
 
+# the JAX package's other model types, by their ROADMAP queue 1 item
+UNPORTED_MODEL_TYPES = {
+    "cif": 9, "ctc_cif": 9, "cif_fc": 9, "cif_mix": 9,
+    "lstm_lm": 10, "transformer_lm": 10,
+    "gru_ctc": 13, "wav2vec_ctc": 13, "encoder_cpc": 13, "cpc_model": 13,
+    "embed_decoder": 13, "embed_decoder_ctc": 13, "gan_phone2char": 13,
+}
+
+
 def get_model_class(name: str) -> type:
     """Resolve a model type, case-insensitive over '-'/'_'."""
     import openasr_torch.models.speech  # noqa: F401  (fills the registry)
@@ -43,6 +54,11 @@ def get_model_class(name: str) -> type:
     by_norm = {_normalize(k): k for k in MODEL_REGISTRY}
     if _normalize(name) in by_norm:
         return MODEL_REGISTRY[by_norm[_normalize(name)]]
+    if _normalize(name) in UNPORTED_MODEL_TYPES:
+        raise NotImplementedError(
+            f"model type {name!r} is not ported yet: ROADMAP queue 1 item "
+            f"{UNPORTED_MODEL_TYPES[_normalize(name)]}"
+        )
     raise ValueError(
         f"Model type {name!r} is not ported; the port has {sorted(MODEL_REGISTRY)} "
         "(ROADMAP queue 1 lists the other families)"
@@ -63,18 +79,35 @@ def _check_config_compat(name: str, current: dict, saved: dict) -> None:
             )
 
 
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws truncated to [-2, 2], by the inverse CDF."""
+    lo, hi = ((1.0 + math.erf(z / math.sqrt(2.0))) / 2.0 for z in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float32) * (hi - lo) + lo
+    return torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from `generator` (a CPU generator; no global
-    RNG): LayerNorm scales 1, biases 0, other weights Xavier-uniform."""
+    RNG) with the JAX package's initializers: LayerNorm scales 1, biases 0,
+    convolution kernels flax's default lecun_normal (a normal truncated at
+    two standard deviations, variance 1 / fan_in), other weights
+    Xavier-uniform."""
     from openasr_torch.models.layers import LayerNorm
 
     norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
+    convs = {id(m.weight) for m in module.modules()
+             if isinstance(m, (nn.Conv1d, nn.Conv2d))}
     with torch.no_grad():
         for name, p in module.named_parameters():
             if id(p) in norms:
                 p.fill_(1.0)
             elif name.endswith("bias") or p.dim() < 2:
                 p.zero_()
+            elif id(p) in convs:
+                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(p)
+                # flax divides by the truncated normal's standard deviation
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                p.copy_(_truncated_normal(p.shape, generator) * std)
             else:
                 fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
                 bound = (6.0 / (fan_in + fan_out)) ** 0.5
@@ -171,6 +204,63 @@ class Framework:
         if "feats" in batch:
             return batch["feats"], batch["feat_lengths"]
         return batch["waves"], batch["wave_lengths"]
+
+    @torch.inference_mode()
+    def attention_maps(self, batch: dict, average_heads: bool = False) -> dict:
+        """Attention distributions of a deterministic forward of `batch`
+        (tensors on the model's device), as {module_path: [B, H, Tq, Tk]
+        f32}, or [B, Tq, Tk] averaged over heads with `average_heads`,
+        under the JAX package's module paths (`encoder/layer0/self_attn`;
+        a module called k > 1 times gets `#0` ... `#k-1`).
+
+        The forward runs as always, through the flash kernel on the card,
+        which never materialises the probabilities.  So, as the JAX package
+        does, each attention's probabilities are computed on the plain
+        path from its inputs: softmax(q k^T / sqrt(d) + padding and
+        causal biases) in f32.  Not on the train or decode path."""
+        from openasr_torch.models.layers import MultiHeadAttention
+        from openasr_torch.ops.masks import causal_bias, combine_bias, padding_bias
+
+        calls: Dict[str, list] = {}
+
+        def capture(path):
+            def hook(module, args, kwargs, _out):
+                bound = inspect.signature(module.forward).bind(*args, **kwargs)
+                bound.apply_defaults()
+                a = bound.arguments
+                q = module._heads(module.q(a["inputs_q"]))
+                k, _ = module.project_kv(a["inputs_kv"])
+                lengths = a["kv_lengths"]
+                bias = combine_bias(
+                    padding_bias(lengths, k.shape[1]) if lengths is not None else None,
+                    causal_bias(q.shape[1], q.device) if a["causal"] else None,
+                )
+                scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+                scores = scores / math.sqrt(q.shape[-1])
+                if bias is not None:
+                    scores = scores + bias
+                probs = torch.softmax(scores, dim=-1)
+                calls.setdefault(path, []).append(probs.mean(dim=1) if average_heads else probs)
+            return hook
+
+        handles = [
+            m.register_forward_hook(capture(name.replace(".", "/")), with_kwargs=True)
+            for name, m in self.module.named_modules() if isinstance(m, MultiHeadAttention)
+        ]
+        try:
+            inputs, lengths = self.batch_inputs(batch)
+            if hasattr(self.module, "decoder"):
+                self.module(inputs, lengths, batch["ids"])
+            else:
+                self.module(inputs, lengths)
+        finally:
+            for h in handles:
+                h.remove()
+        maps = {}
+        for path, found in calls.items():
+            for i, probs in enumerate(found):
+                maps[path if len(found) == 1 else f"{path}#{i}"] = probs
+        return maps
 
     def has_empty_rows(self, input_lengths) -> bool:
         """Whether an utterance of the host's (NumPy) `input_lengths` (as

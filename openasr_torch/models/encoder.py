@@ -3,6 +3,9 @@
 Counterpart of `TransformerEncoder` in openasr_tpu/models/encoder.py, the
 per-layer path: subsample -> x * sqrt(d) + PE -> dropout -> N post-LN
 layers (flash self-attention over the valid frames) -> final LayerNorm.
+The subsampler is ConvV1, ConvV2 or Stack (`encoder.sub.type`); without
+one the input passes as it is when input_dim == d_model, else through a
+Dense `affine`.
 Given a `TrainRNG` the forward is the train-mode one (dropout on).  Streaming
 (chunk masks), pipeline (stacked layers) and MoE encoders are later
 slices of the port.
@@ -23,7 +26,13 @@ from openasr_torch.models.layers import (
     dropout,
     positional_encoding,
 )
-from openasr_torch.models.subsample import Conv2dSubsample, Conv2dSubsampleV2
+from openasr_torch.models.subsample import (
+    Conv1dSubsample,
+    Conv2dSubsample,
+    Conv2dSubsampleV2,
+)
+
+SUB_TYPES = ("ConvV1", "ConvV2", "Stack", None)
 
 
 class TransformerEncoder(nn.Module):
@@ -38,19 +47,25 @@ class TransformerEncoder(nn.Module):
         sub_type: str = "ConvV2",
         sub_layer_num: int = 2,
         dropout_rate: float = 0.1,
+        context_width: int = 3,
+        subsample: int = 1,
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.sub = self.affine = None
         if sub_type == "ConvV1":
             self.sub = Conv2dSubsample(input_dim, d_model)
         elif sub_type == "ConvV2":
             self.sub = Conv2dSubsampleV2(input_dim, d_model, sub_layer_num)
-        else:
-            raise NotImplementedError(
-                f"encoder.sub.type {sub_type!r} is not ported yet (ROADMAP "
-                "queue 1 item 3: the port has ConvV1 and ConvV2; Stack and "
-                "no subsampler are to come)"
-            )
+        elif sub_type == "Stack":
+            self.sub = Conv1dSubsample(input_dim, d_model, context_width, subsample)
+        elif sub_type is not None:
+            raise ValueError(f"encoder.sub.type {sub_type!r} is not one of {SUB_TYPES}")
+        elif input_dim != d_model:
+            self.affine = nn.Linear(input_dim, d_model)
+        # a float that follows the module's dtype (LayerNorm weights stay
+        # f32), whatever the input layer
+        self.register_buffer("dtype_probe", torch.zeros(()), persistent=False)
         for i in range(num_layers):
             self.add_module(
                 f"layer{i}",
@@ -65,18 +80,25 @@ class TransformerEncoder(nn.Module):
         """feats [B, T, F] -> (encoded [B, T', d_model], lengths [B]).
         `empty_rows`: whether some utterance subsamples to no frame, as the
         caller knows it from the host's lengths (None: read it back)."""
-        x, lengths = self.sub(feats.to(self.compute_dtype), feat_lengths)
+        x, lengths = feats.to(self.compute_dtype), feat_lengths
+        if self.sub is not None:
+            x, lengths = self.sub(x, lengths)
+        elif self.affine is not None:
+            x = self.affine(x)
         x = dropout(positional_encoding(x), self.dropout_rate, rng)
         empty_rows = any_empty(lengths, empty_rows)
         for layer in self.layers:
             x = layer(x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows)
         return self.final_norm(x), lengths
 
+    def output_lengths(self, lengths):
+        """Encoder frames of `lengths` input frames (torch or NumPy)."""
+        return lengths if self.sub is None else self.sub.output_lengths(lengths)
+
     @property
     def compute_dtype(self) -> torch.dtype:
-        """The dtype the model runs in: that of the subsampler's affine
-        (LayerNorm parameters stay f32)."""
-        return self.sub.affine.weight.dtype
+        """The dtype the model runs in (LayerNorm parameters stay f32)."""
+        return self.dtype_probe.dtype
 
     @staticmethod
     def from_config(cfg) -> "TransformerEncoder":
@@ -104,4 +126,6 @@ class TransformerEncoder(nn.Module):
             sub_type=sub.get("type"),
             sub_layer_num=int(sub.get("layer_num", 2)),
             dropout_rate=float(cfg.get("dropout_rate", 0.1)),
+            context_width=int(cfg.get("context_width", 3)),
+            subsample=int(cfg.get("subsample", 1)),
         )

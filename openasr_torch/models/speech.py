@@ -72,7 +72,7 @@ class ConvTransformerModule(nn.Module):
     def encoder_lengths(self, input_lengths):
         """Encoder frames of the inputs' lengths (samples for an fbank
         frontend, feature frames offline)."""
-        return self.encoder.sub.output_lengths(self.splayer.output_lengths(input_lengths))
+        return self.encoder.output_lengths(self.splayer.output_lengths(input_lengths))
 
     def encode(self, inputs, input_lengths, rng: Optional[TrainRNG] = None,
                empty_rows: Optional[bool] = None):

@@ -3,9 +3,10 @@
 Counterpart of openasr_tpu/models/subsample.py: ConvV1 (two 3x3 VALID convs,
 stride 2 in time and frequency) and ConvV2 (`layer_num` 3x3 VALID convs,
 stride 2 in time only), each followed by the output affine over
-(channel, frequency).  The convolutions run NCHW over [B, 1, T, F] with
-OIHW weights; the JAX package runs NHWC over [B, T, F, 1] with HWIO
-kernels (openasr_torch/convert.py translates).
+(channel, frequency), and Stack (one strided VALID 1-D conv over time, then
+LayerNorm).  The 2-D convolutions run NCHW over [B, 1, T, F] with OIHW
+weights, the 1-D one NCW with OIW weights; the JAX package runs NHWC / NWC
+with HWIO / WIO kernels (openasr_torch/convert.py translates).
 """
 
 from __future__ import annotations
@@ -13,6 +14,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from openasr_torch.models.layers import LayerNorm
+
+
+def conv_out_len(length, kernel: int, stride: int):
+    """VALID conv output length (torch or NumPy integers)."""
+    return (length - kernel) // stride + 1
 
 
 class _FoldedAffine(nn.Linear):
@@ -86,3 +94,23 @@ class Conv2dSubsampleV2(_ConvSubsample):
         for _ in range(self.layer_num):
             lengths = (lengths - 1) // 2
         return lengths
+
+
+class Conv1dSubsample(nn.Module):
+    """Stack: one 1-D conv of `context_width` frames with stride
+    `subsample`, VALID, from the features to d_model, then LayerNorm (the
+    LayerNorm kernels on the card)."""
+
+    def __init__(self, d_input: int, d_model: int, context_width: int, subsample: int):
+        super().__init__()
+        self.context_width = context_width
+        self.subsample = subsample
+        self.conv = nn.Conv1d(d_input, d_model, context_width, subsample)
+        self.norm = LayerNorm(d_model)
+
+    def output_lengths(self, lengths):
+        return conv_out_len(lengths, self.context_width, self.subsample)
+
+    def forward(self, feats, feat_lengths):
+        x = self.conv(feats.transpose(1, 2)).transpose(1, 2)
+        return self.norm(x), self.output_lengths(feat_lengths)

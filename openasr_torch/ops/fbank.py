@@ -2,7 +2,8 @@
 
 Counterpart of openasr_tpu/ops/fbank.py (`FbankConfig`, `feature_window`,
 `mel_banks` with VTLN, `num_frames_of`, `frame_signal`, `fbank`,
-`fbank_config_from_model_cfg`).  Semantics are Kaldi's compute-fbank-feats
+`fbank_config_from_model_cfg`, `spectrogram`, `dct_matrix`,
+`lifter_coeffs`, `mfcc`, `_resample_plan`, `resample_waveform`).  Semantics are Kaldi's compute-fbank-feats
 with snip_edges=True: 25 ms frames every 10 ms, povey window, DC removal,
 preemphasis 0.97, the FFT size rounded up to a power of two, the power
 spectrum, triangular mel banks from low_freq 20 Hz to the Nyquist, and a
@@ -15,8 +16,9 @@ core to `kernels.fbank.fused_fbank`: the Hopper kernel on a card, its
 plain version on the CPU.  The energy and magnitude variants take the
 rfft path written out here.  Dither is drawn only from a generator the
 caller passes (a training forward); without one the features are
-deterministic.  spectrogram, mfcc and resample_waveform are not ported
-yet (ROADMAP queue 1 item 8).
+deterministic.  `mfcc` takes `fbank`'s log-mel (so the kernel on a
+card); `spectrogram` and `resample_waveform` are plain tensor ops.  No
+SPLayer path calls these three.
 """
 
 from __future__ import annotations
@@ -297,3 +299,192 @@ def fbank(
     if fused_fbank_supported(cfg):
         return fused_fbank(frames, feat_lengths, cfg), feat_lengths
     return mask_frames(rfft_fbank(frames, cfg), feat_lengths), feat_lengths
+
+
+def spectrogram(
+    waves: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FbankConfig = FbankConfig(),
+    generator: Optional[torch.Generator] = None,
+):
+    """Batched Kaldi log power spectrogram (compute-spectrogram-feats):
+    framing, dither (with `generator`), DC removal, preemphasis, window,
+    the rfft's log power, and bin 0 replaced by the frame's log energy.
+
+    Returns ([B, T, nfft // 2 + 1] float32, zero past each utterance's
+    frame count; [B] int32 frame counts)."""
+    waves = waves.float()
+    frames = frame_signal(waves, cfg)
+    if generator is not None and cfg.dither != 0.0:
+        frames = frames + cfg.dither * torch.randn(frames.shape, generator=generator,
+                                                   device=waves.device)
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+
+    def frame_log_energy(f):
+        e = torch.log(torch.clamp_min((f * f).sum(dim=-1), EPSILON))
+        if cfg.energy_floor > 0.0:
+            e = torch.clamp_min(e, math.log(cfg.energy_floor))
+        return e
+
+    if cfg.raw_energy:
+        log_energy = frame_log_energy(frames)
+    if cfg.preemphasis != 0.0:
+        first = frames[..., :1] - cfg.preemphasis * frames[..., :1]
+        rest = frames[..., 1:] - cfg.preemphasis * frames[..., :-1]
+        frames = torch.cat([first, rest], dim=-1)
+    window, _ = _window_and_banks(cfg, frames.device)
+    frames = frames * window
+    if not cfg.raw_energy:
+        log_energy = frame_log_energy(frames)
+    spectrum = torch.fft.rfft(frames, n=cfg.padded_window_size, dim=-1)
+    power = torch.log(torch.clamp_min(spectrum.real ** 2 + spectrum.imag ** 2, EPSILON))
+    power = torch.cat([log_energy[..., None], power[..., 1:]], dim=-1)
+    feat_lengths = num_frames_of(lengths.to(waves.device), cfg)
+    return mask_frames(power, feat_lengths), feat_lengths
+
+
+def dct_matrix(num_ceps: int, num_mel_bins: int) -> np.ndarray:
+    """Kaldi's DCT-II matrix [num_mel_bins, num_ceps] for a right multiply:
+    orthonormal columns, column 0 fixed to sqrt(1 / num_mel_bins)."""
+    n = num_mel_bins
+    i = np.arange(n, dtype=np.float64)[:, None]
+    j = np.arange(num_ceps, dtype=np.float64)[None, :]
+    m = np.sqrt(2.0 / n) * np.cos(np.pi / n * (i + 0.5) * j)
+    m[:, 0] = math.sqrt(1.0 / n)
+    return m.astype(np.float32)
+
+
+def lifter_coeffs(num_ceps: int, cepstral_lifter: float) -> np.ndarray:
+    """Kaldi's cepstral lifter 1 + Q/2 sin(pi i / Q)."""
+    i = np.arange(num_ceps, dtype=np.float64)
+    return (1.0 + 0.5 * cepstral_lifter * np.sin(math.pi * i / cepstral_lifter)
+            ).astype(np.float32)
+
+
+def mfcc(
+    waves: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FbankConfig = FbankConfig(num_mel_bins=23),
+    num_ceps: int = 13,
+    cepstral_lifter: float = 22.0,
+    htk_compat: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """Batched Kaldi MFCC (compute-mfcc-feats): `fbank`'s log-mel, the
+    DCT-II, the lifter, and the energy / HTK layouts.
+
+    Returns ([B, T, num_ceps] float32, zero past each utterance's frame
+    count; [B] int32 frame counts)."""
+    if num_ceps > cfg.num_mel_bins:
+        raise ValueError(f"mfcc: num_ceps {num_ceps} > num_mel_bins {cfg.num_mel_bins}")
+    feature, feat_lengths = fbank(waves, lengths, cfg, generator)
+    if cfg.use_energy:  # fbank puts the energy first
+        log_energy = feature[..., 0]
+        feature = feature[..., 1:]
+    dct = torch.from_numpy(dct_matrix(num_ceps, cfg.num_mel_bins)).to(feature.device)
+    feats = torch.matmul(feature, dct)
+    if cepstral_lifter != 0.0:
+        feats = feats * torch.from_numpy(lifter_coeffs(num_ceps, cepstral_lifter)).to(
+            feature.device)
+    if cfg.use_energy:
+        feats = torch.cat([log_energy[..., None], feats[..., 1:]], dim=-1)
+    if htk_compat:
+        energy = feats[..., :1]
+        if not cfg.use_energy:
+            energy = energy * math.sqrt(2.0)
+        feats = torch.cat([feats[..., 1:], energy], dim=-1)
+    return mask_frames(feats, feat_lengths), feat_lengths
+
+
+def _resample_plan(n: int, orig_freq: int, new_freq: int, lowpass_filter_width: int):
+    """Windowed-sinc interpolation plan of Kaldi's LinearResample: output
+    sample j of phase p = j mod U reads the input window that starts at
+    first_index[p] + (j // U) * I, with weights[p].
+
+    Returns (indices [T_out, W] into the left-padded signal, weights
+    [T_out, W], left padding, padded length, T_out)."""
+    gcd = math.gcd(orig_freq, new_freq)
+    in_unit = orig_freq // gcd
+    out_unit = new_freq // gcd
+    lowpass_cutoff = 0.99 * 0.5 * min(orig_freq, new_freq)
+    window_width = lowpass_filter_width / (2.0 * lowpass_cutoff)
+
+    output_t = np.arange(out_unit, dtype=np.float64) / new_freq
+    min_input_index = np.ceil((output_t - window_width) * orig_freq)
+    max_input_index = np.floor((output_t + window_width) * orig_freq)
+    w = int((max_input_index - min_input_index).max()) + 1
+
+    j = np.arange(w, dtype=np.float64)[None, :]
+    input_index = min_input_index[:, None] + j
+    delta_t = input_index / orig_freq - output_t[:, None]
+    inside = np.abs(delta_t) < window_width
+    weights = np.where(
+        inside,
+        0.5 * (1.0 + np.cos(2.0 * math.pi * lowpass_cutoff / lowpass_filter_width * delta_t)),
+        0.0,
+    )
+    sinc = np.where(
+        delta_t == 0.0,
+        2.0 * lowpass_cutoff,
+        np.sin(2.0 * math.pi * lowpass_cutoff * delta_t)
+        / np.where(delta_t == 0.0, 1.0, math.pi * delta_t),
+    )
+    weights = weights * sinc / orig_freq  # [U, W]
+
+    # output samples in the open interval [0, n / orig_freq)
+    tick = (orig_freq * new_freq) // gcd
+    interval = n * (tick // orig_freq)
+    last = interval // (tick // new_freq)
+    if last * (tick // new_freq) == interval:
+        last -= 1
+    t_out = max(int(last) + 1, 0)
+
+    phases = np.arange(t_out) % out_unit
+    blocks = np.arange(t_out) // out_unit
+    starts = min_input_index[phases].astype(np.int64) + blocks * in_unit
+    idx = starts[:, None] + np.arange(w)[None, :]  # may reach below 0 or past n
+    left = int(max(0, -idx.min())) if t_out else 0
+    idx = idx + left
+    total = int(idx.max()) + 1 if t_out else n
+    return idx.astype(np.int32), weights[phases].astype(np.float32), left, max(total, n + left), t_out
+
+
+def resample_waveform(
+    waves: torch.Tensor,
+    orig_freq: int,
+    new_freq: int,
+    lowpass_filter_width: int = 6,
+    lengths: Optional[torch.Tensor] = None,
+):
+    """Batched Kaldi LinearResample as one gather and a weighted sum:
+    out[b, j] = dot(weights[j mod U], x[b, first(j mod U) + (j div U) I :
+    ... + W]).
+
+    waves: [B, N] zero-padded; lengths: optional [B] valid sample counts,
+    with which the output past each utterance's own resampled length is
+    zeroed and the output lengths are returned too.
+
+    Returns [B, T_out] float32 (and [B] int32 output lengths)."""
+    orig_freq, new_freq = int(orig_freq), int(new_freq)
+    b, n = waves.shape
+    idx, w, left, total, t_out = _resample_plan(n, orig_freq, new_freq, lowpass_filter_width)
+    device = waves.device
+    if t_out == 0:
+        out = torch.zeros((b, 0), dtype=torch.float32, device=device)
+        if lengths is None:
+            return out
+        return out, torch.zeros((b,), dtype=torch.int32, device=device)
+    x = torch.nn.functional.pad(waves.float(), (left, total - left - n))
+    gathered = x[:, torch.from_numpy(idx).long().to(device)]  # [B, T_out, W]
+    out = torch.einsum("btw,tw->bt", gathered, torch.from_numpy(w).to(device))
+    if lengths is None:
+        return out
+    # (lengths * u) // v, less one where it divides, as in _resample_plan
+    gcd = math.gcd(orig_freq, new_freq)
+    u, v = new_freq // gcd, orig_freq // gcd
+    ln = lengths.to(device=device, dtype=torch.int64)
+    last = (ln * u) // v - ((ln * u) % v == 0).long()
+    out_lengths = torch.clamp_min(last + 1, 0).int()
+    valid = torch.arange(t_out, device=device)[None, :] < out_lengths[:, None]
+    return torch.where(valid, out, 0.0), out_lengths

@@ -22,10 +22,22 @@ reads nothing back to the host.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+
+class FusedClipAdamState(NamedTuple):
+    """The JAX package's state of this optimizer, field for field
+    (`openasr_tpu.ops.fused_adam.FusedClipAdamState`): packages it wrote
+    unpickle into this class (`openasr_torch.utils.checkpoint`).
+    `notfinite` is None in packages written before it existed."""
+
+    count: Any
+    mu: Any
+    nu: Any
+    notfinite: Any = None
 
 
 class FusedClipAdam:
@@ -120,6 +132,9 @@ class FusedClipAdam:
         }
 
     def load_state_dict(self, state: dict) -> None:
+        if set(state) - {"notfinite"} != {"count", "mu", "nu"}:
+            raise ValueError(f"optimizer state {sorted(state)} is not the fused "
+                             "clip + Adam's (count, notfinite, mu, nu)")
         if set(state["mu"]) != set(self.names) or set(state["nu"]) != set(self.names):
             raise ValueError("optimizer state does not match the model's parameters")
         self.count = torch.full_like(self.count, int(state["count"]))

@@ -21,10 +21,19 @@ intervals and epoch ends.
 The CTC solver logs the greedy decode of the first dev utterance
 (`dev sample greedy ids: [...]`) after the first dev batch.
 
+`optimtype: sgd` and `fused_adam: false` take the stock optimizers
+(ops/optimizers.py).  Packages are written by an `AsyncCheckpointer`,
+whose writes `train()` waits for before retention and before it returns.
+SIGTERM or SIGUSR1 stops training at the next batch: the interrupted
+epoch is not counted, `last.pkg` is written, and `--continue-training`
+restarts that epoch.  `training.profile: {start_step, num_steps, logdir}`
+opens a `torch.profiler` window over those steps and writes its Chrome
+trace to `logdir` (default exp_dir/profile); `training.tensorboard: true`
+or OPENASR_TENSORBOARD=1 mirrors metrics.jsonl into TensorBoard scalars.
+
 Not ported here (ROADMAP): the mesh and its parallelisms (data, tensor,
-sequence, pipeline, ZeRO-1), MoE auxiliaries, batch_stats models, the
-preemption handler, the profiler window, asynchronous checkpoint writes
-and the stock-optax optimizers (sgd, fused_adam: false).
+sequence, pipeline, ZeRO-1), MoE auxiliaries, batch_stats models and
+`freeze_until`.
 """
 
 from __future__ import annotations
@@ -32,16 +41,20 @@ from __future__ import annotations
 import json
 import logging
 import os
+import signal
+import threading
 import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from openasr_torch.convert import jax_optim_state_to_port
 from openasr_torch.models.layers import TrainRNG
 from openasr_torch.ops.fused_adam import FusedClipAdam
+from openasr_torch.ops.optimizers import StockOptimizer
 from openasr_torch.ops.schedules import BobSchedule, get_schedule
-from openasr_torch.utils.checkpoint import cleanup_ckpt, save_package
+from openasr_torch.utils.checkpoint import AsyncCheckpointer, cleanup_ckpt
 
 logger = logging.getLogger(__name__)
 
@@ -94,17 +107,19 @@ class Solver:
         self.params = dict(model.module.named_parameters())
         self.optimizer = self._make_optimizer(config)
         os.makedirs(self.exp_dir, exist_ok=True)
+        self._ckpt = AsyncCheckpointer()
+        self._stop_requested = False
+        self._profiler = None
+        self._profiled = False
+        self._tb_writer = None
 
     # ------------------------------------------------------------ optimizer
 
-    def _make_optimizer(self, config) -> FusedClipAdam:
+    def _make_optimizer(self, config):
+        """The fused clip + Adam, or for `optimtype: sgd` / `fused_adam:
+        false` the stock optimizers, each rejecting non-finite steps when
+        `skip_nonfinite_grads` (default on)."""
         opt_type = config.get("optimtype", "adam")
-        if opt_type != "adam" or not config.get("fused_adam", True):
-            raise NotImplementedError(
-                f"training.optimtype={opt_type!r} / fused_adam=false: the port "
-                "has the fused clip + Adam only (the stock optimizers are "
-                "ROADMAP queue 1 item 6)"
-            )
 
         def dtype_of(key, default):
             name = config.get(key, default)
@@ -114,12 +129,27 @@ class Solver:
             # the schedule steps before the lr is set: update k uses step k+1
             return self.init_lr * self.schedule(count + 1)
 
-        return FusedClipAdam(
-            self.params, lr_fn, b1=0.9, b2=0.999, eps=1e-8,
-            max_norm=self.grad_max_norm,
-            mu_dtype=dtype_of("adam_mu_dtype", "bfloat16"),
-            nu_dtype=dtype_of("adam_nu_dtype", None),
-            skip_nonfinite=bool(config.get("skip_nonfinite_grads", True)),
+        mu_dtype = dtype_of("adam_mu_dtype", "bfloat16")
+        nu_dtype = dtype_of("adam_nu_dtype", None)
+        skip_nonfinite = bool(config.get("skip_nonfinite_grads", True))
+        if opt_type == "adam" and config.get("fused_adam", True):
+            return FusedClipAdam(
+                self.params, lr_fn, b1=0.9, b2=0.999, eps=1e-8,
+                max_norm=self.grad_max_norm, mu_dtype=mu_dtype, nu_dtype=nu_dtype,
+                skip_nonfinite=skip_nonfinite,
+            )
+        if nu_dtype is not None:
+            logger.warning(
+                "training.adam_nu_dtype=%s is ignored on the non-fused optimizer "
+                "path (fused_adam: false / optimtype!=adam): the second moment "
+                "stays float32", config.get("adam_nu_dtype"),
+            )
+        if opt_type == "sgd" and "adam_mu_dtype" in config:
+            logger.warning("training.adam_mu_dtype is ignored with optimtype=sgd")
+        return StockOptimizer(
+            self.params, lr_fn, opt_type, max_norm=self.grad_max_norm,
+            mu_dtype=mu_dtype if opt_type == "adam" else None,
+            skip_nonfinite=skip_nonfinite,
         )
 
     def current_lr(self) -> float:
@@ -200,6 +230,10 @@ class Solver:
         })
 
     def _totals_close(self, totals) -> float:
+        """Close a profiler window still open at the epoch's end; the
+        epoch's mean main loss."""
+        if self._profiler is not None:
+            self._stop_profile("epoch end")
         tot, tot_norm, _ = totals
         if tot_norm is None:
             return 0.0
@@ -212,6 +246,10 @@ class Solver:
         tot_iters = len(loader)
         n_micro = 0
         for niter, batch in enumerate(loader, start=1):
+            if not cross_valid and self._should_stop():
+                logger.warning("preemption: stopping epoch %d at batch %d/%d",
+                               self.epoch, niter, tot_iters)
+                break
             arrays = batch_to_device(batch, self.device)
             empty_rows = self.model.has_empty_rows(self.model.batch_inputs(batch)[1])
             if cross_valid:
@@ -219,6 +257,7 @@ class Solver:
                 if niter == 1:
                     self.sample_decode(arrays, empty_rows)
             else:
+                self._maybe_profile()
                 self._niter = niter
                 losses = self.grad_step(arrays, empty_rows)
                 n_micro += 1
@@ -231,17 +270,114 @@ class Solver:
         return self._totals_close(totals)
 
     def _log_metrics(self, record: dict) -> None:
-        """Append one JSON line to exp_dir/metrics.jsonl."""
+        """Append one JSON line to exp_dir/metrics.jsonl (and mirror it to
+        TensorBoard when asked)."""
         record = {"time": time.time(), **record}
         with open(os.path.join(self.exp_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
+        self._tb_log(record)
+
+    def _tb_log(self, record: dict) -> None:
+        """With `training.tensorboard: true` or OPENASR_TENSORBOARD=1, every
+        numeric field of a metrics record becomes a `{phase}/{key}` scalar
+        at the record's step.  Without a usable
+        `torch.utils.tensorboard`, it warns once and logs nothing more."""
+        if not (bool(self.config.get("tensorboard", False))
+                or os.environ.get("OPENASR_TENSORBOARD") == "1"):
+            return
+        if self._tb_writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb_writer = SummaryWriter(os.path.join(self.exp_dir, "tb"))
+            except Exception as e:  # no tensorboard package, or a broken one
+                logger.warning("tensorboard logging unavailable: %s", e)
+                self._tb_writer = False
+        if self._tb_writer is False:
+            return
+        phase = str(record.get("phase", "train"))
+        step = int(record.get("step", 0))
+        for k, v in record.items():
+            if k in ("phase", "epoch", "step", "batch", "time"):
+                continue
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                self._tb_writer.add_scalar(f"{phase}/{k}", float(v), step)
+        self._tb_writer.flush()
+
+    def _maybe_profile(self) -> None:
+        """A `torch.profiler` window (CPU activities, and CUDA's on the
+        card) over steps [start_step, start_step + num_steps) of
+        `training.profile`, opened before a step and closed before the
+        first step past it (or at the epoch's end)."""
+        prof = self.config.get("profile")
+        if not prof:
+            return
+        start = int(prof.get("start_step", 10))
+        num = int(prof.get("num_steps", 5))
+        if self._profiler is None and not self._profiled and start <= self.step < start + num:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+            self._profile_path = os.path.join(
+                prof.get("logdir", os.path.join(self.exp_dir, "profile")),
+                f"steps_{self.step}_{start + num}.pt.trace.json")
+            logger.info("profiler: trace started at step %d", self.step)
+        elif self._profiler is not None and self.step >= start + num:
+            self._stop_profile("window end")
+
+    def _stop_profile(self, why: str) -> None:
+        """Synchronise the card, close the window and write its trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(os.path.dirname(self._profile_path), exist_ok=True)
+        self._profiler.export_chrome_trace(self._profile_path)
+        self._profiler = None
+        self._profiled = True
+        logger.info("profiler: trace stopped (%s) -> %s", why, self._profile_path)
+
+    def _install_preemption_handler(self) -> dict:
+        """SIGTERM and SIGUSR1 (a scheduler's preemption warning) set a flag
+        that stops training at the next batch.  Only the main thread can
+        take signals; there it returns the handlers it replaced."""
+        if threading.current_thread() is not threading.main_thread():
+            return {}
+
+        def handler(signum, frame):
+            del frame
+            self._stop_requested = True
+            logger.warning("received signal %d: will checkpoint and stop", signum)
+
+        return {sig: signal.signal(sig, handler) for sig in (signal.SIGTERM, signal.SIGUSR1)}
+
+    def _should_stop(self) -> bool:
+        """The preemption flag (one process: the local one)."""
+        return self._stop_requested
 
     def train(self) -> None:
+        previous = self._install_preemption_handler()
+        try:
+            self._train()
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+
+    def _train(self) -> None:
         best_cv = min(self.cv_loss) if self.cv_loss else 9e20
         while self.epoch < self.num_epoch:
             t0 = time.time()
             self.epoch += 1
             tr_loss = self.iter_one_epoch()
+            if self._should_stop():
+                # preempted: the interrupted epoch restarts from its start
+                # under --continue-training
+                self.epoch -= 1
+                self.save(os.path.join(self.exp_dir, "last.pkg"))
+                self._ckpt.wait()
+                logger.warning("preemption: saved last.pkg, exiting")
+                return
             self.save(os.path.join(self.exp_dir, f"ep-{self.epoch:04d}.pkg"))
             self.save(os.path.join(self.exp_dir, "last.pkg"))
             cv_loss = self.iter_one_epoch(cross_valid=True)
@@ -258,8 +394,10 @@ class Solver:
             })
             self.tr_loss.append(tr_loss)
             self.cv_loss.append(cv_loss)
+            self._ckpt.wait()
             if self.num_last_ckpt_keep:
                 cleanup_ckpt(self.exp_dir, int(self.num_last_ckpt_keep))
+        self._ckpt.wait()
 
     # ------------------------------------------------------------ packaging
 
@@ -288,13 +426,14 @@ class Solver:
         return pkg
 
     def save(self, path: str) -> None:
-        save_package(self.package(), path)
+        """Snapshot the package now; the write runs in the background."""
+        self._ckpt.save(self.package(), path)
 
     def restore(self, pkg: dict) -> None:
         """Solver and optimizer state of a package (the model is restored by
         the caller).  A package without optimizer state starts the
-        optimizer afresh; one with the JAX package's optimizer state is
-        refused (no bridge for it yet)."""
+        optimizer afresh; the JAX package's optimizer state is bridged
+        (`convert.jax_optim_state_to_port`)."""
         state = pkg["solver_state"]
         self.epoch = state["epoch"]
         self.step = state["step"]
@@ -302,12 +441,8 @@ class Solver:
         self.cv_loss = list(state["cv_loss"])
         optim = pkg.get("optim_state")
         if optim is not None:
-            if not (isinstance(optim, dict) and "mu" in optim):
-                raise NotImplementedError(
-                    "this package holds the JAX package's optimizer state; the "
-                    "port reads its own (the optimizer-state bridge is listed "
-                    "in ROADMAP)"
-                )
+            if not isinstance(optim, dict):
+                optim = jax_optim_state_to_port(self.model.model_type, optim)
             self.optimizer.load_state_dict(optim)
         if self.is_bob and "scheduler_state" in pkg:
             self.schedule.restore_state(pkg["scheduler_state"])

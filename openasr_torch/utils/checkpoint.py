@@ -1,24 +1,112 @@
 """Checkpoint packages: pickled nested dicts of NumPy arrays + configs.
 
 Counterpart of openasr_tpu/utils/checkpoint.py (save / load, the
-`ep-NNNN.pkg` listing, retention and averaging, :109-171); the file format
-is the same, so model packages move between the two packages in both
-directions (the weight layouts are translated by openasr_torch/convert.py).
-Saves are synchronous.
+asynchronous writer, the `ep-NNNN.pkg` listing, retention and averaging);
+the file format is the same, so packages move between the two packages in
+both directions (the weight and optimizer-state layouts are translated by
+openasr_torch/convert.py).
+
+`load_package` reads a package the JAX package wrote without importing
+jax: its optimizer state pickles as the JAX package's and optax's state
+classes, which unpickle into the port's NamedTuples of the same fields,
+and its bfloat16 moments (NumPy arrays of ml_dtypes' bfloat16) into f32.
 """
 
 from __future__ import annotations
 
+import atexit
 import glob
 import logging
 import os
 import pickle
 import re
+import threading
 from typing import List
 
 import numpy as np
 
+from openasr_torch.ops import optimizers
+from openasr_torch.ops.fused_adam import FusedClipAdamState
+
 logger = logging.getLogger(__name__)
+
+# the state classes of the JAX package's optimizers, by the module paths
+# they pickle under (optax 0.2), and the port's classes of the same fields
+STATE_CLASSES = {
+    ("openasr_tpu.ops.fused_adam", "FusedClipAdamState"): FusedClipAdamState,
+    ("optax._src.transform", "ScaleByAdamState"): optimizers.ScaleByAdamState,
+    ("optax._src.transform", "ScaleByScheduleState"): optimizers.ScaleByScheduleState,
+    ("optax.transforms._accumulation", "TraceState"): optimizers.TraceState,
+    ("optax._src.base", "EmptyState"): optimizers.EmptyState,
+    ("optax.transforms._conditionality", "ApplyIfFiniteState"): optimizers.ApplyIfFiniteState,
+    ("optax.transforms._masking", "MaskedState"): optimizers.MaskedState,
+    ("optax.transforms._masking", "MaskedNode"): optimizers.MaskedNode,
+}
+# what a package's arrays and configs need besides those
+NUMPY_GLOBALS = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy._core.multiarray", "_reconstruct"), ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "scalar"), ("numpy.core.multiarray", "scalar"),
+}
+BUILTINS = {"set", "frozenset", "complex", "slice", "bytearray", "range"}
+
+
+class _Bfloat16:
+    """Stands for ml_dtypes' bfloat16 scalar type while unpickling."""
+
+
+class PackageUnpickler(pickle.Unpickler):
+    """Unpickles packages of either package: NumPy's reconstructors,
+    harmless builtins and the optimizer-state classes above, mapped to the
+    port's.  A bfloat16 dtype becomes a fresh 2-byte void dtype, whose
+    arrays `load_package` widens to f32; any other global raises, naming
+    it."""
+
+    def __init__(self, f):
+        super().__init__(f)
+        self.bf16_dtypes: List[np.dtype] = []
+
+    def find_class(self, module: str, name: str):
+        key = (module, name)
+        if key in STATE_CLASSES:
+            return STATE_CLASSES[key]
+        if key == ("numpy", "dtype"):
+            return self._dtype
+        if key == ("ml_dtypes", "bfloat16"):
+            return _Bfloat16
+        if key in NUMPY_GLOBALS or (module == "builtins" and name in BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"package holds {module}.{name}, which the port does not read "
+            "(it reads NumPy arrays, builtins and the optimizer states of "
+            "openasr_tpu.ops.fused_adam and optax)"
+        )
+
+    def _dtype(self, obj, align=False, copy=False):
+        if obj is _Bfloat16:
+            # np.dtype("V2") is a new object each call, so the state that
+            # pickle sets on it next changes no dtype NumPy shares
+            dtype = np.dtype("V2")
+            self.bf16_dtypes.append(dtype)
+            return dtype
+        return np.dtype(obj, align, copy)
+
+
+def _widen_bf16(tree, bf16_dtypes):
+    """Arrays of the bfloat16 stand-in dtypes -> f32 (exact); containers
+    (dicts, lists, tuples, NamedTuples) rebuilt around them."""
+    if isinstance(tree, np.ndarray):
+        if any(tree.dtype is d for d in bf16_dtypes):
+            bits = tree.view(np.uint16).astype(np.uint32) << 16
+            return bits.view(np.float32)
+        return tree
+    if isinstance(tree, dict):
+        return {k: _widen_bf16(v, bf16_dtypes) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_widen_bf16(v, bf16_dtypes) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_widen_bf16(v, bf16_dtypes) for v in tree)
+    return tree
 
 EPOCH_RE = re.compile(r"ep-(\d+)\.pkg$")
 
@@ -37,22 +125,70 @@ def to_numpy_tree(tree):
 
 
 def save_package(pkg: dict, path: str) -> None:
+    _write_package(to_numpy_tree(pkg), path)
+
+
+def _write_package(host_pkg: dict, path: str) -> None:
     """tmp-write + fsync + atomic rename, so a crash never leaves a
     truncated package behind."""
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(to_numpy_tree(pkg), f, protocol=4)
+        pickle.dump(host_pkg, f, protocol=4)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
     logger.info("Saved checkpoint %s", path)
 
 
+class AsyncCheckpointer:
+    """Writes packages on a background thread.  `save` takes the host
+    snapshot on the caller (so later steps cannot change what is written)
+    and hands the pickle + fsync + rename to a daemon thread; writes are
+    serialised (a save waits for the one before).  `wait()` joins the
+    writer and re-raises its failure; pending writes drain at exit."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+        atexit.register(self._drain_at_exit)
+
+    def save(self, pkg: dict, path: str) -> None:
+        host_pkg = to_numpy_tree(pkg)
+        self.wait()
+
+        def write():
+            try:
+                _write_package(host_pkg, path)
+            except BaseException as e:  # re-raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def _drain_at_exit(self) -> None:
+        try:
+            self.wait()
+        except RuntimeError:
+            logger.exception("async checkpoint write failed at exit")
+
+
 def load_package(path: str) -> dict:
-    """Unpickle a package.  Only load packages this project wrote:
-    unpickling can run arbitrary code."""
+    """Unpickle a package that either package wrote, without importing
+    jax (`PackageUnpickler`).  Only load packages this project wrote."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        unpickler = PackageUnpickler(f)
+        pkg = unpickler.load()
+    if unpickler.bf16_dtypes:
+        pkg = _widen_bf16(pkg, unpickler.bf16_dtypes)
+    return pkg
 
 
 def epoch_checkpoints(exp_dir: str) -> List[str]:

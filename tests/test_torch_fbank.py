@@ -13,7 +13,15 @@ the port's fused-fbank kernel.  Tolerances, on log-mel values:
   where near-silent frames cancel a 400-term sum);
 - the whole `fbank` against the JAX `fbank` (which takes its rfft path on
   the CPU): atol 1e-3, rtol 1e-4 for the folded-kernel configs; the rfft
-  variants run the same math as JAX and are held to 5e-4 (measured 1.2e-4).
+  variants run the same math as JAX and are held to 5e-4 (measured 1.2e-4);
+- `spectrogram` (the same rfft math as JAX, but its own FFT): each bin's
+  power to 1e-5 of its frame's loudest bin (an FFT's rounding is relative
+  to it: 1.9e-6 measured), the log power to 5e-4 where the bin is within
+  40 dB of that one, and the log energy to 5e-4; `mfcc` (the
+  log-mel through the plain core, a DCT and the lifter) to the core's 1e-3
+  / 1e-4, `resample_waveform` (the same windowed-sinc plan, one f32 sum of
+  W products) to 1e-5 of the largest sample; DCT, lifter and resampling
+  plan exact.
 
 A card-only case holds the CUDA kernel against the plain version; it skips
 here.  JAX is imported inside the CPU tests only, so the card tests also run
@@ -369,3 +377,61 @@ def test_kernel_across_configs_on_the_card(cuda_card, name):
         err64 = (got.double() - f64).abs().max().item()
         assert err64 <= 1e-5 and err64 <= (want.double() - f64).abs().max().item()
     assert not got[2].any() and not got[3, 1:].any() and not got[1, feat_lens[1]:].any()
+
+
+@pytest.mark.parametrize("kw", [{}, {"raw_energy": False}, {"energy_floor": 1.0},
+                                {"sample_rate": 8000.0}])
+def test_spectrogram_matches_jax(kw):
+    J, K, jnp = jax_side()
+    pc, jc = cfg_pair(**kw)
+    waves, lens = real_batch()
+    want, want_lens = J.spectrogram(jnp.asarray(waves), jnp.asarray(lens), jc)
+    got, got_lens = P.spectrogram(torch.from_numpy(waves), torch.from_numpy(lens), pc)
+    assert got.shape == np.shape(want) and got.shape[-1] == pc.padded_window_size // 2 + 1
+    assert np.array_equal(got_lens.numpy(), np.asarray(want_lens))
+    got, want = got.numpy().astype(np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got[..., 0], want[..., 0], atol=RFFT_ATOL, rtol=0)
+    power_got, power_want = np.exp(got[..., 1:]), np.exp(want[..., 1:])
+    loudest = power_want.max(axis=-1, keepdims=True)
+    assert (np.abs(power_got - power_want) <= 1e-5 * loudest).all()
+    near = power_want >= 1e-4 * loudest
+    assert np.abs(got[..., 1:] - want[..., 1:])[near].max() <= RFFT_ATOL
+
+
+@pytest.mark.parametrize("kw,mfcc_kw", [
+    ({"num_mel_bins": 23}, {}),
+    ({"num_mel_bins": 23, "use_energy": True}, {"htk_compat": True}),
+    ({"num_mel_bins": 40}, {"num_ceps": 20, "cepstral_lifter": 0.0}),
+])
+def test_mfcc_matches_jax(kw, mfcc_kw):
+    J, K, jnp = jax_side()
+    pc, jc = cfg_pair(**kw)
+    assert np.array_equal(P.dct_matrix(13, 23), J.dct_matrix(13, 23))
+    assert np.array_equal(P.lifter_coeffs(13, 22.0), J.lifter_coeffs(13, 22.0))
+    waves, lens = real_batch()
+    want, want_lens = J.mfcc(jnp.asarray(waves), jnp.asarray(lens), jc, **mfcc_kw)
+    got, got_lens = P.mfcc(torch.from_numpy(waves), torch.from_numpy(lens), pc, **mfcc_kw)
+    assert got.shape == np.shape(want)
+    assert np.array_equal(got_lens.numpy(), np.asarray(want_lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=CORE_ATOL, rtol=CORE_RTOL)
+    with pytest.raises(ValueError, match="num_ceps"):
+        P.mfcc(torch.from_numpy(waves), torch.from_numpy(lens), pc, num_ceps=pc.num_mel_bins + 1)
+
+
+@pytest.mark.parametrize("orig,new", [(16000, 8000), (8000, 16000), (44100, 16000),
+                                      (16000, 22050)])
+def test_resample_waveform_matches_jax(orig, new):
+    J, K, jnp = jax_side()
+    waves, lens = real_batch()
+    for got_plan, want_plan in zip(P._resample_plan(20000, orig, new, 6),
+                                   J._resample_plan(20000, orig, new, 6)):
+        assert np.array_equal(got_plan, want_plan)
+    want, want_lens = J.resample_waveform(jnp.asarray(waves), orig, new,
+                                          lengths=jnp.asarray(lens))
+    got, got_lens = P.resample_waveform(torch.from_numpy(waves), orig, new,
+                                        lengths=torch.from_numpy(lens))
+    assert got.shape == np.shape(want)
+    assert np.array_equal(got_lens.numpy(), np.asarray(want_lens))
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-5 * np.abs(waves).max()
+    bare = P.resample_waveform(torch.from_numpy(waves[:, :10]), orig, new)
+    assert bare.shape == np.shape(J.resample_waveform(jnp.asarray(waves[:, :10]), orig, new))

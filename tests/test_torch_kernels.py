@@ -23,7 +23,8 @@ from openasr_torch.kernels.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_reference,
     flash_attention_reference,
-    flash_delta,
+    flash_bwd_stats,
+    flash_bwd_stats_reference,
     pad_head_dim,
     padded_head_dim,
 )
@@ -266,17 +267,75 @@ def test_flash_bwd_wrappers_are_the_plain_backward_on_cpu():
     dout = torch.from_numpy(rng.randn(2, 7, 2, 32).astype(np.float32))
     dq, dk, dv = flash_attention_bwd_reference(q, k, v, out, lse, dout, lens,
                                                False, None, 0.1, 77)
-    launches = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
-    delta = flash_delta(out, dout)
-    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta, lens, False,
+    launches = (flash_bwd_stats.launches, flash_attention_bwd_dkv.launches,
+                flash_attention_bwd_dq.launches)
+    stats = flash_bwd_stats(q, k, v, lse, dout, lens, False, None, 0.1, 77)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, lens, False,
                                        None, 0.1, 77)
-    dq2 = flash_attention_bwd_dq(q, k, v, out, lse, dout, delta, lens, False, None,
+    dq2 = flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, lens, False, None,
                                  0.1, 77)
     dq3, dk3, dv3 = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None,
                                         0.1, 77)
-    assert (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches) == launches
+    assert (flash_bwd_stats.launches, flash_attention_bwd_dkv.launches,
+            flash_attention_bwd_dq.launches) == launches
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, dq3) and torch.equal(dk, dk3) and torch.equal(dv, dv3)
+
+
+@pytest.mark.parametrize("causal,lengths", [(False, [9, 4]), (True, [9, 0])])
+def test_backward_statistics(causal, lengths):
+    """The statistics pass's plain version: each row's sum of exp(S scale -
+    lse) is 1 to f32 rounding (0 on an empty row, and so its reciprocal),
+    and its delta, from P and dP o D, equals rowsum(dO o O) of the forward
+    to the same."""
+    rng = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(rng.randn(2, t, 2, 32).astype(np.float32))
+               for t in (7, 9, 9))
+    dout = torch.from_numpy(rng.randn(2, 7, 2, 32).astype(np.float32))
+    lens = torch.tensor(lengths)
+    out, lse = flash_attention_reference(q, k, v, lens, causal, None, 0.1, 77)
+    sums, inv, delta = flash_bwd_stats_reference(q, k, v, lse, dout, lens, causal, None,
+                                                 0.1, 77)
+    valid = torch.isfinite(lse)
+    assert (sums[valid] - 1.0).abs().max() <= 1e-6 and (sums[~valid] == 0).all()
+    assert (inv[valid] * sums[valid] - 1.0).abs().max() <= 1e-6 and (inv[~valid] == 0).all()
+    want = (dout * out).sum(-1).transpose(1, 2)
+    assert (delta - want).abs().max() <= 1e-5
+    assert (delta[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_is_exact_in_a_saturated_softmax(rate):
+    """Each query near one valid key, both scaled by 300: the matching score
+    (about 5e5) leads the others by about 1e5, so every row is one-hot and
+    the true dQ and dK are 0 (exactly, in float64 autograd).  The plain
+    backward recomputes the forward's probabilities and takes delta =
+    rowsum(P o dP), so dP - delta cancels exactly: dQ, dK are 0, dV is the
+    float64 autograd's to 1e-5.  Taking P from the rounded lse and delta =
+    rowsum(dO o O), it left 1e-3 in dQ and dK."""
+    import math
+
+    g = torch.Generator().manual_seed(0)
+    b, t, h, d = 4, 17, 2, 32
+    lens = torch.tensor([17, 12, 9, 17], dtype=torch.int32)
+    k = torch.randn(b, t, h, d, generator=g) * 300.0
+    match = torch.arange(t)[None, :] % lens[:, None].long()  # a valid key a query
+    q = k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=g)
+    v, dout = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, _ = flash_attention(*leaves, kv_lengths=lens, dropout_rate=rate, dropout_seed=7)
+    (out * dout).sum().backward()
+    q6, k6, v6 = (x.double().requires_grad_() for x in (q, k, v))
+    keys = torch.arange(t)[None, None, None, :] < lens[:, None, None, None].long()
+    s = torch.einsum("bqhd,bkhd->bhqk", q6, k6) / math.sqrt(d)
+    p = torch.softmax(torch.where(keys, s, torch.tensor(-1e30, dtype=s.dtype)), dim=-1)
+    if rate:
+        keep = attention_dropout_mask(7, b, h, t, t, rate, "cpu")
+        p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
+    (torch.einsum("bhqk,bkhd->bqhd", p, v6) * dout.double()).sum().backward()
+    assert float(q6.grad.abs().max()) == 0.0 and float(k6.grad.abs().max()) == 0.0
+    assert float(leaves[0].grad.abs().max()) == 0.0 and float(leaves[1].grad.abs().max()) == 0.0
+    assert float((leaves[2].grad.double() - v6.grad).abs().max()) <= 1e-5
 
 
 def _strided(shape, strides, offset, dtype):
@@ -551,10 +610,11 @@ def test_flash_bwd_misaligned_view_raises(cuda_card):
     k, v, dout = (torch.randn(b, t, h, d, generator=gen).to("cuda", torch.bfloat16)
                   for _ in range(3))
     out, lse = flash_attention_reference(q, k, v)
-    delta = flash_delta(out, dout)
+    stats = torch.zeros((3, b, h, t), device="cuda")
     for call in (lambda: flash_attention_bwd(q, k, v, out, lse, dout),
-                 lambda: flash_attention_bwd_dkv(q, k, v, out, lse, dout, delta),
-                 lambda: flash_attention_bwd_dq(q, k, v, out, lse, dout, delta)):
+                 lambda: flash_bwd_stats(q, k, v, lse, dout),
+                 lambda: flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats),
+                 lambda: flash_attention_bwd_dq(q, k, v, out, lse, dout, stats)):
         with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
             call()
 

@@ -214,13 +214,105 @@ def test_conv_transformer_type_and_bfloat16_decode():
     ("encoder", {"streaming": {"chunk": 4}}, "item 11"),
     ("encoder", {"moe": {"num_experts": 2}}, "item 14"),
     ("encoder", {"pipeline": True}, "item 15"),
-    ("encoder", {"sub": {"type": "Stack", "layer_num": 2}}, "item 3"),
+    ("type", "CIF", "item 9"),
 ])
 def test_unported_configs_name_their_roadmap_item(section, patch, match):
     cfg = small_config()
     if section == "signal":
         cfg["signal"] = dict(patch)
+    elif section == "type":
+        cfg["type"] = patch
     else:
         cfg[section].update(patch)
     with pytest.raises(NotImplementedError, match=match):
-        get_model_class("conv-ctc-transformer").create_model(cfg, device="cpu")
+        get_model_class(cfg["type"]).create_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("encoder,input_dim", [
+    ({"sub": {"type": "Stack"}}, 20),
+    ({"sub": {"type": "Stack"}, "context_width": 4, "subsample": 2}, 20),
+    ({"sub": None}, 20),        # no subsampler: the Dense `affine`
+    ({"sub": {}}, 64),          # no subsampler, input_dim == d_model: identity
+])
+def test_encoder_inputs_match_jax(encoder, input_dim):
+    """Stack (a strided 1-D conv + LayerNorm) and the encoder without a
+    subsampler, restored from the JAX model: lengths exact, logits to
+    MODEL_TOL, and the package written back bit for bit."""
+    cfg = small_config("conv-ctc")
+    cfg["encoder"].update(encoder, input_dim=input_dim)
+    jax_model = jax_model_class("conv-ctc").create_model(cfg)
+    port = get_model_class("conv-ctc").create_model(cfg, device="cpu")
+    port.restore(jax_model.package())
+    rng = np.random.RandomState(6)
+    x = rng.randn(3, 41, input_dim).astype(np.float32)
+    lens = np.array([41, 30, 19], np.int32)
+    logits_j, lens_j = jax_model.module.apply(jax_model.variables, x, lens)
+    with torch.no_grad():
+        logits_t, lens_t = port.module(_t(x), _t(lens))
+    assert np.array_equal(np.asarray(lens_j), lens_t.numpy())
+    assert np.array_equal(port.module.encoder_lengths(lens), np.asarray(lens_j))
+    assert np.abs(np.asarray(logits_j) - logits_t.numpy()).max() <= MODEL_TOL
+    want = jax_model.package()["components"]["encoder"]
+    got = port.package()["components"]["encoder"]
+    assert set(got) == set(want)
+    for key in ("sub", "affine"):
+        if key in want:
+            for leaf, value in want[key].items():
+                if isinstance(value, dict):
+                    for name, arr in value.items():
+                        assert np.array_equal(got[key][leaf][name], np.asarray(arr))
+                else:
+                    assert np.array_equal(got[key][leaf], np.asarray(value))
+
+
+@pytest.mark.parametrize("model_type", ["conv-ctc-transformer", "conv-ctc"])
+@pytest.mark.parametrize("average_heads", [False, True])
+def test_attention_maps_match_jax(model_type, average_heads):
+    """Every attention's probabilities under the JAX package's module
+    paths, to MODEL_TOL (f32, encoders equal to 1e-4)."""
+    cfg = small_config(model_type)
+    jax_model = jax_model_class(model_type).create_model(cfg)
+    port = get_model_class(model_type).create_model(cfg, device="cpu")
+    port.restore(jax_model.package())
+    x, lens, ids = inputs(7)
+    paddings = np.zeros(ids.shape, np.float32)
+    paddings[1, 5:] = 1.0
+    batch = {"feats": x, "feat_lengths": lens, "ids": ids, "paddings": paddings}
+    want = jax_model.attention_maps(batch, average_heads=average_heads)
+    got = port.attention_maps({k: _t(v) for k, v in batch.items()},
+                              average_heads=average_heads)
+    assert sorted(got) == sorted(want)
+    assert "encoder/layer0/self_attn" in got
+    for key, value in want.items():
+        assert got[key].dtype == torch.float32 and got[key].shape == np.shape(value)
+        assert np.abs(np.asarray(value) - got[key].numpy()).max() <= MODEL_TOL, key
+
+
+def test_initialization_follows_the_jax_initializers():
+    """Convolution kernels as flax's Conv draws them (lecun_normal: a normal
+    truncated at 2 standard deviations, variance 1 / fan_in), other weights
+    Xavier-uniform: the port's draws and the JAX model's have the same
+    variance (to 10% on the 288 draws of conv0, 5% elsewhere) and range."""
+    import math
+
+    from openasr_torch.convert import jax_components_to_state_dict
+
+    cfg = small_config("conv-ctc")
+    jax_model = jax_model_class("conv-ctc").create_model(cfg)
+    want = jax_components_to_state_dict("conv-ctc", jax_model.package()["components"])
+    port = get_model_class("conv-ctc").create_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    got = port.module.state_dict()
+    for name in ("encoder.sub.conv0.weight", "encoder.sub.conv1.weight",
+                 "encoder.sub.affine.weight", "encoder.layer0.self_attn.q.weight",
+                 "encoder.layer0.ffn.linear1.weight", "fc.weight"):
+        w = got[name]
+        fan_in, fan_out = torch.nn.init._calculate_fan_in_and_fan_out(w)
+        if "conv" in name:
+            std = math.sqrt(1.0 / fan_in)
+            assert float(w.abs().max()) <= 2.0 * std / 0.87962566103423978 + 1e-6
+        else:
+            std = math.sqrt(2.0 / (fan_in + fan_out))
+        tol = 0.1 if w.numel() < 1000 else 0.05
+        for sample in (w, want[name]):
+            assert abs(float(sample.std()) / std - 1.0) <= tol, name
