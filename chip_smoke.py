@@ -59,7 +59,8 @@ Then the recipe gate and the solver's paths:
 - a one-step `training.profile` window on the flagship's bf16 training
   run, with the port's kernels that its trace holds device time for;
 - the attention backward in a saturated softmax (one-hot rows, as at the
-  recipe gate's first layer): dQ and dK exactly 0, as the true gradient;
+  recipe gate's first layer, also with each row's max in its last key
+  step): dQ and dK exactly 0, as the true gradient, and 1 / l exactly 1;
 - tests/data/jax_solver_conv_ctc_transformer_test.pkg, which the JAX
   solver wrote, read here without jax and continued one step on the card.
 
@@ -72,7 +73,8 @@ It prints the card's name and power limit, a `{"kernels": [...]}` line
 with each kernel's error, launches, times and bound (the attention
 backward at each of the training step's three shapes: encoder
 self-attention, decoder causal self-attention and cross-attention, and a
-`[time]` line with their total a step), and last
+`[time]` line with their total a step; the backward's kernels also with a
+cold L2, `cold_ms`), and last
 `{"ok": true, "device": {...}}`.  Without a CUDA card it exits non-zero
 and prints no result; every phase that fails ends the run the same way.
 Scratch files go to `build/chip_smoke/` under the checkout.
@@ -193,10 +195,22 @@ def note_err(errs, key, abs_err, scaled) -> None:
     errs[key] = (max(a, abs_err), max(r, scaled))
 
 
-def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
+def device_ms(fn, calls: int = 20, reps: int = 10, cold: bool = False) -> float:
     """Device time of one call: `calls` calls captured in one CUDA graph,
     replayed `reps` times between CUDA events, so no host work is timed.
-    Inputs stay resident in the 50 MB L2 between calls (warm cache)."""
+    Warm (the default): inputs stay resident in the 50 MB L2 between calls,
+    as far as they fit.  `cold`: each call follows a read of 128 MB, more
+    than twice the L2, so that what it reads comes from device memory; the
+    reads' own time, replayed the same way, is subtracted."""
+    if cold:
+        buf = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+        total = torch.empty((), dtype=torch.float32, device="cuda")
+
+        def flush():
+            torch.sum(buf, dim=0, out=total)
+
+        return (device_ms(lambda: (flush(), fn()), calls, reps)
+                - device_ms(flush, calls, reps))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -602,15 +616,19 @@ def phase_flash_bwd(errs, shapes):
                                                          rate, seed or 0)
                 want = flash_attention_bwd_reference(qd, kd, vd, out_r, lse_r, dout, kv,
                                                      causal, None, rate, seed or 0)
-                # the statistics pass alone, from the kernel forward's lse
-                stat_args = (qd, kd, vd, lse.detach(), dout, kv, causal, None, rate, seed or 0)
-                e_st, scale_st = scaled_err(flash_bwd_stats(*stat_args),
-                                            flash_bwd_stats_reference(*stat_args))
-                require(e_st <= tol * scale_st,
-                        f"flash bwd statistics dropout={rate} {DTYPE_NAME[dtype]} B{cb} H{h} "
-                        f"D{d} Tq{tq} Tk{tk}: err {e_st:.3g} > {tol} x {scale_st:.3g}")
-                if d == 64:
-                    note_err(errs, ("flash_bwd_stats", dtype), e_st, e_st / scale_st)
+                # the statistics pass alone: m, 1 / l and delta, each to
+                # the tolerance times max(1, its own largest magnitude)
+                stat_args = (qd, kd, vd, dout, kv, causal, None, rate, seed or 0)
+                got_st = flash_bwd_stats(*stat_args)
+                want_st = flash_bwd_stats_reference(*stat_args)
+                for stat, g_st, w_st in zip(("m", "1 / l", "delta"), got_st, want_st):
+                    e_st, scale_st = scaled_err(g_st, w_st)
+                    require(e_st <= tol * scale_st,
+                            f"flash bwd statistics ({stat}) dropout={rate} {DTYPE_NAME[dtype]} "
+                            f"B{cb} H{h} D{d} Tq{tq} Tk{tk}: err {e_st:.3g} > {tol} x "
+                            f"{scale_st:.3g}")
+                    if d == 64:
+                        note_err(errs, ("flash_bwd_stats", dtype), e_st, e_st / scale_st)
                 e_out = max_err(out, out_r)
                 require(e_out <= TOL_FLASH[dtype],
                         f"flash fwd dropout={rate} {DTYPE_NAME[dtype]} B{cb} Tq{tq} "
@@ -1622,7 +1640,7 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
     pairs = h * attention_pairs(tq, key_lens, causal)
     qo_bytes = es * b * tq * h * d                 # one [B, Tq, H, D] tensor
     kv_bytes = es * sum(key_lens) * h * d          # K or V over valid keys
-    stat_bytes = 4 * b * h * tq                    # lse or delta
+    stat_bytes = 4 * b * h * tq                    # one row statistic (lse, m, 1 / l, delta)
     # q, O, dO read; K, V over valid keys; lse and lengths; dQ written over
     # every query, dK and dV over every key; five Tq.Tk.D products over the
     # valid pairs (S, dP, dV, dK, dQ)
@@ -1630,13 +1648,14 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
     return {
         "shape": [b, tq, tk, h, d],
         "ms": device_ms(lambda: flash_attention_bwd(*args)),
+        "cold_ms": device_ms(lambda: flash_attention_bwd(*args), cold=True),
         "plain_ms": device_ms(lambda: flash_attention_bwd_reference(*args)),
         "library_ms": backward_ms(
             lambda: F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate, **sdpa),
             (qg, kg, vg), dot),
         **bound(nbytes, 5 * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
-        "kernel_args": args[:6] + (flash_bwd_stats(q, k, v, lse, dout, kv, causal, None,
-                                                   rate, seed),) + args[6:],
+        "kernel_args": args[:6] + (flash_bwd_stats(q, k, v, dout, kv, causal, None, rate,
+                                                   seed),) + args[6:],
         "pairs": pairs, "qo_bytes": qo_bytes, "kv_bytes": kv_bytes, "stat_bytes": stat_bytes,
     }
 
@@ -1718,6 +1737,9 @@ def train_rows(shapes, errs, launches, per):
         # the attention backward at the step's three shapes, with dropout as
         # the training path runs it; the encoder's rows keep their older names
         bwd_notes = {
+            "ms_is": "warm L2: the inputs stay resident between calls as far as they fit",
+            "cold_is": "cold L2: each call after a 128 MB read that evicts the 50 MB L2, "
+                       "the reads' own time subtracted",
             "plain_is": "the whole plain backward (dq, dk, dv together), dropout 0.1",
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1; a bool key "
                           "mask, or is_causal for the decoder) forward + backward minus "
@@ -1749,8 +1771,8 @@ def train_rows(shapes, errs, launches, per):
                 "launches_are": "backward calls at the step's three shapes, each launching "
                                 "the dK/dV and the dQ kernel once",
                 **bwd_errs(errs_bwd, TOL_FLASH_BWD[dtype]),
-                **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "bound_by")},
+                **{key: at[key] for key in ("ms", "cold_ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")},
                 **bwd_notes,
                 "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
             })
@@ -1761,25 +1783,25 @@ def train_rows(shapes, errs, launches, per):
             # backward above
             kernel_args, pairs = at["kernel_args"], at["pairs"]
             qo_bytes, kv_bytes, stat_bytes = at["qo_bytes"], at["kv_bytes"], at["stat_bytes"]
-            q_, k_, v_, _, lse_, dout_, _, kv_, causal_, sms_, rate_, seed_ = kernel_args
+            q_, k_, v_, _, _, dout_, _, kv_, causal_, sms_, rate_, seed_ = kernel_args
 
             def stats_of(*_args):
-                return flash_bwd_stats(q_, k_, v_, lse_, dout_, kv_, causal_, sms_, rate_, seed_)
+                return flash_bwd_stats(q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)
 
             for kernel, fn, replaces, nbytes, products in (
                 ("flash_bwd_stats", stats_of,
-                 "openasr_tpu/kernels/flash_attention.py:468 (delta, now with the rows' "
-                 "sums of P)",
-                 # q, dO, lse read; K, V over valid keys; sums, reciprocals, deltas written
-                 2 * qo_bytes + 2 * kv_bytes + 4 * stat_bytes, 2),                 # S dP
+                 "openasr_tpu/kernels/flash_attention.py:468 (delta, with each row's max "
+                 "and 1 / l)",
+                 # q, dO read; K, V over valid keys; m, 1 / l, delta written
+                 2 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes, 2),                 # S dP
                 ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
                  "openasr_tpu/kernels/flash_attention.py:238",
-                 # q, dO, lse, the three statistics read; K, V over valid keys; dK, dV written
-                 2 * qo_bytes + 2 * kv_bytes + 4 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
+                 # q, dO, the three statistics read; K, V over valid keys; dK, dV written
+                 2 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
                 ("flash_attention_bwd_dq", flash_attention_bwd_dq,
                  "openasr_tpu/kernels/flash_attention.py:327",
-                 # q, dO, lse, the three statistics read; K, V over valid keys; dQ written
-                 3 * qo_bytes + 2 * kv_bytes + 4 * stat_bytes, 3),                 # S dP dQ
+                 # q, dO, the three statistics read; K, V over valid keys; dQ written
+                 3 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes, 3),                 # S dP dQ
             ):
                 alone = kernel == "flash_bwd_stats"
                 rows.append({
@@ -1791,11 +1813,12 @@ def train_rows(shapes, errs, launches, per):
                     **launch_keys(kernel),
                     **bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype]),
                     "ms": device_ms(lambda: fn(*kernel_args)),
+                    "cold_ms": device_ms(lambda: fn(*kernel_args), cold=True),
                     **bwd_notes,
                     # the statistics have a plain version of their own and no
                     # one-call library counterpart
                     "plain_ms": (device_ms(lambda: flash_bwd_stats_reference(
-                        q_, k_, v_, lse_, dout_, kv_, causal_, sms_, rate_, seed_)) if alone
+                        q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)) if alone
                         else at["plain_ms"]),
                     "plain_is": ("flash_bwd_stats_reference" if alone
                                  else bwd_notes["plain_is"]),
@@ -2120,47 +2143,75 @@ def phase_recipe_gate() -> dict:
             "decode_s": decode_s}
 
 
+def saturated_qk(b, t, h, d, lens, gen, last_step):
+    """(q, k) [B, T, H, D] f32 with every softmax row one-hot: each query
+    near one valid key, both scaled by 300 (scores of about 5e5, leading
+    the others by about 1e5).  Query t matches key t mod length, or, with
+    `last_step`, a key in its row's last 32-key step of the kernels' walk,
+    so the row's max arrives after the earlier steps' running max."""
+    k = torch.randn(b, t, h, d, generator=gen) * 300.0
+    n = lens[:, None].long()
+    pos = torch.arange(t)[None, :]
+    first = (n - 1) // 32 * 32 if last_step else torch.zeros_like(n)
+    match = first + pos % (n - first)
+    return k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=gen), k
+
+
 def check_saturated_attention():
-    """The attention backward where every softmax row is one-hot (each
-    query near one valid key, scaled by 300: scores of about 5e5, as the
+    """The attention backward where every softmax row is one-hot (as the
     recipe gate's layer 0 reaches 4e4 at its initialization), at the gate's
-    layer-0 shape: the true dQ and dK are 0.  The statistics pass and the
-    dQ kernel take P and delta from the same products, so their dQ is
-    exactly 0; the dK/dV kernel computes them with the operands' roles
-    swapped, which the symmetric products keep the same bits, so its dK is
-    0 too.  dV against the plain version to the backward tolerance."""
-    from openasr_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+    layer-0 shape and at Tk 139 with each row's max in its last key step
+    (step 5 of 5, or 4 of 4): the true dQ and dK are 0.  The statistics
+    pass gives 1 / l = 1 exactly on every such row (the max's exp2(0) = 1,
+    the rest vanishing beside it, also after a rescale from an earlier
+    step's max), and dK/dV and dQ take P and delta from the same products,
+    so their dQ and dK are exactly 0.  dV against the plain version to the
+    backward tolerance."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+        flash_bwd_stats,
+    )
 
     g = torch.Generator().manual_seed(SEED)
-    b, t, h, d = 26, 17, 4, 32
-    lens = torch.tensor([17, 15, 13] * 8 + [17, 9], dtype=torch.int32)
-    k = torch.randn(b, t, h, d, generator=g) * 300.0
-    match = torch.arange(t)[None, :] % lens[:, None].long()
-    q = k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=g)
-    v, dout = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
-    for dtype in DTYPES:
-        for rate in (0.0, DROPOUT):
-            grads = {}
-            for name, fn in (("kernel", flash_attention), ("plain", flash_attention_reference)):
-                leaves = [x.to("cuda", dtype).clone().requires_grad_() for x in (q, k, v)]
-                out, _ = fn(*leaves, kv_lengths=lens.cuda(), dropout_rate=rate,
-                            dropout_seed=DROPOUT_SEED)
-                (out.float() * dout.cuda()).sum().backward()
-                grads[name] = [x.grad.float() for x in leaves]
-            kq, kk, kv = grads["kernel"]
-            pq, pk, pv = grads["plain"]
-            dv_err = max_err(kv, pv) / max(1.0, float(pv.abs().max()))
-            print(f"[saturated softmax] {DTYPE_NAME[dtype]}, dropout {rate}: max |dQ|, |dK| "
-                  f"kernel {float(kq.abs().max()):.3e}, {float(kk.abs().max()):.3e} "
-                  f"(plain {float(pq.abs().max()):.3e}, {float(pk.abs().max()):.3e}; true 0); "
-                  f"dV kernel vs plain {dv_err:.3e} of max(1, |dV|) "
-                  f"(tol {TOL_FLASH_BWD[dtype]})")
-            require(float(pq.abs().max()) == 0.0 and float(pk.abs().max()) == 0.0,
-                    "the plain backward left a residue in a saturated softmax")
-            require(float(kq.abs().max()) == 0.0 and float(kk.abs().max()) == 0.0,
-                    f"the kernels left a residue in a saturated softmax ({DTYPE_NAME[dtype]}, "
-                    f"dropout {rate})")
-            require(dv_err <= TOL_FLASH_BWD[dtype], f"dV off by {dv_err:.3g}")
+    cases = [  # b, t, h, d, lengths, the max in the last key step
+        (26, 17, 4, 32, [17, 15, 13] * 8 + [17, 9], False),
+        (8, 139, 8, 64, [139, 128, 100, 97, 139, 65, 120, 139], True),
+    ]
+    for b, t, h, d, lengths, last_step in cases:
+        lens = torch.tensor(lengths, dtype=torch.int32)
+        q, k = saturated_qk(b, t, h, d, lens, g, last_step)
+        v, dout = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+        where = f"B{b} T{t} D{d}" + (", the max in the last key step" if last_step else "")
+        for dtype in DTYPES:
+            for rate in (0.0, DROPOUT):
+                grads = {}
+                for name, fn in (("kernel", flash_attention), ("plain", flash_attention_reference)):
+                    leaves = [x.to("cuda", dtype).clone().requires_grad_() for x in (q, k, v)]
+                    out, _ = fn(*leaves, kv_lengths=lens.cuda(), dropout_rate=rate,
+                                dropout_seed=DROPOUT_SEED)
+                    (out.float() * dout.cuda()).sum().backward()
+                    grads[name] = [x.grad.float() for x in leaves]
+                inv_l = flash_bwd_stats(*(x.to("cuda", dtype) for x in (q, k, v, dout)),
+                                        lens.cuda(), False, None, rate, DROPOUT_SEED)[1]
+                kq, kk, kv = grads["kernel"]
+                pq, pk, pv = grads["plain"]
+                dv_err = max_err(kv, pv) / max(1.0, float(pv.abs().max()))
+                print(f"[saturated softmax] {where}, {DTYPE_NAME[dtype]}, dropout {rate}: max "
+                      f"|dQ|, |dK| kernel {float(kq.abs().max()):.3e}, "
+                      f"{float(kk.abs().max()):.3e} (plain {float(pq.abs().max()):.3e}, "
+                      f"{float(pk.abs().max()):.3e}; true 0); 1 / l in "
+                      f"[{float(inv_l.min()):.9g}, {float(inv_l.max()):.9g}]; dV kernel vs "
+                      f"plain {dv_err:.3e} of max(1, |dV|) (tol {TOL_FLASH_BWD[dtype]})")
+                require(float(pq.abs().max()) == 0.0 and float(pk.abs().max()) == 0.0,
+                        "the plain backward left a residue in a saturated softmax")
+                require(bool((inv_l == 1.0).all()),
+                        f"1 / l is not exactly 1 on a one-hot row ({where}, "
+                        f"{DTYPE_NAME[dtype]}, dropout {rate})")
+                require(float(kq.abs().max()) == 0.0 and float(kk.abs().max()) == 0.0,
+                        f"the kernels left a residue in a saturated softmax ({where}, "
+                        f"{DTYPE_NAME[dtype]}, dropout {rate})")
+                require(dv_err <= TOL_FLASH_BWD[dtype], f"dV off by {dv_err:.3g}")
 
 
 def small_corpus(name, rng, chars, n_utts=16):
@@ -2429,7 +2480,8 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[time] {r['name']} {r['shape']}: device ms kernel {r['ms']:.4f}, "
+        cold = f" (cold L2 {r['cold_ms']:.4f})" if "cold_ms" in r else ""
+        print(f"[time] {r['name']} {r['shape']}: device ms kernel {r['ms']:.4f}{cold}, "
               f"plain {r['plain_ms']:.4f}, library {lib}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}); launches {r['launches']}")
     print(f"[time] total {time.time() - t_start:.1f}s")

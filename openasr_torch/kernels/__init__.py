@@ -133,13 +133,13 @@ def library() -> ctypes.CDLL:
             u32, u32, f, i,          # dropout seed, keep threshold, scale, on
             i, i, p,                 # dtype, device, stream
         ]
-        # q, k, v, dout, lse, then the stats written (stats pass), or the
-        # stats read, kv_lengths and dk, dv / dq
-        lib.openasr_flash_attention_bwd_stats.argtypes = [p] * 7 + bwd_tail
+        # q, k, v, dout, the stats (written by the stats pass, read by the
+        # others), kv_lengths, then dk, dv / dq
+        lib.openasr_flash_attention_bwd_stats.argtypes = [p] * 6 + bwd_tail
         lib.openasr_flash_attention_bwd_stats.restype = i
-        lib.openasr_flash_attention_bwd_dkv.argtypes = [p] * 9 + bwd_tail
+        lib.openasr_flash_attention_bwd_dkv.argtypes = [p] * 8 + bwd_tail
         lib.openasr_flash_attention_bwd_dkv.restype = i
-        lib.openasr_flash_attention_bwd_dq.argtypes = [p] * 8 + bwd_tail
+        lib.openasr_flash_attention_bwd_dq.argtypes = [p] * 7 + bwd_tail
         lib.openasr_flash_attention_bwd_dq.restype = i
         lib.openasr_fbank.argtypes = [
             p, p, p,                 # frames, feat_lengths, out

@@ -1,46 +1,62 @@
-// Flash attention backward for Hopper (sm_90a): dK/dV and dQ on the
-// tensor cores.
+// Flash attention backward for Hopper (sm_90a): the row statistics, dK/dV
+// and dQ on the tensor cores.
 //
 // Replaces the Pallas TPU kernels
 // openasr_tpu/kernels/flash_attention.py:_bwd_dkv_kernel (:238) and
-// `_bwd_dq_kernel` (:327), and its delta (:468).  All three kernels here
-// recompute the weights from the forward's logsumexp rows, exp(S * scale -
-// lse), with the forward's masks (key padding from kv_lengths, causal kpos
-// <= qpos) and, with dropout, the same positional hash mask D = keep / (1 -
-// rate) (common.cuh).  A statistics pass (the dQ kernel's code with
-// kStats) sums each query row's weights and, with P the weights divided by
-// that sum, delta = rowsum(P o dP o D); then
+// `_bwd_dq_kernel` (:327), and its delta (:468).  With the forward's masks
+// (key padding from kv_lengths, causal kpos <= qpos) and, with dropout, the
+// same positional hash mask D = keep / (1 - rate) (common.cuh):
+// - the statistics pass walks the keys once per query row and writes, in
+//   log2 units s' = S * scale * log2(e), the row's max m, 1 / l with l =
+//   sum exp2(s' - m), and delta = rowsum(P o dP o D), P = exp2(s' - m) / l;
+// - dK/dV and dQ recompute P = exp2(s' - m) * (1 / l) from those, and
 //   dV = (P o D)^T dO,   dP = (dO V^T) o D,
 //   dS = P o (dP - delta) * scale,   dK = dS^T Q,   dQ = dS K.
-// Unlike the TPU kernels, which take delta = rowsum(dO o O) from the
-// caller, P and delta here come from the same products in every kernel,
-// bit for bit (S and dP through Ops::mma_sym, whose result does not depend
-// on which operand is A), so a one-hot softmax row (scores of 1e4 and more)
-// gives dS exactly 0; with delta = rowsum(dO o O) the rounding residue of
-// dP - delta, times the keys and the layer's input, was the whole q/k
-// gradient there.  Rows the forward left empty carry lse = +inf, so their
-// P is 0.
+// Unlike the TPU kernels, which take P from the forward's lse and delta =
+// rowsum(dO o O) from the caller, P and delta here come from the same
+// products in every kernel, bit for bit (S and dP through Ops::mma_sym,
+// whose result does not depend on which operand is A, in the same k
+// order), and P's row max gives exp2(0) = 1 exactly (no contraction between
+// the scale and the max).  So on a one-hot softmax row (scores of 1e4 and
+// more, as at the recipe gate's first layer) the other terms vanish beside
+// 1, l = 1, P is exactly one-hot, delta is the max key's dP o D and dS is
+// exactly 0, with no per-element select; with lse and delta = rowsum(dO o
+// O) the rounding residue of dP - delta, times the keys and the layer's
+// input, was the whole q/k gradient there.  An empty row (past Tq, a batch
+// row of length 0) has 1 / l = 0, m = 0 and no valid key, so its P is 0.
 // As on the TPU, dK/dV and dQ are two kernels: the first walks queries for
 // a tile of keys, the second keys for a tile of queries, so neither needs
 // atomics and the gradients are the same bit for bit from run to run; dQ
-// pays for it by recomputing S and dP (two of its three products), and the
-// statistics pass walks the keys twice (S, then S and dP).
+// pays for it by recomputing S and dP (two of its three products).
 //
 // Bound on the H100 at the training path's shapes (T 32-139, D 64): bytes,
-// in bf16 and in f32 alike.  Reading q, k, v, O, dO once and writing dq,
-// dk, dv once takes longer at 3.35 TB/s than the five Tq x Tk x D products
-// at 989 TFLOP/s in bf16, or in f32 as 3xTF32 at a third of TF32's 495
-// TFLOP/s.
+// in bf16 and in f32 alike.  Reading q, k, v, dO once and writing dq, dk,
+// dv once takes longer at 3.35 TB/s than the Tq x Tk x D products (two in
+// the statistics, four in dK/dV, three in dQ) at 989 TFLOP/s in bf16, or in
+// f32 as 3xTF32 at a third of TF32's 495 TFLOP/s.
 //
 // Design, FA2's backward on mma.sync (not wgmma: at these shapes the loads,
-// not the tensor cores' rate, set the time).  Tiles are the same at every
-// D: a block owns 64 rows and walks the other side 32 rows a step.
+// not the tensor cores' rate, set the time).  A block owns 64 rows and
+// walks the other side 32 rows a step, at every D.
+// - Statistics: one block of 4 warps per (64-query tile, head, batch),
+//   warp w owning queries q0 + 16w..+15.  One walk over the key steps, up
+//   to kv_length and, under causal, the tile's diagonal, K and V each
+//   staged once a step, double-buffered with cp.async commit/wait groups;
+//   two products a step, S = Q K^T and dP = dO V^T, then FA2's online
+//   softmax: a row's running max m lives in the lane quad that holds the
+//   row (two shuffles a step), l and a = sum exp2(s' - m) dP o D as a
+//   lane's partials, rescaled by exp2(m_old - m_new) when m grows and
+//   summed over the quad once at the end; delta = a * (1 / l).  A warp
+//   skips the products of a step that holds no pair it can see (rows past
+//   Tq, keys all above its diagonal): those pairs add nothing.  No dQ
+//   accumulator and no dS, so its registers are its own (the table below),
+//   and its blocks an SM are what its shared memory allows, at most 6.
 // - dK/dV: one block of 8 warps per (64-key tile, head, batch).  Warps 0-3
 //   accumulate dV and warps 4-7 dK, each for 16 keys k0 + 16(w % 4)..+15,
 //   so a lane holds one [16, D] accumulator, not two.  The K and V tiles
-//   are staged once in shared memory; the block walks query steps whose Q,
-//   dO, lse, the row sums and delta are double-buffered with cp.async commit/wait groups,
-//   so step i + 1 loads while step i computes.  Per step a warp computes
+//   are staged once in shared memory; the block walks query steps whose
+//   Q, dO and row statistics (m, 1 / l, delta) are double-buffered, so
+//   step i + 1 loads while step i computes.  Per step a warp computes
 //   S^T = K Q^T (the dK warps also dP^T = V dO^T), rows keys and columns
 //   queries, so the masks and the hash take (query, key) swapped back;
 //   turns them into (P o D)^T or dS^T in registers; and uses those
@@ -50,9 +66,8 @@
 //   holding the block's first key; a block whose keys are all padding
 //   walks nothing and writes zeros.
 // - dQ: the mirror, one block of 4 warps per (64-query tile, head, batch),
-//   warp w owning queries q0 + 16w..+15 and their lse, row sum and delta
-//   in registers (the statistics pass the same, summing over the lane
-//   quad); key steps double-buffered up to kv_length and, under
+//   warp w owning queries q0 + 16w..+15 and their statistics in
+//   registers; key steps double-buffered up to kv_length and, under
 //   causal, the diagonal; S = Q K^T, dP = dO V^T, dS as the A operand of
 //   dQ += dS K.
 // - The fragments of the block's own tile (K and V, or Q and dO) are
@@ -62,8 +77,9 @@
 // - Operands, staging and stores come from flash_tiles.cuh, shared with
 //   the forward: staged rows padded by 8 elements, 16-byte cp.async (the
 //   wrapper checks that rows are 16-byte aligned).  Shared memory is (2 *
-//   64 + 4 * 32) rows of D + 8 elements (dK/dV adds 1 KB of lse and
-//   delta), above 48 KB (opt-in) at D = 128 in bf16 and at D >= 64 in f32.
+//   64 + 4 * 32) rows of D + 8 elements (dK/dV adds 768 bytes of row
+//   statistics), above 48 KB (opt-in) at D = 128 in bf16 and at D >= 64 in
+//   f32.
 // - bf16 (Bf16Ops): mma.m16n8k16 from ldmatrix / ldmatrix.trans.  P o D
 //   and dS are rounded to bf16 before the second products, where JAX casts
 //   them (`p_drop.astype(do.dtype)`, `ds.astype(q.dtype)`, :305, :316,
@@ -73,11 +89,13 @@
 //   fragment as it stands.
 // Registers a thread from ptxas for sm_90a (without / with dropout), no
 // instantiation spilling (chip_smoke.py prints them as its [ptxas] line
-// and fails on a spill; the f32 dQ at D = 64 through its 3-blocks entry):
+// and fails on a spill; the f32 dQ at D = 64 through its 3-blocks entry,
+// the statistics hinted at the blocks their shared memory allows, at most
+// 6: 6, 6, 3 in bf16 and 5, 3, 1 in f32 at D 32, 64, 128):
 //            bf16 stats  bf16 dK/dV  bf16 dQ    f32 stats  f32 dK/dV  f32 dQ
-//   D = 32   112 / 112   112 / 117    80 / 96   254 / 254  126 / 128  122 / 123
-//   D = 64   132 / 132   118 / 123   125 / 124  135 / 135  128 / 126  160 / 160
-//   D = 128  135 / 135   161 / 162   166 / 166  135 / 135  169 / 171  161 / 162
+//   D = 32    80 /  79   111 / 122    88 /  80   94 /  94  128 / 126  123 / 124
+//   D = 64    77 /  80   122 / 125   127 / 126  128 / 132  127 / 125  159 / 159
+//   D = 128  128 / 132   161 / 165   166 / 166  128 / 132  171 / 168  192 / 166
 
 #include <type_traits>
 
@@ -87,32 +105,216 @@
 namespace openasr {
 namespace {
 
-constexpr int kRows = 64;          // keys (dK/dV) or queries (dQ) per block
+constexpr int kRows = 64;          // keys (dK/dV) or queries (dQ, statistics) per block
 constexpr int kDkvThreads = 256;   // 8 warps: 4 on dV, 4 on dK, 16 keys each
 constexpr int kDqThreads = 128;    // 4 warps, 16 queries each
 constexpr int kWalk = 32;          // rows per step of a walk
+constexpr int kStats = 3;          // row statistics: m, 1 / l, delta ([3][B][H][Tq])
+constexpr float kNegInf = -1.0e30f;  // a masked score, in log2 units
 
-// The weights, in every kernel and the same bits: P = exp(S scale - lse)
-// from the forward's lse (+inf on an empty row gives 0), divided by the
-// row's sum of such P (the stats pass's), so a row of P sums to 1 to
-// rounding and a one-hot row is exactly one-hot.  The products are
-// rounded where written (no contraction that could differ between the
-// kernels).
-__device__ __forceinline__ float unnormed_weight(float s, float scale_log2, float lse) {
-  return exp2f(fmaf(s, scale_log2, -__fmul_rn(lse, kLog2e)));
-}
-// P / row_sum as p * (1 / row_sum), and 1 where p is the whole row's sum
-// (a one-hot row), where the reciprocal's rounding could leave 1 - ulp.
-__device__ __forceinline__ float weight(float s, float scale_log2, float lse, float row_sum,
-                                        float inv_sum) {
-  const float p = unnormed_weight(s, scale_log2, lse);
-  return p == row_sum && p > 0.f ? 1.f : __fmul_rn(p, inv_sum);
+// The weights, in every kernel and the same bits: P = exp2(s' - m) / l,
+// s' = S scale log2(e), from the row's max m and 1 / l (the statistics
+// pass's).  Each product and difference is rounded where written, so no
+// contraction differs between the kernels and the row's max gives
+// exp2(0) = 1 exactly.
+__device__ __forceinline__ float weight(float s, float scale_log2, float m, float inv_l) {
+  return __fmul_rn(exp2f(__fsub_rn(__fmul_rn(s, scale_log2), m)), inv_l);
 }
 // An entry of dS = P o (dP o D - delta) * scale, with delta = rowsum(P o
-// dP o D) from the same P and dP (the stats pass's): where P is one-hot,
-// dP o D - delta is exactly 0.
+// dP o D) from the same P and dP (the statistics pass's): where P is
+// one-hot, dP o D - delta is exactly 0.
 __device__ __forceinline__ float grad_entry(float p, float dpd, float delta, float sm_scale) {
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dpd, delta)), sm_scale);
+}
+
+// S = Q K^T and dP = dO V^T of one walk step, [16 queries, kWalk keys] a
+// warp: the rows qw.. of the staged Q and dO tiles against the staged K
+// and V steps.  The statistics pass and dQ compute them with this code, and
+// dK/dV the same products with the operands' roles swapped, which
+// Ops::mma_sym gives the same bits.  The k loop unrolls by 2 (the k order,
+// and so the bits, are the same at any unroll): unrolled whole, dQ took
+// 150 registers in bf16 at D 64 where it needs 127 and spilled in f32 at
+// D 64, and both ran slower (PERF.md).
+template <typename Ops, int D>
+__device__ __forceinline__ void score_products(float (&s)[kWalk / 8][4], float (&dp)[kWalk / 8][4],
+                                               const typename Ops::Elem* qsm,
+                                               const typename Ops::Elem* dosm,
+                                               const typename Ops::Elem* kt,
+                                               const typename Ops::Elem* vt, int qw, int lane) {
+  constexpr int S = Tiles<Ops, D>::kStride, kK = Ops::kK;
+#pragma unroll
+  for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < D / kK; ++kk) {
+    typename Ops::A qa, oa;
+    Ops::template load_a<S>(qa, qsm, qw, kk * kK, lane);
+    Ops::template load_a<S>(oa, dosm, qw, kk * kK, lane);
+#pragma unroll
+    for (int n2 = 0; n2 < kWalk / 16; ++n2) {
+      typename Ops::B k0f, k1f, v0f, v1f;
+      Ops::template load_b_nk<S>(k0f, k1f, kt, n2 * 16, kk * kK, lane);
+      Ops::mma_sym(s[2 * n2], qa, k0f);
+      Ops::mma_sym(s[2 * n2 + 1], qa, k1f);
+      Ops::template load_b_nk<S>(v0f, v1f, vt, n2 * 16, kk * kK, lane);
+      Ops::mma_sym(dp[2 * n2], oa, v0f);
+      Ops::mma_sym(dp[2 * n2 + 1], oa, v1f);
+    }
+  }
+}
+
+// ------------------------------------------------------------ statistics
+
+// Shared memory of the statistics pass and dQ: Q, dO tiles; K, V
+// double-buffered.  The statistics pass asks for the blocks an SM that it
+// allows (232 448 bytes an SM, 1 KB reserved a block), at most 6.
+template <typename Ops, int D>
+struct QueryTiles {
+  static constexpr int kSmem =
+      (2 * kRows + 4 * kWalk) * Tiles<Ops, D>::kStride * sizeof(typename Ops::Elem);
+  static constexpr int kFit = 232448 / (kSmem + 1024);
+  static constexpr int kStatBlocks = kFit < 6 ? kFit : 6;
+};
+
+template <typename Ops, int D, bool kDropout>
+__global__ void __launch_bounds__(kDqThreads, (QueryTiles<Ops, D>::kStatBlocks))
+flash_attention_bwd_stats_kernel(
+    const typename Ops::Elem* __restrict__ q, const typename Ops::Elem* __restrict__ k,
+    const typename Ops::Elem* __restrict__ v, const typename Ops::Elem* __restrict__ dout,
+    const int* __restrict__ kv_lengths, float* __restrict__ stats, int H, int Tq, int Tk,
+    Strides qs_, Strides ks_, Strides vs_, Strides ds_, float sm_scale, int causal,
+    Dropout drop) {
+  using E = typename Ops::Elem;
+  constexpr int kBQ = kRows, kBK = kWalk, S = Tiles<Ops, D>::kStride, NT = kDqThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* qsm = reinterpret_cast<E*>(smem_raw);   // [kBQ][S]
+  E* dosm = qsm + kBQ * S;                    // [kBQ][S]
+  E* ksm = dosm + kBQ * S;                    // [2][kBK][S]
+  E* vsm = ksm + 2 * kBK * S;                 // [2][kBK][S]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int qw = 16 * warp;  // the warp's first row in the query tile
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const float scale_log2 = sm_scale * kLog2e;
+
+  int n_valid = Tk;
+  if (kv_lengths != nullptr) n_valid = min(max(kv_lengths[b], 0), Tk);
+  // keys past the tile's last query are masked for every row under causal
+  const int k_end = causal ? min(n_valid, q0 + kBQ) : n_valid;
+
+  // the lane's two rows (g, g + 8): position, running max (log2 units),
+  // and the lane's parts of l and a = sum exp2(s' - m) dP o D
+  int qrow[2];
+  float m[2], l[2], acc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = q0 + qw + g + 8 * r;
+    m[r] = kNegInf;
+    l[r] = acc[r] = 0.f;
+  }
+
+  const E* kb = k + b * ks_.b + h * ks_.h;
+  const E* vb = v + b * vs_.b + h * vs_.h;
+  if (k_end > 0) {
+    stage_rows<Ops, D, kBQ, NT>(qsm, q + b * qs_.b + h * qs_.h, qs_.t, q0, Tq, tid);
+    stage_rows<Ops, D, kBQ, NT>(dosm, dout + b * ds_.b + h * ds_.h, ds_.t, q0, Tq, tid);
+    stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, 0, Tk, tid);
+    stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, 0, Tk, tid);
+    cp_async_commit();
+  }
+  int buf = 0;
+  for (int k0 = 0; k0 < k_end; k0 += kBK, buf ^= 1) {
+    if (k0 + kBK < k_end) {
+      stage_rows<Ops, D, kBK, NT>(ksm + (buf ^ 1) * kBK * S, kb, ks_.t, k0 + kBK, Tk, tid);
+      stage_rows<Ops, D, kBK, NT>(vsm + (buf ^ 1) * kBK * S, vb, vs_.t, k0 + kBK, Tk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // warp-uniform: does this step hold a pair the warp's rows can see?
+    if (q0 + qw < Tq && (!causal || k0 <= q0 + qw + 15)) {
+      float s[kBK / 8][4], dp[kBK / 8][4];
+      score_products<Ops, D>(s, dp, qsm, dosm, ksm + buf * kBK * S, vsm + buf * kBK * S, qw,
+                             lane);
+
+      // s <- s' = S scale log2(e), kNegInf where masked; the step's row max
+      float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int key = k0 + j * 8 + t2 + (e & 1);
+          const bool ok = key < n_valid && (!causal || key <= qrow[r]);
+          s[j][e] = ok ? __fmul_rn(s[j][e], scale_log2) : kNegInf;
+          mt[r] = fmaxf(mt[r], s[j][e]);
+        }
+      }
+      // the row max over the quad, the new running max and the rescale of
+      // what came before: exp2(0) = 1 while m holds, 0 from a first valid
+      // key (kNegInf - m underflows); no infinity enters
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m[r], mt[r]);
+        const float alpha = exp2f(__fsub_rn(m[r], m_new));
+        m[r] = m_new;
+        l[r] = __fmul_rn(l[r], alpha);
+        acc[r] = __fmul_rn(acc[r], alpha);
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          if (s[j][e] > 0.5f * kNegInf) {
+            const float p = exp2f(__fsub_rn(s[j][e], m[r]));
+            float dpd = dp[j][e];
+            if (kDropout) {
+              const int key = k0 + j * 8 + t2 + (e & 1);
+              const bool keep =
+                  dropout_keep(drop.seed, bh, (uint32_t)qrow[r], (uint32_t)key, drop.thresh);
+              dpd = keep ? __fmul_rn(dpd, drop.scale) : 0.f;
+            }
+            l[r] = __fadd_rn(l[r], p);
+            acc[r] = __fadd_rn(acc[r], __fmul_rn(p, dpd));
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer `buf` is refilled two steps on
+  }
+
+  // l and a over the quad (the same bits in each lane), then m, 1 / l and
+  // delta = a / l; a row with no valid key writes 0, 0, 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+    acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(0xffffffffu, acc[r], 1));
+    acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(0xffffffffu, acc[r], 2));
+  }
+  if ((lane & 3) == 0) {
+    const long long rows = (long long)gridDim.z * H * Tq;  // B H Tq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qrow[r] < Tq) {
+        const long long at = ((long long)b * H + h) * Tq + qrow[r];
+        const bool any = l[r] > 0.f;
+        const float inv_l = any ? __frcp_rn(l[r]) : 0.f;
+        stats[at] = any ? m[r] : 0.f;
+        stats[rows + at] = inv_l;
+        stats[2 * rows + at] = __fmul_rn(acc[r], inv_l);
+      }
+    }
+  }
 }
 
 // --------------------------------------------------------------- dK, dV
@@ -125,23 +327,22 @@ __global__ void __launch_bounds__(kDkvThreads)
 flash_attention_bwd_dkv_kernel(
     const typename Ops::Elem* __restrict__ q, const typename Ops::Elem* __restrict__ k,
     const typename Ops::Elem* __restrict__ v, const typename Ops::Elem* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ stats,
-    const int* __restrict__ kv_lengths, typename Ops::Elem* __restrict__ dk,
-    typename Ops::Elem* __restrict__ dv, int H, int Tq, int Tk, Strides qs_, Strides ks_,
-    Strides vs_, Strides ds_, float sm_scale, int causal, Dropout drop) {
+    const float* __restrict__ stats, const int* __restrict__ kv_lengths,
+    typename Ops::Elem* __restrict__ dk, typename Ops::Elem* __restrict__ dv, int H, int Tq,
+    int Tk, Strides qs_, Strides ks_, Strides vs_, Strides ds_, float sm_scale, int causal,
+    Dropout drop) {
   using E = typename Ops::Elem;
   constexpr int kBK = kRows, kBQ = kWalk, S = Tiles<Ops, D>::kStride, kK = Ops::kK;
   constexpr int NT = kDkvThreads;
-  static_assert(4 * kBQ <= NT, "one thread a row statistic");
+  static_assert(kStats * kBQ <= NT, "one thread a row statistic");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* ksm = reinterpret_cast<E*>(smem_raw);   // [kBK][S]
   E* vsm = ksm + kBK * S;                     // [kBK][S]
   E* qsm = vsm + kBK * S;                     // [2][kBQ][S]
   E* dosm = qsm + 2 * kBQ * S;                // [2][kBQ][S]
-  float* lse_s = reinterpret_cast<float*>(dosm + 2 * kBQ * S);  // [2][kBQ]
-  float* sum_s = lse_s + 2 * kBQ;                                 // [2][kBQ]
-  float* inv_s = sum_s + 2 * kBQ;                                 // [2][kBQ]
-  float* delta_s = inv_s + 2 * kBQ;                               // [2][kBQ]
+  float* m_s = reinterpret_cast<float*>(dosm + 2 * kBQ * S);  // [2][kBQ]
+  float* inv_s = m_s + 2 * kBQ;                                 // [2][kBQ]
+  float* delta_s = inv_s + 2 * kBQ;                             // [2][kBQ]
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -166,19 +367,17 @@ flash_attention_bwd_dkv_kernel(
   if (k0 >= n_valid) q_begin = Tq;
   const E* qb = q + b * qs_.b + h * qs_.h;
   const E* db = dout + b * ds_.b + h * ds_.h;
-  // the row statistic this thread stages, if any (threads 0-127): lse, or
-  // the row sum, its reciprocal or delta ([3][B][H][Tq] stats), into lse_s,
-  // sum_s, inv_s or delta_s
+  // the row statistic this thread stages, if any (threads 0-95): m, 1 / l
+  // or delta ([3][B][H][Tq] stats), into m_s, inv_s or delta_s
   const int stat = tid / kBQ, stat_i = tid % kBQ;
   const float* stat_src =
-      (stat == 0 ? lse : stats + (stat - 1) * (long long)gridDim.z * H * Tq) +
-      ((long long)b * H + h) * Tq;
-  float* stat_dst = lse_s + stat * 2 * kBQ + stat_i;
+      stats + (stat * (long long)gridDim.z * H + (long long)b * H + h) * Tq;
+  float* stat_dst = m_s + stat * 2 * kBQ + stat_i;
 
   auto stage_queries = [&](int q0, int buf) {
     stage_rows<Ops, D, kBQ, NT>(qsm + buf * kBQ * S, qb, qs_.t, q0, Tq, tid);
     stage_rows<Ops, D, kBQ, NT>(dosm + buf * kBQ * S, db, ds_.t, q0, Tq, tid);
-    if (stat < 4) {
+    if (stat < kStats) {
       const bool ok = q0 + stat_i < Tq;
       cp_async4(smem_u32(stat_dst + buf * kBQ), stat_src + (ok ? q0 + stat_i : 0), ok);
     }
@@ -202,8 +401,7 @@ flash_attention_bwd_dkv_kernel(
       __syncthreads();
       const E* qt = qsm + buf * kBQ * S;
       const E* dot = dosm + buf * kBQ * S;
-      const float* ls = lse_s + buf * kBQ;
-      const float* sm = sum_s + buf * kBQ;
+      const float* mr = m_s + buf * kBQ;
       const float* iv = inv_s + buf * kBQ;
       const float* dl = delta_s + buf * kBQ;
 
@@ -240,7 +438,7 @@ flash_attention_bwd_dkv_kernel(
 
       // st <- (P o D)^T on the dV warps, dS^T on the dK warps: row = key,
       // column = query, so the masks and the hash take (query, key) in that
-      // order.  P, the row sums and delta are the dQ kernel's, bit for bit
+      // order.  P and delta are the statistics pass's, bit for bit
       // (`weight`, `grad_entry`), so dS^T is exactly 0 where a row is
       // one-hot.
 #pragma unroll
@@ -251,7 +449,7 @@ flash_attention_bwd_dkv_kernel(
           const int qi = j * 8 + t2 + (e & 1);
           const int qp = q0 + qi;
           const bool ok = key < n_valid && qp < Tq && (!causal || key <= qp);
-          const float p = ok ? weight(st[j][e], scale_log2, ls[qi], sm[qi], iv[qi]) : 0.f;
+          const float p = ok ? weight(st[j][e], scale_log2, mr[qi], iv[qi]) : 0.f;
           const bool keep =
               !kDropout || dropout_keep(drop.seed, bh, (uint32_t)qp, (uint32_t)key, drop.thresh);
           const float dpd = keep ? (kDropout ? __fmul_rn(dpt[j][e], drop.scale) : dpt[j][e]) : 0.f;
@@ -292,19 +490,13 @@ flash_attention_bwd_dkv_kernel(
 
 // ------------------------------------------------------------------- dQ
 
-// The dQ kernel's body.  kStats: the statistics pass
-// (flash_attention_bwd_stats_kernel), which writes each query row's sum of
-// P, its reciprocal and delta = rowsum(P o dP o D) (P divided by that sum)
-// to `stats_out` ([3][B][H][Tq]), walking the keys twice; else dQ,
-// which reads them from `stats` and walks the keys once.  Both compute S
-// and dP with the same code, and the dK/dV kernel (with the operands'
-// roles swapped, which Ops::mma_sym gives the same bits) too.
-template <typename Ops, int D, bool kDropout, bool kStats>
+// dQ reads each row's m, 1 / l and delta from the statistics pass and
+// walks the keys once.
+template <typename Ops, int D, bool kDropout>
 __device__ __forceinline__ void dq_body(
     const typename Ops::Elem* __restrict__ q, const typename Ops::Elem* __restrict__ k,
     const typename Ops::Elem* __restrict__ v, const typename Ops::Elem* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ stats,
-    float* __restrict__ stats_out, const int* __restrict__ kv_lengths,
+    const float* __restrict__ stats, const int* __restrict__ kv_lengths,
     typename Ops::Elem* __restrict__ dq, int H, int Tq, int Tk, Strides qs_, Strides ks_,
     Strides vs_, Strides ds_, float sm_scale, int causal, Dropout drop) {
   using E = typename Ops::Elem;
@@ -328,19 +520,16 @@ __device__ __forceinline__ void dq_body(
   if (kv_lengths != nullptr) n_valid = min(max(kv_lengths[b], 0), Tk);
   const int k_end = causal ? min(n_valid, q0 + kBQ) : n_valid;
 
-  // the lane's two rows (g, g + 8): position, lse, the row's sum of P and
-  // its delta (accumulated here in the stats pass)
+  // the lane's two rows (g, g + 8): position, m, 1 / l and delta
   int qrow[2];
-  long long at[2];
-  float lse_r[2], psum[2], pinv[2], dlt[2];
+  float m_r[2], inv_r[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     qrow[r] = q0 + qw + g + 8 * r;
-    at[r] = ((long long)b * H + h) * Tq + min(qrow[r], Tq - 1);
-    lse_r[r] = qrow[r] < Tq ? lse[at[r]] : __int_as_float(0x7f800000);
-    psum[r] = !kStats && qrow[r] < Tq ? stats[at[r]] : 0.f;
-    pinv[r] = !kStats && qrow[r] < Tq ? stats[rows + at[r]] : 0.f;
-    dlt[r] = !kStats && qrow[r] < Tq ? stats[2 * rows + at[r]] : 0.f;
+    const long long at = ((long long)b * H + h) * Tq + min(qrow[r], Tq - 1);
+    m_r[r] = qrow[r] < Tq ? stats[at] : 0.f;
+    inv_r[r] = qrow[r] < Tq ? stats[rows + at] : 0.f;
+    dlt[r] = qrow[r] < Tq ? stats[2 * rows + at] : 0.f;
   }
 
   float dqa[D / 8][4];
@@ -354,131 +543,61 @@ __device__ __forceinline__ void dq_body(
   if (k_end > 0) {
     stage_rows<Ops, D, kBQ, NT>(qsm, q + b * qs_.b + h * qs_.h, qs_.t, q0, Tq, tid);
     stage_rows<Ops, D, kBQ, NT>(dosm, dout + b * ds_.b + h * ds_.h, ds_.t, q0, Tq, tid);
+    stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, 0, Tk, tid);
+    stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, 0, Tk, tid);
+    cp_async_commit();
   }
-  // walks over the key steps: pass 0 sums P, pass 1 sums P o dP o D (the
-  // statistics), pass 2 accumulates dQ; a loop of known trip count, unrolled,
-  // so each pass is its own code
-#pragma unroll
-  for (int pass = kStats ? 0 : 2; pass <= (kStats ? 1 : 2); ++pass) {
-    if (k_end > 0) {
-      stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, 0, Tk, tid);
-      stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, 0, Tk, tid);
+  int buf = 0;
+  for (int k0 = 0; k0 < k_end; k0 += kBK, buf ^= 1) {
+    if (k0 + kBK < k_end) {
+      stage_rows<Ops, D, kBK, NT>(ksm + (buf ^ 1) * kBK * S, kb, ks_.t, k0 + kBK, Tk, tid);
+      stage_rows<Ops, D, kBK, NT>(vsm + (buf ^ 1) * kBK * S, vb, vs_.t, k0 + kBK, Tk, tid);
       cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    int buf = 0;
-    for (int k0 = 0; k0 < k_end; k0 += kBK, buf ^= 1) {
-      if (k0 + kBK < k_end) {
-        stage_rows<Ops, D, kBK, NT>(ksm + (buf ^ 1) * kBK * S, kb, ks_.t, k0 + kBK, Tk, tid);
-        stage_rows<Ops, D, kBK, NT>(vsm + (buf ^ 1) * kBK * S, vb, vs_.t, k0 + kBK, Tk, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const E* kt = ksm + buf * kBK * S;
-      const E* vt = vsm + buf * kBK * S;
+    __syncthreads();
+    const E* kt = ksm + buf * kBK * S;
 
-      // S = Q K^T and dP = dO V^T, [16 queries, kBK keys] a warp
-      float s[kBK / 8][4], dp[kBK / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      // the statistics pass holds S and dP with 3xTF32's operands: unrolled
-      // whole, f32 at D 128 needs more than 255 registers
-      constexpr int kUnrollK = kStats ? 4 : D / kK;
-#pragma unroll(kUnrollK)
-      for (int kk = 0; kk < D / kK; ++kk) {
-        typename Ops::A qa, oa;
-        Ops::template load_a<S>(qa, qsm, qw, kk * kK, lane);
-        if (pass > 0) Ops::template load_a<S>(oa, dosm, qw, kk * kK, lane);
-#pragma unroll
-        for (int n2 = 0; n2 < kBK / 16; ++n2) {
-          typename Ops::B k0f, k1f;
-          Ops::template load_b_nk<S>(k0f, k1f, kt, n2 * 16, kk * kK, lane);
-          Ops::mma_sym(s[2 * n2], qa, k0f);
-          Ops::mma_sym(s[2 * n2 + 1], qa, k1f);
-          if (pass > 0) {
-            typename Ops::B v0f, v1f;
-            Ops::template load_b_nk<S>(v0f, v1f, vt, n2 * 16, kk * kK, lane);
-            Ops::mma_sym(dp[2 * n2], oa, v0f);
-            Ops::mma_sym(dp[2 * n2 + 1], oa, v1f);
-          }
-        }
-      }
+    float s[kBK / 8][4], dp[kBK / 8][4];
+    score_products<Ops, D>(s, dp, qsm, dosm, kt, vsm + buf * kBK * S, qw, lane);
 
-      // row = query, column = key; s <- dS in pass 2
+    // s <- dS: row = query, column = key
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int key = k0 + j * 8 + t2 + (e & 1);
-          const int qp = qrow[r];
-          const bool ok = key < n_valid && qp < Tq && (!causal || key <= qp);
-          if (pass == 0) {
-            psum[r] += ok ? unnormed_weight(s[j][e], scale_log2, lse_r[r]) : 0.f;
-          } else {
-            const float p = ok ? weight(s[j][e], scale_log2, lse_r[r], psum[r], pinv[r]) : 0.f;
-            float dpd = dp[j][e];
-            if (kDropout) {
-              const bool keep =
-                  dropout_keep(drop.seed, bh, (uint32_t)qp, (uint32_t)key, drop.thresh);
-              dpd = keep ? __fmul_rn(dpd, drop.scale) : 0.f;
-            }
-            if (pass == 1)
-              dlt[r] += __fmul_rn(p, dpd);
-            else
-              s[j][e] = ok ? grad_entry(p, dpd, dlt[r], sm_scale) : 0.f;
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = k0 + j * 8 + t2 + (e & 1);
+        const int qp = qrow[r];
+        const bool ok = key < n_valid && qp < Tq && (!causal || key <= qp);
+        const float p = ok ? weight(s[j][e], scale_log2, m_r[r], inv_r[r]) : 0.f;
+        float dpd = dp[j][e];
+        if (kDropout) {
+          const bool keep = dropout_keep(drop.seed, bh, (uint32_t)qp, (uint32_t)key, drop.thresh);
+          dpd = keep ? __fmul_rn(dpd, drop.scale) : 0.f;
         }
-      }
-
-      if (pass == 2) {
-        // dQ += dS K, dS as the A operand (in bf16 rounded as JAX rounds it)
-#pragma unroll
-        for (int kq = 0; kq < kBK / kK; ++kq) {
-          typename Ops::A sa;
-          Ops::from_c(sa, &s[kq * (kK / 8)]);
-#pragma unroll
-          for (int n2 = 0; n2 < D / 16; ++n2) {
-            typename Ops::B k0f, k1f;
-            Ops::template load_b_kn<S>(k0f, k1f, kt, kq * kK, n2 * 16, lane);
-            Ops::mma(dqa[2 * n2], sa, k0f);
-            Ops::mma(dqa[2 * n2 + 1], sa, k1f);
-          }
-        }
-      }
-      __syncthreads();  // buffer `buf` is refilled two steps on
-    }
-    // a row's total over the four lanes that share it, the same bits in each
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (pass == 0) {
-        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-        pinv[r] = psum[r] > 0.f ? __frcp_rn(psum[r]) : 0.f;
-      } else if (pass == 1) {
-        dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 1);
-        dlt[r] += __shfl_xor_sync(0xffffffffu, dlt[r], 2);
+        s[j][e] = ok ? grad_entry(p, dpd, dlt[r], sm_scale) : 0.f;
       }
     }
+
+    // dQ += dS K, dS as the A operand (in bf16 rounded as JAX rounds it)
+#pragma unroll
+    for (int kq = 0; kq < kBK / kK; ++kq) {
+      typename Ops::A sa;
+      Ops::from_c(sa, &s[kq * (kK / 8)]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        typename Ops::B k0f, k1f;
+        Ops::template load_b_kn<S>(k0f, k1f, kt, kq * kK, n2 * 16, lane);
+        Ops::mma(dqa[2 * n2], sa, k0f);
+        Ops::mma(dqa[2 * n2 + 1], sa, k1f);
+      }
+    }
+    __syncthreads();  // buffer `buf` is refilled two steps on
   }
 
-  if (kStats) {
-    if ((lane & 3) == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (qrow[r] < Tq) {
-          stats_out[at[r]] = psum[r];
-          stats_out[rows + at[r]] = pinv[r];
-          stats_out[2 * rows + at[r]] = dlt[r];
-        }
-      }
-    }
-    return;
-  }
   // epilogue through the warp's own rows of the Q tile
   frags_to_smem<Ops, D>(qsm, dqa, qw, lane);
   __syncthreads();
@@ -490,17 +609,15 @@ __device__ __forceinline__ void dq_body(
 #define OPENASR_DQ_PARAMS                                                                  \
   const typename Ops::Elem *__restrict__ q, const typename Ops::Elem *__restrict__ k,      \
       const typename Ops::Elem *__restrict__ v, const typename Ops::Elem *__restrict__ dout, \
-      const float *__restrict__ lse, const float *__restrict__ stats,                      \
-      float *__restrict__ stats_out, const int *__restrict__ kv_lengths,                   \
+      const float *__restrict__ stats, const int *__restrict__ kv_lengths,                 \
       typename Ops::Elem *__restrict__ dq, int H, int Tq, int Tk, Strides qs_,             \
       Strides ks_, Strides vs_, Strides ds_, float sm_scale, int causal, Dropout drop
 #define OPENASR_DQ_ARGS                                                                    \
-  q, k, v, dout, lse, stats, stats_out, kv_lengths, dq, H, Tq, Tk, qs_, ks_, vs_, ds_,     \
-      sm_scale, causal, drop
+  q, k, v, dout, stats, kv_lengths, dq, H, Tq, Tk, qs_, ks_, vs_, ds_, sm_scale, causal, drop
 
 template <typename Ops, int D, bool kDropout>
 __global__ void __launch_bounds__(kDqThreads) flash_attention_bwd_dq_kernel(OPENASR_DQ_PARAMS) {
-  dq_body<Ops, D, kDropout, false>(OPENASR_DQ_ARGS);
+  dq_body<Ops, D, kDropout>(OPENASR_DQ_ARGS);
 }
 // ptxas, left to its own budget, fits the f32 dQ kernel at D = 64 into 128
 // registers with an 8-byte spill; 3 blocks an SM (what its shared memory
@@ -509,16 +626,7 @@ __global__ void __launch_bounds__(kDqThreads) flash_attention_bwd_dq_kernel(OPEN
 template <typename Ops, int D, bool kDropout>
 __global__ void __launch_bounds__(kDqThreads, 3)
     flash_attention_bwd_dq_kernel_3(OPENASR_DQ_PARAMS) {
-  dq_body<Ops, D, kDropout, false>(OPENASR_DQ_ARGS);
-}
-
-// Two blocks an SM: the hint lets ptxas use the registers that leaves (the
-// pass over S and dP holds both, at D 64 and 128 in f32 more than 168)
-// instead of spilling; the f32 tiles' shared memory allows at most three.
-template <typename Ops, int D, bool kDropout>
-__global__ void __launch_bounds__(kDqThreads, 2)
-    flash_attention_bwd_stats_kernel(OPENASR_DQ_PARAMS) {
-  dq_body<Ops, D, kDropout, true>(OPENASR_DQ_ARGS);
+  dq_body<Ops, D, kDropout>(OPENASR_DQ_ARGS);
 }
 
 #undef OPENASR_DQ_PARAMS
@@ -528,8 +636,7 @@ __global__ void __launch_bounds__(kDqThreads, 2)
 
 struct Args {
   const void *q, *k, *v, *dout;
-  const float *lse, *stats;
-  float* stats_out;
+  float* stats;  // written by the statistics pass, read by dK/dV and dQ
   const int* kv_lengths;
   void *dq, *dk, *dv;
   int B, H, Tq, Tk;
@@ -541,12 +648,27 @@ struct Args {
 };
 
 template <typename Ops, int D, bool kDropout>
+cudaError_t launch_stats(const Args& a, cudaStream_t stream) {
+  using E = typename Ops::Elem;
+  constexpr size_t smem = QueryTiles<Ops, D>::kSmem;
+  auto kernel = flash_attention_bwd_stats_kernel<Ops, D, kDropout>;
+  static int asked[kMaxDevices];
+  cudaError_t err = allow_smem(kernel, smem, a.device, asked);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + kRows - 1) / kRows, a.H, a.B);
+  kernel<<<grid, kDqThreads, smem, stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
+      static_cast<const E*>(a.dout), a.kv_lengths, a.stats, a.H, a.Tq, a.Tk, a.qs, a.ks, a.vs,
+      a.ds, a.sm_scale, a.causal, a.drop);
+  return cudaGetLastError();
+}
+
+template <typename Ops, int D, bool kDropout>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   using E = typename Ops::Elem;
-  // K, V tiles; Q, dO, lse, the row sums, their reciprocals and delta
-  // double-buffered
-  constexpr size_t smem =
-      (2 * kRows + 4 * kWalk) * Tiles<Ops, D>::kStride * sizeof(E) + 8 * kWalk * sizeof(float);
+  // K, V tiles; Q, dO and the row statistics double-buffered
+  constexpr size_t smem = (2 * kRows + 4 * kWalk) * Tiles<Ops, D>::kStride * sizeof(E) +
+                          2 * kStats * kWalk * sizeof(float);
   auto kernel = flash_attention_bwd_dkv_kernel<Ops, D, kDropout>;
   static int asked[kMaxDevices];
   cudaError_t err = allow_smem(kernel, smem, a.device, asked);
@@ -554,22 +676,18 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Tk + kRows - 1) / kRows, a.H, a.B);
   kernel<<<grid, kDkvThreads, smem, stream>>>(
       static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
-      static_cast<const E*>(a.dout), a.lse, a.stats, a.kv_lengths, static_cast<E*>(a.dk),
+      static_cast<const E*>(a.dout), a.stats, a.kv_lengths, static_cast<E*>(a.dk),
       static_cast<E*>(a.dv), a.H, a.Tq, a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.causal,
       a.drop);
   return cudaGetLastError();
 }
 
-// kStats: the statistics pass; else dQ
-template <typename Ops, int D, bool kDropout, bool kStats>
+template <typename Ops, int D, bool kDropout>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   using E = typename Ops::Elem;
-  // Q, dO tiles; K, V double-buffered
-  constexpr size_t smem = (2 * kRows + 4 * kWalk) * Tiles<Ops, D>::kStride * sizeof(E);
+  constexpr size_t smem = QueryTiles<Ops, D>::kSmem;
   auto kernel = [] {
-    if constexpr (kStats)
-      return flash_attention_bwd_stats_kernel<Ops, D, kDropout>;
-    else if constexpr (std::is_same<Ops, Tf32x3Ops>::value && D == 64)
+    if constexpr (std::is_same<Ops, Tf32x3Ops>::value && D == 64)
       return flash_attention_bwd_dq_kernel_3<Ops, D, kDropout>;
     else
       return flash_attention_bwd_dq_kernel<Ops, D, kDropout>;
@@ -580,9 +698,8 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Tq + kRows - 1) / kRows, a.H, a.B);
   kernel<<<grid, kDqThreads, smem, stream>>>(
       static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
-      static_cast<const E*>(a.dout), a.lse, a.stats, a.stats_out, a.kv_lengths,
-      static_cast<E*>(a.dq), a.H, a.Tq, a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.causal,
-      a.drop);
+      static_cast<const E*>(a.dout), a.stats, a.kv_lengths, static_cast<E*>(a.dq), a.H, a.Tq,
+      a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.causal, a.drop);
   return cudaGetLastError();
 }
 
@@ -592,10 +709,9 @@ cudaError_t launch_one(int which, const Args& a, cudaStream_t stream) {
   if (which == 0)
     return a.drop.on ? launch_dkv<Ops, D, true>(a, stream) : launch_dkv<Ops, D, false>(a, stream);
   if (which == 1)
-    return a.drop.on ? launch_dq<Ops, D, true, false>(a, stream)
-                     : launch_dq<Ops, D, false, false>(a, stream);
-  return a.drop.on ? launch_dq<Ops, D, true, true>(a, stream)
-                   : launch_dq<Ops, D, false, true>(a, stream);
+    return a.drop.on ? launch_dq<Ops, D, true>(a, stream) : launch_dq<Ops, D, false>(a, stream);
+  return a.drop.on ? launch_stats<Ops, D, true>(a, stream)
+                   : launch_stats<Ops, D, false>(a, stream);
 }
 
 template <typename Ops>
@@ -612,19 +728,17 @@ cudaError_t dispatch_d(int which, int D, const Args& a, cudaStream_t stream) {
   }
 }
 
-int run(int which, const void* q, const void* k, const void* v,
-        const void* dout, const void* lse, const void* stats, void* stats_out,
-        const void* kv_lengths, void* dq, void* dk, void* dv, int B, int H,
-        int Tq, int Tk, int D, const long long* strides, float sm_scale,
-        int causal, unsigned int dropout_seed, unsigned int keep_thresh,
-        float drop_scale, int dropout, int dtype, int device, void* stream) {
+int run(int which, const void* q, const void* k, const void* v, const void* dout, void* stats,
+        const void* kv_lengths, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk,
+        int D, const long long* strides, float sm_scale, int causal, unsigned int dropout_seed,
+        unsigned int keep_thresh, float drop_scale, int dropout, int dtype, int device,
+        void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Args a{q, k, v, dout,
-         static_cast<const float*>(lse), static_cast<const float*>(stats),
-         static_cast<float*>(stats_out), static_cast<const int*>(kv_lengths), dq, dk, dv,
+         static_cast<float*>(stats), static_cast<const int*>(kv_lengths), dq, dk, dv,
          B, H, Tq, Tk,
          {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
          {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]},
@@ -645,50 +759,47 @@ int run(int which, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The backward's row statistics of attention: for each query row, the sum
-// of P = exp(S * scale - lse), its reciprocal and delta = rowsum(P o dP o
-// D) with P divided by that sum, written to stats_out, contiguous
-// [3][B][H][Tq] f32 (sums, reciprocals, deltas).  q, dout: [B, Tq, H, D]; k, v: [B, Tk, H, D], each
-// addressed through its (batch, time, head) strides, given in `strides` as
-// q, k, v, dout triples (12 values), with unit stride along D, 16-byte
-// aligned rows (each pointer and stride a multiple of 16 bytes); lse:
-// contiguous [B, H, Tq] f32; kv_lengths: [B] int32 or null.  Dropout
-// arguments as in the forward.
+// The backward's row statistics of attention, written to stats_out,
+// contiguous [3][B][H][Tq] f32: for each query row, in log2 units s' = S *
+// sm_scale * log2(e) over its valid keys, the max m, 1 / l with l =
+// sum exp2(s' - m), and delta = rowsum(P o dP o D) with P = exp2(s' - m) /
+// l (0, 0, 0 on a row with no valid key).  q, dout: [B, Tq, H, D]; k, v:
+// [B, Tk, H, D], each addressed through its (batch, time, head) strides,
+// given in `strides` as q, k, v, dout triples (12 values), with unit stride
+// along D, 16-byte aligned rows (each pointer and stride a multiple of 16
+// bytes); kv_lengths: [B] int32 or null.  Dropout arguments as in the
+// forward.
 int openasr_flash_attention_bwd_stats(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, void* stats_out, const void* kv_lengths, int B, int H,
-    int Tq, int Tk, int D, const long long* strides, float sm_scale,
-    int causal, unsigned int dropout_seed, unsigned int keep_thresh,
+    const void* q, const void* k, const void* v, const void* dout, void* stats_out,
+    const void* kv_lengths, int B, int H, int Tq, int Tk, int D, const long long* strides,
+    float sm_scale, int causal, unsigned int dropout_seed, unsigned int keep_thresh,
     float drop_scale, int dropout, int dtype, int device, void* stream) {
-  return openasr::run(2, q, k, v, dout, lse, nullptr, stats_out, kv_lengths, nullptr,
-                      nullptr, nullptr, B, H, Tq, Tk, D, strides, sm_scale, causal,
-                      dropout_seed, keep_thresh, drop_scale, dropout, dtype, device,
-                      stream);
+  return openasr::run(2, q, k, v, dout, stats_out, kv_lengths, nullptr, nullptr, nullptr, B, H,
+                      Tq, Tk, D, strides, sm_scale, causal, dropout_seed, keep_thresh,
+                      drop_scale, dropout, dtype, device, stream);
 }
 
 // dk, dv of attention; arguments as above, stats: the statistics pass's
 // output; dk, dv: contiguous [B, Tk, H, D].
 int openasr_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* stats, const void* kv_lengths, void* dk,
-    void* dv, int B, int H, int Tq, int Tk, int D, const long long* strides,
-    float sm_scale, int causal, unsigned int dropout_seed,
-    unsigned int keep_thresh, float drop_scale, int dropout, int dtype,
-    int device, void* stream) {
-  return openasr::run(0, q, k, v, dout, lse, stats, nullptr, kv_lengths, nullptr, dk,
-                      dv, B, H, Tq, Tk, D, strides, sm_scale, causal, dropout_seed,
-                      keep_thresh, drop_scale, dropout, dtype, device, stream);
+    const void* q, const void* k, const void* v, const void* dout, const void* stats,
+    const void* kv_lengths, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
+    const long long* strides, float sm_scale, int causal, unsigned int dropout_seed,
+    unsigned int keep_thresh, float drop_scale, int dropout, int dtype, int device,
+    void* stream) {
+  return openasr::run(0, q, k, v, dout, const_cast<void*>(stats), kv_lengths, nullptr, dk, dv,
+                      B, H, Tq, Tk, D, strides, sm_scale, causal, dropout_seed, keep_thresh,
+                      drop_scale, dropout, dtype, device, stream);
 }
 
 // dq of attention; arguments as above, dq: contiguous [B, Tq, H, D].
 int openasr_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* stats, const void* kv_lengths, void* dq,
-    int B, int H, int Tq, int Tk, int D, const long long* strides,
-    float sm_scale, int causal, unsigned int dropout_seed,
-    unsigned int keep_thresh, float drop_scale, int dropout, int dtype,
-    int device, void* stream) {
-  return openasr::run(1, q, k, v, dout, lse, stats, nullptr, kv_lengths, dq, nullptr,
+    const void* q, const void* k, const void* v, const void* dout, const void* stats,
+    const void* kv_lengths, void* dq, int B, int H, int Tq, int Tk, int D,
+    const long long* strides, float sm_scale, int causal, unsigned int dropout_seed,
+    unsigned int keep_thresh, float drop_scale, int dropout, int dtype, int device,
+    void* stream) {
+  return openasr::run(1, q, k, v, dout, const_cast<void*>(stats), kv_lengths, dq, nullptr,
                       nullptr, B, H, Tq, Tk, D, strides, sm_scale, causal, dropout_seed,
                       keep_thresh, drop_scale, dropout, dtype, device, stream);
 }

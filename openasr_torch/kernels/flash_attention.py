@@ -17,8 +17,9 @@ from the true D, and the hash mask keys on positions, not on D.
 
 `flash_attention` is differentiable: a `torch.autograd.Function` saves q,
 k, v, O and lse, and its backward launches three kernels: the statistics
-pass (each query row's sum of P = exp(S scale - lse) and delta =
-rowsum(P o dP o D) with P divided by that sum), then dK/dV and dQ, which
+pass (one walk over the keys that writes each query row's max m of the
+log2-scaled scores, 1 / l with l = sum exp2(s' - m), and delta =
+rowsum(P o dP o D) with P = exp2(s' - m) / l), then dK/dV and dQ, which
 take P and delta from the same products, bit for bit, so that dS is
 exactly 0 where a softmax row is one-hot.  Every wrapper launches
 csrc/flash_attention*.cu for CUDA tensors and runs its plain version for
@@ -38,6 +39,7 @@ from openasr_torch import kernels
 from openasr_torch.ops.masks import NEG_INF, causal_bias, combine_bias, padding_bias
 
 HEAD_DIMS = (32, 64, 128)
+LOG2E = 1.4426950408889634
 _GOLDEN = 0x9E3779B9
 _MASK32 = 0xFFFFFFFF
 
@@ -157,8 +159,8 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
     rowsum(P o dP) from the same dP, as autograd of the forward takes it.
     So where a row is one-hot (scores of 1e4 and more, as at the recipe
     gate's first layer), dP - delta cancels exactly and dS is 0, as in the
-    kernels, which take P from lse divided by its row's sum and delta from
-    the same P and dP (`flash_bwd_stats`)."""
+    kernels, which take P from the row's max and 1 / l and delta from the
+    same P and dP (`flash_bwd_stats`)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if sm_scale is None:
@@ -287,60 +289,62 @@ def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
 
 
 @_f32_plain
-def flash_bwd_stats_reference(q, k, v, lse, dout, kv_lengths=None, causal=False,
-                              sm_scale=None, dropout_rate=0.0, dropout_seed=0):
-    """Plain version of the statistics pass: -> [3, B, H, Tq] f32, each
-    query row's sum of P = exp(S scale - lse), its reciprocal and delta =
-    rowsum(P o dP o D) with P divided by that sum (0, 0, 0 on an empty
-    row)."""
+def flash_bwd_stats_reference(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
+                              dropout_rate=0.0, dropout_seed=0):
+    """Plain version of the statistics pass -> [3, B, H, Tq] f32: for each
+    query row, over its valid keys and in log2 units s' = S sm_scale
+    log2(e), the max m, 1 / l with l = sum exp2(s' - m), and delta =
+    rowsum(P o dP o D) with P = exp2(s' - m) / l (0, 0, 0 on a row with no
+    valid key)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    bias = _bias(q, k, kv_lengths, causal)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
-    valid = (bias > 0.5 * NEG_INF).expand_as(s)
-    p = torch.where(valid, torch.exp(s - lse[..., None]), torch.zeros_like(s))
-    total = p.sum(-1, keepdim=True)
-    inv = torch.where(total > 0, 1.0 / torch.where(total > 0, total, torch.ones_like(total)),
-                      torch.zeros_like(total))
-    p = torch.where((p == total) & (p > 0), torch.ones_like(p), p * inv)
+    valid = (_bias(q, k, kv_lengths, causal) > 0.5 * NEG_INF).expand(b, h, tq, tk)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (sm_scale * LOG2E)
+    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+    any_key = valid.any(-1)
+    m = torch.where(any_key, s.amax(-1), torch.zeros_like(any_key, dtype=s.dtype))
+    e = torch.where(valid, torch.exp2(s - m[..., None]), torch.zeros_like(s))
+    l = e.sum(-1)
+    inv = torch.where(any_key, 1.0 / torch.where(any_key, l, torch.ones_like(l)),
+                      torch.zeros_like(l))
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     if dropout_rate > 0.0:
         keep = attention_dropout_mask(dropout_seed, b, h, tq, tk, dropout_rate, q.device)
         dp = torch.where(keep, dp / (1.0 - dropout_rate), torch.zeros_like(dp))
-    return torch.stack([total[..., 0], inv[..., 0], (p * dp).sum(-1)])
+    return torch.stack([m, inv, (e * dp).sum(-1) * inv])
 
 
-def flash_bwd_stats(q, k, v, lse, dout, kv_lengths=None, causal=False, sm_scale=None,
+def flash_bwd_stats(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
                     dropout_rate=0.0, dropout_seed=0):
-    """The backward's row statistics -> [3, B, H, Tq] f32, contiguous: the
-    sums of P = exp(S scale - lse), their reciprocals and the deltas =
-    rowsum(P o dP o D), P divided by its row's sum.  The dK/dV and dQ kernels take both and
-    recompute P and dP as this kernel does, bit for bit.  CUDA tensors
-    launch the statistics pass of csrc/flash_attention_bwd.cu; CPU tensors
-    take `flash_bwd_stats_reference`."""
+    """The backward's row statistics -> [3, B, H, Tq] f32, contiguous: each
+    query row's max m of s' = S sm_scale log2(e), 1 / l with l = sum
+    exp2(s' - m), and delta = rowsum(P o dP o D), P = exp2(s' - m) / l.
+    The dK/dV and dQ kernels take all three and recompute P and dP as this
+    kernel does, bit for bit.  CUDA tensors launch the statistics pass of
+    csrc/flash_attention_bwd.cu (one walk over the keys); CPU tensors take
+    `flash_bwd_stats_reference`."""
     if q.device.type == "cpu":
-        return flash_bwd_stats_reference(q, k, v, lse, dout, kv_lengths, causal, sm_scale,
+        return flash_bwd_stats_reference(q, k, v, dout, kv_lengths, causal, sm_scale,
                                          dropout_rate, dropout_seed)
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     dp = padded_head_dim(d)
     if dp != d:
-        return flash_bwd_stats(*(pad_head_dim(t, dp) for t in (q, k, v)), lse,
-                               pad_head_dim(dout, dp), kv_lengths, causal, sm_scale,
-                               dropout_rate, dropout_seed)
+        return flash_bwd_stats(*(pad_head_dim(t, dp) for t in (q, k, v, dout)), kv_lengths,
+                               causal, sm_scale, dropout_rate, dropout_seed)
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    stats = torch.zeros((3, b, h, tq), dtype=torch.float32, device=q.device)
-    dout, lse, _, lens, lens_ptr, strides = _bwd_inputs(q, k, v, dout, lse, dout, stats,
-                                                        kv_lengths)
+    # every row is written, (0, 0, 0) where it has no valid key
+    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=q.device)
+    dout, _, lens, lens_ptr, strides = _bwd_inputs(q, k, v, dout, dout, stats, kv_lengths)
     if b * tq * tk * h == 0:
-        return stats
+        return stats.zero_()
     code = kernels.library().openasr_flash_attention_bwd_stats(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        stats.data_ptr(), lens_ptr, b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+        lens_ptr, b, h, tq, tk, d, strides, float(sm_scale), int(causal),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -370,10 +374,9 @@ def check_flash_alignment(**views) -> None:
                 f"({16 // t.element_size()} elements)")
 
 
-def _bwd_inputs(q, k, v, out, lse, dout, stats, kv_lengths):
+def _bwd_inputs(q, k, v, out, dout, stats, kv_lengths):
     """Checked kernel inputs of the backward: (dout with unit D stride,
-    contiguous lse, contiguous stats, lengths, lengths pointer, the 12
-    strides)."""
+    contiguous stats, lengths, lengths pointer, the 12 strides)."""
     _check_qkv(q, k, v)
     b, tq, h, d = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or out.shape != q.shape:
@@ -381,15 +384,13 @@ def _bwd_inputs(q, k, v, out, lse, dout, stats, kv_lengths):
     if dout.stride(3) != 1:
         dout = dout.contiguous()
     check_flash_alignment(q=q, k=k, v=v, dout=dout)
-    if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
-        raise ValueError(f"flash_attention bwd: lse must be f32 [{b}, {h}, {tq}]")
     if stats.shape != (3, b, h, tq) or stats.dtype != torch.float32:
         raise ValueError(f"flash_attention bwd: stats must be f32 [3, {b}, {h}, {tq}]")
     lens, lens_ptr = _lengths_arg(kv_lengths, b, q.device)
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, dout) for s in (t.stride(0), t.stride(1), t.stride(2))
     ))
-    return dout, lse.contiguous(), stats.contiguous(), lens, lens_ptr, strides
+    return dout, stats.contiguous(), lens, lens_ptr, strides
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
@@ -397,8 +398,9 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
                             dropout_seed=0):
     """dK, dV of `flash_attention` -> (dk [B, Tk, H, D], dv), in k's dtype,
     with stats = `flash_bwd_stats(...)` of the same inputs.  CUDA tensors
-    launch the dK/dV kernel; CPU tensors take the plain backward (which
-    forms its statistics itself)."""
+    launch the dK/dV kernel, which takes P from the statistics, not from
+    lse; CPU tensors take the plain backward (which forms its statistics
+    itself)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
@@ -414,15 +416,14 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
         return dk[..., :d], dv[..., :d]
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    dout, lse, stats, lens, lens_ptr, strides = _bwd_inputs(
-        q, k, v, out, lse, dout, stats, kv_lengths)
+    dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
     if b * tq * tk * h == 0:
         return dk.zero_(), dv.zero_()
     code = kernels.library().openasr_flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), stats.data_ptr(), lens_ptr, dk.data_ptr(), dv.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+        lens_ptr, dk.data_ptr(), dv.data_ptr(),
         b, h, tq, tk, d, strides, float(sm_scale), int(causal),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
@@ -452,14 +453,13 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
             stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)[..., :d]
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    dout, lse, stats, lens, lens_ptr, strides = _bwd_inputs(
-        q, k, v, out, lse, dout, stats, kv_lengths)
+    dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if b * tq * tk * h == 0:
         return dq.zero_()
     code = kernels.library().openasr_flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), stats.data_ptr(), lens_ptr, dq.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+        lens_ptr, dq.data_ptr(),
         b, h, tq, tk, d, strides, float(sm_scale), int(causal),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
@@ -487,8 +487,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
             kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
         return tuple(g[..., :d] for g in grads)
-    stats = flash_bwd_stats(q, k, v, lse, dout, kv_lengths, causal, sm_scale,
-                            dropout_rate, dropout_seed)
+    stats = flash_bwd_stats(q, k, v, dout, kv_lengths, causal, sm_scale, dropout_rate,
+                            dropout_seed)
     args = (q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
             dropout_rate, dropout_seed)
     dk, dv = flash_attention_bwd_dkv(*args)

@@ -269,7 +269,7 @@ def test_flash_bwd_wrappers_are_the_plain_backward_on_cpu():
                                                False, None, 0.1, 77)
     launches = (flash_bwd_stats.launches, flash_attention_bwd_dkv.launches,
                 flash_attention_bwd_dq.launches)
-    stats = flash_bwd_stats(q, k, v, lse, dout, lens, False, None, 0.1, 77)
+    stats = flash_bwd_stats(q, k, v, dout, lens, False, None, 0.1, 77)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, lens, False,
                                        None, 0.1, 77)
     dq2 = flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, lens, False, None,
@@ -282,45 +282,98 @@ def test_flash_bwd_wrappers_are_the_plain_backward_on_cpu():
     assert torch.equal(dq, dq3) and torch.equal(dk, dk3) and torch.equal(dv, dv3)
 
 
+def _np_backward_statistics(q, k, v, dout, lengths, causal, rate, seed):
+    """float64 oracle of the statistics pass: (m, 1 / l, delta) [B, H, Tq],
+    m the row max of S scale log2(e) over the valid keys, l = sum
+    exp2(s' - m), delta = rowsum(P o dP o D), P = exp2(s' - m) / l; 0, 0, 0
+    on a row with no valid key."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k) / np.sqrt(d) * np.log2(np.e)
+    valid = np.arange(tk)[None, None, None, :] < np.asarray(lengths)[:, None, None, None]
+    if causal:
+        valid = valid & (np.arange(tk)[None, :] <= np.arange(tq)[:, None])[None, None]
+    valid = np.broadcast_to(valid, s.shape)
+    any_key = valid.any(-1)
+    m = np.where(any_key, np.where(valid, s, -np.inf).max(-1), 0.0)
+    e = np.where(valid, np.exp2(np.where(valid, s, 0.0) - m[..., None]), 0.0)
+    l = e.sum(-1)
+    inv = np.where(any_key, 1.0 / np.where(any_key, l, 1.0), 0.0)
+    dp = np.einsum("bqhd,bkhd->bhqk", dout.astype(np.float64), v)
+    if rate:
+        keep = attention_dropout_mask(seed, b, h, tq, tk, rate).numpy()
+        dp = np.where(keep, dp / (1.0 - rate), 0.0)
+    return m, inv, (e * dp).sum(-1) * inv
+
+
 @pytest.mark.parametrize("causal,lengths", [(False, [9, 4]), (True, [9, 0])])
 def test_backward_statistics(causal, lengths):
-    """The statistics pass's plain version: each row's sum of exp(S scale -
-    lse) is 1 to f32 rounding (0 on an empty row, and so its reciprocal),
-    and its delta, from P and dP o D, equals rowsum(dO o O) of the forward
-    to the same."""
+    """The statistics pass's plain version (what the CPU wrapper returns):
+    each row's max m of the log2-scaled scores, 1 / l and delta against a
+    float64 evaluation (0, 0, 0 on an empty row); the forward's lse is m +
+    log2(l) in natural units, and delta, from P and dP o D, equals
+    rowsum(dO o O) of the forward to f32 rounding."""
     rng = np.random.RandomState(6)
-    q, k, v = (torch.from_numpy(rng.randn(2, t, 2, 32).astype(np.float32))
-               for t in (7, 9, 9))
-    dout = torch.from_numpy(rng.randn(2, 7, 2, 32).astype(np.float32))
+    q, k, v = (rng.randn(2, t, 2, 32).astype(np.float32) for t in (7, 9, 9))
+    dout = rng.randn(2, 7, 2, 32).astype(np.float32)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, dout))
     lens = torch.tensor(lengths)
-    out, lse = flash_attention_reference(q, k, v, lens, causal, None, 0.1, 77)
-    sums, inv, delta = flash_bwd_stats_reference(q, k, v, lse, dout, lens, causal, None,
-                                                 0.1, 77)
+    out, lse = flash_attention_reference(qt, kt, vt, lens, causal, None, 0.1, 77)
+    launches = flash_bwd_stats.launches
+    m, inv, delta = flash_bwd_stats(qt, kt, vt, dot, lens, causal, None, 0.1, 77)
+    assert flash_bwd_stats.launches == launches  # CPU tensors never launch
+    m64, inv64, delta64 = _np_backward_statistics(q, k, v, dout, lengths, causal, 0.1, 77)
+    assert np.abs(m.numpy() - m64).max() <= 1e-5 * max(1.0, np.abs(m64).max())
+    assert np.abs(inv.numpy() - inv64).max() <= 1e-6
+    assert np.abs(delta.numpy() - delta64).max() <= 1e-5
     valid = torch.isfinite(lse)
-    assert (sums[valid] - 1.0).abs().max() <= 1e-6 and (sums[~valid] == 0).all()
-    assert (inv[valid] * sums[valid] - 1.0).abs().max() <= 1e-6 and (inv[~valid] == 0).all()
-    want = (dout * out).sum(-1).transpose(1, 2)
+    assert (m[~valid] == 0).all() and (inv[~valid] == 0).all() and (delta[~valid] == 0).all()
+    natural = (m[valid] - torch.log2(inv[valid])) * float(np.log(2.0))
+    assert (natural - lse[valid]).abs().max() <= 1e-5
+    want = (dot * out).sum(-1).transpose(1, 2)
     assert (delta - want).abs().max() <= 1e-5
-    assert (delta[~valid] == 0).all()
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_plain_backward_is_exact_in_a_saturated_softmax(rate):
-    """Each query near one valid key, both scaled by 300: the matching score
-    (about 5e5) leads the others by about 1e5, so every row is one-hot and
-    the true dQ and dK are 0 (exactly, in float64 autograd).  The plain
-    backward recomputes the forward's probabilities and takes delta =
-    rowsum(P o dP), so dP - delta cancels exactly: dQ, dK are 0, dV is the
-    float64 autograd's to 1e-5.  Taking P from the rounded lse and delta =
-    rowsum(dO o O), it left 1e-3 in dQ and dK."""
+def _saturated_qk(b, t, h, d, lens, gen, last_step):
+    """(q, k) [B, T, H, D] f32 where each query lies near one valid key and
+    both are scaled by 300: the matching score (about 5e5) leads the others
+    by about 1e5, so every softmax row is one-hot.  `last_step`: each
+    query's key lies in its row's last 32-key step of the kernels' walk, so
+    the row's max arrives after earlier steps' (and l and delta were summed
+    against a smaller running max first); else query t matches key t mod
+    length."""
+    k = torch.randn(b, t, h, d, generator=gen) * 300.0
+    n = lens[:, None].long()
+    pos = torch.arange(t)[None, :]
+    if last_step:
+        first = (n - 1) // 32 * 32
+        match = first + pos % (n - first)
+    else:
+        match = pos % n
+    return k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=gen), k
+
+
+@pytest.mark.parametrize("rate,b,t,lengths,last_step", [
+    pytest.param(rate, *case, id=f"{rate}{name}")
+    for name, case in (("", (4, 17, [17, 12, 9, 17], False)),
+                       # Tk > 64: the max in step 3 of 3
+                       ("-max-in-last-step", (4, 80, [80, 70, 65, 80], True)))
+    for rate in (0.0, 0.1)
+])
+def test_plain_backward_is_exact_in_a_saturated_softmax(rate, b, t, lengths, last_step):
+    """Every row one-hot (`_saturated_qk`): the true dQ and dK are 0
+    (exactly, in float64 autograd).  The plain backward recomputes the
+    forward's probabilities and takes delta = rowsum(P o dP), so dP - delta
+    cancels exactly: dQ, dK are 0, dV is the float64 autograd's to 1e-5.
+    Taking P from the rounded lse and delta = rowsum(dO o O), it left 1e-3
+    in dQ and dK.  The statistics' plain version is exact there too: 1 / l
+    = 1 and delta = the max key's dP o D on every row."""
     import math
 
     g = torch.Generator().manual_seed(0)
-    b, t, h, d = 4, 17, 2, 32
-    lens = torch.tensor([17, 12, 9, 17], dtype=torch.int32)
-    k = torch.randn(b, t, h, d, generator=g) * 300.0
-    match = torch.arange(t)[None, :] % lens[:, None].long()  # a valid key a query
-    q = k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=g)
+    h, d = 2, 32
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    q, k = _saturated_qk(b, t, h, d, lens, g, last_step)
     v, dout = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out, _ = flash_attention(*leaves, kv_lengths=lens, dropout_rate=rate, dropout_seed=7)
@@ -336,6 +389,13 @@ def test_plain_backward_is_exact_in_a_saturated_softmax(rate):
     assert float(q6.grad.abs().max()) == 0.0 and float(k6.grad.abs().max()) == 0.0
     assert float(leaves[0].grad.abs().max()) == 0.0 and float(leaves[1].grad.abs().max()) == 0.0
     assert float((leaves[2].grad.double() - v6.grad).abs().max()) <= 1e-5
+    _, inv, delta = flash_bwd_stats_reference(q, k, v, dout, lens, False, None, rate, 7)
+    dpd = torch.einsum("bqhd,bkhd->bhqk", dout, v)
+    if rate:
+        dpd = torch.where(keep, dpd / (1.0 - rate), torch.zeros_like(dpd))
+    top = torch.where(keys, s.float(), torch.tensor(float("-inf"))).argmax(-1, keepdim=True)
+    assert (inv == 1.0).all()
+    assert torch.equal(delta, dpd.gather(-1, top)[..., 0])
 
 
 def _strided(shape, strides, offset, dtype):
@@ -499,21 +559,26 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_card, dtype, tol, rows, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", FLASH_CASES + [
-    (64, 127, 127, 8, 64, False, None),
-    (64, 25, 25, 8, 64, True, None),
-    (64, 25, 127, 8, 64, False, None),
-    (2, 130, 130, 4, 128, True, [130, 0]),
-])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths,saturated", [
+    c + (False,) for c in FLASH_CASES + [
+        (64, 127, 127, 8, 64, False, None),
+        (64, 25, 25, 8, 64, True, None),
+        (64, 25, 127, 8, 64, False, None),
+        (2, 130, 130, 4, 128, True, [130, 0]),
+    ]
+] + [(4, 80, 80, 2, 64, False, [80, 70, 65, 80], True)])
 def test_flash_bwd_kernels_match_plain(cuda_card, dtype, tol, rate, b, tq, tk, h,
-                                       d, causal, lengths):
+                                       d, causal, lengths, saturated):
     """Forward (with dropout) and dq / dk / dv through autograd on the card
-    against the plain versions on the same inputs and seed."""
+    against the plain versions on the same inputs and seed.  `saturated`:
+    every softmax row one-hot with its max in the row's last key step
+    (`_saturated_qk`), where dq and dk must be exactly 0, as the true
+    gradient."""
     gen = torch.Generator().manual_seed(tq * 3 + tk)
-    q, k, v = (
-        torch.randn(b, t, h, d, generator=gen).to("cuda", dtype).requires_grad_()
-        for t in (tq, tk, tk)
-    )
+    q, k, v = (torch.randn(b, t, h, d, generator=gen) for t in (tq, tk, tk))
+    if saturated:
+        q, k = _saturated_qk(b, tq, h, d, torch.tensor(lengths), gen, True)
+    q, k, v = (x.to("cuda", dtype).requires_grad_() for x in (q, k, v))
     dout = torch.randn(b, tq, h, d, generator=gen).to("cuda", dtype)
     lens = None if lengths is None else torch.tensor(lengths, device="cuda")
     seed = 987654321 if rate else None
@@ -532,6 +597,8 @@ def test_flash_bwd_kernels_match_plain(cuda_card, dtype, tol, rate, b, tq, tk, h
     for got, w in zip(grads, want):
         assert (got.float() - w.float()).abs().max().item() <= tol * max(
             1.0, w.float().abs().max().item())
+    if saturated:
+        assert not grads[0].any() and not grads[1].any()
 
 
 # the kernels' tile edges: T of 1, 15, 17, 63, 65 and 139 against 16-row
@@ -563,13 +630,21 @@ def _bwd_case(b, tq, tk, h, d, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", BWD_EDGE_CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths,saturated", [
+    c + (False,) for c in BWD_EDGE_CASES
+] + [(2, 139, 139, 2, 64, False, [139, 100], True)])
 def test_flash_bwd_kernels_tile_edges(cuda_card, dtype, tol, rate, b, tq, tk, h, d,
-                                      causal, lengths):
+                                      causal, lengths, saturated):
     """dq, dk, dv of the backward kernels against the plain backward on the
     same forward outputs, with a non-contiguous dO; keys past a length get
-    exactly zero gradients."""
+    exactly zero gradients.  `saturated`: every row one-hot with its max in
+    the row's last key step (step 5 of 5 at length 139), dq and dk exactly
+    0."""
     q, k, v, dout = _bwd_case(b, tq, tk, h, d, dtype, tq * 7 + tk)
+    if saturated:
+        gen = torch.Generator().manual_seed(tq)
+        for view, x in zip((q, k), _saturated_qk(b, tq, h, d, torch.tensor(lengths), gen, True)):
+            view.copy_(x)
     lens = None if lengths is None else torch.tensor(lengths, device="cuda")
     seed = 987654321 if rate else 0
     out, lse = flash_attention_reference(q, k, v, lens, causal, None, rate, seed)
@@ -583,6 +658,32 @@ def test_flash_bwd_kernels_tile_edges(cuda_card, dtype, tol, rate, b, tq, tk, h,
     if lens is not None:
         for i, n in enumerate(lengths):
             assert not got[1][i, n:].any() and not got[2][i, n:].any()
+    if saturated:
+        assert not got[0].any() and not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", BWD_EDGE_CASES)
+def test_flash_bwd_stats_kernel_matches_plain(cuda_card, dtype, tol, rate, b, tq, tk, h, d,
+                                              causal, lengths):
+    """The statistics pass alone against its plain version: m, 1 / l and
+    delta, each to the tolerance times max(1, its largest magnitude); rows
+    without a valid key give 0, 0, 0."""
+    q, k, v, dout = _bwd_case(b, tq, tk, h, d, dtype, tq * 11 + tk)
+    lens = None if lengths is None else torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else 0
+    before = flash_bwd_stats.launches
+    got = flash_bwd_stats(q, k, v, dout, lens, causal, None, rate, seed)
+    assert flash_bwd_stats.launches == before + 1
+    want = flash_bwd_stats_reference(q, k, v, dout, lens, causal, None, rate, seed)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())
+    if lens is not None:
+        for i, n in enumerate(lengths):
+            if n == 0:
+                assert not got[:, i].any()
 
 
 @pytest.mark.cuda
@@ -612,7 +713,7 @@ def test_flash_bwd_misaligned_view_raises(cuda_card):
     out, lse = flash_attention_reference(q, k, v)
     stats = torch.zeros((3, b, h, t), device="cuda")
     for call in (lambda: flash_attention_bwd(q, k, v, out, lse, dout),
-                 lambda: flash_bwd_stats(q, k, v, lse, dout),
+                 lambda: flash_bwd_stats(q, k, v, dout),
                  lambda: flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats),
                  lambda: flash_attention_bwd_dq(q, k, v, out, lse, dout, stats)):
         with pytest.raises(ValueError, match="q must start on a 16-byte boundary"):
