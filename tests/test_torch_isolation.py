@@ -45,9 +45,7 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    egs = os.path.join(ROOT, "egs", "aishell1")
-    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
-        os.path.join(egs, f) for f in sorted(os.listdir(egs)) if f.endswith("_torch.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PORT):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     offenders = []
@@ -57,15 +55,3 @@ def test_no_source_imports_jax_or_the_jax_package():
         offenders += [f"{os.path.relpath(p, ROOT)}: {m.group(0).strip()}"
                       for m in FORBIDDEN.finditer(src)]
     assert offenders == []
-
-
-def test_backward_timer_needs_a_card():
-    """egs/aishell1/time_attention_bwd_torch.py measures on a CUDA card
-    only: without one it exits 1 and prints no measurement."""
-    out = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "egs", "aishell1", "time_attention_bwd_torch.py")],
-        cwd=ROOT, capture_output=True, text=True, timeout=120,
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
-    )
-    assert out.returncode == 1, out.stderr
-    assert "needs a CUDA card" in out.stderr and out.stdout == ""

@@ -334,6 +334,31 @@ def test_backward_statistics(causal, lengths):
     assert (delta - want).abs().max() <= 1e-5
 
 
+def test_statistics_check_holds_inverse_row_sum_relative():
+    """chip_smoke.py holds the statistics pass to its plain version with
+    1 / l relative to each row's own 1 / l: at Tk 130, 1 / l is far below
+    1, so 5% of it is far under an absolute 5e-2 and still fails; a row
+    with no valid key must give 0 and only such a row; m and delta are
+    held over max(1, their largest magnitude)."""
+    import chip_smoke
+
+    rng = np.random.RandomState(8)
+    q, k, v, dout = (torch.from_numpy(rng.randn(2, 130, 2, 32).astype(np.float32))
+                     for _ in range(4))
+    want = flash_bwd_stats_reference(q, k, v, dout, torch.tensor([130, 0]))
+    assert want[1, 0].max() < 0.5 and not want[:, 1].any()
+    assert [e for *_, e in chip_smoke.stats_errs(want.clone(), want)] == [0.0, 0.0, 0.0]
+    off = want.clone()
+    off[1, 0] *= 1.05
+    worst = dict((name, e) for name, _, e in chip_smoke.stats_errs(off, want))
+    assert (off[1] - want[1]).abs().max() < 5e-2
+    assert worst["1 / l"] > chip_smoke.TOL_FLASH_STATS and worst["m"] == worst["delta"] == 0
+    off = want.clone()
+    off[1, 1, 0, 0] = 1e-9
+    assert dict((name, e) for name, _, e in chip_smoke.stats_errs(off, want))["1 / l"] == float(
+        "inf")
+
+
 def _saturated_qk(b, t, h, d, lens, gen, last_step):
     """(q, k) [B, T, H, D] f32 where each query lies near one valid key and
     both are scaled by 300: the matching score (about 5e5) leads the others
@@ -663,14 +688,16 @@ def test_flash_bwd_kernels_tile_edges(cuda_card, dtype, tol, rate, b, tq, tk, h,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths", BWD_EDGE_CASES)
-def test_flash_bwd_stats_kernel_matches_plain(cuda_card, dtype, tol, rate, b, tq, tk, h, d,
+def test_flash_bwd_stats_kernel_matches_plain(cuda_card, dtype, rate, b, tq, tk, h, d,
                                               causal, lengths):
-    """The statistics pass alone against its plain version: m, 1 / l and
-    delta, each to the tolerance times max(1, its largest magnitude); rows
-    without a valid key give 0, 0, 0."""
+    """The statistics pass alone against its plain version, to 1e-4 in
+    both dtypes: both compute in f32 from the same inputs (bf16 products
+    are exact in f32), so only the order of f32 sums differs.  m and delta
+    are held over max(1, their largest magnitude), 1 / l relative to each
+    row's own 1 / l; rows without a valid key give 0, 0, 0."""
     q, k, v, dout = _bwd_case(b, tq, tk, h, d, dtype, tq * 11 + tk)
     lens = None if lengths is None else torch.tensor(lengths, device="cuda")
     seed = 987654321 if rate else 0
@@ -678,8 +705,11 @@ def test_flash_bwd_stats_kernel_matches_plain(cuda_card, dtype, tol, rate, b, tq
     got = flash_bwd_stats(q, k, v, dout, lens, causal, None, rate, seed)
     assert flash_bwd_stats.launches == before + 1
     want = flash_bwd_stats_reference(q, k, v, dout, lens, causal, None, rate, seed)
-    for g, w in zip(got, want):
-        assert (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())
+    (m, inv, delta), (m_w, inv_w, delta_w) = got, want
+    assert (m - m_w).abs().max().item() <= 1e-4 * max(1.0, m_w.abs().max().item())
+    assert torch.equal(inv == 0, inv_w == 0)
+    assert ((inv - inv_w).abs() <= 1e-4 * inv_w).all()
+    assert (delta - delta_w).abs().max().item() <= 1e-4 * max(1.0, delta_w.abs().max().item())
     if lens is not None:
         for i, n in enumerate(lengths):
             if n == 0:
