@@ -64,10 +64,29 @@ Then the recipe gate and the solver's paths:
 - tests/data/jax_solver_conv_ctc_transformer_test.pkg, which the JAX
   solver wrote, read here without jax and continued one step on the card.
 
+Then the CIF path (`[cif path]`), on offline corpora with phones:
+egs/aishell1/configs/cif.yaml's model and training sections as they are
+(ConvV2, d512 x 6 post-LN encoder, 8 heads, GLU 2048, the assigner, the
+3-layer causal CIF decoder; vocab 4233, no blank) trained through the CLI
+for one epoch of 3 steps in f32 and bf16, ctc_cif on the same sections 2
+steps, egs/callhome_hkust/configs/cif_fc_test.yaml and cif_mix_test.yaml
+(with its acoustic loader) 2 steps each; the f32-trained package decoded
+through the infer CLI (8 utterances, beam 5, `--maxlen 100`) in f32, with
+a hotword file, and in bf16, and the warm ms a batch of the CIF beam; the
+f32 CIF logits, fire counts (with the smallest margin |S_t - 0.95 - n|)
+and one step's gradients on the card against the CPU, the CPU's at the
+card's ReLU decisions, whose flips must be a handful of rounding ties.
+The kernel line adds the attention forward and backward at the CIF
+decoder's causal shapes beside SDPA's, their calls a step taken from the
+built module and held to the run's launches.
+
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
 gradients and the f32 fbank features are also checked against the same
-inputs on the CPU.
+inputs on the CPU.  The CTC loss at the flagship training batch is timed
+with and without its last-blank rewrite (`[ctc loss]`; the gradients
+equal bit for bit), and its gradient on rows ending in the blank id held
+against the CPU.
 
 It prints the card's name and power limit, a `{"kernels": [...]}` line
 with each kernel's error, launches, times and bound (the attention
@@ -83,6 +102,7 @@ Scratch files go to `build/chip_smoke/` under the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -129,6 +149,9 @@ TOL_FLASH_BWD = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # one f32 tolerance in both dtypes; m and delta over max(1, largest plain
 # magnitude), 1 / l relative to each row's own 1 / l (see `stats_errs`)
 TOL_FLASH_STATS = 1e-4
+# the CTC gradient's rewritten blank entry against its plain version: the
+# same frame's sum over V in another order (entries of at most 1 in f32)
+TOL_CTC_BLANK = 1e-5
 # log-mel, max abs.  The kernel computes the FFT in float64, the plain
 # version the folded f32 products.  So the kernel is held against a
 # float64 evaluation of the same function (`fbank_float64`), to TOL_FBANK_F64
@@ -857,9 +880,10 @@ def write_vocab():
     return vocab, chars
 
 
-def write_corpus(name, rng, chars, n_utts, frames, tokens, dim=80):
+def write_corpus(name, rng, chars, n_utts, frames, tokens, dim=80, phones=None):
     """`n_utts` utterances of `frames` (lo, hi) random `dim`-dim frames with
-    `tokens` (lo, hi) random characters each, as ark/scp + json."""
+    `tokens` (lo, hi) random characters each (and as many random `phones`,
+    when given), as ark/scp + json."""
     from openasr_torch.data.kaldi_io import write_ark_scp
 
     feats = {
@@ -876,6 +900,9 @@ def write_corpus(name, rng, chars, n_utts, frames, tokens, dim=80):
             rows.append({"uttid": utt, "feat": path, "feat_length": feats[utt].shape[0],
                          "tokens": " ".join(rng.choice(chars, size=n_tok)),
                          "token_length": n_tok})
+            if phones is not None:
+                rows[-1].update(phones=" ".join(rng.choice(phones, size=n_tok)),
+                                phone_length=n_tok)
     manifest = os.path.join(WORK, f"{name}.json")
     with open(manifest, "w", encoding="utf-8") as f:
         json.dump(rows, f, ensure_ascii=False)
@@ -981,13 +1008,22 @@ def phase_decode(pkg, vocab, manifest, launches, online=False):
         require(n["fbank"] == (n_batches if online else 0), f"fbank launched {n['fbank']} times")
 
 
-def padded_batch(feats, utts, rng):
-    from openasr_torch.data.collate import gen_causal_targets, quantize
+def padded_features(feats, utts):
+    """The utterances' features padded as the collate pads them, and their
+    frame counts."""
+    from openasr_torch.data.collate import quantize
 
     lengths = np.array([feats[u].shape[0] for u in utts], np.int32)
     x = np.zeros((len(utts), quantize(int(lengths.max())), 80), np.float32)
     for i, u in enumerate(utts):
         x[i, : lengths[i]] = feats[u]
+    return x, lengths
+
+
+def padded_batch(feats, utts, rng):
+    from openasr_torch.data.collate import gen_causal_targets
+
+    x, lengths = padded_features(feats, utts)
     toks = [list(rng.randint(3, 4232, size=n)) for n in (22, 20)[: len(utts)]]
     ids, labels, paddings = gen_causal_targets(toks, add_eos=True)
     return {"feats": x, "feat_lengths": lengths, "ids": ids.astype(np.int64),
@@ -1415,6 +1451,121 @@ def check_grads_against_cpu(pkg_path, feats):
     require(worst <= 1e-3, f"gradient of {worst_name} disagrees: {worst:.3g}")
 
 
+def ctc_losses(log_probs, logit_lengths, targets, target_lengths):
+    """The summed CTC loss of log-probs [T, B, V] as `cal_ctc_loss` takes it
+    without its last-blank rewrite: F.ctc_loss and the two zeroing rules."""
+    import torch.nn.functional as F
+
+    tlen = target_lengths.to(torch.int64)
+    losses = F.ctc_loss(log_probs, targets.to(torch.int64),
+                        logit_lengths.to(torch.int64).clamp(min=0), tlen.clamp(min=0),
+                        blank=log_probs.shape[-1] - 1, reduction="none", zero_infinity=True)
+    zero = torch.zeros((), dtype=losses.dtype, device=losses.device)
+    losses = torch.where(tlen > 0, losses, zero)
+    return torch.where(losses < 1.0e29, losses, zero).sum()
+
+
+def parent_ctc_loss(logits, logit_lengths, targets, target_lengths):
+    """`cal_ctc_loss` as it was before its last-blank rewrite
+    (`_LastBlankFrame`): the yardstick of what the rewrite costs."""
+    import torch.nn.functional as F
+
+    log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    return ctc_losses(log_probs, logit_lengths, targets, target_lengths)
+
+
+def plain_last_blank_grad(logits, logit_lengths, targets, target_lengths):
+    """The plain version of `cal_ctc_loss`'s gradient: F.ctc_loss's
+    gradient of the log-probs with the blank entry of each row's last
+    valid frame, where its last target is the blank id, set to minus the
+    sum of the frame's other entries over the whole [T, B, V] tensor, then
+    through log-softmax's backward."""
+    import torch.nn.functional as F
+
+    v = logits.shape[-1]
+    log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    g = torch.autograd.grad(ctc_losses(log_probs, logit_lengths, targets, target_lengths),
+                            log_probs, retain_graph=True)[0]
+    tlen = target_lengths.to(torch.int64)
+    last = targets.to(torch.int64).gather(1, (tlen - 1).clamp(min=0)[:, None])[:, 0]
+    ends = (tlen > 0) & (last == v - 1) & (logit_lengths > 0)
+    frame = torch.arange(g.shape[0], device=g.device)[:, None]
+    rows = (frame == (logit_lengths - 1)[None, :]) & ends[None, :]
+    g = g.clone()
+    g[..., v - 1] = torch.where(rows, g[..., v - 1] - g.sum(dim=-1), g[..., v - 1])
+    return torch.autograd.grad(log_probs, logits, g)[0]
+
+
+def check_ctc_loss_cost(shapes, rounds: int = 5, calls: int = 20) -> dict:
+    """The CTC loss's forward + backward at the flagship training batch
+    ([B, T', 4233] f32 logits, 20-24 distinct targets a row, none the
+    blank), with the last-blank rewrite (`cal_ctc_loss`) and without it
+    (`parent_ctc_loss`): the gradients equal bit for bit, and the device
+    ms of each between CUDA events, `calls` calls a round, the median of
+    `rounds` interleaved rounds (F.ctc_loss reads the lengths on the host,
+    so no graph).  Then, on 8 rows of which 4 end in the blank id, the
+    card's gradient against its plain version on the card
+    (`plain_last_blank_grad`, TOL_CTC_BLANK)."""
+    from openasr_torch.ops.losses import cal_ctc_loss
+
+    b, t, lens = shapes["b"], shapes["t"], shapes["enc_lens"]
+    v = FLAGSHIP["decoder"]["vocab_size"]
+    rng = np.random.RandomState(SEED + 13)
+    logits = torch.from_numpy(rng.randn(b, t, v).astype(np.float32)).cuda().requires_grad_()
+    llen = torch.from_numpy(lens.astype(np.int64)).cuda()
+    tlen = torch.from_numpy(rng.randint(20, 25, b).astype(np.int64)).cuda()
+    # no label twice in a row's targets: F.ctc_loss's CUDA backward adds a
+    # repeated label's shares with atomics, in an order that may vary, and
+    # the two gradients are compared bit for bit
+    targets = torch.from_numpy(np.stack([rng.choice(v - 1, 24, replace=False)
+                                         for _ in range(b)]).astype(np.int64)).cuda()
+
+    def grad_of(fn):
+        return torch.autograd.grad(fn(logits, llen, targets, tlen), logits)[0]
+
+    require(torch.equal(grad_of(cal_ctc_loss), grad_of(parent_ctc_loss)),
+            "the last-blank rewrite changed a gradient where no target is the blank id")
+    ms = {"rewrite": [], "parent": []}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
+        for key, fn in (("rewrite", cal_ctc_loss), ("parent", parent_ctc_loss)):
+            grad_of(fn)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(calls):
+                grad_of(fn)
+            end.record()
+            torch.cuda.synchronize()
+            ms[key].append(start.elapsed_time(end) / calls)
+    med = {k: float(np.median(r)) for k, r in ms.items()}
+
+    blank_targets = targets[:8].clone()
+    blank_targets[:4].scatter_(1, (tlen[:4] - 1)[:, None], v - 1)
+    x = logits[:8].detach().requires_grad_()
+    args = (x, llen[:8], blank_targets, tlen[:8])
+    got = torch.autograd.grad(cal_ctc_loss(*args), x)[0]
+    err = max_err(got, plain_last_blank_grad(*args))
+    moved = max_err(got, torch.autograd.grad(parent_ctc_loss(*args), x)[0])
+    # the card against the CPU on the same rows: F.ctc_loss's own f32
+    # rounding at losses of about a thousand nats, reported, not bounded
+    xc = x.detach().cpu().requires_grad_()
+    cpu_loss = cal_ctc_loss(xc, *(a.cpu() for a in args[1:]))
+    by_row = (got.cpu() - torch.autograd.grad(cpu_loss, xc)[0]).abs().amax(dim=(1, 2))
+    print(f"[ctc loss] flagship training batch [{b}, {t}, {v}] f32, forward + backward, "
+          f"device ms a call (CUDA events, {calls} calls, median of {rounds} interleaved "
+          f"rounds): with the last-blank rewrite {med['rewrite']:.4f} "
+          f"(rounds {[round(r, 4) for r in ms['rewrite']]}), without it (the parent's) "
+          f"{med['parent']:.4f} (rounds {[round(r, 4) for r in ms['parent']]}); gradients "
+          f"equal bit for bit; 8 rows, 4 ending in the blank id: the gradient against its "
+          f"plain version {err:.3g} (tol {TOL_CTC_BLANK}), the rewrite moved it by {moved:.3g}; "
+          f"card vs CPU (loss {float(cpu_loss.detach()):.1f} over 8 rows) {float(by_row[:4].max()):.3g} "
+          f"on the rows ending in the blank id, {float(by_row[4:].max()):.3g} on the others")
+    require(err <= TOL_CTC_BLANK,
+            f"CTC gradient where a target is the blank id: {err:.3g} from its plain version")
+    require(moved > 0.0, "the last-blank rewrite changed nothing where it must")
+    return {"ms": med, "err": err}
+
+
 # --------------------------------------------------------------- phase 6
 
 def train_shapes(train_json):
@@ -1674,6 +1825,18 @@ def attention_shapes(shapes, model_cfg=FLAGSHIP):
             ("cross", u, t, False, lens, n_dec)]
 
 
+def sdpa_masks(tq, tk, kv, causal) -> dict:
+    """SDPA's arguments for the same masks as the kernels': is_causal, or a
+    bool key-padding mask, or both in one bool mask (the CIF decoder)."""
+    if kv is None:
+        return dict(is_causal=causal)
+    key = torch.arange(tk, device="cuda")
+    mask = (key[None, :] < kv[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (key[None, :] <= torch.arange(tq, device="cuda")[:, None])[None, None]
+    return dict(attn_mask=mask)
+
+
 def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
     """The whole attention backward (statistics, dK/dV, dQ) at one shape, with
     dropout 0.1 as the training path runs it: device ms of the kernels,
@@ -1695,11 +1858,7 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
     kv = None if lens is None else torch.from_numpy(lens.astype(np.int32)).cuda()
     qt, kt, vt, dot = (z.transpose(1, 2) for z in (q, k, v, dout))
     qg, kg, vg = (z.detach().clone().requires_grad_() for z in (qt, kt, vt))
-    if kv is None:
-        sdpa = dict(is_causal=causal)
-    else:
-        sdpa = dict(attn_mask=(torch.arange(tk, device="cuda")[None, :]
-                               < kv[:, None])[:, None, None, :])
+    sdpa = sdpa_masks(tq, tk, kv, causal)
     rate, seed = DROPOUT, DROPOUT_SEED
     out, lse = flash_attention(q, k, v, kv_lengths=kv, causal=causal, dropout_rate=rate,
                                dropout_seed=seed)
@@ -2008,11 +2167,7 @@ def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate) -> 
             for _ in range(2))
     kv = None if lens is None else torch.from_numpy(lens.astype(np.int32)).cuda()
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-    if kv is None:
-        sdpa = dict(is_causal=causal)
-    else:
-        sdpa = dict(attn_mask=(torch.arange(tk, device="cuda")[None, :]
-                               < kv[:, None])[:, None, None, :])
+    sdpa = sdpa_masks(tq, tk, kv, causal)
     seed = DROPOUT_SEED if rate else None
 
     def kernel():
@@ -2107,7 +2262,6 @@ def phase_recipe_gate() -> dict:
     and training sections but GATE_EPOCHS epochs, the infer CLI (bf16,
     device CTC prefix beam of 4), the scorer.  Counters reset just before
     the train and the decode runs and read just after."""
-    import contextlib
     import io
 
     import yaml
@@ -2440,7 +2594,6 @@ def phase_jax_package():
     """The committed package that the JAX solver wrote (test config, fused
     clip + Adam, 1 epoch of 4 steps), read on this machine, which has no
     jax, and continued one step on the card."""
-    import contextlib
     import io
     import shutil as sh
 
@@ -2474,6 +2627,501 @@ def phase_jax_package():
             == before["solver_state"]["step"] + 1, "the package did not continue one step")
     require(all(np.isfinite(r["ctc_loss"]) for r in rows), "non-finite loss")
     require(loaded == [], f"jax modules were imported: {loaded}")
+
+# --------------------------------------------------------------- CIF path
+
+CIF_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "cif.yaml")
+CIF_FC_YAML = os.path.join(ROOT, "egs", "callhome_hkust", "configs", "cif_fc_test.yaml")
+CIF_MIX_YAML = os.path.join(ROOT, "egs", "callhome_hkust", "configs", "cif_mix_test.yaml")
+CIF_BEAM = 5
+CIF_MAXLEN = 100
+# a fire that moves between the card and the CPU is a fault unless the
+# running sum lies this close to n + threshold (a rounding tie)
+CIF_FIRE_TIE = 1e-4
+# a ReLU input on the other side of 0 on the card and the CPU is a fault
+# unless it lies this close to 0 on both, relative to its call's largest
+# |x|, and there are at most a handful of them
+CIF_RELU_TIE = 1e-5
+CIF_RELU_MAX_FLIPS = 16
+
+
+def write_text(name, lines) -> str:
+    path = os.path.join(WORK, name)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("".join(line + "\n" for line in lines))
+    return path
+
+
+def cif_config(yaml_path, exp, data, model_type=None, **training) -> str:
+    """A CIF-family YAML with its model and training sections unchanged but
+    for this run's data, one epoch, a log line a step and `training`
+    changes (and the model type, for ctc_cif on cif.yaml's sections)."""
+    import yaml
+
+    with open(yaml_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(data)
+    cfg["training"].update(exp_dir=exp, num_epoch=1, print_inteval=1, **training)
+    if model_type is not None:
+        cfg["model"]["type"] = model_type
+    os.makedirs(exp, exist_ok=True)
+    path = os.path.join(exp, "train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def cif_module_launches(module, decode_steps=0) -> dict:
+    """Launches of one training step and one dev batch of a CIF-family
+    module (`module_launches`; CIF_MIX's step is an acoustic batch, which
+    skips the char decoder, and a paired batch), and of one decode batch:
+    the encoder once and the CIF decoder's full forward `decode_steps`
+    times; and the attention modules of the encoder and the CIF decoder,
+    each one attention call a forward."""
+    from openasr_torch.models.layers import LayerNorm, MultiHeadAttention
+
+    def count(m):
+        if m is None:
+            return 0, 0
+        return (sum(isinstance(x, LayerNorm) for x in m.modules()),
+                sum(isinstance(x, MultiHeadAttention) for x in m.modules()))
+
+    per = module_launches(module)
+    if module.char_decoder is not None:
+        n_ln, n_attn = count(module.char_decoder)
+        for k, c in (("layer_norm_fwd", n_ln), ("layer_norm_bwd", n_ln),
+                     ("flash_attention_fwd_dropout", n_attn), ("flash_attention_bwd_dkv", n_attn),
+                     ("flash_attention_bwd_dq", n_attn), ("flash_bwd_stats", n_attn)):
+            per["step"][k] = 2 * per["step"][k] - c
+    (enc_ln, enc_attn), (dec_ln, dec_attn) = count(module.encoder), count(module.decoder)
+    per["decode"] = {"layer_norm_fwd": enc_ln + decode_steps * dec_ln,
+                     "flash_attention_fwd": enc_attn + decode_steps * dec_attn}
+    per["attention_calls"] = {"encoder": enc_attn, "cif_decoder": dec_attn}
+    return per
+
+
+def cif_train_run(tag, cfg_path, model_cfg, launches, min_steps) -> dict:
+    """One train CLI run on the card between counter reads: finite losses,
+    at least `min_steps` steps and a dev batch, and exactly the launches
+    of its steps and dev batches."""
+    from openasr_torch.bin import train
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+
+    with torch.device("meta"):
+        module = get_model_class(model_cfg["type"]).build_module(Config(model_cfg))
+    per = cif_module_launches(module)
+    exp = os.path.dirname(cfg_path)
+    reset_counters()
+    t0 = time.time()
+    train.main([cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    rows = read_metrics(exp)
+    tr = [r for r in rows if r["phase"] == "train"]
+    cv = [r for r in rows if r["phase"] == "cv"]
+    losses = {k: [round(r[k], 4) for r in tr] for k in tr[-1] if k.endswith("loss")} if tr else {}
+    print(f"[cif path] {tag}: {len(tr)} steps + {len(cv)} dev batch(es) in {wall:.2f}s wall; "
+          f"losses {losses}; launches {n}")
+    require(len(tr) >= min_steps and len(cv) >= 1, f"{tag}: {len(tr)} steps, {len(cv)} dev")
+    require(all(np.isfinite(v) for r in rows for k, v in r.items() if k.endswith("loss")),
+            f"{tag}: a non-finite loss")
+    want = {k: 0 for k in n}
+    for k, c in per["step"].items():
+        want[k] += c * len(tr)
+    for k, c in per["forward"].items():
+        want[k] += c * len(cv)
+    # the dropout forward runs where the config has attention dropout
+    if not module.encoder.layers[0].self_attn.dropout_rate:
+        want["flash_attention_fwd"] += want.pop("flash_attention_fwd_dropout")
+        want["flash_attention_fwd_dropout"] = 0
+    require(n == want, f"{tag}: launches {n} != {want}")
+    for k in ("layer_norm_fwd", "layer_norm_bwd", "flash_bwd_stats",
+              "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        require(n[k] > 0, f"{tag}: {k} never launched")
+    require(n["flash_attention_fwd"] + n["flash_attention_fwd_dropout"] > 0,
+            f"{tag}: the flash forward never launched")
+    launches[("cif train", tag)] = {"total": n, "steps": len(tr), "dev_batches": len(cv),
+                                     "per_step": per["step"],
+                                     "attention_calls": per["attention_calls"]}
+    return {"steps": len(tr), "wall": wall, "exp": exp}
+
+
+class ReluMasks:
+    """The ReLUs of the ConvV2 subsampler and the CIF assigner (their
+    modules' `F.relu`), recording each call's input on one forward and
+    replaying the recorded inputs' masks `x > 0`, in call order, on
+    another.  A ReLU's gradient jumps at 0: a pre-activation within
+    rounding of 0 may fall on one side on the card and on the other on
+    the CPU, and with the assigner's ReLUs on top of the encoder such a
+    flip reaches every encoder layer's gradient.  Replaying the card's
+    masks on the CPU compares the two gradients at the same ReLU
+    decisions.  The replay counts the flips (entries whose sign differs)
+    and keeps, per call with flips, the largest |x| at them on either
+    device over that call's largest |x|, and the call's largest
+    card-vs-CPU difference over the same: a flip is a rounding tie only
+    where that first ratio is small."""
+
+    def __init__(self):
+        import types
+
+        import torch.nn.functional as F
+
+        self.inputs, self.replay, self.flips, self.flipped = [], False, 0, []
+        self.functional = types.SimpleNamespace(
+            **{k: getattr(F, k) for k in dir(F) if not k.startswith("__")})
+        self.functional.relu = self.relu
+
+    def relu(self, x):
+        if not self.replay:
+            self.inputs.append(x.detach().clone())
+            return torch.relu(x)
+        card = self.inputs[self.calls].to(x.device)
+        self.calls += 1
+        mask = card > 0
+        flip = mask != (x > 0)
+        n = int(flip.sum())
+        if n:
+            xd = x.detach()
+            scale = max(float(card.abs().max()), float(xd.abs().max()))
+            at_flips = float(torch.maximum(card.abs(), xd.abs())[flip].max())
+            self.flips += n
+            self.flipped.append({"call": self.calls - 1, "flips": n,
+                                 "flip_abs_rel": at_flips / scale,
+                                 "diff_rel": float((card - xd).abs().max()) / scale})
+        return torch.where(mask, x, torch.zeros_like(x))
+
+    def installed(self, replay: bool):
+        from openasr_torch.models import assigner, subsample
+
+        @contextlib.contextmanager
+        def patch():
+            saved = assigner.F, subsample.F
+            self.replay, self.calls = replay, 0
+            assigner.F = subsample.F = self.functional
+            try:
+                yield
+            finally:
+                assigner.F, subsample.F = saved
+
+        return patch()
+
+
+def grad_errs(got, want):
+    """-> (worst error of a parameter's gradient over its largest
+    magnitude, the parameter); a k-projection bias, whose true gradient
+    is 0, against its weight's."""
+    worst, worst_name = 0.0, None
+    for name, w in want.items():
+        ref = want[name[: -len("bias")] + "weight"] if name.endswith(".k.bias") else w
+        rel = max_err(got[name], w) / max(float(ref.abs().max()), 1e-30)
+        if not rel <= worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def check_cif_against_cpu(pkg_path, feats) -> dict:
+    """The f32 CIF model (cif.yaml at full width) on the card against the
+    CPU, TF32 off, on two utterances: the teacher-forced logits of the
+    deterministic forward (1e-3), the fire counts (equal, unless a running
+    sum lies within CIF_FIRE_TIE of n + 0.95), the fire margin, and one
+    step's gradients of the solver's mixed loss (1e-3 of each parameter's
+    largest gradient; the k-projection biases against their weights'), the
+    CPU's taken at the card's ReLU decisions (`ReluMasks`; the error at
+    the CPU's own decisions is printed beside it).  The flips must be
+    rounding ties: at most CIF_RELU_MAX_FLIPS, each within CIF_RELU_TIE of
+    0 relative to its call's largest |x|."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.speech import target_lengths_of
+    from openasr_torch.ops.cif import fire_counts, fire_margin, scale_alphas
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pkg = load_package(pkg_path)
+    pkg = pkg.get("model", pkg)
+    cfg = Config(pkg["configs"])
+    batch = padded_batch(feats, sorted(feats)[:2], np.random.RandomState(SEED + 11))
+    relus = ReluMasks()
+    outs, grads = {}, {}
+    # the card recording its ReLU masks, the CPU as it is, the CPU replaying them
+    for device, replay in (("cuda", False), ("cpu", None), ("cpu", True)):
+        model = get_model_class("CIF").create_model(cfg, device=device)
+        model.restore(pkg)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        m = model.module
+        if replay is not True:
+            with torch.no_grad():
+                tlen = target_lengths_of(tb["paddings"])
+                enc, elens = m.encode(tb["feats"], tb["feat_lengths"])
+                alphas, _ = scale_alphas(m.assigner(enc, elens), tlen)
+                logits = m(tb["feats"], tb["feat_lengths"], tlen, tb["ids"])["logits"]
+            outs[device] = (logits.cpu(), fire_counts(alphas)[1].cpu(), alphas.cpu(),
+                            elens.cpu())
+        with relus.installed(replay) if replay is not None else contextlib.nullcontext():
+            losses = model.loss(tb, None, label_smooth=0.1, empty_rows=False)
+            total = losses["ce_loss"] / losses["n_tokens"] + losses["qua_loss"] / losses["n_seqs"]
+        total.backward()
+        grads[device if replay is not True else "cpu at the card's ReLUs"] = {
+            n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        print(f"[cif check] {device}{' at the card ReLUs' if replay else ''}: loss "
+              f"{float(total.detach()):.6f}")
+    (lg, fg, _, _), (lc, fc, ac, ec) = outs["cuda"], outs["cpu"]
+    margin = fire_margin(ac, ec)
+    moved = int((fg != fc).sum())
+    e_logits = max_err(lg, lc)
+    print(f"[cif check] f32 card vs CPU, 2 utts: CIF decoder logits err {e_logits:.3g} "
+          f"(tol 1e-3); fire counts differ at {moved} frame(s); fire margin "
+          f"min |S_t - 0.95 - n| = {margin:.3g} (a difference is a fault above "
+          f"{CIF_FIRE_TIE})")
+    require(bool(torch.isfinite(lg).all()), "non-finite CIF logits on the card")
+    require(moved == 0 or margin <= CIF_FIRE_TIE,
+            f"a fire moved between card and CPU with margin {margin:.3g}")
+    require(e_logits <= 1e-3, "CIF logits: card and CPU disagree")
+    own, own_name = grad_errs(grads["cuda"], grads["cpu"])
+    worst, worst_name = grad_errs(grads["cuda"], grads["cpu at the card's ReLUs"])
+    n_relu = sum(int(x.numel()) for x in relus.inputs)
+    flip_abs = max((f["flip_abs_rel"] for f in relus.flipped), default=0.0)
+    print(f"[cif check] f32 card vs CPU, one step's gradients, {len(grads['cpu'])} "
+          f"parameters, the CPU at the card's ReLU decisions: worst err {worst:.3g} of the "
+          f"gradient's max abs ({worst_name}; tol 1e-3); at the CPU's own decisions "
+          f"{own:.3g} ({own_name}), {relus.flips} of {n_relu} ReLU inputs on the other side "
+          f"of 0 (at most {CIF_RELU_MAX_FLIPS}); the largest |x| at a flip {flip_abs:.3g} of "
+          f"its call's largest |x| (tol {CIF_RELU_TIE}); by call of the "
+          f"{len(relus.inputs)}: {relus.flipped}")
+    require(relus.flips <= CIF_RELU_MAX_FLIPS,
+            f"{relus.flips} ReLU inputs on the other side of 0 between card and CPU")
+    require(flip_abs <= CIF_RELU_TIE,
+            f"a ReLU input flipped between card and CPU at {flip_abs:.3g} of its call's "
+            f"largest |x|: not a rounding tie")
+    require(worst <= 1e-3, f"CIF gradient of {worst_name} disagrees: {worst:.3g}")
+    return {"logits_err": e_logits, "grad_err": worst, "grad_err_own_relus": own,
+            "relu_flips": relus.flips, "relu_flip_abs": flip_abs, "fire_margin": margin,
+            "fires_moved": moved}
+
+
+def cif_decode_ms(pkg_path, feats, dtype) -> dict:
+    """Warm wall ms of one CIF beam decode of the test batch (beam
+    CIF_BEAM, CIF_MAXLEN steps), after a first call; and the batch's CIF
+    lengths."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    pkg = load_package(pkg_path)
+    pkg = pkg.get("model", pkg)
+    model = get_model_class("CIF").create_model(Config(pkg["configs"]), device="cuda",
+                                                dtype=dtype)
+    model.restore(pkg)
+    x, lengths = padded_features(feats, sorted(feats))
+    xt, lt = torch.from_numpy(x).cuda(), torch.from_numpy(lengths).cuda()
+    model.batch_beam_decode(xt, lt, CIF_BEAM, CIF_MAXLEN, empty_rows=False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, lens, scores = model.batch_beam_decode(xt, lt, CIF_BEAM, CIF_MAXLEN, empty_rows=False)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    require(bool(torch.isfinite(scores).all()), "non-finite CIF beam scores")
+    return {"ms": ms, "cif_lens": lens[:, 0].cpu().numpy(), "b": len(lengths)}
+
+
+def phase_cif(rng, launches) -> dict:
+    """The CIF family through the CLIs on the card (see the module
+    docstring); counters reset just before each run and read just after."""
+    from openasr_torch.bin import infer
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    # cif.yaml has no blank: 4230 characters + 3 specials is the smoke
+    # test's vocabulary of 4233
+    chars = [chr(0x4E00 + i) for i in range(4230)]
+    vocab = write_text("cif_chars.txt", chars)
+    phones = [f"ph{i}" for i in range(40)]
+    phone_vocab = write_text("cif_phones.txt", phones)
+    n_vocab = CharTokenizer(vocab).unit_num()
+    train_json, _ = write_corpus("ciftrain", rng, chars, 120, (600, 700), (20, 30), phones=phones)
+    with open(train_json, encoding="utf-8") as f:
+        rows = json.load(f)
+    two_json = os.path.join(WORK, "ciftrain2.json")
+    with open(two_json, "w", encoding="utf-8") as f:
+        json.dump(rows[:80], f, ensure_ascii=False)
+    dev_json, _ = write_corpus("cifdev", rng, chars, 8, (600, 700), (20, 30), phones=phones)
+    test_json, test_feats = write_corpus("ciftest", rng, chars, 8, (600, 1200), (12, 12))
+    small_json, _ = write_corpus("cifsmall", rng, chars, 6, (90, 110), (4, 8), dim=20,
+                                 phones=phones)
+    data = {"trainset": train_json, "devset": dev_json, "vocab_path": vocab}
+    import yaml
+
+    with open(CIF_YAML) as f:
+        model_cfg = yaml.safe_load(f)["model"]
+    model_cfg["decoder"]["vocab_size"] = n_vocab
+    runs = {}
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        cfg = cif_config(CIF_YAML, os.path.join(WORK, f"exp_cif_{name}"), data,
+                         compute_dtype=name)
+        runs[name] = cif_train_run(f"CIF {name}", cfg, model_cfg, launches, 3)
+    ctc_cfg = cif_config(CIF_YAML, os.path.join(WORK, "exp_ctc_cif"),
+                         dict(data, trainset=two_json), model_type="ctc_cif")
+    cif_train_run("ctc_cif float32", ctc_cfg, dict(model_cfg, type="ctc_cif"), launches, 2)
+    for yaml_path, tag, extra in (
+        (CIF_FC_YAML, "CIF_FC", {"vocab_path": phone_vocab}),
+        (CIF_MIX_YAML, "CIF_MIX", {"vocab_path": vocab, "vocab_phone": phone_vocab,
+                                   "acousticset": small_json}),
+    ):
+        with open(yaml_path) as f:
+            small_cfg = yaml.safe_load(f)["model"]
+        small_cfg["decoder"]["vocab_size"] = CharTokenizer(extra["vocab_path"]).unit_num()
+        if tag == "CIF_MIX":
+            small_cfg["phone_size"] = CharTokenizer(phone_vocab, add_blk=True).unit_num()
+        cfg = cif_config(yaml_path, os.path.join(WORK, f"exp_{tag}"),
+                         dict(extra, trainset=small_json, devset=small_json))
+        cif_train_run(tag, cfg, small_cfg, launches, 2)
+
+    pkg = os.path.join(runs["float32"]["exp"], "last.pkg")
+    hot = write_text("cif_hot.txt", [" ".join(chars[i: i + 3]) for i in (10, 200, 3000)])
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+
+    with torch.device("meta"):
+        module = get_model_class("CIF").build_module(Config(model_cfg))
+    module_per = cif_module_launches(module, CIF_MAXLEN)
+    per = module_per["decode"]
+    decodes = {}
+    for dtype, context in ((torch.float32, False), (torch.float32, True),
+                           (torch.bfloat16, False)):
+        tag = f"{DTYPE_NAME[dtype]}{' hotwords' if context else ''}"
+        hyp = os.path.join(WORK, f"hyp_cif_{tag.replace(' ', '_')}.txt")
+        argv = ["--model_type", "CIF", "--model_pkg", pkg, "--vocab_path", vocab,
+                "--json_file", test_json, "--output", hyp, "--offline",
+                "--nbest", str(CIF_BEAM), "--maxlen", str(CIF_MAXLEN),
+                "--batch_frames", "36000", "--dtype", DTYPE_NAME[dtype], "--device", "cuda"]
+        if context:
+            argv += ["--context_file", hot]
+        reset_counters()
+        t0 = time.time()
+        infer.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        with open(hyp, encoding="utf-8") as f:
+            lines = [line for line in f if line.strip()]
+        print(f"[cif path] decode {tag}: {len(lines)} hyps in {wall:.2f}s wall (1 batch, "
+              f"beam {CIF_BEAM}, {CIF_MAXLEN} steps); launches {n}")
+        require(len(lines) == len(test_feats), f"{len(lines)} hyp lines for {len(test_feats)}")
+        want = {k: 0 for k in n}
+        want.update(per)
+        require(n == want, f"CIF decode launches {n} != {want}")
+        launches[("cif decode", tag)] = n
+        decodes[tag] = wall
+    timing = {DTYPE_NAME[dt]: cif_decode_ms(pkg, test_feats, dt) for dt in DTYPES}
+    for name, r in timing.items():
+        print(f"[time] CIF decode {name}: {r['ms']:.1f} ms a batch of {r['b']} utterances "
+              f"(beam {CIF_BEAM}, {CIF_MAXLEN} steps, {r['ms'] / CIF_MAXLEN:.2f} ms a step), "
+              f"warm; CIF lengths {r['cif_lens'].tolist()}")
+    check = check_cif_against_cpu(pkg, test_feats)
+    return {"train_json": train_json, "decode": timing, "check": check, "per_decode": per,
+            "attention_calls": module_per["attention_calls"]}
+
+
+def cif_decoder_shape(train_json):
+    """The CIF training path's largest batch: B, and the CIF decoder's
+    Tq = Tk (the ids width) and kv lengths (the token counts)."""
+    import yaml
+
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.data.manifest import ArkDataset
+    from openasr_torch.data.sampler import FrameBasedSampler
+
+    with open(CIF_YAML) as f:
+        budget = int(yaml.safe_load(f)["training"]["batch_frames"])
+    ds = ArkDataset(train_json, feat_range=(1, 1000), label_range=(1, 50))
+    best = None
+    for batch in FrameBasedSampler(ds, budget).batches:
+        toks = np.array([int(ds[i]["token_length"]) for i in batch])
+        u = quantize(int(toks.max()) + 2)
+        if best is None or len(batch) * u > best["b"] * best["u"]:
+            best = {"b": len(batch), "u": u, "lens": toks}
+    return best
+
+
+def cif_rows(cif, errs, launches):
+    """The attention kernels at the CIF decoder's causal shapes, each
+    against SDPA on the same call: the training batch's forward with
+    dropout 0.1 and whole backward (Tq = Tk = the ids width, kv lengths
+    the token counts), and the decode step's forward (B x beam rows,
+    Tq = Tk = CIF_MAXLEN, kv lengths the CIF lengths)."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+    )
+
+    shape = cif_decoder_shape(cif["train_json"])
+    b, u, lens = shape["b"], shape["u"], shape["lens"]
+    h, d = 8, 64
+    rng = np.random.RandomState(SEED + 12)
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        tr = launches[("cif train", f"CIF {name}")]
+        calls = tr["attention_calls"]
+        for key in ("flash_attention_fwd_dropout", "flash_attention_bwd_dkv"):
+            require(sum(calls.values()) * tr["steps"] == tr["total"][key],
+                    f"{calls} attention calls a step by the built module, but "
+                    f"{tr['total'][key]} {key} launches in {tr['steps']} steps")
+        row = attention_fwd_row(b, h, d, u, u, True, lens, dtype, rng, errs, DROPOUT)
+        rows.append({"name": f"flash_attention_fwd_dropout_cif_decoder[{name}]", **row,
+                     "launches": tr["total"]["flash_attention_fwd_dropout"],
+                     "launches_per_step": sum(calls.values()),
+                     "launches_are": "dropout forward calls of the CIF training run "
+                                     "(encoder and CIF decoder)",
+                     "calls_per_step_at_this_shape": calls["cif_decoder"],
+                     "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+                     "tol": TOL_FLASH[dtype]})
+        at = attention_bwd_times(b, h, d, u, u, True, lens, dtype, rng)
+        args = at["kernel_args"][:6] + at["kernel_args"][7:]
+        got, want = flash_attention_bwd(*args), flash_attention_bwd_reference(*args)
+        err = (0.0, 0.0)
+        for g, w in zip(got, want):
+            e, scale = scaled_err(g, w)
+            err = (max(err[0], e), max(err[1], e / scale))
+        print(f"[cif rows] flash backward {name} [{b}, {u}, {u}, {h}, {d}] causal, "
+              f"kv lengths: err {err[0]:.3g}, scaled {err[1]:.3g} (tol {TOL_FLASH_BWD[dtype]})")
+        require(err[1] <= TOL_FLASH_BWD[dtype], "the backward disagrees at the CIF shape")
+        rows.append({
+            "name": f"flash_attention_bwd_cif_decoder[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327)",
+            "shape": at["shape"], "causal": True,
+            "launches": tr["total"]["flash_attention_bwd_dkv"],
+            "launches_per_step": sum(calls.values()),
+            "launches_are": "backward calls of the CIF training run (encoder and CIF "
+                            "decoder), each launching statistics, dK/dV and dQ once",
+            "calls_per_step_at_this_shape": calls["cif_decoder"],
+            **bwd_errs(err, TOL_FLASH_BWD[dtype]),
+            **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")},
+            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool causal "
+                          "and key mask) forward + backward minus forward (graph replay)",
+        })
+        dec = launches[("cif decode", name)]
+        cif_lens = np.repeat(np.maximum(cif["decode"][name]["cif_lens"], 0), CIF_BEAM)
+        bb = len(cif_lens)
+        row = attention_fwd_row(bb, h, d, CIF_MAXLEN, CIF_MAXLEN, True, cif_lens, dtype, rng,
+                                errs, 0.0)
+        rows.append({"name": f"flash_attention_fwd_cif_decode[{name}]", **row,
+                     "launches": dec["flash_attention_fwd"],
+                     "launches_are": "forward calls of the CIF decode batch "
+                                     f"({cif['attention_calls']['encoder']} encoder, "
+                                     f"{cif['attention_calls']['cif_decoder']} a step for "
+                                     f"{CIF_MAXLEN} steps)",
+                     "max_abs_err": errs[("flash_attention_fwd", dtype)],
+                     "tol": TOL_FLASH[dtype]})
+    return rows
+
 
 # ------------------------------------------------------------------ main
 
@@ -2526,6 +3174,7 @@ def main() -> int:
         print(f"[time] ctc decode path done at {time.time() - t_start:.1f}s")
         per = phase_train(train_json, dev_json, vocab, launches)
         check_grads_against_cpu(pkg, train_feats)
+        ctc_cost = check_ctc_loss_cost(shapes)
         print(f"[time] training path done at {time.time() - t_start:.1f}s")
         online_pkg = os.path.join(WORK, "flagship_online.pkg")
         save_flagship_package(online_pkg, model_cfg=online_model())
@@ -2542,8 +3191,11 @@ def main() -> int:
         phase_jax_package()
         print(f"[time] stock optimizers, preemption and jax package done at "
               f"{time.time() - t_start:.1f}s")
+        cif = phase_cif(rng, launches)
+        print(f"[time] cif path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
-                + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches))
+                + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
+                + cif_rows(cif, errs, launches))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2562,6 +3214,14 @@ def main() -> int:
         f"{k} log-probs: device {r['device_ms']:.2f} ms (enqueued in {r['enqueue_ms']:.2f}), "
         f"host {r['host_ms']:.2f} ms"
         for k, r in beams.items()))
+    print("[cif path] " + "; ".join(
+        f"decode {k}: {r['ms']:.1f} ms a batch of {r['b']} (beam {CIF_BEAM}, {CIF_MAXLEN} steps)"
+        for k, r in cif["decode"].items())
+        + f"; card vs CPU: logits {cif['check']['logits_err']:.3g}, gradients "
+          f"{cif['check']['grad_err']:.3g}, fire margin {cif['check']['fire_margin']:.3g}; "
+          f"launches a decode batch {cif['per_decode']}")
+    print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
+          f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without")
     print(f"[recipe gate] CER {gate['cer']} after {gate['steps']} steps "
           f"({GATE_EPOCHS} epochs, train rows x{GATE_REPEAT}); train {gate['train_s']:.2f}s, "
           f"decode {gate['decode_s']:.2f}s wall; launches a step {gate['per_step']}")

@@ -9,12 +9,15 @@ from wave manifests through the model's fbank frontend (no `--offline`;
 each utterance a batch of its own), it decodes
 
   * conv-transformer / conv-ctc-transformer with the attention beam;
+  * CIF / ctc_cif with the CIF beam (`--maxlen` steps, each a full
+    forward of the CIF decoder, no EOS finishing; each hypothesis cut to
+    its utterance's CIF length);
   * conv-ctc greedily (`--ctc_beam 0`), with the native host prefix beam
     (`--ctc_beam N`), or with the prefix beam on the device
     (`--ctc_beam N --ctc_beam_device`);
 
-and biases the attention beam or the device CTC beam toward the phrases of
-`--context_file`.  The log-probs of the CTC beams are the f32 log-softmax
+and biases the attention or CIF beam or the device CTC beam toward the
+phrases of `--context_file`.  The log-probs of the CTC beams are the f32 log-softmax
 of the logits, also under `--dtype bfloat16`.  LM fusion and the other
 model families exit with the ROADMAP item that will port them.
 
@@ -45,7 +48,7 @@ from openasr_torch.ops.ctc_beam_device import build_context_tables, ctc_prefix_b
 from openasr_torch.ops.prefix_beam import make_decoder
 from openasr_torch.utils.checkpoint import load_package
 
-ATTENTION_BEAM_TYPES = ("conv_transformer", "conv_ctc_transformer")
+ATTENTION_BEAM_TYPES = ("conv_transformer", "conv_ctc_transformer", "cif", "ctc_cif")
 CTC_TYPES = ("conv_ctc", "gru_ctc", "wav2vec_ctc")
 PORTED_TYPES = ATTENTION_BEAM_TYPES + ("conv_ctc",)
 
@@ -71,7 +74,8 @@ def get_args(argv=None):
                              "phrase per line, tokenized like transcripts; tokens "
                              "that advance a phrase's match earn --context_weight, "
                              "a broken match rolls back to its failure-link state. "
-                             "Runs in the attention beam and in the device CTC beam")
+                             "Runs in the attention and CIF beams and in the device "
+                             "CTC beam")
     parser.add_argument("--context_weight", type=float, default=2.0)
     parser.add_argument("--ctc_beam_device", action="store_true", default=False,
                         help="run the CTC prefix beam on the device instead of the "
@@ -118,9 +122,10 @@ def check_ported(args) -> None:
         )
     if args.model_type.lower().replace("-", "_") not in PORTED_TYPES:
         raise SystemExit(
-            f"--model_type {args.model_type}: conv-transformer, conv-ctc-transformer "
-            "and conv-ctc decode in the port so far; the other families are ROADMAP "
-            "queue 1 items 9 (CIF) and 13 (GRU-CTC, wav2vec, text)"
+            f"--model_type {args.model_type}: conv-transformer, conv-ctc-transformer, "
+            "conv-ctc, CIF and ctc_cif decode in the port so far (CIF_FC and CIF_MIX "
+            "have no beam); the other families are ROADMAP queue 1 item 13 (GRU-CTC, "
+            "wav2vec, text)"
         )
     if args.lm_pkg and args.lm_weight != 0.0:
         raise SystemExit(

@@ -4,11 +4,15 @@ Counterpart of openasr_tpu/bin/train.py on one device, with the same YAML
 schema (data / model / training), model-type dispatch, `--continue-training`
 (restore exp_dir/last.pkg) and `training.pretrained_model` warm start (the
 output layers stay fresh, init_lr * 0.1).  It trains conv-ctc-transformer,
-conv-transformer and conv-ctc on offline features (`signal.feature_type:
-offline`, batches of `training.batch_frames` frames) or on raw waves
-through the fbank frontend (`feature_type: fbank`, batches of
-`training.batch_time` samples), on the card by default, `--device cpu` on
-the CPU; without a card `--device cuda` raises.
+conv-transformer, conv-ctc, CIF and ctc_cif on offline features
+(`signal.feature_type: offline`, batches of `training.batch_frames`
+frames) or on raw waves through the fbank frontend (`feature_type:
+fbank`, batches of `training.batch_time` samples), and the phone-level
+CIF_FC and CIF_MIX on offline features with phone targets (`vocab_phone`,
+else `vocab_path`, tokenizes them; CIF_MIX adds paired char targets and
+zips `data.acousticset`'s acoustic batches beside them), on the card by
+default, `--device cpu` on the CPU; without a card `--device cuda`
+raises.
 `training.compute_dtype: bfloat16` runs the forward in bf16 over f32
 weights.  The multi-device flags exit naming their ROADMAP item.
 
@@ -25,7 +29,12 @@ import torch
 
 from openasr_torch.bin.infer import resolve_device
 from openasr_torch.config import load_config, parse_range, validate_config
-from openasr_torch.data.collate import FeatureCollate, WaveCollate
+from openasr_torch.data.collate import (
+    FeatPhoneCharCollate,
+    FeatPhoneCollate,
+    FeatureCollate,
+    WaveCollate,
+)
 from openasr_torch.data.loader import DataLoader
 from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
@@ -49,18 +58,32 @@ def setup_logging():
     )
 
 
-def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer):
+PHONE_TYPES = ("cif_fc", "cif_mix")
+
+
+def _norm_type(modelconfig) -> str:
+    return str(modelconfig["type"]).lower().replace("-", "_")
+
+
+def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_phone=None):
     """Train loader (batches shuffled per epoch) and dev loader (longest
     utterances first): offline features packed by cumulative frames, or
     waves packed by cumulative samples and checked against the signal's
-    sample rate."""
+    sample rate.  CIF_FC batches features and phones, CIF_MIX features,
+    phones and chars."""
     feat_range = parse_range(dataconfig.get("feat_range")) or (1, 99999)
     label_range = parse_range(dataconfig.get("label_range")) or (1, 100)
     label_type = trainingconfig.get("label_type", "tokens")
     workers = int(dataconfig.get("fetchworker_num", 2))
     add_eos = modelconfig.get("add_eos", False)
-    signal = modelconfig["signal"]
-    if signal["feature_type"] == "offline":
+    signal = modelconfig.get("signal") or {}
+    mtype = _norm_type(modelconfig)
+    if mtype in PHONE_TYPES:
+        dataset, sampler = ArkDataset, FrameBasedSampler
+        budget = int(trainingconfig["batch_frames"])
+        collate = (FeatPhoneCharCollate(tokenizer_phone or tokenizer, tokenizer, add_eos)
+                   if mtype == "cif_mix" else FeatPhoneCollate(tokenizer_phone or tokenizer))
+    elif signal["feature_type"] == "offline":
         dataset, sampler = ArkDataset, FrameBasedSampler
         budget = int(trainingconfig["batch_frames"])
         collate = FeatureCollate(tokenizer, add_eos, label_type)
@@ -88,17 +111,20 @@ def check_ported(args, config) -> None:
             "ROADMAP queue 1 item 15 (multi-device)"
         )
     sig = config["model"].get("signal") or {}
-    if "feature_type" not in sig:
+    if _norm_type(config["model"]) in PHONE_TYPES:
+        offline = True  # features and phones; no wave frontend
+    elif "feature_type" not in sig:
         raise ValueError(
             "config: model.signal.feature_type is required ('offline' for "
             "precomputed features, 'fbank' for the online wave frontend)"
         )
-    if sig["feature_type"] in ("wave", "wav_conv"):
+    elif sig["feature_type"] in ("wave", "wav_conv"):
         raise SystemExit(
             f"signal.feature_type {sig['feature_type']!r}: the raw-wave encoders "
             "(WavConv, GRU-CTC, CPC, wav2vec) are ROADMAP queue 1 item 13"
         )
-    offline = sig["feature_type"] == "offline"
+    else:
+        offline = sig["feature_type"] == "offline"
     budget_key = "batch_frames" if offline else "batch_time"
     if budget_key not in config["training"]:
         raise ValueError(
@@ -141,8 +167,25 @@ def main(argv=None):
     tokenizer = CharTokenizer(dataconfig["vocab_path"],
                               add_blk=modelconfig.get("add_blk", False))
     modelconfig["decoder"]["vocab_size"] = tokenizer.unit_num()
+    tokenizer_phone = None
+    if dataconfig.get("vocab_phone"):
+        tokenizer_phone = CharTokenizer(dataconfig["vocab_phone"], add_blk=True)
+        if "phone_size" in modelconfig or _norm_type(modelconfig) == "cif_mix":
+            modelconfig["phone_size"] = tokenizer_phone.unit_num()
     tr_loader, cv_loader = build_loaders(dataconfig, trainingconfig, modelconfig,
-                                         tokenizer)
+                                         tokenizer, tokenizer_phone)
+    solver_kwargs = {}
+    if _norm_type(modelconfig) == "cif_mix" and dataconfig.get("acousticset"):
+        # CIF_MIX's acoustic-only batches (features and phones), zipped
+        # with the paired loader a step
+        ac_set = ArkDataset(dataconfig["acousticset"],
+                            feat_range=parse_range(dataconfig.get("feat_range")) or (1, 99999),
+                            label_range=(0, 10**9), rate_in_out=(0, 10**9))
+        solver_kwargs["acoustic_loader"] = DataLoader(
+            ac_set, FrameBasedSampler(ac_set, int(trainingconfig["batch_frames"]), 1,
+                                      shuffle=True),
+            FeatPhoneCollate(tokenizer_phone or tokenizer),
+            num_workers=int(dataconfig.get("fetchworker_num", 2)))
 
     model = get_model_class(modelconfig["type"]).create_model(
         modelconfig, device=device, generator=torch.Generator().manual_seed(0)
@@ -165,7 +208,7 @@ def main(argv=None):
 
     solver = get_solver_class(modelconfig["type"])(
         model, trainingconfig, tr_loader, cv_loader, device=device,
-        compute_dtype=dtype,
+        compute_dtype=dtype, **solver_kwargs,
     )
     if pkg is not None:
         solver.restore(pkg)

@@ -18,6 +18,11 @@ in PyTorch's layouts:
   Embed embedding [V, D] (tied output)    Embedding weight [V, D]
   decoder out_bias, ctc_fc / fc kernel    out_bias, ctc_fc / fc weight
 
+The CIF families add the assigner (`conv{i}` 1-D WIO or 2-D HWIO,
+`linear`, and the 2-D variant's `affine`), the CIF decoder (`emb`,
+`input_affine`, `output_affine`, `layer{i}`), `phone_fc` and CIF_MIX's
+`char_decoder`, whose attention heads are the `decoder` section's.
+
 Both directions are exact (pure transposes and reshapes).
 
 The optimizer states bridge the same way (`jax_optim_state_to_port`,
@@ -47,7 +52,14 @@ COMPONENTS = {
     "conv-transformer": ("encoder", "decoder"),
     "conv-ctc-transformer": ("encoder", "decoder", "ctc_fc"),
     "conv-ctc": ("encoder", "fc"),
+    "CIF": ("encoder", "assigner", "decoder"),
+    "ctc_cif": ("encoder", "assigner", "decoder", "ctc_fc"),
+    "CIF_FC": ("encoder", "assigner", "ctc_fc", "phone_fc"),
+    "CIF_MIX": ("encoder", "assigner", "char_decoder", "ctc_fc", "phone_fc"),
 }
+# the config section of a component's attention heads, where it is not
+# the component's own name
+HEADS_SECTION = {"char_decoder": "decoder"}
 _ATTENTION = ("self_attn", "cross_attn")
 
 
@@ -117,7 +129,7 @@ def jax_components_to_state_dict(model_type: str, components: dict,
 def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
     """The port's state_dict -> JAX-layout components (f32 NumPy).  The
     attention head count comes from the `encoder`/`decoder` config section
-    that owns the layer."""
+    that owns the layer (`HEADS_SECTION`)."""
     expected = _components_of(model_type)
     components: dict = {}
     for key, tensor in state_dict.items():
@@ -128,7 +140,7 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
         leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
         attention = _in_attention(path)
         if attention:
-            heads = int(configs[path[0]]["nhead"])
+            heads = int(configs[HEADS_SECTION.get(path[0], path[0])]["nhead"])
         if leaf == "weight":
             if _is_norm(parent):
                 leaf = "scale"

@@ -1,7 +1,8 @@
 """Collates: sample dicts -> padded NumPy batches with quantized shapes.
 
-Counterpart of `FeatureCollate`, `WaveCollate` and `load_wave_batch` in
-openasr_tpu/data/collate.py.  Padded
+Counterpart of `FeatureCollate`, `WaveCollate`, `load_wave_batch` and the
+phone collates of the CIF families (`PhoneCharCollate`, `FeatPhoneCollate`,
+`FeatPhoneCharCollate`) in openasr_tpu/data/collate.py.  Padded
 dimensions are rounded up onto the same geometric ladder as the JAX
 package, so both packages see identical batch shapes.  Batches are dicts
 of NumPy arrays plus a "uttids" list:
@@ -10,13 +11,14 @@ of NumPy arrays plus a "uttids" list:
   paddings [B,U] f32     1.0 at PADDED label positions
 plus `feats [B,T,D]` f32 / `feat_lengths [B]` (frames) for features, or
 `waves [B,N]` f32 in the int16 PCM scale / `wave_lengths [B]` (samples)
-for waves.
+for waves, and `phones [B,P]` int32 (padded with <eos>) / `phone_lengths
+[B]` (counted when encoded, not recounted from the padding) for phones.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -48,6 +50,16 @@ def quantize(n: int, enable: bool = True) -> int:
         if v >= n:
             return v
     return n
+
+
+def pad_list(seqs: Sequence[np.ndarray], pad_value,
+             max_len: Optional[int] = None) -> np.ndarray:
+    """Rows padded with `pad_value` to `max_len` (default: the longest)."""
+    ml = max_len if max_len is not None else max(len(q) for q in seqs)
+    out = np.full((len(seqs), ml), pad_value, dtype=np.asarray(seqs[0]).dtype)
+    for i, q in enumerate(seqs):
+        out[i, : len(q)] = q
+    return out
 
 
 def gen_causal_targets(
@@ -169,3 +181,58 @@ class WaveCollate:
             "labels": labels,
             "paddings": paddings,
         }
+
+
+class PhoneCharCollate:
+    """Phone ids in, char causal targets out."""
+
+    def __init__(self, tokenizer_phone, tokenizer_char, add_eos=False,
+                 quantize_shapes=True):
+        self.tokenizer_phone = tokenizer_phone
+        self.tokenizer_char = tokenizer_char
+        self.add_eos = add_eos
+        self.quantize_shapes = quantize_shapes
+
+    def phones_of(self, batch):
+        phones = [np.asarray(self.tokenizer_phone.encode(d["phones"]), np.int32)
+                  for d in batch]
+        lens = np.asarray([len(p) for p in phones], np.int32)
+        return pad_list(phones, EOS_ID, quantize(int(lens.max()), self.quantize_shapes)), lens
+
+    def chars_of(self, batch):
+        rawids = [self.tokenizer_char.encode(d["tokens"]) for d in batch]
+        umax = quantize(max(len(r) for r in rawids) + 2, self.quantize_shapes)
+        return gen_causal_targets(rawids, self.add_eos, max_len=umax)
+
+    def __call__(self, batch: List[dict]) -> Dict:
+        phones, phone_lengths = self.phones_of(batch)
+        ids, labels, paddings = self.chars_of(batch)
+        return {"uttids": [d["uttid"] for d in batch], "phones": phones,
+                "phone_lengths": phone_lengths, "ids": ids, "labels": labels,
+                "paddings": paddings}
+
+
+class FeatPhoneCollate(PhoneCharCollate):
+    """Features + phone targets (CIF_FC, CIF_MIX's acoustic batches)."""
+
+    def __init__(self, tokenizer_phone, quantize_shapes=True):
+        self.tokenizer_phone = tokenizer_phone
+        self.quantize_shapes = quantize_shapes
+
+    def __call__(self, batch: List[dict]) -> Dict:
+        feats, feat_lengths = load_feat_batch([d["feat"] for d in batch],
+                                              self.quantize_shapes)
+        phones, phone_lengths = self.phones_of(batch)
+        return {"uttids": [d["uttid"] for d in batch], "feats": feats,
+                "feat_lengths": feat_lengths, "phones": phones,
+                "phone_lengths": phone_lengths}
+
+
+class FeatPhoneCharCollate(PhoneCharCollate):
+    """Features + phones + char targets (CIF_MIX's paired batches)."""
+
+    def __call__(self, batch: List[dict]) -> Dict:
+        feats, feat_lengths = load_feat_batch([d["feat"] for d in batch],
+                                              self.quantize_shapes)
+        return {**PhoneCharCollate.__call__(self, batch), "feats": feats,
+                "feat_lengths": feat_lengths}

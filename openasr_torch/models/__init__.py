@@ -40,7 +40,6 @@ def _normalize(name: str) -> str:
 
 # the JAX package's other model types, by their ROADMAP queue 1 item
 UNPORTED_MODEL_TYPES = {
-    "cif": 9, "ctc_cif": 9, "cif_fc": 9, "cif_mix": 9,
     "lstm_lm": 10, "transformer_lm": 10,
     "gru_ctc": 13, "wav2vec_ctc": 13, "encoder_cpc": 13, "cpc_model": 13,
     "embed_decoder": 13, "embed_decoder_ctc": 13, "gan_phone2char": 13,
@@ -49,7 +48,8 @@ UNPORTED_MODEL_TYPES = {
 
 def get_model_class(name: str) -> type:
     """Resolve a model type, case-insensitive over '-'/'_'."""
-    import openasr_torch.models.speech  # noqa: F401  (fills the registry)
+    import openasr_torch.models.cif  # noqa: F401  (fills the registry)
+    import openasr_torch.models.speech  # noqa: F401
 
     by_norm = {_normalize(k): k for k in MODEL_REGISTRY}
     if _normalize(name) in by_norm:
@@ -89,24 +89,30 @@ def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from `generator` (a CPU generator; no global
     RNG) with the JAX package's initializers: LayerNorm scales 1, biases 0,
-    convolution kernels flax's default lecun_normal (a normal truncated at
-    two standard deviations, variance 1 / fan_in), other weights
-    Xavier-uniform."""
+    convolution kernels and layers marked `kernel_init = "lecun_normal"`
+    flax's default lecun_normal (a normal truncated at two standard
+    deviations, variance 1 / fan_in), layers marked `"xavier_normal"` the
+    same truncated normal at variance 2 / (fan_in + fan_out), other
+    weights Xavier-uniform."""
     from openasr_torch.models.layers import LayerNorm
 
     norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
-    convs = {id(m.weight) for m in module.modules()
+    inits = {id(m.weight): "lecun_normal" for m in module.modules()
              if isinstance(m, (nn.Conv1d, nn.Conv2d))}
+    inits.update({id(m.weight): m.kernel_init for m in module.modules()
+                  if getattr(m, "kernel_init", None)})
     with torch.no_grad():
         for name, p in module.named_parameters():
             if id(p) in norms:
                 p.fill_(1.0)
             elif name.endswith("bias") or p.dim() < 2:
                 p.zero_()
-            elif id(p) in convs:
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(p)
+            elif id(p) in inits:
+                fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
+                var = (1.0 / fan_in if inits[id(p)] == "lecun_normal"
+                       else 2.0 / (fan_in + fan_out))
                 # flax divides by the truncated normal's standard deviation
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                std = math.sqrt(var) / 0.87962566103423978
                 p.copy_(_truncated_normal(p.shape, generator) * std)
             else:
                 fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
@@ -118,15 +124,15 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the module to `dtype` for inference, keeping in f32 the LayerNorm
     parameters (the norms compute their statistics in f32 either way), the
-    decoder's `out_bias` (added to f32 logits) and the CTC heads (f32 as in
-    the JAX package).  Training keeps every weight f32 and runs bf16 under
+    decoder's `out_bias` (added to f32 logits) and the CTC and phone heads
+    (f32 as in the JAX package).  Training keeps every weight f32 and runs bf16 under
     autocast instead."""
     from openasr_torch.models.decoder import TransformerDecoder
     from openasr_torch.models.layers import LayerNorm
 
     module.to(dtype)
     for name, m in module.named_modules():
-        if isinstance(m, LayerNorm) or name in ("ctc_fc", "fc"):
+        if isinstance(m, LayerNorm) or name in ("ctc_fc", "fc", "phone_fc"):
             m.float()
         elif isinstance(m, TransformerDecoder):
             m.out_bias.data = m.out_bias.data.float()
@@ -178,8 +184,8 @@ class Framework:
 
     def restore(self, pkg: dict, without_fc: bool = False) -> None:
         """Load a JAX-layout package after validating config compatibility.
-        `without_fc` keeps the current output layers (decoder, fc, ctc_fc)
-        for transfer learning."""
+        `without_fc` keeps the current output layers
+        (`fc_component_names`) for transfer learning."""
         from openasr_torch.convert import jax_components_to_state_dict
 
         saved_cfg = pkg.get("configs", {})
@@ -188,13 +194,17 @@ class Framework:
                 _check_config_compat(section, cfg, saved_cfg.get(section))
         components = {
             k: v for k, v in pkg["components"].items()
-            if not (without_fc and k in ("decoder", "fc", "ctc_fc"))
+            if not (without_fc and k in self.fc_component_names())
         }
         state = jax_components_to_state_dict(self.model_type, components,
                                              partial=without_fc)
         if without_fc:
             state = {**self.module.state_dict(), **state}
         self.module.load_state_dict(state, strict=True)
+
+    def fc_component_names(self) -> tuple:
+        """The output layers that `restore(without_fc=True)` keeps fresh."""
+        return ("decoder", "fc", "ctc_fc")
 
     def batch_inputs(self, batch: dict):
         """The model's inputs of a collated batch: waves and sample counts

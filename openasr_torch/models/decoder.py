@@ -1,9 +1,15 @@
-"""Transformer decoder: weight-tied, with a KV-cached step.
+"""Decoders: the weight-tied Transformer decoder with a KV-cached step, the
+CIF decoder and the FC decoder.
 
-Counterpart of `TransformerDecoder` in openasr_tpu/models/decoder.py:
-embedding x sqrt(d) -> PE (which scales by sqrt(d) again) -> dropout -> N
-post-LN decoder layers -> the tied output affine (embedding^T + out_bias).
-Given a `TrainRNG` the teacher-forced forward is the train-mode one.
+Counterparts of `TransformerDecoder`, `CIFDecoder` and `FCDecoder` in
+openasr_tpu/models/decoder.py.  TransformerDecoder: embedding x sqrt(d) ->
+PE (which scales by sqrt(d) again) -> dropout -> N post-LN decoder layers
+-> the tied output affine (embedding^T + out_bias).  CIFDecoder: the same
+embedding and PE, input_affine(concat(CIF frames, embedding)), N post-LN
+encoder layers with causal self-attention over the valid positions, and
+output_affine(concat(CIF frames, h)); its decode `step` is a full forward
+of the padded prefix, read at one position.  Given a `TrainRNG` a
+forward is the train-mode one.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import nn
 from openasr_torch.models.layers import (
     TrainRNG,
     TransformerDecoderLayer,
+    TransformerEncoderLayer,
     activation_dtype,
     any_empty,
     dropout,
@@ -102,6 +109,94 @@ def transformer_decoder_from_config(cfg) -> TransformerDecoder:
         d_model=int(cfg["d_model"]),
         nhead=int(cfg["nhead"]),
         num_layers=int(cfg["num_layers"]),
+        dim_feedforward=int(cfg["dim_feedforward"]),
+        activation=cfg.get("activation", "relu"),
+        dropout_rate=float(cfg.get("dropout_rate", 0.1)),
+    )
+
+
+class CIFDecoder(nn.Module):
+    def __init__(
+        self,
+        vocab_size: int,
+        d_model: int,
+        nhead: int,
+        num_layers: int,
+        encoder_dim: int,
+        dim_feedforward: int,
+        activation: str = "relu",
+        dropout_rate: float = 0.1,
+    ):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.dropout_rate = dropout_rate
+        self.d_model = d_model
+        self.emb = nn.Embedding(vocab_size, d_model)
+        self.emb.kernel_init = "xavier_normal"
+        self.input_affine = nn.Linear(encoder_dim + d_model, d_model)
+        self.output_affine = nn.Linear(encoder_dim + d_model, vocab_size)
+        self.output_affine.kernel_init = "xavier_normal"
+        for i in range(num_layers):
+            self.add_module(
+                f"layer{i}",
+                TransformerEncoderLayer(d_model, nhead, dim_feedforward, activation,
+                                        dropout_rate),
+            )
+        self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
+
+    def _hidden(self, encoded: torch.Tensor, ids: torch.Tensor, lengths: torch.Tensor,
+                rng: Optional[TrainRNG], empty_rows: Optional[bool]) -> torch.Tensor:
+        """The concatenated [CIF frames, last layer] [B, T, encoder_dim +
+        d_model] in the compute dtype (flax's Dense casts the f32 CIF frames
+        to its dtype the same way)."""
+        x = self.emb(ids.long())
+        dt = activation_dtype(x)
+        x = positional_encoding(x.to(dt) * math.sqrt(self.d_model))
+        x = dropout(x, self.dropout_rate, rng)
+        encoded = encoded.to(dt)
+        h = self.input_affine(torch.cat([encoded, x], dim=-1))
+        empty_rows = any_empty(lengths, empty_rows)
+        for layer in self.layers:
+            h = layer(h, kv_lengths=lengths, causal=True, rng=rng, empty_rows=empty_rows)
+        return torch.cat([encoded, h.to(dt)], dim=-1)
+
+    def forward(self, encoded: torch.Tensor, ids: torch.Tensor, id_lengths: torch.Tensor,
+                rng: Optional[TrainRNG] = None,
+                empty_rows: Optional[bool] = None) -> torch.Tensor:
+        """encoded [B, T, D] (the CIF frames, aligned with ids [B, T]) ->
+        logits [B, T, V].  `empty_rows`: whether some id length is <= 0
+        (None: read it back)."""
+        return self.output_affine(self._hidden(encoded, ids, id_lengths, rng, empty_rows))
+
+    def step(self, encoded: torch.Tensor, encoded_lengths: torch.Tensor,
+             ids_prefix: torch.Tensor, t: int,
+             empty_rows: Optional[bool] = None) -> torch.Tensor:
+        """Decode step t: ids_prefix [B, T] holds the tokens so far, padded;
+        -> the logits [B, V] at position t - 1 of the full forward (the
+        output affine, a per-position map, runs at that position only)."""
+        h = self._hidden(encoded, ids_prefix, encoded_lengths, None, empty_rows)
+        return self.output_affine(h[:, t - 1])
+
+
+class FCDecoder(nn.Module):
+    """One linear projection to the vocabulary."""
+
+    def __init__(self, vocab_size: int, d_input: int):
+        super().__init__()
+        self.output_affine = nn.Linear(d_input, vocab_size)
+        self.output_affine.kernel_init = "xavier_normal"
+
+    def forward(self, encoded: torch.Tensor) -> torch.Tensor:
+        return self.output_affine(encoded)
+
+
+def cif_decoder_from_config(cfg) -> CIFDecoder:
+    return CIFDecoder(
+        vocab_size=int(cfg["vocab_size"]),
+        d_model=int(cfg["d_model"]),
+        nhead=int(cfg["nhead"]),
+        num_layers=int(cfg["num_layers"]),
+        encoder_dim=int(cfg.get("encoder_dim", cfg["d_model"])),
         dim_feedforward=int(cfg["dim_feedforward"]),
         activation=cfg.get("activation", "relu"),
         dropout_rate=float(cfg.get("dropout_rate", 0.1)),

@@ -20,6 +20,12 @@ the JAX package:
     EOS (forced EOS on finished beams too) neither earns nor rolls back
     boost and leaves the automaton as it was.
 
+With `use_eos=False` (the CIF decode) every beam runs all
+`max_decode_len` steps: no EOS finishing, no score freeze, no early exit,
+and the biasing automaton advances on every emitted token, EOS included;
+lengths come back as `max_decode_len` and the caller cuts each utterance
+to its own length.
+
 Every top-k here is a stable descending sort, so ties resolve to the lower
 index first, as `lax.top_k` does.
 """
@@ -69,6 +75,7 @@ def batch_beam_search(
     device=None,
     context_tables=None,
     context_weight: float = 0.0,
+    use_eos: bool = True,
 ):
     """Run beam search, optionally with hotword biasing.
 
@@ -79,6 +86,7 @@ def batch_beam_search(
       context_tables, context_weight: hotword biasing, the tables of
         ops.ctc_beam_device.build_context_tables (off when either is
         None or 0).
+      use_eos: EOS finishes a beam (False: every beam runs every step).
 
     Returns:
       preds [B, beam, max_decode_len] (EOS-padded, no SOS),
@@ -104,12 +112,13 @@ def batch_beam_search(
 
     cache = init_cache
     for step in range(max_decode_len):
-        if bool(finished.all()):
+        if use_eos and bool(finished.all()):
             break
         logits, cache = step_fn(tokens, step, cache)
         z = torch.log_softmax(logits.float(), dim=-1)
-        # finished beams: force EOS with log-prob 0 (score freeze)
-        z = torch.where(finished[:, None], eos_row, z)
+        if use_eos:
+            # finished beams: force EOS with log-prob 0 (score freeze)
+            z = torch.where(finished[:, None], eos_row, z)
         if ctx is not None:
             bias = context_weight * context_boost(ctx, cmatch)  # [BB, V]
             bias[:, EOS_ID] = 0.0
@@ -127,19 +136,24 @@ def batch_beam_search(
         preds = preds[beam_src]
         preds[:, step] = tokens
         scores = top_scores.reshape(-1)
-        finished = finished[beam_src] | (tokens == EOS_ID)
+        if use_eos:
+            finished = finished[beam_src] | (tokens == EOS_ID)
         cache = _reorder(cache, beam_src)
         if ctx is not None:
             pmatch = cmatch[beam_src]
-            cmatch = torch.where((tokens == EOS_ID)[:, None], pmatch,
-                                 context_advance(ctx, pmatch, tokens))
+            advanced = context_advance(ctx, pmatch, tokens)
+            cmatch = (torch.where((tokens == EOS_ID)[:, None], pmatch, advanced)
+                      if use_eos else advanced)
 
-    is_eos = (preds == EOS_ID).to(torch.int32)
-    lengths = torch.where(
-        is_eos.any(dim=1),
-        is_eos.argmax(dim=1),
-        torch.full((bb,), max_decode_len, device=device),
-    )
+    if use_eos:
+        is_eos = (preds == EOS_ID).to(torch.int32)
+        lengths = torch.where(
+            is_eos.any(dim=1),
+            is_eos.argmax(dim=1),
+            torch.full((bb,), max_decode_len, device=device),
+        )
+    else:
+        lengths = torch.full((bb,), max_decode_len, device=device)
 
     sorted_scores, order = _top_k(scores.reshape(batch_size, beam_size), beam_size)
     gather = (

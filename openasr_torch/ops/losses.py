@@ -1,19 +1,54 @@
-"""Sequence losses: CTC with blank = V-1 and label-smoothed CE.
+"""Sequence losses: CTC with blank = V-1, label-smoothed CE, and CIF's
+quantity and square losses.
 
-Counterparts of `cal_ctc_loss` (openasr_tpu/ops/ctc.py:274) and
-`cal_ce_loss` (openasr_tpu/ops/losses.py:40).  Both return sums over the
-batch, in f32 whatever the logits' dtype; the solvers normalize them (CE
-by tokens, CTC by sequences).
+Counterparts of `cal_ctc_loss` (openasr_tpu/ops/ctc.py:274), `cal_ce_loss`
+(openasr_tpu/ops/losses.py:40), `cal_qua_loss` and `cal_ce_square_loss`
+(openasr_tpu/ops/losses.py:64-76).  Each returns a sum over the batch, in
+f32 whatever the logits' dtype; the solvers normalize them (CE by tokens,
+CTC and quantity by sequences).
 
 The JAX package's CTC is its own XLA forward-backward; here it is
 `F.ctc_loss` on f32 log-probs with `zero_infinity`, plus the package's two
-rules: rows with target_length <= 0 and losses >= 1e29 count as 0.
+rules: rows with target_length <= 0 and losses >= 1e29 count as 0.  A
+target may equal the blank id V-1 where the vocabulary has no blank of
+its own (`add_blk: false`, as in the CIF configs); `F.ctc_loss` then
+keeps only one of the two end states' shares of the last frame's blank
+gradient, and `_LastBlankFrame` restores it (see there).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+class _LastBlankFrame(torch.autograd.Function):
+    """The identity on log-probs [T, B, V]; its backward rewrites the blank
+    entry of the gradient at frame `frames[b]` of the rows b where
+    `ends_in_blank` (a row's last valid frame, where its last target is
+    the blank id) as minus the sum of the row's other entries.
+    F.ctc_loss's gradient is exp(lp) - gamma, with gamma the frame's class
+    occupancy, so each frame's entries sum to 0; on such a row both end
+    states emit the blank id and gamma is all on it, but F.ctc_loss keeps
+    only one end state's share there.  The other entries are right (gamma
+    is 0 on them), so the sum restores the blank's exactly.  Only the B
+    last frames are read and B entries written, in place: F.ctc_loss's
+    backward hands over a fresh buffer that nothing else holds."""
+
+    @staticmethod
+    def forward(ctx, log_probs, frames, ends_in_blank, blank):
+        ctx.save_for_backward(frames, ends_in_blank)
+        ctx.blank = blank
+        return log_probs.view_as(log_probs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        frames, ends_in_blank = ctx.saved_tensors
+        rows = torch.arange(grad.shape[1], device=grad.device)
+        last = grad[frames, rows]                                          # [B, V]
+        col = last[:, ctx.blank]
+        grad[frames, rows, ctx.blank] = torch.where(ends_in_blank, col - last.sum(dim=-1), col)
+        return grad, None, None, None
 
 
 def cal_ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
@@ -24,8 +59,15 @@ def cal_ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
     v = logits.shape[-1]
     log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)   # [T, B, V]
     tlen = target_lengths.to(torch.int64)
+    llen = logit_lengths.to(torch.int64).clamp(min=0)
+    if log_probs.requires_grad:
+        targets64 = targets.to(torch.int64)
+        last = targets64.gather(1, (tlen - 1).clamp(min=0)[:, None])[:, 0]
+        ends_in_blank = (tlen > 0) & (last == v - 1) & (llen > 0)
+        frames = (llen - 1).clamp(min=0, max=log_probs.shape[0] - 1)
+        log_probs = _LastBlankFrame.apply(log_probs, frames, ends_in_blank, v - 1)
     losses = F.ctc_loss(
-        log_probs, targets.to(torch.int64), logit_lengths.to(torch.int64).clamp(min=0),
+        log_probs, targets.to(torch.int64), llen,
         tlen.clamp(min=0), blank=v - 1, reduction="none", zero_infinity=True,
     )
     zero = torch.zeros((), dtype=losses.dtype, device=losses.device)
@@ -48,3 +90,14 @@ def cal_ce_loss(logits: torch.Tensor, labels: torch.Tensor, paddings: torch.Tens
         smooth = ((lse - x32.mean(dim=-1)) * keep).sum()
         loss = loss * (1.0 - label_smooth) + smooth * label_smooth
     return loss
+
+
+def cal_qua_loss(num_hat: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
+    """CIF's quantity loss sqrt(sum((n_hat - n)^2)) over the batch."""
+    return torch.sqrt(((num_hat.float() - num.float()) ** 2).sum())
+
+
+def cal_ce_square_loss(prob_square: torch.Tensor,
+                       target_square: torch.Tensor) -> torch.Tensor:
+    """L1 distance between two [B, T, T] squares."""
+    return (prob_square - target_square).abs().sum()

@@ -19,7 +19,8 @@ parameters.  Totals stay on the device and are read back only at print
 intervals and epoch ends.
 
 The CTC solver logs the greedy decode of the first dev utterance
-(`dev sample greedy ids: [...]`) after the first dev batch.
+(`dev sample greedy ids: [...]`) after the first dev batch.  The CIF
+families' solvers are in solvers/cif.py.
 
 `optimtype: sgd` and `fused_adam: false` take the stock optimizers
 (ops/optimizers.py).  Packages are written by an `AsyncCheckpointer`,
@@ -493,12 +494,14 @@ SOLVER_REGISTRY = {
 
 def get_solver_class(model_type: str):
     """Case- and -/_-insensitive, as model types resolve."""
+    import openasr_torch.solvers.cif  # noqa: F401  (fills the registry)
+
     norm = model_type.lower().replace("-", "_")
     for name, cls in SOLVER_REGISTRY.items():
-        if name.replace("-", "_") == norm:
+        if name.lower().replace("-", "_") == norm:
             return cls
     raise ValueError(
         f"No solver for model type {model_type!r} in the port; it trains "
-        f"{sorted(SOLVER_REGISTRY)} (CIF, CPC and phone2char solvers are "
-        "ROADMAP queue 1 items 9 and 13)"
+        f"{sorted(SOLVER_REGISTRY)} (the CPC and phone2char solvers are "
+        "ROADMAP queue 1 item 13)"
     )

@@ -26,7 +26,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "solvers", "ops.fused_adam", "ops.losses", "ops.schedules", "ops.specaug",
                  "utils.checkpoint", "config", "data.sampler", "data.audio", "ops.fbank",
                  "kernels.fbank", "ops.ctc_decode", "ops.prefix_beam", "ops.ctc_beam_device",
-                 "utils.metrics", "bin.wer"):
+                 "utils.metrics", "bin.wer", "ops.cif", "models.assigner", "models.cif",
+                 "solvers.cif"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -214,7 +214,7 @@ def test_conv_transformer_type_and_bfloat16_decode():
     ("encoder", {"streaming": {"chunk": 4}}, "item 11"),
     ("encoder", {"moe": {"num_experts": 2}}, "item 14"),
     ("encoder", {"pipeline": True}, "item 15"),
-    ("type", "CIF", "item 9"),
+    ("type", "gru_ctc", "item 13"),
 ])
 def test_unported_configs_name_their_roadmap_item(section, patch, match):
     cfg = small_config()
