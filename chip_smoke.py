@@ -80,13 +80,43 @@ The kernel line adds the attention forward and backward at the CIF
 decoder's causal shapes beside SDPA's, their calls a step taken from the
 built module and held to the run's launches.
 
+Then the LM path (`[lm path]`): the Transformer LM at the JAX package's
+create_model defaults with the flagship's d_model (d512 x 6 post-LN
+layers, 8 heads, relu FFN 2048, dropout 0.1; egs/ has no LM config) and
+the 2-layer LSTM LM at d512, both at vocabulary 4233, trained through
+`openasr_torch.bin.train_lm` on 256 seeded lines of 20-60 characters (3
+steps of 32 lines and a dev pass of 5 batches; the Transformer LM in f32
+and bf16, its launches held to the built module's, its dev perplexity
+printed);
+one f32 step's gradients of each LM on the card against the CPU (1e-3,
+the Transformer LM's at the card's FFN ReLU decisions, flips bounded as
+in the CIF check); the Transformer LM's cached step against its batch
+forward on 40 tokens (1e-4 f32, 5e-2 bf16); the fused beams through the
+infer CLI (the flagship's attention beam with the Transformer LM in f32
+and bf16 and with the LSTM LM, conv-ctc's device prefix beam of 10 and
+the CIF beam with the Transformer LM; each run's LayerNorm launches show
+the LM's step), a CTC model with `--lm_pkg` off the device beam exiting
+non-zero; and each fused beam called directly: its warm ms a batch beside
+the unfused beam's, --lm_weight 0 equal to the unfused beam, and on two
+utterances its n-best scores on the card against the CPU's (1e-3); with
+the device ms of the device CTC beam's gather of the LM cache by parent,
+once a frame.  The
+kernel line adds the attention forward (4l) and backward (5+6l) at the
+Transformer LM's training shape (causal, no key lengths, dropout 0.1)
+beside SDPA with is_causal, their calls a step taken from the built
+module and held to the run's launches.
+
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
 gradients and the f32 fbank features are also checked against the same
 inputs on the CPU.  The CTC loss at the flagship training batch is timed
 with and without its last-blank rewrite (`[ctc loss]`; the gradients
 equal bit for bit), and its gradient on rows ending in the blank id held
-against the CPU.
+against its plain version; on the short rows of
+tests/test_torch_cif.py's blank-id test (9 and 7 frames), where the
+CPU's F.ctc_loss alone is a share of 0.25-0.78 off, the card's gradient
+is held to the CPU's (1e-4), with the share the rewrite adds on each
+device printed.
 
 It prints the card's name and power limit, a `{"kernels": [...]}` line
 with each kernel's error, launches, times and bound (the attention
@@ -152,6 +182,13 @@ TOL_FLASH_STATS = 1e-4
 # the CTC gradient's rewritten blank entry against its plain version: the
 # same frame's sum over V in another order (entries of at most 1 in f32)
 TOL_CTC_BLANK = 1e-5
+# the short rows of tests/test_torch_cif.py::test_ctc_gradient_where_a_target
+# _is_the_blank_id (9 and 7 frames, vocabulary 11, blank 10): the card
+# against the CPU at that test's tolerance, on rows where the CPU's
+# F.ctc_loss alone is a share of 0.25-0.78 off
+TOL_CTC_SHORT = 1e-4
+CTC_SHORT_ROWS = (([10, 7, 2, 2], 2), ([7, 10, 5, 2], 3), ([10, 10, 2, 2], 2),
+                  ([7, 5, 10, 2], 3), ([10, 2, 2, 2], 1), ([7, 5, 3, 2], 3))
 # log-mel, max abs.  The kernel computes the FFT in float64, the plain
 # version the folded f32 products.  So the kernel is held against a
 # float64 evaluation of the same function (`fbank_float64`), to TOL_FBANK_F64
@@ -1563,7 +1600,52 @@ def check_ctc_loss_cost(shapes, rounds: int = 5, calls: int = 20) -> dict:
     require(err <= TOL_CTC_BLANK,
             f"CTC gradient where a target is the blank id: {err:.3g} from its plain version")
     require(moved > 0.0, "the last-blank rewrite changed nothing where it must")
-    return {"ms": med, "err": err}
+    return {"ms": med, "err": err, "short": check_ctc_short_rows()}
+
+
+def check_ctc_short_rows() -> dict:
+    """CTC_SHORT_ROWS on the card and on the CPU: the gradient of
+    `cal_ctc_loss` on the card against the CPU's (TOL_CTC_SHORT; the CPU's
+    is the JAX package's there, tests/test_torch_cif.py), and per row the
+    largest change the last-blank rewrite makes against
+    `parent_ctc_loss`'s gradient.  On the CPU, F.ctc_loss drops a share of
+    the last frame's blank gradient where a row's last target is the blank
+    id, and the rewrite must add it back (at least 0.1; nothing elsewhere):
+    there the check tells a right gradient on the card from one short of
+    that share.  On the card the change is reported: F.ctc_loss's CUDA
+    backward keeps both end states' shares, and the rewrite leaves its
+    gradient as it is."""
+    from openasr_torch.ops.losses import cal_ctc_loss
+
+    worst, shares = 0.0, {"cuda": [], "cpu": []}
+    for labels, n in CTC_SHORT_ROWS:
+        rng = np.random.RandomState(len(labels) * 10 + n)
+        logits = torch.from_numpy(rng.randn(2, 9, 11).astype(np.float32))
+        args = (torch.tensor([labels, labels]), torch.tensor([9, 7]), torch.tensor([n, n]))
+        out = {}
+        for device in ("cuda", "cpu"):
+            x = logits.to(device).requires_grad_()
+            targets, llen, tlen = (t.to(device) for t in args)
+            got = torch.autograd.grad(cal_ctc_loss(x, llen, targets, tlen), x)[0].cpu()
+            parent = torch.autograd.grad(parent_ctc_loss(x, llen, targets, tlen), x)[0].cpu()
+            out[device] = (got, (got - parent).abs().amax(dim=(1, 2)))
+        (g_card, m_card), (g_cpu, m_cpu) = out["cuda"], out["cpu"]
+        err = max_err(g_card, g_cpu)
+        worst = max(worst, err)
+        ends = labels[n - 1] == 10
+        if ends:
+            for device, m in (("cuda", m_card), ("cpu", m_cpu)):
+                shares[device] += [float(f"{float(v):.4g}") for v in m]
+        require(err <= TOL_CTC_SHORT, f"CTC short rows {labels[:n]}: card vs CPU {err:.3g}")
+        require(bool((m_cpu >= 0.1).all()) if ends else bool((m_cpu == 0).all()),
+                f"CTC short rows {labels[:n]}: the rewrite moved the CPU's gradient by "
+                f"{m_cpu.tolist()} (ends in the blank id: {ends})")
+    print(f"[ctc loss] the CPU test's short rows ({len(CTC_SHORT_ROWS)} cases of 2 rows, 9 and "
+          f"7 frames, vocabulary 11, blank 10): card vs CPU gradient {worst:.3g} (tol "
+          f"{TOL_CTC_SHORT}); on the rows ending in the blank id the rewrite added "
+          f"{shares['cpu']} to the CPU's F.ctc_loss gradient and {shares['cuda']} to the "
+          f"card's, nothing elsewhere")
+    return {"err": worst, "shares": shares}
 
 
 # --------------------------------------------------------------- phase 6
@@ -2219,11 +2301,9 @@ def module_launches(module) -> dict:
     """Kernel launches of one forward of `module` (every LayerNorm, every
     attention, the fbank kernel for an fbank frontend), and of its
     training step, which adds each one's backward."""
-    from openasr_torch.models.layers import LayerNorm, MultiHeadAttention
-
-    n_ln = sum(isinstance(m, LayerNorm) for m in module.modules())
-    n_attn = sum(isinstance(m, MultiHeadAttention) for m in module.modules())
-    n_fbank = int(module.splayer.feature_type == "fbank")
+    n_ln, n_attn = count_layer_norms(module), count_attention(module)
+    splayer = getattr(module, "splayer", None)
+    n_fbank = int(splayer is not None and splayer.feature_type == "fbank")
     return {"forward": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn, "fbank": n_fbank},
             "step": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
                      "flash_attention_fwd_dropout": n_attn, "flash_attention_bwd_dkv": n_attn,
@@ -2749,8 +2829,8 @@ def cif_train_run(tag, cfg_path, model_cfg, launches, min_steps) -> dict:
 
 
 class ReluMasks:
-    """The ReLUs of the ConvV2 subsampler and the CIF assigner (their
-    modules' `F.relu`), recording each call's input on one forward and
+    """The ReLUs of the ConvV2 subsampler, the CIF assigner and the relu
+    FFNs of models/layers.py (their modules' `F.relu`), recording each call's input on one forward and
     replaying the recorded inputs' masks `x > 0`, in call order, on
     another.  A ReLU's gradient jumps at 0: a pre-activation within
     rounding of 0 may fall on one side on the card and on the other on
@@ -2793,17 +2873,17 @@ class ReluMasks:
         return torch.where(mask, x, torch.zeros_like(x))
 
     def installed(self, replay: bool):
-        from openasr_torch.models import assigner, subsample
+        from openasr_torch.models import assigner, layers, subsample
 
         @contextlib.contextmanager
         def patch():
-            saved = assigner.F, subsample.F
+            saved = assigner.F, subsample.F, layers.F
             self.replay, self.calls = replay, 0
-            assigner.F = subsample.F = self.functional
+            assigner.F = subsample.F = layers.F = self.functional
             try:
                 yield
             finally:
-                assigner.F, subsample.F = saved
+                assigner.F, subsample.F, layers.F = saved
 
         return patch()
 
@@ -3022,7 +3102,8 @@ def phase_cif(rng, launches) -> dict:
               f"warm; CIF lengths {r['cif_lens'].tolist()}")
     check = check_cif_against_cpu(pkg, test_feats)
     return {"train_json": train_json, "decode": timing, "check": check, "per_decode": per,
-            "attention_calls": module_per["attention_calls"]}
+            "attention_calls": module_per["attention_calls"], "pkg": pkg, "vocab": vocab,
+            "test_json": test_json, "test_feats": test_feats}
 
 
 def cif_decoder_shape(train_json):
@@ -3123,6 +3204,544 @@ def cif_rows(cif, errs, launches):
     return rows
 
 
+# ----------------------------------------------------------------- LM path
+
+# egs/ has no LM config: the Transformer LM is the JAX package's
+# TransformerLMModel.create_model defaults (openasr_tpu/models/lm.py:254-274:
+# 8 heads, 6 layers, FFN 4 x d_model, relu, dropout 0.1) at the flagship's
+# d_model 512, the LSTM LM LSTMLMModel.create_model's default depth of 2
+# layers at d_model 512; both at the smoke test's vocabulary of 4233 (4230
+# characters and 3 specials: the CIF path's, and with the blank the
+# flagship's and conv-ctc's size).  Training takes the flagship YAML's
+# optimizer, clip, label smoothing and schedule.
+LM_MODELS = {
+    "transformer_lm": {"type": "transformer_lm", "d_model": 512, "nhead": 8, "num_layers": 6,
+                       "dim_feedforward": 2048, "activation": "relu", "dropout_rate": 0.1},
+    "lstm_lm": {"type": "lstm_lm", "d_model": 512, "n_layers": 2},
+}
+LM_BATCH = 32
+LM_STEPS = 3
+LM_LINES = 256            # 3 steps of 32 train lines, 5 dev batches of 32
+LM_WEIGHT = 0.3
+LM_STEP_TOKENS = 40
+TOL_LM_STEP = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+TOL_FUSED_SCORES = 1e-3
+
+
+def lm_train_config(exp, data, model_type, dtype) -> str:
+    import yaml
+
+    with open(FLAGSHIP_YAML) as f:
+        flagship = yaml.safe_load(f)["training"]
+    training = {k: flagship[k] for k in ("init_lr", "optimtype", "grad_max_norm",
+                                         "label_smooth", "lr_scheduler")}
+    training.update(exp_dir=exp, batch_size=LM_BATCH, num_epoch=1, print_inteval=1,
+                    compute_dtype=DTYPE_NAME[dtype])
+    cfg = {"data": dict(data, fetchworker_num=2), "model": dict(LM_MODELS[model_type]),
+           "training": training}
+    os.makedirs(exp, exist_ok=True)
+    path = os.path.join(exp, "train_lm.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def lm_train_run(tag, cfg_path, model_type, vocab_size, launches) -> dict:
+    """One train_lm CLI run on the card between counter reads: finite losses,
+    LM_STEPS steps and the dev pass, exactly the launches of its steps and
+    dev batches; its dev perplexity."""
+    from openasr_torch.bin import train_lm
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+
+    with torch.device("meta"):
+        module = get_model_class(model_type).build_module(
+            Config(dict(LM_MODELS[model_type], vocab_size=vocab_size)))
+    per = module_launches(module)
+    exp = os.path.dirname(cfg_path)
+    reset_counters()
+    t0 = time.time()
+    train_lm.main([cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    rows = read_metrics(exp)
+    tr = [r for r in rows if r["phase"] == "train"]
+    cv = [r for r in rows if r["phase"] == "cv"]
+    epoch = [r for r in rows if r["phase"] == "epoch"]
+    dev_batches = -(-(LM_LINES - LM_BATCH * LM_STEPS) // LM_BATCH)
+    require(len(tr) == LM_STEPS and len(cv) == dev_batches and len(epoch) == 1,
+            f"{tag}: {len(tr)} steps, {len(cv)} dev batches")
+    ppl = float(np.exp(epoch[0]["cv_loss"]))
+    print(f"[lm path] {tag}: {len(tr)} steps + {len(cv)} dev batches in {wall:.2f}s wall; "
+          f"ce {[round(r['ce_loss'], 4) for r in tr]}; dev perplexity {ppl:.2f} (vocabulary "
+          f"{vocab_size}); launches {n}")
+    require(all(np.isfinite(r[k]) for r in rows for k in r if k.endswith("loss")),
+            f"{tag}: a non-finite loss")
+    require(np.isfinite(ppl), f"{tag}: dev perplexity {ppl}")
+    want = {k: 0 for k in n}
+    for k, c in per["step"].items():
+        want[k] += c * len(tr)
+    for k, c in per["forward"].items():
+        want[k] += c * len(cv)
+    require(n == want, f"{tag}: launches {n} != {want}")
+    attention_calls = count_attention(module)
+    if attention_calls:
+        for k in ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd_dropout",
+                  "flash_bwd_stats", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                  "flash_attention_fwd"):
+            require(n[k] > 0, f"{tag}: {k} never launched")
+    launches[("lm train", tag)] = {"total": n, "steps": len(tr), "dev_batches": len(cv),
+                                    "per_step": per["step"],
+                                    "attention_calls": attention_calls}
+    return {"pkg": os.path.join(exp, "last.pkg"), "ppl": ppl, "wall": wall}
+
+
+def load_lm(pkg_path, device, dtype=torch.float32):
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    pkg = load_package(pkg_path)["model"]
+    lm = get_model_class(pkg["model_type"]).create_model(Config(pkg["configs"]), device=device,
+                                                         dtype=dtype)
+    lm.restore(pkg)
+    return lm
+
+
+def lm_text_batch(vocab, lines):
+    from openasr_torch.data.collate import TextCollate
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    return TextCollate(CharTokenizer(vocab))(lines)
+
+
+def check_lm_against_cpu(pkgs, vocab, lines) -> dict:
+    """One f32 step's gradients of the solver's loss (CE over tokens, label
+    smoothing 0.1, no dropout) on 4 dev lines, card against CPU, TF32 off:
+    the Transformer LM's with the CPU at the card's ReLU decisions
+    (`ReluMasks`: its FFN ReLUs sit above every attention layer), the
+    flips bounded as rounding ties as in the CIF check; the LSTM LM's as
+    they are.  1e-3 of each parameter's largest gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = lm_text_batch(vocab, lines[:4])
+    out = {}
+    for lm_type, pkg in pkgs.items():
+        relus = ReluMasks()
+        runs = ((("cuda", False), ("cpu", None), ("cpu", True)) if lm_type == "transformer_lm"
+                else (("cuda", None), ("cpu", None)))
+        grads = {}
+        for device, replay in runs:
+            lm = load_lm(pkg, device)
+            tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            with relus.installed(replay) if replay is not None else contextlib.nullcontext():
+                losses = lm.loss(tb, None, label_smooth=0.1)
+                total = losses["ce_loss"] / losses["n_tokens"]
+            total.backward()
+            grads[device if replay is not True else "cpu at the card's ReLUs"] = {
+                n: p.grad.detach().cpu() for n, p in lm.module.named_parameters()}
+        ref = grads.get("cpu at the card's ReLUs", grads["cpu"])
+        worst, worst_name = grad_errs(grads["cuda"], ref)
+        own, own_name = grad_errs(grads["cuda"], grads["cpu"])
+        flip_abs = max((f["flip_abs_rel"] for f in relus.flipped), default=0.0)
+        print(f"[lm check] {lm_type} f32 card vs CPU, one step's gradients on 4 lines "
+              f"[{batch['ids'].shape[0]}, {batch['ids'].shape[1]}], {len(ref)} parameters"
+              + (f", the CPU at the card's ReLU decisions: worst err {worst:.3g} "
+                 f"({worst_name}; tol 1e-3); at the CPU's own {own:.3g} ({own_name}); "
+                 f"{relus.flips} of {sum(int(x.numel()) for x in relus.inputs)} ReLU inputs "
+                 f"flipped (at most {CIF_RELU_MAX_FLIPS}), the largest |x| at a flip "
+                 f"{flip_abs:.3g} of its call's largest |x| (tol {CIF_RELU_TIE}): "
+                 f"{relus.flipped}" if relus.inputs
+                 else f": worst err {worst:.3g} ({worst_name}; tol 1e-3)"))
+        require(relus.flips <= CIF_RELU_MAX_FLIPS,
+                f"{lm_type}: {relus.flips} ReLU inputs flipped between card and CPU")
+        require(flip_abs <= CIF_RELU_TIE, f"{lm_type}: a ReLU flip at {flip_abs:.3g}")
+        require(worst <= 1e-3, f"{lm_type}: the gradient of {worst_name} disagrees: {worst:.3g}")
+        out[lm_type] = {"grad_err": worst, "grad_err_own_relus": own, "relu_flips": relus.flips}
+    return out
+
+
+def check_lm_step(pkg, vocab, lines) -> dict:
+    """The Transformer LM's cached step (dense attention over its K/V cache)
+    against its batch forward (the flash and LayerNorm kernels) on the
+    card: the first LM_STEP_TOKENS ids of two dev lines at least that
+    long fed one a step, log-probs
+    within TOL_LM_STEP, in f32 and with the LM in bf16."""
+    from openasr_torch.models.lm import make_lm_fusion
+
+    long = [line for line in lines if len(line.split()) >= LM_STEP_TOKENS][:2]
+    ids = torch.from_numpy(lm_text_batch(vocab, long)["ids"][:, :LM_STEP_TOKENS]).cuda()
+    require(ids.shape[1] == LM_STEP_TOKENS, f"step check: {tuple(ids.shape)} ids")
+    errs = {}
+    for dtype in DTYPES:
+        lm = load_lm(pkg, "cuda", dtype)
+        with torch.inference_mode():
+            want = torch.log_softmax(lm.module(ids), dim=-1)
+            step, cache = make_lm_fusion(lm, ids.shape[0], LM_STEP_TOKENS)
+            got = []
+            for j in range(LM_STEP_TOKENS):
+                lp, cache = step(ids[:, j], cache)
+                got.append(lp)
+            got = torch.stack(got, dim=1)
+        errs[DTYPE_NAME[dtype]] = max_err(got, want)
+        require(bool(torch.isfinite(got).all()), "non-finite LM step log-probs")
+    print(f"[lm check] the Transformer LM's cached step against its batch forward on the "
+          f"card, [2, {LM_STEP_TOKENS}] tokens: log-prob err {errs} (tol "
+          f"{ {DTYPE_NAME[k]: v for k, v in TOL_LM_STEP.items()} })")
+    for dtype in DTYPES:
+        require(errs[DTYPE_NAME[dtype]] <= TOL_LM_STEP[dtype],
+                f"the LM step disagrees with the batch forward in {DTYPE_NAME[dtype]}")
+    return errs
+
+
+def count_layer_norms(module) -> int:
+    from openasr_torch.models.layers import LayerNorm
+
+    return sum(isinstance(m, LayerNorm) for m in module.modules())
+
+
+def count_attention(module) -> int:
+    from openasr_torch.models.layers import MultiHeadAttention
+
+    return sum(isinstance(m, MultiHeadAttention) for m in module.modules())
+
+
+def fused_cli_decode(tag, argv, n_utts, check_launches, launches) -> None:
+    """One fused decode through the infer CLI on the card between counter
+    reads: a hyp line an utterance and the launches `check_launches`
+    accepts."""
+    from openasr_torch.bin import infer
+
+    reset_counters()
+    t0 = time.time()
+    infer.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    out = argv[argv.index("--output") + 1]
+    with open(out, encoding="utf-8") as f:
+        lines = [line for line in f if line.strip()]
+    print(f"[lm path] fused decode {tag}: {len(lines)} hyps in {wall:.2f}s wall (1 batch); "
+          f"launches {n}")
+    require(len(lines) == n_utts, f"{tag}: {len(lines)} hyp lines for {n_utts} utterances")
+    check_launches(tag, n)
+    launches[("lm decode", tag)] = n
+
+
+def phase_lm_cli_decodes(pkgs, flagship_pkg, ctc_pkg, vocab, test_json, test_feats, cif,
+                         launches) -> None:
+    """The fused beams through the infer CLI (one batch each): the flagship's
+    attention beam with the Transformer LM in f32 and bf16 and with the
+    LSTM LM, conv-ctc's device prefix beam with the Transformer LM, and
+    the CIF beam with it; each run's LayerNorm launches are the encoder's
+    plus, a step, the decoder's and the LM step's 12 (none for the LSTM),
+    so they show that the LM stepped on the card.  Then a CTC model with
+    --lm_pkg and no --ctc_beam_device exits non-zero."""
+    from openasr_torch.bin import infer
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+
+    with torch.device("meta"):
+        flagship = get_model_class("conv-ctc-transformer").build_module(Config(FLAGSHIP))
+        ctc = get_model_class("conv-ctc").build_module(Config(ctc_model()))
+        cif_module = get_model_class("CIF").build_module(Config(load_model_cfg(CIF_YAML, 4233)))
+        lm_ln = {t: count_layer_norms(get_model_class(t).build_module(
+            Config(dict(LM_MODELS[t], vocab_size=4233)))) for t in LM_MODELS}
+    n_utts = len(test_feats)
+    common = ["--vocab_path", vocab, "--json_file", test_json, "--offline",
+              "--batch_frames", "36000", "--device", "cuda", "--lm_weight", str(LM_WEIGHT)]
+    enc_ln, enc_attn = count_layer_norms(flagship.encoder), count_attention(flagship.encoder)
+    dec_ln = count_layer_norms(flagship.decoder)
+    for lm_type, dtype in (("transformer_lm", torch.float32), ("transformer_lm", torch.bfloat16),
+                           ("lstm_lm", torch.float32)):
+        tag = f"attention beam, {lm_type}, {DTYPE_NAME[dtype]}"
+        per_step = dec_ln + lm_ln[lm_type]
+
+        def check(tag, n, per_step=per_step):
+            steps = (n["layer_norm_fwd"] - enc_ln) // per_step
+            want = {k: 0 for k in n}
+            want.update(layer_norm_fwd=enc_ln + steps * per_step, flash_attention_fwd=enc_attn)
+            require(n == want and steps >= 1, f"{tag}: launches {n}, not the encoder's and "
+                                              f"{per_step} LayerNorms a step")
+
+        hyp = os.path.join(WORK, f"hyp_lm_attention_{lm_type}_{DTYPE_NAME[dtype]}.txt")
+        fused_cli_decode(tag, ["--model_type", "conv-ctc-transformer", "--model_pkg",
+                               flagship_pkg, "--output", hyp, "--add_blk", "--nbest", "5",
+                               "--maxlen", "40", "--dtype", DTYPE_NAME[dtype],
+                               "--lm_pkg", pkgs[lm_type]] + common, n_utts, check, launches)
+    t = encoder_shapes(test_feats)[1]
+    ctc_ln, ctc_attn = count_layer_norms(ctc), count_attention(ctc)
+
+    def check_ctc(tag, n):
+        want = {k: 0 for k in n}
+        # the LM steps from <sos>, then once a frame
+        want.update(layer_norm_fwd=ctc_ln + (1 + t) * lm_ln["transformer_lm"],
+                    flash_attention_fwd=ctc_attn)
+        require(n == want, f"{tag}: launches {n} != {want}")
+
+    beam = ["--ctc_beam", str(CTC_BEAM)]
+    ctc_argv = ["--model_type", "conv-ctc", "--model_pkg", ctc_pkg, "--add_blk",
+                "--lm_pkg", pkgs["transformer_lm"], "--dtype", "float32"] + common + beam
+    fused_cli_decode("device ctc beam, transformer_lm, float32",
+                     ctc_argv + ["--ctc_beam_device", "--output",
+                                 os.path.join(WORK, "hyp_lm_ctc.txt")],
+                     n_utts, check_ctc, launches)
+    cif_per = cif_module_launches(cif_module, CIF_MAXLEN)["decode"]
+
+    def check_cif(tag, n):
+        want = {k: 0 for k in n}
+        want.update(cif_per)
+        want["layer_norm_fwd"] += CIF_MAXLEN * lm_ln["transformer_lm"]
+        require(n == want, f"{tag}: launches {n} != {want}")
+
+    fused_cli_decode("CIF beam, transformer_lm, float32",
+                     ["--model_type", "CIF", "--model_pkg", cif["pkg"], "--vocab_path",
+                      cif["vocab"], "--json_file", cif["test_json"], "--output",
+                      os.path.join(WORK, "hyp_lm_cif.txt"), "--offline", "--nbest",
+                      str(CIF_BEAM), "--maxlen", str(CIF_MAXLEN), "--batch_frames", "36000",
+                      "--device", "cuda", "--lm_pkg", pkgs["transformer_lm"], "--lm_weight",
+                      str(LM_WEIGHT)], len(cif["test_feats"]), check_cif, launches)
+    try:
+        infer.main(ctc_argv + ["--output", os.path.join(WORK, "hyp_lm_host.txt")])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    print(f"[lm path] conv-ctc with --lm_pkg and the host beam: exit {code!r}")
+    require(code not in (0, None), "a CTC model fused an LM off the device beam")
+
+
+def load_model_cfg(yaml_path, vocab_size) -> dict:
+    import yaml
+
+    with open(yaml_path) as f:
+        cfg = yaml.safe_load(f)["model"]
+    cfg["decoder"]["vocab_size"] = vocab_size
+    return cfg
+
+
+def timed(fn) -> tuple:
+    """fn() after a warm call: (its result, its wall ms, the card
+    synchronised before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
+def fused_beams(pkgs, flagship_pkg, ctc_pkg, test_feats, cif) -> dict:
+    """Each fused beam called directly, f32: warm wall ms a batch (the 8
+    test utterances) fused and unfused; at --lm_weight 0 its output equal
+    to the unfused one's; and on the 2 shortest utterances its n-best
+    scores on the card against the CPU's with the same packages (within
+    TOL_FUSED_SCORES; the share of equal token lists reported)."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.lm import make_lm_step_spec
+    from openasr_torch.ops.ctc_beam_device import ctc_prefix_beam_device
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lms = {d: load_lm(pkgs["transformer_lm"], d) for d in ("cuda", "cpu")}
+
+    def model_of(pkg_path, model_type, device):
+        pkg = load_package(pkg_path)
+        pkg = pkg.get("model", pkg)
+        cfg = Config(pkg["configs"])
+        if cfg.signal and "spec_aug" in cfg.signal:
+            del cfg.signal["spec_aug"]
+        model = get_model_class(model_type).create_model(cfg, device=device)
+        model.restore(pkg)
+        return model
+
+    def attention(model, lm, w, x, lens, beam, maxlen):
+        return model.batch_beam_decode(x, lens, beam, maxlen, empty_rows=False, lm=lm,
+                                       lm_weight=w)
+
+    def ctc_beam(model, lm, w, x, lens, beam, _maxlen):
+        with torch.inference_mode():
+            logits, llen = model.get_logits(x, lens, False)
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            kw = {}
+            if lm is not None:
+                spec = make_lm_step_spec(lm)
+                kw = {"lm_step_fn": spec["step_fn"], "lm_weight": w,
+                      "init_lm_cache": spec["init_cache_fn"](lp.shape[0] * beam,
+                                                             lp.shape[1] + 1)}
+            return ctc_prefix_beam_device(lp, llen, blank=lp.shape[-1] - 1, beam=beam, **kw)
+
+    beams = {
+        "attention": (flagship_pkg, "conv-ctc-transformer", attention, test_feats, 5, 40),
+        "device ctc": (ctc_pkg, "conv-ctc", ctc_beam, test_feats, CTC_BEAM, None),
+        "cif": (cif["pkg"], "CIF", attention, cif["test_feats"], CIF_BEAM, CIF_MAXLEN),
+    }
+    out = {}
+    for name, (pkg_path, model_type, run, feats, beam, maxlen) in beams.items():
+        model = model_of(pkg_path, model_type, "cuda")
+        utts = sorted(feats)
+        x, lens = (torch.from_numpy(a).cuda() for a in padded_features(feats, utts))
+        plain, plain_ms = timed(lambda: run(model, None, 0.0, x, lens, beam, maxlen))
+        fused, fused_ms = timed(lambda: run(model, lms["cuda"], LM_WEIGHT, x, lens, beam, maxlen))
+        zero = run(model, lms["cuda"], 0.0, x, lens, beam, maxlen)
+        require(all(torch.equal(a, b) for a, b in zip(zero, plain)),
+                f"{name} beam: --lm_weight 0 differs from the unfused beam")
+        require(bool(torch.isfinite(fused[2][fused[2] > -1e29]).all()),
+                f"{name} beam: non-finite fused scores")
+        short = sorted(utts, key=lambda u: feats[u].shape[0])[:2]
+        scores, toks = {}, {}
+        for device in ("cuda", "cpu"):
+            m = model if device == "cuda" else model_of(pkg_path, model_type, "cpu")
+            xs, ls = (torch.from_numpy(a).to(device) for a in padded_features(feats, short))
+            p, pl, sc = (a.cpu() for a in run(m, lms[device], LM_WEIGHT, xs, ls, beam, maxlen))
+            scores[device] = sc
+            toks[device] = [[tuple(p[i, n, : pl[i, n]].tolist()) for n in range(sc.shape[1])
+                             if sc[i, n] > -1e29] for i in range(sc.shape[0])]
+        live = scores["cpu"] > -1e29
+        require(torch.equal(live, scores["cuda"] > -1e29), f"{name} beam: live rows differ")
+        diff = float((scores["cuda"] - scores["cpu"])[live].abs().max())
+        same = sum(a == b for a, b in zip(toks["cuda"], toks["cpu"]))
+        out[name] = {"ms": fused_ms, "plain_ms": plain_ms, "cpu_score_diff": diff,
+                     "same_nbest": same, "b": len(utts), "beam": beam}
+        print(f"[lm path] {name} beam, f32, beam {beam}, Transformer LM weight {LM_WEIGHT}: "
+              f"{fused_ms:.1f} ms a batch of {len(utts)} fused, {plain_ms:.1f} ms unfused "
+              f"(warm wall); --lm_weight 0 equal to unfused; card vs CPU on 2 utterances: "
+              f"n-best scores within {diff:.3g} (tol {TOL_FUSED_SCORES}), n-best token lists "
+              f"equal {same}/2")
+        require(diff <= TOL_FUSED_SCORES, f"{name} beam: fused scores card vs CPU {diff:.3g}")
+    out["device ctc"]["cache_gather"] = lm_cache_gather_ms(lms["cuda"], test_feats)
+    return out
+
+
+def lm_cache_gather_ms(lm, test_feats) -> dict:
+    """Device ms (CUDA-graph replay) of the device CTC beam's gather of the
+    Transformer LM's cache by parent, once a frame, at the decode batch's
+    shape (B x CTC_BEAM rows, T' + 1 positions), and its bytes (read and
+    written once)."""
+    from openasr_torch.ops.ctc_beam_device import _gather_rows
+
+    b, t, _ = encoder_shapes(test_feats)
+    cache = lm.module.init_step_cache(b * CTC_BEAM, t + 1)
+    rows = torch.randint(0, CTC_BEAM, (b, CTC_BEAM), device="cuda")
+    rows = (torch.arange(b, device="cuda")[:, None] * CTC_BEAM + rows).reshape(-1)
+    nbytes = 2 * sum(x.numel() * x.element_size()
+                     for lc in cache["layers"] for x in lc.values())
+    ms = device_ms(lambda: _gather_rows(cache, rows))
+    print(f"[lm path] the device CTC beam's LM cache gather by parent, "
+          f"[{b * CTC_BEAM}, {t + 2}, 8, 64] x 12 f32: {ms:.4f} ms a frame (device), "
+          f"{nbytes / 1e9:.3f} GB moved, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"{ms * t:.1f} ms over the batch's {t} frames")
+    return {"ms": ms, "frames": t, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_lm(rng, launches, flagship_pkg, ctc_pkg, vocab, test_json, test_feats, cif) -> dict:
+    """The LM path (see the module docstring); counters reset just before
+    each CLI run and read just after."""
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    chars = [chr(0x4E00 + i) for i in range(4230)]
+    lm_vocab = write_text("lm_chars.txt", chars)
+    n_vocab = CharTokenizer(lm_vocab).unit_num()
+    lines = [" ".join(rng.choice(chars, size=int(rng.randint(20, 61))))
+             for _ in range(LM_LINES)]
+    data = {"trainset": write_text("lm_train.txt", lines[: LM_BATCH * LM_STEPS]),
+            "devset": write_text("lm_dev.txt", lines[LM_BATCH * LM_STEPS:]),
+            "vocab_path": lm_vocab}
+    runs = {}
+    for lm_type, dtype in (("transformer_lm", torch.float32), ("transformer_lm", torch.bfloat16),
+                           ("lstm_lm", torch.float32)):
+        tag = f"{lm_type} {DTYPE_NAME[dtype]}"
+        cfg = lm_train_config(os.path.join(WORK, f"exp_{lm_type}_{DTYPE_NAME[dtype]}"), data,
+                              lm_type, dtype)
+        runs[tag] = lm_train_run(tag, cfg, lm_type, n_vocab, launches)
+    pkgs = {"transformer_lm": runs["transformer_lm float32"]["pkg"],
+            "lstm_lm": runs["lstm_lm float32"]["pkg"]}
+    dev = lines[LM_BATCH * LM_STEPS:]
+    check = check_lm_against_cpu(pkgs, lm_vocab, dev)
+    step = check_lm_step(pkgs["transformer_lm"], lm_vocab, dev)
+    phase_lm_cli_decodes(pkgs, flagship_pkg, ctc_pkg, vocab, test_json, test_feats, cif,
+                         launches)
+    beams = fused_beams(pkgs, flagship_pkg, ctc_pkg, test_feats, cif)
+    return {"runs": runs, "check": check, "step": step, "beams": beams,
+            "train_text": data["trainset"], "vocab": lm_vocab}
+
+
+def lm_shape(train_text, vocab):
+    """The LM training run's largest batch: B and its ids width, from the
+    train CLI's first epoch of batches."""
+    from openasr_torch.data.manifest import TextLineByLineDataset
+    from openasr_torch.data.sampler import CountBatchSampler
+
+    ds = TextLineByLineDataset(train_text)
+    widths = [lm_text_batch(vocab, [ds[i] for i in b])["ids"].shape[1]
+              for b in CountBatchSampler(len(ds), LM_BATCH, shuffle=True, drop_last=True)]
+    return LM_BATCH, max(widths)
+
+
+def lm_rows(lm, errs, launches):
+    """The attention kernels at the Transformer LM's training shape (causal,
+    no key lengths, dropout 0.1), each against SDPA with is_causal on the
+    same call: the forward (4l) and the whole backward (5+6l); their calls
+    a step taken from the built module and held to the run's launches."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+    )
+
+    b, u = lm_shape(lm["train_text"], lm["vocab"])
+    h, d = LM_MODELS["transformer_lm"]["nhead"], 64
+    rng = np.random.RandomState(SEED + 14)
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        tr = launches[("lm train", f"transformer_lm {name}")]
+        calls = tr["attention_calls"]
+        for key in ("flash_attention_fwd_dropout", "flash_attention_bwd_dkv"):
+            require(calls * tr["steps"] == tr["total"][key],
+                    f"{calls} attention calls a step by the built module, but "
+                    f"{tr['total'][key]} {key} launches in {tr['steps']} steps")
+        row = attention_fwd_row(b, h, d, u, u, True, None, dtype, rng, errs, DROPOUT)
+        rows.append({"name": f"flash_attention_fwd_dropout_lm[{name}]", **row,
+                     "launches": tr["total"]["flash_attention_fwd_dropout"],
+                     "launches_per_step": calls,
+                     "launches_are": "dropout forward calls of the Transformer LM training run",
+                     "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, its own "
+                                   "Philox mask, is_causal=True)",
+                     "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+                     "tol": TOL_FLASH[dtype]})
+        at = attention_bwd_times(b, h, d, u, u, True, None, dtype, rng)
+        args = at["kernel_args"][:6] + at["kernel_args"][7:]
+        got, want = flash_attention_bwd(*args), flash_attention_bwd_reference(*args)
+        err = (0.0, 0.0)
+        for g, w in zip(got, want):
+            e, scale = scaled_err(g, w)
+            err = (max(err[0], e), max(err[1], e / scale))
+        print(f"[lm rows] flash backward {name} [{b}, {u}, {u}, {h}, {d}] causal, no key "
+              f"lengths: err {err[0]:.3g}, scaled {err[1]:.3g} (tol {TOL_FLASH_BWD[dtype]})")
+        require(err[1] <= TOL_FLASH_BWD[dtype], "the backward disagrees at the LM shape")
+        rows.append({
+            "name": f"flash_attention_bwd_lm[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327)",
+            "shape": at["shape"], "causal": True,
+            "launches": tr["total"]["flash_attention_bwd_dkv"],
+            "launches_per_step": calls,
+            "launches_are": "backward calls of the Transformer LM training run, each "
+                            "launching statistics, dK/dV and dQ once",
+            **bwd_errs(err, TOL_FLASH_BWD[dtype]),
+            **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")},
+            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, is_causal=True) "
+                          "forward + backward minus forward (graph replay)",
+        })
+    return rows
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3193,9 +3812,11 @@ def main() -> int:
               f"{time.time() - t_start:.1f}s")
         cif = phase_cif(rng, launches)
         print(f"[time] cif path done at {time.time() - t_start:.1f}s")
+        lm = phase_lm(rng, launches, pkg, ctc_pkg, vocab, test_json, test_feats, cif)
+        print(f"[time] lm path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
-                + cif_rows(cif, errs, launches))
+                + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3220,8 +3841,21 @@ def main() -> int:
         + f"; card vs CPU: logits {cif['check']['logits_err']:.3g}, gradients "
           f"{cif['check']['grad_err']:.3g}, fire margin {cif['check']['fire_margin']:.3g}; "
           f"launches a decode batch {cif['per_decode']}")
+    print("[lm path] " + "; ".join(
+        f"{k}: dev perplexity {r['ppl']:.2f}, {r['wall']:.2f}s wall" for k, r in lm["runs"].items())
+        + "; " + "; ".join(
+        f"{k} beam {r['ms']:.1f} ms fused vs {r['plain_ms']:.1f} ms unfused a batch of {r['b']} "
+        f"(beam {r['beam']}), card vs CPU scores {r['cpu_score_diff']:.3g}"
+        for k, r in lm["beams"].items())
+        + f"; the device CTC beam's LM cache gather "
+          f"{lm['beams']['device ctc']['cache_gather']['ms']:.4f} ms a frame"
+        + f"; step vs batch forward {lm['step']}; gradients card vs CPU "
+          f"{ {k: round(v['grad_err'], 6) for k, v in lm['check'].items()} }; launches a "
+          f"training step {launches[('lm train', 'transformer_lm float32')]['per_step']}")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
-          f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without")
+          f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
+          f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "
+          f"{ctc_cost['short']['shares']}")
     print(f"[recipe gate] CER {gate['cer']} after {gate['steps']} steps "
           f"({GATE_EPOCHS} epochs, train rows x{GATE_REPEAT}); train {gate['train_s']:.2f}s, "
           f"decode {gate['decode_s']:.2f}s wall; launches a step {gate['per_step']}")

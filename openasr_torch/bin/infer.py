@@ -17,13 +17,19 @@ each utterance a batch of its own), it decodes
     (`--ctc_beam N --ctc_beam_device`);
 
 and biases the attention or CIF beam or the device CTC beam toward the
-phrases of `--context_file`.  The log-probs of the CTC beams are the f32 log-softmax
-of the logits, also under `--dtype bfloat16`.  LM fusion and the other
-model families exit with the ROADMAP item that will port them.
+phrases of `--context_file`.  `--lm_pkg` with `--lm_weight` != 0 fuses an
+LM package (`lstm_lm` or `transformer_lm`, by the type it records; in f32
+whatever `--dtype`) into the attention and CIF beams and the device CTC
+beam (shallow fusion; a CTC model without `--ctc_beam N --ctc_beam_device`
+exits, as the host decoders have no fusion hook).  The log-probs of the
+CTC beams are the f32 log-softmax of the logits, also under `--dtype
+bfloat16`.  The other model families exit with the ROADMAP item that will
+port them.
 
   python -m openasr_torch.bin.infer --model_type conv-ctc \\
       --model_pkg last.pkg --vocab_path chars.txt --json_file test.json \\
-      --output hyp.txt --offline --add_blk --ctc_beam 10 --ctc_beam_device
+      --output hyp.txt --offline --add_blk --ctc_beam 10 --ctc_beam_device \\
+      [--lm_pkg lm/last.pkg --lm_weight 0.3]
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer, load_context_phrases
 from openasr_torch.models import get_model_class
+from openasr_torch.models.lm import make_lm_step_spec
 from openasr_torch.ops.ctc_beam_device import build_context_tables, ctc_prefix_beam_device
 from openasr_torch.ops.prefix_beam import make_decoder
 from openasr_torch.utils.checkpoint import load_package
@@ -88,7 +95,9 @@ def get_args(argv=None):
     parser.add_argument("--cutoff_logp", type=float, default=-20.0,
                         help="CTC beam frame cutoff: the log-prob floor")
     parser.add_argument("--lm_pkg", type=str, default=None,
-                        help="LM package for shallow fusion (not ported yet)")
+                        help="LM package for shallow fusion: scores become log p_am + "
+                             "lm_weight * log p_lm (attention and CIF beams, and the "
+                             "device CTC beam)")
     parser.add_argument("--lm_weight", type=float, default=0.0)
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
@@ -127,10 +136,23 @@ def check_ported(args) -> None:
             "have no beam); the other families are ROADMAP queue 1 item 13 (GRU-CTC, "
             "wav2vec, text)"
         )
-    if args.lm_pkg and args.lm_weight != 0.0:
+    if args.lm_pkg and args.lm_weight != 0.0 and is_ctc and not (
+            args.ctc_beam > 0 and args.ctc_beam_device):
         raise SystemExit(
-            "--lm_pkg shallow fusion is ROADMAP queue 1 item 10 (LMs and fusion)"
+            "--lm_pkg shallow fusion with a CTC model needs the on-device prefix beam: "
+            "add --ctc_beam N --ctc_beam_device (the host CTC decoders have no fusion hook)"
         )
+
+
+def load_lm(path: str, device: torch.device):
+    """The LM of a package (either package's), by the type it records."""
+    lm_pkg = load_package(path)
+    lm_pkg = lm_pkg["model"] if "model" in lm_pkg else lm_pkg
+    lm_type = lm_pkg.get("model_type") or "lstm_lm"
+    lm = get_model_class(lm_type).create_model(Config(lm_pkg["configs"]), device=device)
+    lm.restore(lm_pkg)
+    logging.info("Shallow fusion with %s (%s)", path, lm_type)
+    return lm
 
 
 def resolve_device(name: str) -> torch.device:
@@ -186,6 +208,10 @@ def main(argv=None):
         ctx_tables = build_context_tables(phrases, tokenizer.unit_num())
         logging.info("hotword biasing: %d phrases, weight %.2f",
                      phrases.shape[0], args.context_weight)
+    lm = lm_spec = None
+    if args.lm_pkg and args.lm_weight != 0.0:
+        lm = load_lm(args.lm_pkg, device)
+        lm_spec = make_lm_step_spec(lm)
     host_decoder = None
     if is_ctc and args.ctc_beam > 0 and not args.ctc_beam_device:
         host_decoder = make_decoder(beam_width=args.ctc_beam, blank_id=blank,
@@ -222,7 +248,7 @@ def main(argv=None):
             preds, lens, scores = (t.cpu().numpy() for t in model.batch_beam_decode(
                 inputs, lengths, beam_size=args.nbest, max_decode_len=args.maxlen,
                 empty_rows=empty_rows, context_tables=ctx_tables,
-                context_weight=args.context_weight))
+                context_weight=args.context_weight, lm=lm, lm_weight=args.lm_weight))
             return preds, lens, scores
         if args.ctc_beam == 0:
             ids, idlens = (t.cpu().numpy() for t in model.greedy_decode(
@@ -236,10 +262,16 @@ def main(argv=None):
             return ([[h.tokens for h in n] for n in nbest],
                     [[len(h.tokens) for h in n] for n in nbest],
                     [[h.score for h in n] for n in nbest])
+        lm_kw = {}
+        if lm_spec is not None:
+            # at most one LM token a frame, after the <sos>
+            lm_kw = {"lm_step_fn": lm_spec["step_fn"], "lm_weight": args.lm_weight,
+                     "init_lm_cache": lm_spec["init_cache_fn"](
+                         log_probs.shape[0] * args.ctc_beam, log_probs.shape[1] + 1)}
         toks, tlens, sc = (t.cpu().numpy() for t in ctc_prefix_beam_device(
             log_probs, len_logits, blank=blank, beam=args.ctc_beam,
             cutoff_top_n=args.cutoff_top_n, cutoff_logp=args.cutoff_logp,
-            context_tables=ctx_tables, context_weight=args.context_weight))
+            context_tables=ctx_tables, context_weight=args.context_weight, **lm_kw))
         # drop never-populated sentinel rows (fewer live prefixes than the
         # beam width), which the host decoders never emit
         live = sc > -1e29

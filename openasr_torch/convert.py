@@ -18,6 +18,12 @@ in PyTorch's layouts:
   Embed embedding [V, D] (tied output)    Embedding weight [V, D]
   decoder out_bias, ctc_fc / fc kernel    out_bias, ctc_fc / fc weight
 
+The LMs' components depend on their depth (`emb`, `cells_{i}` or
+`layer{i}`, and `out_bias`, a bare top-level leaf), so their list comes
+from the config (`models/lm.py:lm_components`); the LSTM cells' gate
+kernels `ii`...`ho` are Dense kernels, and the Transformer LM's
+attention heads are its own config's `nhead`.
+
 The CIF families add the assigner (`conv{i}` 1-D WIO or 2-D HWIO,
 `linear`, and the 2-D variant's `affine`), the CIF decoder (`emb`,
 `input_affine`, `output_affine`, `layer{i}`), `phone_fc` and CIF_MIX's
@@ -63,7 +69,13 @@ HEADS_SECTION = {"char_decoder": "decoder"}
 _ATTENTION = ("self_attn", "cross_attn")
 
 
-def _components_of(model_type: str):
+def _components_of(model_type: str, configs=None):
+    from openasr_torch.models.lm import LM_TYPES, lm_components
+
+    if model_type in LM_TYPES:
+        if configs is None:
+            raise ValueError(f"the components of a {model_type} come from its config")
+        return lm_components(model_type, configs)
     if model_type not in COMPONENTS:
         raise ValueError(
             f"no weight bridge for model type {model_type!r}; bridged: "
@@ -101,10 +113,12 @@ def _leaf_to_torch(path, arr: np.ndarray):
 
 
 def jax_components_to_state_dict(model_type: str, components: dict,
-                                 partial: bool = False) -> Dict[str, torch.Tensor]:
+                                 partial: bool = False,
+                                 configs=None) -> Dict[str, torch.Tensor]:
     """JAX-layout package components -> the port's state_dict (CPU f32).
-    `partial` accepts a subset of the model type's components."""
-    expected = _components_of(model_type)
+    `partial` accepts a subset of the model type's components; `configs`
+    is needed for an LM (its depth)."""
+    expected = _components_of(model_type, configs)
     if set(components) - set(expected) or (not partial and set(components) != set(expected)):
         raise ValueError(
             f"{model_type} package components {sorted(components)} != "
@@ -129,8 +143,12 @@ def jax_components_to_state_dict(model_type: str, components: dict,
 def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
     """The port's state_dict -> JAX-layout components (f32 NumPy).  The
     attention head count comes from the `encoder`/`decoder` config section
-    that owns the layer (`HEADS_SECTION`)."""
-    expected = _components_of(model_type)
+    that owns the layer (`HEADS_SECTION`), or for the Transformer LM from
+    its own config."""
+    from openasr_torch.models.lm import LM_TYPES, lm_hparams
+
+    expected = _components_of(model_type, configs)
+    lm_heads = lm_hparams(model_type, configs).get("nhead") if model_type in LM_TYPES else None
     components: dict = {}
     for key, tensor in state_dict.items():
         path = key.split(".")
@@ -140,7 +158,7 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
         leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
         attention = _in_attention(path)
         if attention:
-            heads = int(configs[HEADS_SECTION.get(path[0], path[0])]["nhead"])
+            heads = lm_heads or int(configs[HEADS_SECTION.get(path[0], path[0])]["nhead"])
         if leaf == "weight":
             if _is_norm(parent):
                 leaf = "scale"
@@ -169,8 +187,9 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
 
 # ------------------------------------------------------- optimizer states
 
-def _moments_to_port(model_type: str, tree) -> Dict[str, np.ndarray]:
-    return {k: v.numpy() for k, v in jax_components_to_state_dict(model_type, tree).items()}
+def _moments_to_port(model_type: str, tree, configs=None) -> Dict[str, np.ndarray]:
+    return {k: v.numpy()
+            for k, v in jax_components_to_state_dict(model_type, tree, configs=configs).items()}
 
 
 def _moments_to_jax(model_type: str, moments: dict, configs) -> dict:
@@ -178,20 +197,20 @@ def _moments_to_jax(model_type: str, moments: dict, configs) -> dict:
     return state_dict_to_jax_components(model_type, tensors, configs)
 
 
-def jax_optim_state_to_port(model_type: str, state) -> dict:
+def jax_optim_state_to_port(model_type: str, state, configs=None) -> dict:
     """The JAX package's optimizer state (as `load_package` reads it) ->
     the port's optimizer `state_dict`: FusedClipAdamState -> `count`,
     `notfinite`, `mu`, `nu`; optax's apply_if_finite(chain(clip, sgd |
     adam)) -> `count`, `trace` or `mu` and `nu`, and apply_if_finite's
     `notfinite` (its total_notfinite), `notfinite_count`, `last_finite`.
     The moments come keyed by torch parameter name, in torch layouts,
-    f32."""
+    f32; `configs` is needed for an LM (its depth)."""
     if isinstance(state, FusedClipAdamState):
         return {
             "count": int(state.count),
             "notfinite": 0 if state.notfinite is None else int(state.notfinite),
-            "mu": _moments_to_port(model_type, state.mu),
-            "nu": _moments_to_port(model_type, state.nu),
+            "mu": _moments_to_port(model_type, state.mu, configs),
+            "nu": _moments_to_port(model_type, state.nu, configs),
         }
     out: dict = {}
     if isinstance(state, ApplyIfFiniteState):
@@ -211,12 +230,12 @@ def jax_optim_state_to_port(model_type: str, state) -> dict:
     inner, schedule = parts[0]
     out["count"] = int(schedule.count)
     if isinstance(inner, TraceState):
-        out["trace"] = _moments_to_port(model_type, inner.trace)
+        out["trace"] = _moments_to_port(model_type, inner.trace, configs)
     elif isinstance(inner, ScaleByAdamState):
         if int(inner.count) != out["count"]:
             raise ValueError(f"Adam's count {int(inner.count)} != the schedule's {out['count']}")
-        out["mu"] = _moments_to_port(model_type, inner.mu)
-        out["nu"] = _moments_to_port(model_type, inner.nu)
+        out["mu"] = _moments_to_port(model_type, inner.mu, configs)
+        out["nu"] = _moments_to_port(model_type, inner.nu, configs)
     else:
         raise ValueError(f"unknown optimizer state {type(inner).__name__}")
     return out

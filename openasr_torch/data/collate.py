@@ -2,7 +2,8 @@
 
 Counterpart of `FeatureCollate`, `WaveCollate`, `load_wave_batch` and the
 phone collates of the CIF families (`PhoneCharCollate`, `FeatPhoneCollate`,
-`FeatPhoneCharCollate`) in openasr_tpu/data/collate.py.  Padded
+`FeatPhoneCharCollate`) and the LMs' `TextCollate` in
+openasr_tpu/data/collate.py.  Padded
 dimensions are rounded up onto the same geometric ladder as the JAX
 package, so both packages see identical batch shapes.  Batches are dicts
 of NumPy arrays plus a "uttids" list:
@@ -236,3 +237,22 @@ class FeatPhoneCharCollate(PhoneCharCollate):
                                               self.quantize_shapes)
         return {**PhoneCharCollate.__call__(self, batch), "feats": feats,
                 "feat_lengths": feat_lengths}
+
+
+class TextCollate:
+    """Text lines -> causal LM targets: ids (<sos> first), labels (<eos>
+    last) and paddings, each line cut to `maxlen` tokens first (no
+    "uttids")."""
+
+    def __init__(self, tokenizer, maxlen: Optional[int] = None, quantize_shapes: bool = True):
+        self.tokenizer = tokenizer
+        self.maxlen = maxlen
+        self.quantize_shapes = quantize_shapes
+
+    def __call__(self, batch: List[str]) -> Dict:
+        rawids = [self.tokenizer.encode(t) for t in batch]
+        if self.maxlen:
+            rawids = [r[: self.maxlen] for r in rawids]
+        umax = quantize(max(len(r) for r in rawids) + 2, self.quantize_shapes)
+        ids, labels, paddings = gen_causal_targets(rawids, True, max_len=umax)
+        return {"ids": ids, "labels": labels, "paddings": paddings}

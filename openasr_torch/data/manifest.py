@@ -1,7 +1,8 @@
 """Manifest datasets, length-sorted and filtered.
 
 Counterpart of `load_json_manifest`, `load_flist`, `SpeechDataset` and
-`ArkDataset` in openasr_tpu/data/manifest.py.  Json manifests carry
+`ArkDataset` in openasr_tpu/data/manifest.py, and `TextLineByLineDataset`
+(the LMs' text lines).  Json manifests carry
 `uttid / feat / feat_length / tokens / token_length` rows (for waves,
 `feat` is an audio path or scheme and `feat_length` its sample count); a
 path may also be a directory of *.json files.
@@ -114,3 +115,17 @@ class ArkDataset(SpeechDataset):
         reverse: bool = False,
     ):
         super().__init__(json_path, feat_range, label_range, rate_in_out, reverse)
+
+
+class TextLineByLineDataset:
+    """Plain text lines, in file order (LM training)."""
+
+    def __init__(self, fn: str):
+        with open(fn, encoding="utf-8") as f:
+            self.data = f.read().strip().split("\n")
+
+    def __getitem__(self, index: int) -> str:
+        return self.data[index]
+
+    def __len__(self) -> int:
+        return len(self.data)

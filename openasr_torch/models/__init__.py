@@ -40,7 +40,6 @@ def _normalize(name: str) -> str:
 
 # the JAX package's other model types, by their ROADMAP queue 1 item
 UNPORTED_MODEL_TYPES = {
-    "lstm_lm": 10, "transformer_lm": 10,
     "gru_ctc": 13, "wav2vec_ctc": 13, "encoder_cpc": 13, "cpc_model": 13,
     "embed_decoder": 13, "embed_decoder_ctc": 13, "gan_phone2char": 13,
 }
@@ -49,6 +48,7 @@ UNPORTED_MODEL_TYPES = {
 def get_model_class(name: str) -> type:
     """Resolve a model type, case-insensitive over '-'/'_'."""
     import openasr_torch.models.cif  # noqa: F401  (fills the registry)
+    import openasr_torch.models.lm  # noqa: F401
     import openasr_torch.models.speech  # noqa: F401
 
     by_norm = {_normalize(k): k for k in MODEL_REGISTRY}
@@ -92,8 +92,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     convolution kernels and layers marked `kernel_init = "lecun_normal"`
     flax's default lecun_normal (a normal truncated at two standard
     deviations, variance 1 / fan_in), layers marked `"xavier_normal"` the
-    same truncated normal at variance 2 / (fan_in + fan_out), other
-    weights Xavier-uniform."""
+    same truncated normal at variance 2 / (fan_in + fan_out), layers
+    marked `"orthogonal"` flax's orthogonal init (the Q of a normal
+    matrix's QR, its columns' signs fixed by R's diagonal), other weights
+    Xavier-uniform."""
     from openasr_torch.models.layers import LayerNorm
 
     norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
@@ -107,6 +109,12 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 p.fill_(1.0)
             elif name.endswith("bias") or p.dim() < 2:
                 p.zero_()
+            elif inits.get(id(p)) == "orthogonal":
+                rows, cols = p.shape
+                normal = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
+                q, r = torch.linalg.qr(normal)
+                q = q * torch.sign(torch.diagonal(r))
+                p.copy_(q if rows >= cols else q.T)
             elif id(p) in inits:
                 fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
                 var = (1.0 / fan_in if inits[id(p)] == "lecun_normal"
@@ -124,18 +132,18 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the module to `dtype` for inference, keeping in f32 the LayerNorm
     parameters (the norms compute their statistics in f32 either way), the
-    decoder's `out_bias` (added to f32 logits) and the CTC and phone heads
-    (f32 as in the JAX package).  Training keeps every weight f32 and runs bf16 under
-    autocast instead."""
-    from openasr_torch.models.decoder import TransformerDecoder
+    decoders' and LMs' `out_bias` (added to f32 logits) and the CTC and
+    phone heads (f32 as in the JAX package).  Training keeps every weight
+    f32 and runs bf16 under autocast instead."""
     from openasr_torch.models.layers import LayerNorm
 
     module.to(dtype)
     for name, m in module.named_modules():
         if isinstance(m, LayerNorm) or name in ("ctc_fc", "fc", "phone_fc"):
             m.float()
-        elif isinstance(m, TransformerDecoder):
-            m.out_bias.data = m.out_bias.data.float()
+    for name, p in module.named_parameters():
+        if name.split(".")[-1] == "out_bias":
+            p.data = p.data.float()
     return module
 
 
@@ -197,7 +205,7 @@ class Framework:
             if not (without_fc and k in self.fc_component_names())
         }
         state = jax_components_to_state_dict(self.model_type, components,
-                                             partial=without_fc)
+                                             partial=without_fc, configs=self.configs)
         if without_fc:
             state = {**self.module.state_dict(), **state}
         self.module.load_state_dict(state, strict=True)

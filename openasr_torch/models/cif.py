@@ -32,6 +32,7 @@ from openasr_torch.models.assigner import assigner_from_config
 from openasr_torch.models.decoder import cif_decoder_from_config, transformer_decoder_from_config
 from openasr_torch.models.encoder import TransformerEncoder
 from openasr_torch.models.layers import TrainRNG, any_empty
+from openasr_torch.models.lm import make_lm_fusion
 from openasr_torch.models.speech import (
     ConvTransformerModule,
     _f32_head,
@@ -154,14 +155,15 @@ class CIF(_CIFFramework):
     @torch.inference_mode()
     def batch_beam_decode(self, inputs, lengths, beam_size=5, max_decode_len=100,
                           empty_rows: Optional[bool] = None, context_tables=None,
-                          context_weight: float = 0.0):
+                          context_weight: float = 0.0, lm=None, lm_weight: float = 0.0):
         """-> (preds [B, beam, L], lengths [B, beam], scores [B, beam]): a
         beam over the CIF frames for exactly `max_decode_len` steps (no EOS
         finishing), each step the CIF decoder's full forward of the padded
         prefix; every hypothesis of an utterance has its CIF length, at
         most `max_decode_len`.  Hotword biasing applies at every emitted
-        position.  Rows of CIF length 0 are found once a batch, by reading
-        the lengths back."""
+        position, and an `lm` with `lm_weight` != 0 is fused at every one
+        (shallow fusion, as in the attention beam).  Rows of CIF length 0
+        are found once a batch, by reading the lengths back."""
         encoded, cif_lens = self.get_encoded(inputs, lengths, max_decode_len, empty_rows)
         b = encoded.shape[0]
         cif_lens = torch.clamp(cif_lens, max=max_decode_len)
@@ -177,10 +179,13 @@ class CIF(_CIFFramework):
             cache["prefix"][:, index] = tokens
             return decoder.step(enc_bb, lens_bb, cache["prefix"], index + 1, dec_empty), cache
 
+        lm_step_fn, init_lm_cache = make_lm_fusion(
+            lm if lm_weight != 0.0 else None, b * beam_size, max_len=max_decode_len + 1)
         preds, _, scores = batch_beam_search(
             step_fn, cache, b, beam_size, max_decode_len, decoder.vocab_size,
             device=encoded.device, use_eos=False,
             context_tables=context_tables, context_weight=context_weight,
+            lm_step_fn=lm_step_fn, init_lm_cache=init_lm_cache, lm_weight=lm_weight,
         )
         return preds, cif_lens[:, None].expand(scores.shape).to(torch.int32), scores
 

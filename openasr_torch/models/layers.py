@@ -296,6 +296,27 @@ class TransformerEncoderLayer(nn.Module):
         x = self.norm1(x + dropout(attn, self.dropout_rate, rng))
         return self.norm2(x + dropout(self.ffn(x, rng), self.dropout_rate, rng))
 
+    def attend_cached(self, x: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                      key_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The deterministic layer on queries x [B, T, D] against keys and
+        values k_all / v_all [B, Tk, H, Dh] that already hold x's own, under
+        key_bias [B, 1, 1, Tk]: dense attention (`attend_step`), norm1, the
+        FFN and norm2."""
+        x = self.norm1(x + self.self_attn.attend_step(x, k_all, v_all, key_bias))
+        return self.norm2(x + self.ffn(x))
+
+    def chunk_step(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   key_bias: Optional[torch.Tensor]):
+        """One chunk through the layer, deterministic: x [B, ch, D] attends
+        to [cache_k/v ++ its own K/V] ([B, L, H, Dh] then [B, ch, H, Dh])
+        under key_bias [B, 1, 1, L + ch], which masks the invalid cache
+        slots.  -> (out [B, ch, D], k_cur, v_cur [B, ch, H, Dh]); the caller
+        keeps the cache."""
+        k_cur, v_cur = self.self_attn.project_kv(x)
+        out = self.attend_cached(x, torch.cat([cache_k, k_cur], dim=1),
+                                 torch.cat([cache_v, v_cur], dim=1), key_bias)
+        return out, k_cur, v_cur
+
 
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder layer with self + cross attention, plus a KV-cached

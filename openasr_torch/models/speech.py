@@ -4,7 +4,7 @@ Counterpart of ConvTransformer / ConvCTCTransformer / ConvCTC in
 openasr_tpu/models/speech.py: the training losses (`loss`, raw sums plus
 token and sequence counts, as the JAX package returns them); for the
 attention families, the attention beam over the KV-cached decoder (with
-optional hotword biasing); for conv-ctc, its logits and greedy decode
+optional LM shallow fusion and hotword biasing); for conv-ctc, its logits and greedy decode
 (the CLI drives the CTC prefix beams over those logits).
 conv-ctc-transformer also carries `ctc_fc`, the CTC head.  The CTC heads
 run in f32 also under bf16 autocast: flax's Dense without a dtype
@@ -24,6 +24,7 @@ from openasr_torch.models.decoder import transformer_decoder_from_config
 from openasr_torch.models.encoder import TransformerEncoder
 from openasr_torch.models.frontend import SPLayer
 from openasr_torch.models.layers import TrainRNG, any_empty
+from openasr_torch.models.lm import make_lm_fusion
 from openasr_torch.ops.beam_search import batch_beam_search, beam_expand
 from openasr_torch.ops.ctc_decode import ctc_greedy_decode
 from openasr_torch.ops.fbank import fbank_config_from_model_cfg
@@ -179,17 +180,20 @@ class ConvTransformer(_SpeechFramework):
     @torch.inference_mode()
     def batch_beam_decode(self, inputs, lengths, beam_size=5, max_decode_len=100,
                           empty_rows: Optional[bool] = None, context_tables=None,
-                          context_weight: float = 0.0):
+                          context_weight: float = 0.0, lm=None, lm_weight: float = 0.0):
         """-> (preds [B, beam, L], lengths [B, beam], scores [B, beam]);
         `context_tables` (ops.ctc_beam_device.build_context_tables) and
-        `context_weight` bias the beam toward hotwords."""
+        `context_weight` bias the beam toward hotwords; an `lm` (an LM
+        framework of models/lm.py) with `lm_weight` != 0 fuses its
+        log-probs (shallow fusion)."""
         encoded, elens = self.encode(inputs, lengths, empty_rows)
         return self.beam_decode_encoded(encoded, elens, beam_size, max_decode_len,
-                                        context_tables, context_weight)
+                                        context_tables, context_weight, lm, lm_weight)
 
     @torch.inference_mode()
     def beam_decode_encoded(self, encoded, elens, beam_size=5, max_decode_len=100,
-                            context_tables=None, context_weight: float = 0.0):
+                            context_tables=None, context_weight: float = 0.0,
+                            lm=None, lm_weight: float = 0.0):
         """Beam search over precomputed encoder states."""
         b = encoded.shape[0]
         enc_bb = beam_expand(encoded, beam_size)
@@ -202,10 +206,13 @@ class ConvTransformer(_SpeechFramework):
             logits = decoder.step(tokens, index, cache, memory_bias, max_decode_len)
             return logits, cache
 
+        lm_step_fn, init_lm_cache = make_lm_fusion(
+            lm if lm_weight != 0.0 else None, b * beam_size, max_len=max_decode_len + 1)
         return batch_beam_search(
             step_fn, cache, b, beam_size, max_decode_len,
             decoder.vocab_size, device=encoded.device,
             context_tables=context_tables, context_weight=context_weight,
+            lm_step_fn=lm_step_fn, init_lm_cache=init_lm_cache, lm_weight=lm_weight,
         )
 
 

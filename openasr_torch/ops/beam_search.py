@@ -1,16 +1,18 @@
 """Batched attention beam search with KV-cached decoder steps.
 
 Counterpart of openasr_tpu/ops/beam_search.py (`batch_beam_search`,
-`beam_expand`) with Aho-Corasick hotword biasing, without LM fusion
-(ROADMAP queue 1 item 10).  The JAX
-`lax.while_loop` becomes a Python loop that keeps its all-finished early
-exit (one device->host read of the finished flags a step).  Kept as in
-the JAX package:
+`beam_expand`) with LM shallow fusion and Aho-Corasick hotword biasing.
+The JAX `lax.while_loop` becomes a Python loop that keeps its
+all-finished early exit (one device->host read of the finished flags a
+step).  Kept as in the JAX package:
 
   * initial scores [0, -inf, ...] per batch, so identical initial beams
     don't duplicate;
   * finished beams are forced to emit EOS with log-prob 0 (score freeze);
   * a flat per-batch top-k over beam*beam candidates;
+  * shallow fusion: with an LM step and lm_weight != 0, every step's
+    scores are log p_am + lm_weight * log p_lm (the LM fed the same
+    tokens, from <sos>), and the LM cache is reordered with the beams;
   * every cache tensor is reordered by the source beam;
   * lengths are the position of the first EOS;
   * a final per-batch sort by score;
@@ -32,7 +34,7 @@ index first, as `lax.top_k` does.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -76,13 +78,19 @@ def batch_beam_search(
     context_tables=None,
     context_weight: float = 0.0,
     use_eos: bool = True,
+    lm_step_fn: Optional[Callable] = None,
+    init_lm_cache=None,
+    lm_weight: float = 0.0,
 ):
-    """Run beam search, optionally with hotword biasing.
+    """Run beam search, optionally with LM fusion and hotword biasing.
 
     Args:
       step_fn: (tokens [BB], index, cache) -> (logits [BB, V], cache);
         BB = batch*beam.  Must already close over beam-expanded memory.
       init_cache: nest of tensors with leading dim BB.
+      lm_step_fn: (tokens [BB], lm_cache) -> (log-probs [BB, V], lm_cache),
+        with `init_lm_cache` (leading dim BB) and `lm_weight` (off when
+        None or 0; models/lm.py:make_lm_fusion builds them).
       context_tables, context_weight: hotword biasing, the tables of
         ops.ctc_beam_device.build_context_tables (off when either is
         None or 0).
@@ -110,12 +118,16 @@ def batch_beam_search(
         ctx = context_tensors(context_tables, device)
         cmatch = torch.zeros((bb, ctx["plen"].shape[0]), dtype=torch.long, device=device)
 
-    cache = init_cache
+    use_lm = lm_step_fn is not None and lm_weight != 0.0
+    cache, lm_cache = init_cache, init_lm_cache
     for step in range(max_decode_len):
         if use_eos and bool(finished.all()):
             break
         logits, cache = step_fn(tokens, step, cache)
         z = torch.log_softmax(logits.float(), dim=-1)
+        if use_lm:
+            lm_logp, lm_cache = lm_step_fn(tokens, lm_cache)
+            z = z + lm_weight * lm_logp.float()
         if use_eos:
             # finished beams: force EOS with log-prob 0 (score freeze)
             z = torch.where(finished[:, None], eos_row, z)
@@ -139,6 +151,8 @@ def batch_beam_search(
         if use_eos:
             finished = finished[beam_src] | (tokens == EOS_ID)
         cache = _reorder(cache, beam_src)
+        if use_lm:
+            lm_cache = _reorder(lm_cache, beam_src)
         if ctx is not None:
             pmatch = cmatch[beam_src]
             advanced = context_advance(ctx, pmatch, tokens)

@@ -1,8 +1,8 @@
 """CTC prefix beam search on the device, batched, with static shapes.
 
 Counterpart of `ctc_prefix_beam_device` in openasr_tpu/ops/ctc_beam_device.py
-(the one-shot search, with Aho-Corasick hotword biasing; LM fusion is
-ROADMAP queue 1 item 10 and the streaming variant item 11).  The JAX
+(the one-shot search, with LM shallow fusion and Aho-Corasick hotword
+biasing; the streaming variant is ROADMAP queue 1 item 11).  The JAX
 package vmaps one utterance's `lax.scan`; here every tensor carries a
 leading batch dimension and the scan is a Python loop over the frames
 whose body reads nothing back to the host (no `.item()`, no shape that
@@ -26,6 +26,18 @@ The recursion (Hannun et al. 2014) as dense tensor algebra, as in JAX:
     no order for ties.  Both the frame cutoff (top-n symbols) and the
     pruning use a stable descending sort, and the final n-best order a
     stable argsort, as `jnp.argsort` is.
+
+Shallow fusion, as in JAX: p_lm(. | <sos>) seeds every beam; a new token
+c pays lm_weight * log p_lm(c | prefix) once, when it extends a prefix
+(over the first min(V, V_lm) tokens; the others get lm_weight * NEG_INF);
+every frame the LM steps once from each new beam's parent state with its
+appended token, and a stay keeps its parent's state and log-probs.  The
+LM state is gathered by parent every frame (one copy of the cache).  The
+Transformer LM's step writes its K/V into that copy in place, at the
+row's own position, so a stay needs no select of its K/V: it keeps the
+parent's position, and the slot written past it is never read before the
+row's next token overwrites it.  Frames past an utterance's length take
+each beam as its own parent and stay.
 """
 
 from __future__ import annotations
@@ -175,13 +187,52 @@ def _frame_candidates(log_probs: torch.Tensor, blank: int, cutoff_top_n: int,
     return cand
 
 
+def _rows_where(keep: torch.Tensor, old, new):
+    """Per row, `old` where `keep` [R] else `new`, leaf by leaf over a nest
+    of lists, tuples and dicts with leading dim R.  A leaf that is the same
+    tensor in both (a cache the step wrote in place) is kept as it is."""
+    if isinstance(old, dict):
+        return {k: _rows_where(keep, old[k], new[k]) for k in old}
+    if isinstance(old, (list, tuple)):
+        return type(old)(_rows_where(keep, o, n) for o, n in zip(old, new))
+    if old is new:
+        return old
+    return torch.where(keep.view((-1,) + (1,) * (old.dim() - 1)), old, new)
+
+
+def _gather_rows(tree, idx: torch.Tensor):
+    if isinstance(tree, dict):
+        return {k: _gather_rows(v, idx) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_gather_rows(v, idx) for v in tree)
+    return tree[idx]
+
+
+def _lm_advance(state: dict, parent: torch.Tensor, is_stay: torch.Tensor,
+                ext_c: torch.Tensor, valid: torch.Tensor, lm_step_fn) -> dict:
+    """The LM state after the frame: each new beam's parent state (its own
+    where the frame is past the utterance), stepped with the appended
+    token; stays keep the parent's state and log-probs."""
+    b, n = parent.shape
+    stay = is_stay | ~valid[:, None]
+    parent = torch.where(valid[:, None], parent, torch.arange(n, device=parent.device))
+    rows = (torch.arange(b, device=parent.device)[:, None] * n + parent).reshape(-1)
+    parent_cache = _gather_rows(state["lm_cache"], rows)
+    parent_logp = state["lm_logp"].reshape(b * n, -1)[rows]
+    adv_logp, adv_cache = lm_step_fn(ext_c.clamp(min=0).reshape(-1), parent_cache)
+    keep = stay.reshape(-1)
+    return {"lm_cache": _rows_where(keep, parent_cache, adv_cache),
+            "lm_logp": torch.where(keep[:, None], parent_logp,
+                                   adv_logp.float()).reshape(b, n, -1)}
+
+
 def _step(state: dict, frame: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
           *, blank: int, ctx: Optional[Dict[str, torch.Tensor]],
-          ctx_weight: float) -> dict:
+          ctx_weight: float, lm_step_fn=None, lm_weight: float = 0.0) -> dict:
     """One frame of the search for the whole batch.  state tensors are
-    [B, N] (toks [B, N, T], cmatch [B, N, P]); frame and cand [B, V];
-    valid [B]: frames past an utterance's length leave its state as it
-    was."""
+    [B, N] (toks [B, N, T], cmatch [B, N, P], lm_logp [B, N, V_lm], the LM
+    cache's leaves [B * N, ...]); frame and cand [B, V]; valid [B]: frames
+    past an utterance's length leave its state as it was."""
     toks, lens, last = state["toks"], state["lens"], state["last"]
     h1, h2, pb, pnb = state["h1"], state["h2"], state["pb"], state["pnb"]
     b, n, t_cap = toks.shape
@@ -204,6 +255,11 @@ def _step(state: dict, frame: torch.Tensor, cand: torch.Tensor, valid: torch.Ten
     base = torch.where(vocab[None, None, :] == last[:, :, None], pb[:, :, None],
                        ptot[:, :, None])
     p_ext = base + frame[:, None, :]
+    if lm_step_fn is not None:
+        v_lm = min(v, state["lm_logp"].shape[-1])
+        fuse = torch.full_like(p_ext, NEG_INF)
+        fuse[..., :v_lm] = state["lm_logp"][..., :v_lm]
+        p_ext = p_ext + lm_weight * fuse
     if ctx is not None:
         p_ext = p_ext + ctx_weight * context_boost(ctx, state["cmatch"])
     ext_ok = cand[:, None, :] & (vocab != blank)[None, None, :]
@@ -256,8 +312,11 @@ def _step(state: dict, frame: torch.Tensor, cand: torch.Tensor, valid: torch.Ten
                                     context_advance(ctx, pmatch, ext_c0))
     else:
         new["cmatch"] = state["cmatch"]
-    return {k: torch.where(valid.view((b,) + (1,) * (x.dim() - 1)), x, state[k])
-            for k, x in new.items()}
+    new = {k: torch.where(valid.view((b,) + (1,) * (x.dim() - 1)), x, state[k])
+           for k, x in new.items()}
+    if lm_step_fn is not None:
+        new.update(_lm_advance(state, parent, is_stay, ext_c, valid, lm_step_fn))
+    return new
 
 
 def init_state(b: int, beam: int, t_max: int, n_phrases: int, device) -> dict:
@@ -278,12 +337,18 @@ def init_state(b: int, beam: int, t_max: int, n_phrases: int, device) -> dict:
     }
 
 
+@torch.no_grad()
 def beam_search_state(log_probs: torch.Tensor, lengths: torch.Tensor, blank: int,
                       beam: int = 10, cutoff_top_n: int = 40, cutoff_logp: float = -20.0,
                       ctx: Optional[Dict[str, torch.Tensor]] = None,
-                      ctx_weight: float = 0.0) -> dict:
+                      ctx_weight: float = 0.0, lm_step_fn=None, init_lm_cache=None,
+                      lm_weight: float = 0.0, sos_id: int = 1) -> dict:
     """The search's state after the last frame, beams in slot order (the
-    hash pairs included)."""
+    hash pairs included).  With `lm_step_fn` (tokens [B * beam], cache) ->
+    (log-probs, cache), its `init_lm_cache` (leading dim B * beam) and
+    `lm_weight`, the LM is fused, seeded with `sos_id`.  Nothing is
+    differentiated: without autograd the LM steps keep no graph of the
+    frames' caches."""
     log_probs = log_probs.float()
     b, t_max, _ = log_probs.shape
     dev = log_probs.device
@@ -291,9 +356,14 @@ def beam_search_state(log_probs: torch.Tensor, lengths: torch.Tensor, blank: int
     valid = torch.arange(t_max, device=dev)[None, :] < lengths.to(dev)[:, None]
     n_phrases = 0 if ctx is None else ctx["plen"].shape[0]
     state = init_state(b, beam, t_max, n_phrases, dev)
+    if lm_step_fn is not None:
+        sos = torch.full((b * beam,), sos_id, dtype=torch.long, device=dev)
+        logp0, state["lm_cache"] = lm_step_fn(sos, init_lm_cache)
+        state["lm_logp"] = logp0.float().reshape(b, beam, -1)
     for t in range(t_max):
         state = _step(state, log_probs[:, t], cand[:, t], valid[:, t], blank=blank,
-                      ctx=ctx, ctx_weight=ctx_weight)
+                      ctx=ctx, ctx_weight=ctx_weight, lm_step_fn=lm_step_fn,
+                      lm_weight=lm_weight)
     return state
 
 
@@ -308,13 +378,12 @@ def ctc_prefix_beam_device(
     init_lm_cache=None,
     lm_weight: float = 0.0,
     sos_id: int = 1,
-    lm_params=None,
     context_phrases=None,
     context_weight: float = 0.0,
     context_tables=None,
 ):
     """Batched prefix beam search on the device of `log_probs`, optionally
-    with Aho-Corasick hotword biasing.
+    with LM shallow fusion and Aho-Corasick hotword biasing.
 
     log_probs [B, T, V] (log-softmax over the vocabulary, computed in f32),
     lengths [B].  Returns (tokens [B, beam, T] int64, lengths [B, beam],
@@ -322,18 +391,20 @@ def ctc_prefix_beam_device(
     `beam` prefixes live, the tail rows are sentinels scored about -1e30;
     keep rows with scores > -1e29, as the CLI does.
 
+    Fusion: `lm_step_fn` (tokens [B * beam], cache) -> (log-probs
+    [B * beam, V_lm], cache), scored from `sos_id`, with `init_lm_cache`
+    (leading dim B * beam; models/lm.py:make_lm_step_spec, sized for T + 1
+    tokens) and `lm_weight` (off at 0).  Every appended token pays
+    lm_weight * log p_lm(c | prefix) once.
+
     Biasing: `context_phrases` [P, L] (token ids, -1 padding) or
     `context_tables` (`build_context_tables`) with `context_weight` w: a
     token that advances a phrase's match earns +w, a broken match rolls
     back only what its failure link cannot keep, a completed phrase keeps
-    its boost.  The LM arguments (shallow fusion) are not ported.
+    its boost.  It composes with fusion.
     """
-    del sos_id, init_lm_cache, lm_params
-    if lm_step_fn is not None and lm_weight != 0.0:
-        raise NotImplementedError(
-            "LM shallow fusion in the device CTC beam is ROADMAP queue 1 item 10 "
-            "(LMs and fusion)"
-        )
+    if lm_weight == 0.0:
+        lm_step_fn = None
     ctx = None
     if context_weight != 0.0 and (context_phrases is not None or context_tables is not None):
         if context_tables is None:
@@ -341,7 +412,8 @@ def ctc_prefix_beam_device(
                                                   int(log_probs.shape[-1]))
         ctx = context_tensors(context_tables, log_probs.device)
     state = beam_search_state(log_probs, lengths, int(blank), int(beam), int(cutoff_top_n),
-                              float(cutoff_logp), ctx, float(context_weight))
+                              float(cutoff_logp), ctx, float(context_weight), lm_step_fn,
+                              init_lm_cache, float(lm_weight), int(sos_id))
     total = _logaddexp(state["pb"], state["pnb"])
     order = torch.argsort(-total, dim=1, stable=True)
     toks = state["toks"].gather(1, order[:, :, None].expand_as(state["toks"]))

@@ -443,7 +443,8 @@ class Solver:
         optim = pkg.get("optim_state")
         if optim is not None:
             if not isinstance(optim, dict):
-                optim = jax_optim_state_to_port(self.model.model_type, optim)
+                optim = jax_optim_state_to_port(self.model.model_type, optim,
+                                                self.model.configs)
             self.optimizer.load_state_dict(optim)
         if self.is_bob and "scheduler_state" in pkg:
             self.schedule.restore_state(pkg["scheduler_state"])

@@ -325,10 +325,24 @@ def test_hash_step_is_uint32_arithmetic():
 
 
 def test_device_beam_lm_fusion_names_its_roadmap_item():
+    """LM fusion, ROADMAP queue 1 item 10, is ported: the device beam takes
+    an LM step (tests/test_torch_lm_fusion.py holds it against the JAX
+    package); at weight 0 it is the search without an LM."""
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.lm import make_lm_step_spec
+
     lp = log_probs(1, 4, 6, seed=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_beam.ctc_prefix_beam_device(_t(lp), _t(np.array([4])), blank=5,
-                                         lm_step_fn=lambda *a: a, lm_weight=0.5)
+    lm = get_model_class("lstm_lm").create_model(
+        {"type": "lstm_lm", "vocab_size": 5, "d_model": 8}, device="cpu")
+    spec = make_lm_step_spec(lm)
+    plain = port_beam.ctc_prefix_beam_device(_t(lp), _t(np.array([4])), blank=5)
+    for w in (0.0, 0.5):
+        fused = port_beam.ctc_prefix_beam_device(
+            _t(lp), _t(np.array([4])), blank=5, lm_step_fn=spec["step_fn"],
+            init_lm_cache=spec["init_cache_fn"](10, 5), lm_weight=w)
+        assert all(torch.equal(a, b) for a, b in zip(fused, plain)) == (w == 0.0)
+        # the LM's parameters record no graph across the frames
+        assert not fused[2].requires_grad
 
 
 # ------------------------------------------------------------ attention beam

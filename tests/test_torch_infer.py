@@ -146,9 +146,9 @@ def test_conv_ctc_cli_matches_jax_cli(corpus, caplog, mode, dtype, tol):
 
 @pytest.mark.parametrize("model_type,extra,item", [
     # the JAX CLI's own exits: the device beam without --ctc_beam, and
-    # biasing a CTC model off the device beam
+    # fusing an LM into or biasing a CTC model off the device beam
     ("conv-ctc", ["--ctc_beam_device"], "needs a CTC model type AND --ctc_beam"),
-    ("conv-ctc-transformer", ["--lm_pkg", "lm.pkg", "--lm_weight", "0.3"], "item 10"),
+    ("conv-ctc", ["--lm_pkg", "lm.pkg", "--lm_weight", "0.3"], "no fusion hook"),
     ("conv-ctc", ["--ctc_beam", "4", "--context_file", "hot.txt"],
      "add --ctc_beam N --ctc_beam_device"),
 ])
@@ -159,12 +159,12 @@ def test_unported_flags_exit_naming_roadmap_item(corpus, model_type, extra, item
     argv = _argv(corpus, "unused.txt", model_type) + extra
     with pytest.raises(SystemExit, match=item):
         torch_infer(argv + ["--device", "cpu"])
-    if item != "item 10":   # the same exit, word for word, as the JAX CLI's
-        with pytest.raises(SystemExit, match=item) as jax_exit:
-            jax_infer(argv)
-        with pytest.raises(SystemExit) as port_exit:
-            torch_infer(argv + ["--device", "cpu"])
-        assert str(port_exit.value) == str(jax_exit.value)
+    # the same exit, word for word, as the JAX CLI's
+    with pytest.raises(SystemExit, match=item) as jax_exit:
+        jax_infer(argv)
+    with pytest.raises(SystemExit) as port_exit:
+        torch_infer(argv + ["--device", "cpu"])
+    assert str(port_exit.value) == str(jax_exit.value)
 
 
 def test_online_input_and_other_families_exit(corpus):

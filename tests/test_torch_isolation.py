@@ -27,7 +27,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "utils.checkpoint", "config", "data.sampler", "data.audio", "ops.fbank",
                  "kernels.fbank", "ops.ctc_decode", "ops.prefix_beam", "ops.ctc_beam_device",
                  "utils.metrics", "bin.wer", "ops.cif", "models.assigner", "models.cif",
-                 "solvers.cif"):
+                 "solvers.cif", "models.lm", "bin.train_lm", "data.manifest",
+                 "data.collate"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
