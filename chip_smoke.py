@@ -106,6 +106,32 @@ Transformer LM's training shape (causal, no key lengths, dropout 0.1)
 beside SDPA with is_causal, their calls a step taken from the built
 module and held to the run's launches.
 
+Then the streaming path (`[streaming path]`):
+egs/aishell1/configs/conv-ctc-transformer-streaming.yaml's model and
+training sections as they are (the flagship's widths, encoder.streaming
+chunk 16, left_chunks 4) at vocabulary 4233, trained through the CLI for
+one epoch of 3 steps in f32 and bf16 on 96 random-feature utterances of
+1000-1200 frames (T' up to 299), the encoder's attention through the
+chunk mode of the flash kernels, the launches held to the built module's,
+and one f32 step's gradients on the card against the CPU (1e-3); the
+trained package streamed through `openasr_torch.bin.stream_infer` (the 8
+decode utterances, B 8): greedy partials, prefix-beam partials of 10 with
+the [lm path]'s Transformer LM and a hotword file, and the attention
+rescore, each tick 13 LayerNorm launches and no attention kernel; in
+process, the streamed encoder states and CTC logits against the card's
+batch forward in chunk mode (TOL_STREAM), the greedy hypotheses against
+the batch forward's, the last n-best of the streaming prefix beam (with
+and without the LM and hotwords) against `ctc_prefix_beam_device` over
+the streamed log-probs, on the shortest utterance every mode against the
+CPU, and the median ms a tick (device and wall, f32 and bf16: greedy, beam
+10, beam 10 with the LM); and the same model with the online signal
+streaming the 8 test waves, one fbank launch a tick, held to its batch
+forward.  The kernel line adds the chunk mode's forward (4ch) and
+backward (5+6ch) at the streaming training batch's encoder shape beside
+SDPA with the equivalent bool mask, after holding them to their plain
+versions there and on a batch whose short rows leave padded queries with
+no visible key (O = 0, zero gradients), with dropout 0 and 0.1.
+
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
 gradients and the f32 fbank features are also checked against the same
@@ -1450,7 +1476,7 @@ def phase_train_head_dim_16(vocab, chars, rng, launches):
             "an attention or LayerNorm kernel never launched at head dim 16")
 
 
-def check_grads_against_cpu(pkg_path, feats):
+def check_grads_against_cpu(pkg_path, feats, model_cfg=FLAGSHIP, tag="grad check") -> float:
     """One f32 training step (dropout and SpecAugment off) on 2 utterances
     at full width: every parameter's gradient on the card against the CPU,
     TF32 off."""
@@ -1460,10 +1486,11 @@ def check_grads_against_cpu(pkg_path, feats):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pkg = load_package(pkg_path)
+    pkg = pkg.get("model", pkg)
     batch = padded_batch(feats, sorted(feats)[:2], np.random.RandomState(SEED + 5))
     grads = {}
     for device in ("cuda", "cpu"):
-        model = get_model_class("conv-ctc-transformer").create_model(FLAGSHIP, device=device)
+        model = get_model_class("conv-ctc-transformer").create_model(model_cfg, device=device)
         model.restore(pkg)
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         losses = model.loss(tb, None, label_smooth=0.1,
@@ -1471,7 +1498,7 @@ def check_grads_against_cpu(pkg_path, feats):
         total = losses["ce_loss"] / losses["n_tokens"] + losses["ctc_loss"] / losses["n_seqs"]
         total.backward()
         grads[device] = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
-        print(f"[grad check] {device}: loss {float(total.detach()):.6f}")
+        print(f"[{tag}] {device}: loss {float(total.detach()):.6f}")
     worst, worst_name = 0.0, None
     for name, want in grads["cpu"].items():
         # an attention k-projection bias has an analytically zero gradient
@@ -1482,10 +1509,11 @@ def check_grads_against_cpu(pkg_path, feats):
         rel = max_err(grads["cuda"][name], want) / scale
         if not rel <= worst:
             worst, worst_name = rel, name
-    print(f"[grad check] f32 card vs CPU, 2 utts, {len(grads['cpu'])} parameters: worst "
+    print(f"[{tag}] f32 card vs CPU, 2 utts, {len(grads['cpu'])} parameters: worst "
           f"err {worst:.3g} of the gradient's max abs ({worst_name}; tol 1e-3; "
           f"k-projection biases against their weight's)")
     require(worst <= 1e-3, f"gradient of {worst_name} disagrees: {worst:.3g}")
+    return worst
 
 
 def ctc_losses(log_probs, logit_lengths, targets, target_lengths):
@@ -1724,14 +1752,21 @@ def held_to_plain(name, kernel, plain, tol, errs, key) -> None:
     errs[key] = max(errs[key], e)
 
 
-def attention_pairs(tq, lens, causal) -> int:
+def visible(tq, n, causal, chunk_mask=None) -> np.ndarray:
+    """[Tq, n] bool: the (query, key) pairs the masks leave valid for n
+    valid keys (causal, or a streaming encoder's chunk mask)."""
+    q, k = np.arange(tq)[:, None], np.arange(int(n))[None, :]
+    ok = (k <= q) if causal else np.ones((tq, int(n)), bool)
+    if chunk_mask is not None:
+        chunk, left, phase = chunk_mask
+        qc, kc = (q + phase) // chunk, (k + phase) // chunk
+        ok = ok & (kc <= qc) & ((kc >= qc - left) if left >= 0 else True)
+    return ok
+
+
+def attention_pairs(tq, lens, causal, chunk_mask=None) -> int:
     """(query, key) pairs the masks leave valid, summed over the batch."""
-    q = np.arange(tq)[:, None]
-    total = 0
-    for n in lens:
-        k = np.arange(int(n))[None, :]
-        total += int(((k <= q) if causal else np.ones((tq, int(n)), bool)).sum())
-    return total
+    return sum(int(visible(tq, n, causal, chunk_mask).sum()) for n in lens)
 
 
 def fwd_rows(feats, errs, launches):
@@ -1907,22 +1942,27 @@ def attention_shapes(shapes, model_cfg=FLAGSHIP):
             ("cross", u, t, False, lens, n_dec)]
 
 
-def sdpa_masks(tq, tk, kv, causal) -> dict:
+def sdpa_masks(tq, tk, kv, causal, chunk_mask=None) -> dict:
     """SDPA's arguments for the same masks as the kernels': is_causal, or a
-    bool key-padding mask, or both in one bool mask (the CIF decoder)."""
+    bool key-padding mask, or both in one bool mask (the CIF decoder), or
+    the key-padding and chunk masks in one (a streaming encoder)."""
     if kv is None:
         return dict(is_causal=causal)
     key = torch.arange(tk, device="cuda")
     mask = (key[None, :] < kv[:, None])[:, None, None, :]
     if causal:
         mask = mask & (key[None, :] <= torch.arange(tq, device="cuda")[:, None])[None, None]
+    if chunk_mask is not None:
+        mask = mask & torch.from_numpy(visible(tq, tk, False, chunk_mask)).cuda()[None, None]
     return dict(attn_mask=mask)
 
 
-def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
+def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng, chunk_mask=None,
+                        cold=True) -> dict:
     """The whole attention backward (statistics, dK/dV, dQ) at one shape, with
-    dropout 0.1 as the training path runs it: device ms of the kernels,
-    the plain backward and SDPA's backward, the bound and the inputs."""
+    dropout 0.1 as the training path runs it: device ms of the kernels
+    (`cold`: also with a cold L2), the plain backward and SDPA's backward,
+    the bound and the inputs."""
     import torch.nn.functional as F
 
     from openasr_torch.kernels.flash_attention import (
@@ -1940,13 +1980,13 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
     kv = None if lens is None else torch.from_numpy(lens.astype(np.int32)).cuda()
     qt, kt, vt, dot = (z.transpose(1, 2) for z in (q, k, v, dout))
     qg, kg, vg = (z.detach().clone().requires_grad_() for z in (qt, kt, vt))
-    sdpa = sdpa_masks(tq, tk, kv, causal)
+    sdpa = sdpa_masks(tq, tk, kv, causal, chunk_mask)
     rate, seed = DROPOUT, DROPOUT_SEED
     out, lse = flash_attention(q, k, v, kv_lengths=kv, causal=causal, dropout_rate=rate,
-                               dropout_seed=seed)
-    args = (q, k, v, out, lse, dout, kv, causal, None, rate, seed)
+                               dropout_seed=seed, chunk_mask=chunk_mask)
+    args = (q, k, v, out, lse, dout, kv, causal, None, rate, seed, chunk_mask)
     key_lens = [tk] * b if lens is None else [min(int(n), tk) for n in lens]
-    pairs = h * attention_pairs(tq, key_lens, causal)
+    pairs = h * attention_pairs(tq, key_lens, causal, chunk_mask)
     qo_bytes = es * b * tq * h * d                 # one [B, Tq, H, D] tensor
     kv_bytes = es * sum(key_lens) * h * d          # K or V over valid keys
     stat_bytes = 4 * b * h * tq                    # one row statistic (lse, m, 1 / l, delta)
@@ -1957,14 +1997,14 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng) -> dict:
     return {
         "shape": [b, tq, tk, h, d],
         "ms": device_ms(lambda: flash_attention_bwd(*args)),
-        **cold_l2_ms(lambda: flash_attention_bwd(*args)),
+        **(cold_l2_ms(lambda: flash_attention_bwd(*args)) if cold else {}),
         "plain_ms": device_ms(lambda: flash_attention_bwd_reference(*args)),
         "library_ms": backward_ms(
             lambda: F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate, **sdpa),
             (qg, kg, vg), dot),
         **bound(nbytes, 5 * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
         "kernel_args": args[:6] + (flash_bwd_stats(q, k, v, dout, kv, causal, None, rate,
-                                                   seed),) + args[6:],
+                                                   seed, chunk_mask),) + args[6:],
         "pairs": pairs, "qo_bytes": qo_bytes, "kv_bytes": kv_bytes, "stat_bytes": stat_bytes,
     }
 
@@ -2094,7 +2134,7 @@ def train_rows(shapes, errs, launches, per):
             # backward above
             kernel_args, pairs = at["kernel_args"], at["pairs"]
             qo_bytes, kv_bytes, stat_bytes = at["qo_bytes"], at["kv_bytes"], at["stat_bytes"]
-            q_, k_, v_, _, _, dout_, _, kv_, causal_, sms_, rate_, seed_ = kernel_args
+            q_, k_, v_, _, _, dout_, _, kv_, causal_, sms_, rate_, seed_, _ = kernel_args
 
             def stats_of(*_args):
                 return flash_bwd_stats(q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)
@@ -2231,7 +2271,8 @@ def head_dim_rows(shapes, errs, launches):
     return rows
 
 
-def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate) -> dict:
+def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate,
+                      chunk_mask=None) -> dict:
     """The forward kernel at one shape, with dropout `rate` (0, or 0.1 as
     the training path runs it): held to its plain version with the same
     seed, then device ms of the kernel, the plain version and SDPA's
@@ -2249,22 +2290,23 @@ def attention_fwd_row(b, h, d, tq, tk, causal, lens, dtype, rng, errs, rate) -> 
             for _ in range(2))
     kv = None if lens is None else torch.from_numpy(lens.astype(np.int32)).cuda()
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-    sdpa = sdpa_masks(tq, tk, kv, causal)
+    sdpa = sdpa_masks(tq, tk, kv, causal, chunk_mask)
     seed = DROPOUT_SEED if rate else None
 
     def kernel():
         return flash_attention(q, k, v, kv_lengths=kv, causal=causal, dropout_rate=rate,
-                               dropout_seed=seed)
+                               dropout_seed=seed, chunk_mask=chunk_mask)
 
     def plain():
-        return flash_attention_reference(q, k, v, kv, causal, None, rate, seed or 0)
+        return flash_attention_reference(q, k, v, kv, causal, None, rate, seed or 0,
+                                         chunk_mask)
 
     held_to_plain(
         f"flash dropout={rate} {DTYPE_NAME[dtype]} [{b}, {tq}, {tk}, {h}, {d}] "
-        f"causal={causal}", kernel, plain, TOL_FLASH[dtype], errs,
+        f"causal={causal} chunk_mask={chunk_mask}", kernel, plain, TOL_FLASH[dtype], errs,
         ("flash_attention_fwd_dropout" if rate else "flash_attention_fwd", dtype))
     key_lens = [tk] * b if lens is None else [min(int(n), tk) for n in lens]
-    pairs = h * attention_pairs(tq, key_lens, causal)
+    pairs = h * attention_pairs(tq, key_lens, causal, chunk_mask)
     # q read and O written over every query; K and V over the valid keys,
     # where the walk stops; lse written; lengths read.  S and P.V over the
     # valid pairs; the hash's integer operations are not counted
@@ -3742,6 +3784,587 @@ def lm_rows(lm, errs, launches):
     return rows
 
 
+# ------------------------------------------------------------ streaming path
+
+STREAM_YAML = os.path.join(ROOT, "egs", "aishell1", "configs",
+                           "conv-ctc-transformer-streaming.yaml")
+STREAM_BEAM = 10
+STREAM_STEPS = 3
+# the streamed f32 encoder states and CTC logits against the card's batch
+# forward in chunk mode (and the CPU's), on valid frames: max abs error over
+# max(1, the largest magnitude), the card-vs-CPU logits check's 1e-3.  The
+# chunk step attends densely in IEEE f32, the batch forward through the
+# kernel's 3xTF32 products, and six layers carry the difference: 2.6e-4 of
+# scale on the online model's loud log-mel inputs, 1e-5 on random
+# features (PERF.md, the streaming findings)
+TOL_STREAM = 1e-3
+# a tick's LayerNorm launches: two a layer and the final norm
+STREAM_TICK_LN = 13
+
+
+def stream_model_cfg(online=False) -> dict:
+    """conv-ctc-transformer-streaming.yaml's model section at the smoke
+    test's vocabulary; `online`: with conv-ctc-transformer-online.yaml's
+    signal (the fbank frontend; the chunk mask's phase 2)."""
+    import yaml
+
+    cfg = load_model_cfg(STREAM_YAML, FLAGSHIP["decoder"]["vocab_size"])
+    if online:
+        with open(ONLINE_YAML) as f:
+            cfg["signal"] = yaml.safe_load(f)["model"]["signal"]
+    return cfg
+
+
+def phase_streaming_train(vocab, chars, rng, launches) -> dict:
+    """conv-ctc-transformer-streaming.yaml's model and training sections as
+    they are (dropout 0.1, SpecAugment, batch_frames 36000, Noam), one
+    epoch through the train CLI in f32 and bf16 on 96 random-feature
+    utterances of 1000-1200 frames (3 steps, T' up to 299) and a dev batch
+    of 8, counters reset just before each run and read just after: every
+    attention of the step launches once a step (the encoder's 6 in chunk
+    mode, the decoder's 12 causal and cross) and every LayerNorm forward
+    and backward, as the built module counts them.  Then one f32 step's
+    gradients on the card against the CPU (1e-3)."""
+    from openasr_torch.bin import train
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.ops.masks import ChunkMask
+
+    train_json, feats = write_corpus("strain", rng, chars, 96, (1000, 1200), (20, 24))
+    dev_json, _ = write_corpus("sdev", rng, chars, 8, (1000, 1200), (20, 24))
+    model_cfg = stream_model_cfg()
+    with torch.device("meta"):
+        module = get_model_class("conv-ctc-transformer").build_module(Config(model_cfg))
+    require(module.encoder.chunk_mask == ChunkMask(16, 4, 1),
+            f"the streaming encoder's mask is {module.encoder.chunk_mask}")
+    per = module_launches(module)
+    runs = {}
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        exp = os.path.join(WORK, f"exp_streaming_{name}")
+        os.makedirs(exp)
+        cfg = train_config(train_json, dev_json, vocab, exp, dtype, STREAM_YAML)
+        reset_counters()
+        t0 = time.time()
+        train.main([cfg, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        rows = read_metrics(exp)
+        tr = [r for r in rows if r["phase"] == "train"]
+        cv = [r for r in rows if r["phase"] == "cv"]
+        losses = [v for r in rows for k, v in r.items() if k.endswith("loss")]
+        print(f"[streaming path] train {name}: {len(tr)} steps + {len(cv)} dev batch(es) in "
+              f"{wall:.2f}s wall; losses {[round(r['ctc_loss'], 4) for r in tr]} (ctc), "
+              f"{[round(r['ce_loss'], 4) for r in tr]} (ce); launches {n}")
+        require(len(tr) == STREAM_STEPS and len(cv) >= 1, f"{len(tr)} steps, {len(cv)} dev")
+        require(all(np.isfinite(v) for v in losses), f"non-finite loss logged: {losses}")
+        want = {k: 0 for k in n}
+        for k, c in per["step"].items():
+            want[k] += c * len(tr)
+        for k, c in per["forward"].items():
+            want[k] += c * len(cv)
+        require(n == want, f"streaming train launches {n} != {want}")
+        launches[("streaming train", dtype)] = {"total": n, "steps": len(tr),
+                                                "dev_batches": len(cv), "per_step": per["step"]}
+        runs[name] = {"exp": exp, "wall": wall}
+    pkg = os.path.join(runs["float32"]["exp"], "last.pkg")
+    grad_err = check_grads_against_cpu(pkg, feats, model_cfg, "streaming grad check")
+    return {"train_json": train_json, "pkg": pkg, "grad_err": grad_err,
+            "calls": {"encoder": count_attention(module.encoder),
+                      "all": count_attention(module)}}
+
+
+def chunk_check(tag, b, t, lens, mask, dtype, rate, rng, errs) -> int:
+    """The chunk mode's forward, statistics pass and backward on the card
+    against the plain versions (dense under chunk_bias) on one input [b, t,
+    8, 64]: O to TOL_FLASH, the statistics to TOL_FLASH_STATS, the
+    gradients to TOL_FLASH_BWD over max(1, magnitude); the rows that see no
+    key give O = 0, lse = +inf, statistics 0 and finite, zero gradients.
+    -> the number of such (row, query) pairs."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+        flash_bwd_stats,
+        flash_bwd_stats_reference,
+    )
+
+    h, d = 8, 64
+    q, k, v, dout = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to("cuda", dtype)
+                     for _ in range(4))
+    kv = torch.from_numpy(np.asarray(lens, np.int32)).cuda()
+    seed = DROPOUT_SEED if rate else 0
+    args = (kv, False, None, rate, seed, mask)
+    out, lse = flash_attention(q, k, v, kv_lengths=kv, dropout_rate=rate, dropout_seed=seed,
+                               chunk_mask=mask)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, *args)
+    got_st = flash_bwd_stats(q, k, v, dout, *args)
+    out_r, lse_r = flash_attention_reference(q, k, v, *args)
+    want = flash_attention_bwd_reference(q, k, v, out_r, lse_r, dout, *args)
+    want_st = flash_bwd_stats_reference(q, k, v, dout, *args)
+    torch.cuda.synchronize()
+    e_out = max_err(out, out_r)
+    e_lse = max_err(lse, lse_r)
+    empty = torch.isinf(lse_r)                    # [B, H, T]
+    rows = empty.any(dim=1)                       # [B, T]
+    worst = 0.0
+    for g, w in zip(got, want):
+        e, scale = scaled_err(g, w)
+        require(bool(torch.isfinite(g).all()), f"{tag}: a non-finite gradient")
+        worst = max(worst, e / scale)
+        note_err(errs, ("chunk_bwd", dtype), e, e / scale)
+    st = stats_errs(got_st, want_st)
+    print(f"[streaming kernels] {tag} {DTYPE_NAME[dtype]} dropout={rate} [{b}, {t}, {t}, {h}, "
+          f"{d}] {tuple(mask)}: out err {e_out:.3g} (tol {TOL_FLASH[dtype]}), lse err "
+          f"{e_lse:.3g}; statistics " + ", ".join(f"{n} {x:.3g}" for n, _, x in st)
+          + f" (tol {TOL_FLASH_STATS}); worst grad err {worst:.3g} of max(1, |grad|) (tol "
+          f"{TOL_FLASH_BWD[dtype]}); {int(rows.sum())} query rows see no key")
+    require(e_out <= TOL_FLASH[dtype], f"{tag}: the chunk-mode forward disagrees")
+    require(e_lse <= 1e-4 * max(1.0, float(lse_r[~empty].abs().max())),
+            f"{tag}: the chunk-mode lse disagrees (+inf exactly on rows that see no key)")
+    require(all(x <= TOL_FLASH_STATS for _, _, x in st), f"{tag}: the statistics disagree")
+    require(worst <= TOL_FLASH_BWD[dtype], f"{tag}: the chunk-mode backward disagrees")
+    require(not out[rows].any() and not got[0][rows].any(),
+            f"{tag}: a row that sees no key has a non-zero output or dQ")
+    require(not got_st[:, empty].any(), f"{tag}: a row that sees no key has statistics")
+    errs[("chunk_fwd", dtype)] = max(errs.get(("chunk_fwd", dtype), 0.0), e_out)
+    for _, e, x in st:
+        note_err(errs, ("chunk_stats", dtype), e, x)
+    return int(rows.sum())
+
+
+def streaming_rows(stream, errs, launches):
+    """Rows 4ch and 5+6ch: the chunk mode's forward (dropout 0.1) and whole
+    backward at the streaming training run's largest encoder batch [B, T',
+    8, 64] (chunk 16, left 4, phase 1), each against SDPA with the
+    equivalent bool mask on the same call, after the kernels are held to
+    their plain versions there and on a batch of 8 x 300 frames whose short
+    rows leave padded queries with no visible key, with dropout 0 and 0.1;
+    calls a step from the built module, held to the run's launches."""
+    from openasr_torch.ops.masks import ChunkMask
+
+    mask = ChunkMask(16, 4, 1)
+    shape = train_shapes(stream["train_json"])
+    b, t, lens = shape["b"], shape["t"], shape["enc_lens"]
+    no_key_lens = np.array([300, 299, 250, 200, 100, 37, 16, 1])
+    rng = np.random.RandomState(SEED + 15)
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        empty = 0
+        for rate in (0.0, DROPOUT):
+            chunk_check("training batch", b, t, lens, mask, dtype, rate, rng, errs)
+            empty += chunk_check("rows without keys", 8, 300, no_key_lens, mask, dtype, rate,
+                                 rng, errs)
+        require(empty > 0, "the no-key batch has no row without a visible key")
+        tr = launches[("streaming train", dtype)]
+        calls = stream["calls"]
+        for key in ("flash_attention_fwd_dropout", "flash_attention_bwd_dkv"):
+            require(calls["all"] * tr["steps"] == tr["total"][key],
+                    f"{calls['all']} attention calls a step by the built module, but "
+                    f"{tr['total'][key]} {key} launches in {tr['steps']} steps")
+        row = attention_fwd_row(b, 8, 64, t, t, False, lens, dtype, rng, errs, DROPOUT, mask)
+        common = {"chunk_mask": list(mask), "launches_per_step": calls["all"],
+                  "calls_per_step_at_this_shape": calls["encoder"]}
+        rows.append({"name": f"flash_attention_fwd_dropout_chunk[{name}]", **row, **common,
+                     "launches": tr["total"]["flash_attention_fwd_dropout"],
+                     "launches_are": "dropout forward calls of the streaming training run "
+                                     "(the encoder's in chunk mode, the decoder's causal and "
+                                     "cross)",
+                     "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, its own "
+                                   "Philox mask, a bool key-padding and chunk mask)",
+                     "max_abs_err": errs[("chunk_fwd", dtype)], "tol": TOL_FLASH[dtype]})
+        at = attention_bwd_times(b, 8, 64, t, t, False, lens, dtype, rng, mask, cold=False)
+        rows.append({
+            "name": f"flash_attention_bwd_chunk[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327); the chunk mode replaces the JAX "
+                        "encoder's dense chunk_bias attention (models/encoder.py:205-227)",
+            "shape": at["shape"], **common,
+            "launches": tr["total"]["flash_attention_bwd_dkv"],
+            "launches_are": "backward calls of the streaming training run, each launching "
+                            "statistics, dK/dV and dQ once",
+            **bwd_errs(errs[("chunk_bwd", dtype)], TOL_FLASH_BWD[dtype]),
+            "stats_max_scaled_err": errs[("chunk_stats", dtype)][1],
+            **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")},
+            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
+                          "and chunk mask) forward + backward minus forward (graph replay)",
+        })
+    return rows
+
+
+def pack_valid(chunks, valids):
+    """Per-chunk [B, ch, ...] tensors and [B, ch] validity -> the valid
+    frames of each row packed from 0 [B, E, ...], and E a row."""
+    x, valid = torch.cat(chunks, dim=1), torch.cat(valids, dim=1)
+    lens = valid.sum(dim=1)
+    out = x.new_zeros((x.shape[0], max(int(lens.max()), 1)) + tuple(x.shape[2:]))
+    rows, slots = valid.nonzero(as_tuple=True)
+    out[rows, valid.cumsum(dim=1)[rows, slots] - 1] = x[rows, slots]
+    return out, lens
+
+
+def stream_ticks(rec, x, lens, beam=0, lm_spec=None, tables=None) -> dict:
+    """Drive `rec` tick by tick over features x [B, T, D] as decode_waves
+    does: greedy partials (beam 0) or the streaming prefix beam (with the
+    LM of `lm_spec` at LM_WEIGHT and the hotword `tables` at weight 2),
+    each tick's partial brought to the host.  -> the ticks' logits and
+    validity, the last n-best (beam) and, on the card, each tick's host
+    wall ms and device ms (CUDA events around the tick's work)."""
+    from openasr_torch.ops.ctc_beam_device import ctc_beam_stream_init, ctc_beam_stream_step
+
+    dev = rec.device
+    b, unit = x.shape[0], rec.chunk_feats
+    n_chunks = -(-x.shape[1] // unit)
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 0, n_chunks * unit - x.shape[1]))
+    xp = xp.to(dev)
+    beam_state, beam_kw = None, {}
+    with torch.inference_mode():
+        if beam:
+            init_kw = {}
+            if lm_spec is not None:
+                init_kw = {"lm_step_fn": lm_spec["step_fn"], "init_lm_cache":
+                           lm_spec["init_cache_fn"](b * beam, n_chunks * rec.chunk + 1)}
+                beam_kw.update(lm_step_fn=lm_spec["step_fn"], lm_weight=LM_WEIGHT)
+            if tables is not None:
+                init_kw["num_phrases"] = int(np.shape(tables["plen"])[0])
+                beam_kw.update(context_tables=tables, context_weight=2.0)
+            beam_state = ctc_beam_stream_init(b, beam, n_chunks * rec.chunk, device=dev,
+                                              **init_kw)
+        state = rec.init_state(b)
+        logits, valids, wall, device = [], [], [], []
+        nbest = None
+        for n in range(n_chunks):
+            piece = xp[:, n * unit:(n + 1) * unit]
+            clens = np.clip(lens - n * unit, 0, unit)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            t0 = time.perf_counter()
+            state, out = rec.step(state, piece, clens)
+            if beam:
+                beam_state, nbest = ctc_beam_stream_step(
+                    beam_state, torch.log_softmax(out["logits"], dim=-1), out["valid"],
+                    rec.blank, beam, **beam_kw)
+                nbest[0][:, 0].cpu()
+            else:
+                out["logits"].argmax(dim=-1).cpu()
+            if dev.type == "cuda":
+                ev[1].record()
+                torch.cuda.synchronize()
+                device.append(ev[0].elapsed_time(ev[1]))
+            wall.append((time.perf_counter() - t0) * 1e3)
+            logits.append(out["logits"])
+            valids.append(out["valid"])
+    return {"logits": logits, "valid": valids, "nbest": nbest, "wall_ms": wall,
+            "device_ms": device, "ticks": n_chunks}
+
+
+def streaming_model(pkg_path, device, dtype=torch.float32, model_cfg=None):
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    pkg = load_package(pkg_path)
+    pkg = pkg.get("model", pkg)
+    model = get_model_class("conv-ctc-transformer").create_model(
+        model_cfg or pkg["configs"], device=device, dtype=dtype)
+    model.restore(pkg)
+    return model
+
+
+def batch_logits(model, x, lens):
+    """The batch forward in chunk mode: (encoder states, CTC logits f32,
+    encoder lengths)."""
+    from openasr_torch.models.speech import _f32_head
+
+    dev = model.module.encoder.dtype_probe.device
+    with torch.inference_mode():
+        enc, elens = model.module.encode(torch.from_numpy(x).to(dev),
+                                         torch.from_numpy(lens).to(dev))
+        return enc.float(), _f32_head(model.module.ctc_fc, enc), elens
+
+
+def logits_close(name, got, want, lens) -> float:
+    """got, want [B, >= E, V] over each row's first lens frames: max abs error
+    over max(1, the largest magnitude), required within TOL_STREAM."""
+    e, scale = 0.0, 1.0
+    for i, n in enumerate(lens.tolist()):
+        g, w = got[i, :n].float().cpu(), want[i, :n].float().cpu()
+        e = max(e, max_err(g, w))
+        scale = max(scale, float(w.abs().max()))
+    print(f"[streaming path] {name}: err {e:.3g} of max(1, |x|) = {scale:.3g} "
+          f"(tol {TOL_STREAM})")
+    require(e <= TOL_STREAM * scale, f"{name} disagree")
+    return e / scale
+
+
+def greedy_ids(logits, lens, blank):
+    """CTC greedy over each row's first lens frames: collapse repeats, drop
+    the blank."""
+    ids = logits.argmax(dim=-1).cpu().numpy()
+    out = []
+    for i, n in enumerate(lens.tolist()):
+        prev, hyp = -1, []
+        for tid in ids[i, :n].tolist():
+            if tid != blank and tid != prev:
+                hyp.append(tid)
+            prev = tid
+        out.append(hyp)
+    return out
+
+
+def same_or_ties(name, got, want, logits_err) -> int:
+    """Greedy hypotheses of two runs whose logits agree within logits_err:
+    equal, or (printed) differing where an argmax flipped, which logits
+    that close can only do at a frame whose top two lie within 2 x
+    logits_err; -> the number of differing hypotheses."""
+    differ = sum(g != w for g, w in zip(got, want))
+    print(f"[streaming path] {name}: {len(got) - differ} of {len(got)} hypotheses equal"
+          + (f" (the others at argmax ties: logits within {logits_err:.3g})" if differ else ""))
+    require(differ == 0 or logits_err > 0.0, f"{name}: hypotheses differ on equal logits")
+    return differ
+
+
+def nbest_close(name, got, want, exact) -> None:
+    """Two n-best lists (tokens, lengths, scores): equal token lists and
+    scores within 1e-4 (`exact`: the same search on the same log-probs), or
+    scores within TOL_FUSED_SCORES with the 1-best equal unless the
+    reference's top two lie within 2 x TOL_FUSED_SCORES (a tie)."""
+    g_t, g_l, g_s = (a.cpu().numpy() for a in got)
+    w_t, w_l, w_s = (a.cpu().numpy() for a in want)
+    live = w_s > -1e29
+    require(((g_s > -1e29) == live).all(), f"{name}: live beams differ")
+    e = float(np.abs(g_s - w_s)[live].max())
+    same = [[g_t[i, j, : g_l[i, j]].tolist() == w_t[i, j, : w_l[i, j]].tolist()
+             for j in range(live.shape[1]) if live[i, j]] for i in range(live.shape[0])]
+    ties = [bool(live[i, 1] and w_s[i, 0] - w_s[i, 1] <= 2 * TOL_FUSED_SCORES)
+            for i in range(live.shape[0])]
+    print(f"[streaming path] {name}: scores err {e:.3g}; n-best lists equal "
+          f"{sum(all(r) for r in same)} of {len(same)}, 1-best equal "
+          f"{sum(r[0] for r in same)} of {len(same)}")
+    if exact:
+        require(e <= 1e-4 and all(all(r) for r in same), f"{name}: n-best differs")
+    else:
+        require(e <= TOL_FUSED_SCORES, f"{name}: scores differ by {e:.3g}")
+        require(all(r[0] or tie for r, tie in zip(same, ties)),
+                f"{name}: a 1-best differs where its scores are no tie")
+
+
+def phase_streaming_decode(pkg, vocab, test_json, test_feats, lm_pkg, launches) -> dict:
+    """The trained streaming package through `openasr_torch.bin.stream_infer`
+    (B 8, offline features): greedy partials, prefix-beam partials of 10
+    with the [lm path]'s Transformer LM and a hotword file, and the
+    attention rescore; counters reset just before each run and read just
+    after (13 LayerNorm forwards a tick, no attention kernel: the chunk
+    step attends densely; the LM's 12 a frame more with fusion).  Then in
+    process: the streamed encoder states and CTC logits against the card's
+    batch forward in chunk mode, the greedy hypotheses against the batch
+    forward's, the last n-best of the prefix beam (with and without the LM
+    and hotwords) against `ctc_prefix_beam_device` over the streamed
+    log-probs; on the shortest utterance every mode against the CPU; and the
+    median ms a tick, device and wall, in f32 and bf16."""
+    from openasr_torch.bin import stream_infer
+    from openasr_torch.config import Config
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.lm import make_lm_step_spec
+    from openasr_torch.ops.ctc_beam_device import build_context_tables, ctc_prefix_beam_device
+    from openasr_torch.data.tokenizer import CharTokenizer, load_context_phrases
+    from openasr_torch.streaming import StreamingRecognizer
+
+    chars = [line.strip() for line in open(vocab, encoding="utf-8")]
+    hot = write_text("stream_hot.txt", [" ".join(chars[i: i + 3]) for i in (10, 200, 3000)])
+    utts = sorted(test_feats)
+    n_ticks = -(-quantize(max(test_feats[u].shape[0] for u in utts)) // 64)
+    with torch.device("meta"):
+        lm_module = get_model_class("transformer_lm").build_module(
+            Config(load_package_configs(lm_pkg)))
+    lm_ln = count_layer_norms(lm_module)
+    modes = {
+        "greedy": [],
+        "beam 10 lm hotwords": ["--partial_beam", str(STREAM_BEAM), "--lm_pkg", lm_pkg,
+                                "--lm_weight", str(LM_WEIGHT), "--context_file", hot],
+        "rescore": ["--rescore", "--nbest", "5", "--maxlen", "40"],
+    }
+    cli = {}
+    for tag, extra in modes.items():
+        hyp = os.path.join(WORK, f"hyp_stream_{tag.replace(' ', '_')}.txt")
+        argv = ["--model_type", "conv-ctc-transformer", "--model_pkg", pkg,
+                "--vocab_path", vocab, "--json_file", test_json, "--output", hyp,
+                "--offline", "--add_blk", "--batch_size", "8", "--device", "cuda"] + extra
+        reset_counters()
+        t0 = time.time()
+        stream_infer.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        with open(hyp, encoding="utf-8") as f:
+            lines = [line for line in f if line.strip()]
+        print(f"[streaming path] stream_infer {tag}: {len(lines)} hyps in {wall:.2f}s wall, "
+              f"{n_ticks} ticks; launches {n}")
+        require(len(lines) == len(utts), f"{len(lines)} hyp lines for {len(utts)} utterances")
+        want_ln = STREAM_TICK_LN * n_ticks
+        if "lm" in tag:
+            want_ln += lm_ln * (1 + n_ticks * 16)   # <sos>, then every frame
+        if tag == "rescore":
+            require(n["layer_norm_fwd"] > want_ln, "the rescore launched no LayerNorm")
+        else:
+            require(n["layer_norm_fwd"] == want_ln,
+                    f"{n['layer_norm_fwd']} LayerNorm launches, want {want_ln}")
+        require(all(v == 0 for k, v in n.items() if k != "layer_norm_fwd"),
+                f"a kernel other than LayerNorm launched: {n}")
+        launches[("stream decode", tag)] = n
+        cli[tag] = wall
+
+    tokenizer = CharTokenizer(vocab, add_blk=True)
+    tables = build_context_tables(load_context_phrases(tokenizer, hot), tokenizer.unit_num())
+    x, lens = padded_features(test_feats, utts)
+    model = streaming_model(pkg, "cuda")
+    rec = StreamingRecognizer(model)
+    lm = load_lm(lm_pkg, "cuda")
+    spec = make_lm_step_spec(lm)
+    enc_b, logits_b, elens = batch_logits(model, x, lens)
+    hyps, enc_s, enc_lens = rec.decode_waves(x, lens)
+    require(enc_lens.tolist() == elens.tolist(), f"streamed lengths {enc_lens.tolist()} != "
+                                                 f"{elens.tolist()}")
+    checks = {"enc_err": logits_close("streamed vs batch encoder states, f32", enc_s, enc_b,
+                                      enc_lens)}
+    # the f32 runs below are also the f32 tick times (warm: the CLI runs
+    # came first), the bf16 ones after them
+    runs = {("greedy", "float32"): stream_ticks(rec, x, lens)}
+    greedy = runs[("greedy", "float32")]
+    packed, plens = pack_valid(greedy["logits"], greedy["valid"])
+    checks["logits_err"] = logits_close("streamed vs batch CTC logits, f32", packed, logits_b,
+                                        plens)
+    require(greedy_ids(packed, plens, rec.blank) == hyps, "decode_waves' greedy partials "
+                                                          "differ from its ticks'")
+    checks["greedy_vs_batch_differ"] = same_or_ties(
+        "greedy, streamed vs batch", hyps, greedy_ids(logits_b, plens, rec.blank),
+        checks["logits_err"])
+    for name, kw in (("beam 10", {}), ("beam 10 lm hotwords", {"lm_spec": spec,
+                                                              "tables": tables})):
+        run = runs[(name, "float32")] = stream_ticks(
+            rec, x, lens, STREAM_BEAM, **kw)
+        lp, plens = pack_valid([torch.log_softmax(lg, dim=-1) for lg in run["logits"]],
+                               run["valid"])
+        one_kw = {}
+        if "lm_spec" in kw:
+            one_kw = {"lm_step_fn": spec["step_fn"], "lm_weight": LM_WEIGHT,
+                      "init_lm_cache": spec["init_cache_fn"](len(utts) * STREAM_BEAM,
+                                                             lp.shape[1] + 1),
+                      "context_tables": tables, "context_weight": 2.0}
+        with torch.inference_mode():
+            want = ctc_prefix_beam_device(lp, plens, rec.blank, STREAM_BEAM, **one_kw)
+        nbest_close(f"{name}: the last partial n-best vs ctc_prefix_beam_device over the "
+                    f"streamed log-probs", run["nbest"], want, exact=True)
+
+    # the CPU on the shortest utterance, every mode
+    t_cpu = time.time()
+    short = sorted(utts, key=lambda u: test_feats[u].shape[0])[:1]
+    xs, ls = padded_features(test_feats, short)
+    cpu_model = streaming_model(pkg, "cpu")
+    cpu_rec = StreamingRecognizer(cpu_model)
+    cpu_spec = make_lm_step_spec(load_lm(lm_pkg, "cpu"))
+    for name, kw in (("greedy", {}), ("beam 10 lm hotwords",
+                                      {"beam": STREAM_BEAM, "tables": tables})):
+        run = {dev: stream_ticks(r, xs, ls, lm_spec=s if kw else None, **kw)
+               for dev, r, s in (("cuda", rec, spec), ("cpu", cpu_rec, cpu_spec))}
+        lg = {dev: pack_valid(r["logits"], r["valid"]) for dev, r in run.items()}
+        e = logits_close(f"{name}: streamed CTC logits, card vs CPU", lg["cuda"][0],
+                         lg["cpu"][0], lg["cpu"][1])
+        if kw:
+            nbest_close(f"{name}: card vs CPU", run["cuda"]["nbest"], run["cpu"]["nbest"],
+                        exact=False)
+        else:
+            same_or_ties("greedy, card vs CPU", *(greedy_ids(*lg[d], rec.blank)
+                                                  for d in ("cuda", "cpu")), e)
+    enc_cpu = cpu_rec.decode_waves(xs, ls)
+    enc_gpu = rec.decode_waves(xs, ls)
+    with torch.inference_mode():
+        res = {dev: m.beam_decode_encoded(o[1].to(m.module.encoder.compute_dtype), o[2],
+                                          beam_size=5, max_decode_len=40)
+               for dev, m, o in (("cuda", model, enc_gpu), ("cpu", cpu_model, enc_cpu))}
+    nbest_close("rescore: card vs CPU", res["cuda"], res["cpu"], exact=False)
+    print(f"[streaming path] the CPU checks took {time.time() - t_cpu:.1f}s")
+
+    # median ms a tick at B 8, chunk 16, the first tick of each run left out
+    rec16 = StreamingRecognizer(streaming_model(pkg, "cuda", torch.bfloat16))
+    for name, kw in (("greedy", {}), ("beam 10", {"beam": STREAM_BEAM}),
+                     ("beam 10 lm hotwords", {"beam": STREAM_BEAM, "lm_spec": spec,
+                                              "tables": tables})):
+        runs[(name, "bfloat16")] = stream_ticks(rec16, x, lens, **kw)
+    times_ = {key: {"device_ms": float(np.median(run["device_ms"][1:])),
+                    "wall_ms": float(np.median(run["wall_ms"][1:])), "ticks": run["ticks"]}
+              for key, run in runs.items()}
+    reset_counters()
+    with torch.inference_mode():
+        state = rec.init_state(len(utts))
+        rec.step(state, x[:, : rec.chunk_feats])
+    per_tick = read_counters()
+    require(per_tick["layer_norm_fwd"] == STREAM_TICK_LN
+            and all(v == 0 for k, v in per_tick.items() if k != "layer_norm_fwd"),
+            f"a tick's launches {per_tick}")
+    for (name, dt), r in sorted(times_.items()):
+        print(f"[time] streaming tick {name} {dt}: median {r['device_ms']:.3f} ms device, "
+              f"{r['wall_ms']:.3f} ms wall (B {len(utts)}, chunk 16 = 640 ms of audio, "
+              f"{r['ticks']} ticks)")
+    return {"cli_wall": cli, "checks": checks, "times": times_, "per_tick": per_tick}
+
+
+def phase_streaming_online(wtest_json, wtest, launches) -> dict:
+    """The streaming model with the online signal (phase 2; random weights
+    from SEED) streaming the 8 test waves tick by tick, in f32: each tick
+    launches the fbank kernel once and 13 LayerNorms, and the streamed
+    encoder states agree with the card's batch forward in chunk mode on
+    valid frames (TOL_STREAM)."""
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.models import get_model_class
+    from openasr_torch.streaming import StreamingRecognizer
+
+    model = get_model_class("conv-ctc-transformer").create_model(
+        stream_model_cfg(online=True), device="cuda",
+        generator=torch.Generator().manual_seed(SEED))
+    rec = StreamingRecognizer(model)
+    require(rec.phase == 2 and not rec.offline, "the online model streams waves at phase 2")
+    utts = sorted(wtest)
+    lens = np.array([wtest[u].shape[0] for u in utts])
+    x = np.zeros((len(utts), quantize(int(lens.max()))), np.float32)
+    for i, u in enumerate(utts):
+        x[i, : lens[i]] = wtest[u]
+    n_ticks = -(-x.shape[1] // rec.chunk_samples)
+    reset_counters()
+    t0 = time.time()
+    _, enc_s, enc_lens = rec.decode_waves(x, lens)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    print(f"[streaming path] online: {len(utts)} waves, {n_ticks} ticks of "
+          f"{rec.chunk_samples} samples in {wall:.2f}s wall; launches {n}")
+    require(n["fbank"] == n_ticks and n["layer_norm_fwd"] == STREAM_TICK_LN * n_ticks
+            and n["flash_attention_fwd"] == 0, f"online streaming launches {n}")
+    launches[("stream decode", "online")] = n
+    with torch.inference_mode():
+        enc_b, elens = model.module.encode(torch.from_numpy(x).cuda(),
+                                           torch.from_numpy(lens).cuda())
+    require(enc_lens.tolist() == elens.tolist(), "online: streamed lengths differ")
+    err = logits_close("online: streamed vs batch encoder states, f32", enc_s, enc_b.float(),
+                       enc_lens)
+    return {"ticks": n_ticks, "enc_err": err, "launches": n}
+
+
+def load_package_configs(path) -> dict:
+    from openasr_torch.utils.checkpoint import load_package
+
+    pkg = load_package(path)
+    return pkg.get("model", pkg)["configs"]
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3814,9 +4437,16 @@ def main() -> int:
         print(f"[time] cif path done at {time.time() - t_start:.1f}s")
         lm = phase_lm(rng, launches, pkg, ctc_pkg, vocab, test_json, test_feats, cif)
         print(f"[time] lm path done at {time.time() - t_start:.1f}s")
+        stream = phase_streaming_train(vocab, chars, rng, launches)
+        stream["decode"] = phase_streaming_decode(
+            stream["pkg"], vocab, test_json, test_feats, lm["runs"]["transformer_lm float32"]["pkg"],
+            launches)
+        stream["online"] = phase_streaming_online(wtest_json, wtest, launches)
+        print(f"[time] streaming path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
-                + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches))
+                + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
+                + streaming_rows(stream, errs, launches))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3852,6 +4482,16 @@ def main() -> int:
         + f"; step vs batch forward {lm['step']}; gradients card vs CPU "
           f"{ {k: round(v['grad_err'], 6) for k, v in lm['check'].items()} }; launches a "
           f"training step {launches[('lm train', 'transformer_lm float32')]['per_step']}")
+    sd = stream["decode"]
+    print("[streaming path] " + "; ".join(
+        f"tick {name} {dt}: {r['device_ms']:.3f} ms device, {r['wall_ms']:.3f} ms wall"
+        for (name, dt), r in sd["times"].items())
+        + f"; launches a tick {sd['per_tick']}, online {stream['online']['launches']} in "
+          f"{stream['online']['ticks']} ticks; streamed vs batch: encoder "
+          f"{sd['checks']['enc_err']:.3g}, logits {sd['checks']['logits_err']:.3g}, online "
+          f"encoder {stream['online']['enc_err']:.3g}; training gradients card vs CPU "
+          f"{stream['grad_err']:.3g}; launches a training step "
+          f"{launches[('streaming train', torch.float32)]['per_step']}")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

@@ -122,6 +122,7 @@ def library() -> ctypes.CDLL:
             i64, i64, i64,           # k strides
             i64, i64, i64,           # v strides
             f, i,                    # sm_scale, causal
+            i, i, i,                 # chunk (0: off), left chunks, phase
             u32, u32, f, i,          # dropout seed, keep threshold, scale, on
             i, i, p,                 # dtype, device, stream
         ]
@@ -130,6 +131,7 @@ def library() -> ctypes.CDLL:
             i, i, i, i, i,           # B, H, Tq, Tk, D
             i64p,                    # q, k, v, dout strides (b, t, h) x 4
             f, i,                    # sm_scale, causal
+            i, i, i,                 # chunk (0: off), left chunks, phase
             u32, u32, f, i,          # dropout seed, keep threshold, scale, on
             i, i, p,                 # dtype, device, stream
         ]

@@ -6,6 +6,14 @@
 // attention over key tiles with key padding from kv_lengths, an optional
 // causal mask (kpos <= qpos) that skips key tiles wholly above the
 // diagonal, and fully masked rows giving O = 0 and lse = +inf (:218-230).
+// Its chunk mode has no TPU kernel: the JAX package trains a streaming
+// encoder through dense attention under chunk_bias
+// (openasr_tpu/models/encoder.py:205-227).  Here it is a runtime mask
+// (openasr::Mask, flash_tiles.cuh): each query sees the keys of its own
+// chunk and of `left` chunks before it, so a 64-query tile walks only
+// those keys, from the first row's window start to the last row's chunk
+// end, and a row with no visible key (a padded query whose window starts
+// past the length) gets O = 0 and lse = +inf.
 // Outputs O [B, Tq, H, D] in q's dtype and lse [B, H, Tq] f32.  S = Q K^T
 // * scale, m, l and acc are f32.  With dropout (:200-216) the keep mask is
 // the positional hash of common.cuh at each (qpos, kpos): l sums the
@@ -28,11 +36,13 @@
 // - The Q tile is staged once with 16-byte cp.async; K and V are walked in
 //   32-key steps double-buffered with cp.async commit/wait groups, so step
 //   i + 1 loads while step i computes, through the strides of the
-//   [B, T, H, D] projection views.  The walk stops at kv_lengths[b] and,
-//   under causal, at the tile's diagonal; a warp skips the products of a
-//   step that holds no pair it can see (rows past Tq, or keys all above its
-//   diagonal), which is exact: that step's p are all 0.  A tile with no
-//   valid key walks nothing and writes zeros and lse = +inf.
+//   [B, T, H, D] projection views.  The walk covers the keys the mask lets
+//   the tile's rows see (from 0, or the first row's chunk window, to
+//   kv_lengths[b] and, under causal, the tile's diagonal, or the last
+//   row's chunk end); a warp skips the products of a step that holds no
+//   pair it can see (rows past Tq, or keys outside its rows' windows),
+//   which is exact: that step's p are all 0.  A tile with no valid key
+//   walks nothing and writes zeros and lse = +inf.
 // - S = Q K^T with Q as the A operand and K as the B operand through the
 //   non-transposing load; the masks, the exp (exp2 of log2-scaled scores)
 //   and the hash at each accumulator element's (qpos, kpos) (c0, c1 at row
@@ -61,12 +71,12 @@
 //   D >= 64 in f32.
 // Registers a thread from ptxas for sm_90a (without / with dropout), no
 // instantiation spilling (chip_smoke.py prints them in its [ptxas] line and
-// fails on a spill); f32 D = 64 through the entry point with a hint of 3
-// blocks an SM (below):
+// fails on a spill); f32 D = 64, and f32 D = 32 with dropout, through the
+// entry point with a hint of 3 blocks an SM (below):
 //            bf16       f32
-//   D = 32    65 / 64    79 / 83
-//   D = 64    96 / 94   168 / 166
-//   D = 128  125 / 125  131 / 130
+//   D = 32    72 / 75    80 / 116
+//   D = 64    95 / 95   168 / 159
+//   D = 128  127 / 127  130 / 166
 
 #include <type_traits>
 
@@ -91,7 +101,7 @@ struct Args {
   int B, H, Tq, Tk;
   Strides qs, ks, vs;
   float sm_scale;
-  int causal;
+  Mask mask;
   Dropout drop;
   int device;
 };
@@ -105,7 +115,8 @@ __device__ __forceinline__ void fwd_tile(const Args& a) {
   const E* __restrict__ k = static_cast<const E*>(a.k);
   const E* __restrict__ v = static_cast<const E*>(a.v);
   const int* __restrict__ kv_lengths = a.kv_lengths;
-  const int H = a.H, Tq = a.Tq, Tk = a.Tk, causal = a.causal;
+  const int H = a.H, Tq = a.Tq, Tk = a.Tk;
+  const Mask mask = a.mask;
   const Strides qs_ = a.qs, ks_ = a.ks, vs_ = a.vs;
   const float sm_scale = a.sm_scale;
   const Dropout drop = a.drop;
@@ -123,16 +134,24 @@ __device__ __forceinline__ void fwd_tile(const Args& a) {
 
   int n_valid = Tk;
   if (kv_lengths != nullptr) n_valid = min(max(kv_lengths[b], 0), Tk);
-  // keys past the tile's last query are masked for every row under causal
-  const int k_end = causal ? min(n_valid, q0 + kBlockQ) : n_valid;
+  // the keys the tile's rows see (the mask's intervals of its first and
+  // last row), and those of the warp's 16 rows
+  const int q_last = min(q0 + kBlockQ, Tq) - 1;
+  const int k_begin = mask.keys_of(q0).x;
+  const int k_end = min(n_valid, mask.keys_of(q_last).y);
+  const int wk_begin = mask.keys_of(q0 + qw).x;
+  const int wk_end = min(n_valid, mask.keys_of(min(q0 + qw + 15, q_last)).y);
 
-  // the lane's two rows (g, g + 8): position, running max (log2 units) and
-  // the lane's part of the running sum
-  int qrow[2];
+  // the lane's two rows (g, g + 8): position, visible keys [klo, khi),
+  // running max (log2 units) and the lane's part of the running sum
+  int qrow[2], klo[2], khi[2];
   float m[2], l[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     qrow[r] = q0 + qw + g + 8 * r;
+    const int2 ks = mask.keys_of(qrow[r]);
+    klo[r] = ks.x;
+    khi[r] = min(ks.y, n_valid);
     m[r] = kNegInf;
     l[r] = 0.f;
   }
@@ -142,16 +161,16 @@ __device__ __forceinline__ void fwd_tile(const Args& a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  if (k_end > 0) {
+  if (k_begin < k_end) {
     const E* kb = k + b * ks_.b + h * ks_.h;
     const E* vb = v + b * vs_.b + h * vs_.h;
     stage_rows<Ops, D, kBlockQ, kThreads>(qsm, q + b * qs_.b + h * qs_.h, qs_.t, q0, Tq, tid);
-    stage_rows<Ops, D, kBK, kThreads>(ksm, kb, ks_.t, 0, Tk, tid);
-    stage_rows<Ops, D, kBK, kThreads>(vsm, vb, vs_.t, 0, Tk, tid);
+    stage_rows<Ops, D, kBK, kThreads>(ksm, kb, ks_.t, k_begin, Tk, tid);
+    stage_rows<Ops, D, kBK, kThreads>(vsm, vb, vs_.t, k_begin, Tk, tid);
     cp_async_commit();
 
     int buf = 0;
-    for (int k0 = 0; k0 < k_end; k0 += kBK, buf ^= 1) {
+    for (int k0 = k_begin; k0 < k_end; k0 += kBK, buf ^= 1) {
       if (k0 + kBK < k_end) {
         stage_rows<Ops, D, kBK, kThreads>(ksm + (buf ^ 1) * kBK * S, kb, ks_.t, k0 + kBK, Tk,
                                           tid);
@@ -167,7 +186,7 @@ __device__ __forceinline__ void fwd_tile(const Args& a) {
       const E* vt = vsm + buf * kBK * S;
 
       // warp-uniform: does this step hold a pair the warp's rows can see?
-      if (q0 + qw < Tq && (!causal || k0 <= q0 + qw + 15)) {
+      if (q0 + qw < Tq && k0 < wk_end && k0 + kBK > wk_begin) {
         // S = Q K^T, [16 queries, kBK keys] a warp
         float s[kBK / 8][4];
 #pragma unroll
@@ -195,7 +214,7 @@ __device__ __forceinline__ void fwd_tile(const Args& a) {
           for (int e = 0; e < 4; ++e) {
             const int r = e >> 1;
             const int key = k0 + j * 8 + t2 + (e & 1);
-            const bool ok = key < n_valid && (!causal || key <= qrow[r]);
+            const bool ok = key >= klo[r] && key < khi[r];
             s[j][e] = ok ? s[j][e] * scale_log2 : kNegInf;
             mt[r] = fmaxf(mt[r], s[j][e]);
           }
@@ -287,7 +306,9 @@ __device__ __forceinline__ void fwd_tile(const Args& a) {
 // ptxas, left to its own register budget, fits the f32 kernels at D = 64
 // into 128 registers with an 8-byte spill; asking for 3 blocks an SM gives
 // them 168 and no spill (3-8% slower than the spilling build at the path's
-// shapes).  Every other instantiation keeps ptxas's own budget: a hint of 1
+// shapes).  Since the masks' per-row key windows (the chunk mode), the f32
+// kernel with dropout at D = 32 also spilled (20 bytes at 80 registers) and
+// takes the same hint.  Every other instantiation keeps ptxas's own budget: a hint of 1
 // or 3 blocks raised their registers and slowed bf16 at the decoder and
 // cross shapes by a third (on an H100; PERF.md).
 template <typename Ops, int D, bool kDropout>
@@ -307,7 +328,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   // the Q tile; K, V double-buffered
   constexpr size_t smem = (kBlockQ + 4 * kStep) * Tiles<Ops, D>::kStride * sizeof(E);
   auto kernel = [] {
-    if constexpr (std::is_same<Ops, Tf32x3Ops>::value && D == 64)
+    if constexpr (std::is_same<Ops, Tf32x3Ops>::value && (D == 64 || (D == 32 && kDropout)))
       return flash_attention_fwd_kernel_3<Ops, D, kDropout>;
     else
       return flash_attention_fwd_kernel<Ops, D, kDropout>;
@@ -343,7 +364,9 @@ extern "C" {
 // addressed through its (batch, time, head) strides with unit stride along
 // D and 16-byte aligned rows (each pointer and stride a multiple of 16
 // bytes); kv_lengths: [B] int32 or null (= Tk); out: contiguous
-// [B, Tq, H, D]; lse: contiguous [B, H, Tq] f32.  With `dropout` set, the
+// [B, Tq, H, D]; lse: contiguous [B, H, Tq] f32.  causal, and chunk > 0
+// with left_chunks and phase, are the masks of openasr::Mask (a row that
+// sees no key gets O = 0 and lse = +inf).  With `dropout` set, the
 // weights are dropped where the hash of (dropout_seed, b*H + h, qpos, kpos)
 // is not below keep_thresh and the kept ones scaled by drop_scale =
 // 1 / (1 - rate).
@@ -353,7 +376,8 @@ int openasr_flash_attention_fwd(const void* q, const void* k, const void* v,
                                 long long q_sb, long long q_st, long long q_sh,
                                 long long k_sb, long long k_st, long long k_sh,
                                 long long v_sb, long long v_st, long long v_sh,
-                                float sm_scale, int causal,
+                                float sm_scale, int causal, int chunk,
+                                int left_chunks, int phase,
                                 unsigned int dropout_seed,
                                 unsigned int keep_thresh, float drop_scale,
                                 int dropout, int dtype, int device,
@@ -365,7 +389,7 @@ int openasr_flash_attention_fwd(const void* q, const void* k, const void* v,
   const openasr::Args a{q, k, v, static_cast<const int*>(kv_lengths), out,
                         static_cast<float*>(lse), B, H, Tq, Tk,
                         {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
-                        sm_scale, causal,
+                        sm_scale, {causal, chunk, left_chunks, phase},
                         {dropout != 0, dropout_seed, keep_thresh, drop_scale}, device};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -28,6 +28,14 @@
 // a tile of keys, the second keys for a tile of queries, so neither needs
 // atomics and the gradients are the same bit for bit from run to run; dQ
 // pays for it by recomputing S and dP (two of its three products).
+// The chunk mode of streaming encoders (openasr::Mask, flash_tiles.cuh; no
+// TPU kernel, the JAX package attends densely under chunk_bias) masks
+// each pair as the forward does, and each kernel walks only the rows its
+// tile's rows can see: the statistics pass and dQ the keys from the first
+// query's chunk window to the last query's chunk end, dK/dV the queries
+// from the first key's chunk to `left` chunks past the last valid key's.
+// A query row that sees no key has m = 1 / l = delta = 0, so its P, its
+// dQ and its share of dK and dV are 0.
 //
 // Bound on the H100 at the training path's shapes (T 32-139, D 64): bytes,
 // in bf16 and in f32 alike.  Reading q, k, v, dO once and writing dq, dk,
@@ -93,9 +101,9 @@
 // the statistics hinted at the blocks their shared memory allows, at most
 // 6: 6, 6, 3 in bf16 and 5, 3, 1 in f32 at D 32, 64, 128):
 //            bf16 stats  bf16 dK/dV  bf16 dQ    f32 stats  f32 dK/dV  f32 dQ
-//   D = 32    80 /  79   111 / 122    88 /  80   94 /  94  128 / 126  123 / 124
-//   D = 64    77 /  80   122 / 125   127 / 126  128 / 132  127 / 125  159 / 159
-//   D = 128  128 / 132   161 / 165   166 / 166  128 / 132  171 / 168  192 / 166
+//   D = 32    80 /  80   115 / 121    80 /  80   96 /  96  128 / 128  126 / 124
+//   D = 64    80 /  78   123 / 127   128 / 128  135 / 137  126 / 125  162 / 159
+//   D = 128  135 / 137   162 / 165   166 / 161  135 / 137  169 / 169  161 / 160
 
 #include <type_traits>
 
@@ -183,7 +191,7 @@ flash_attention_bwd_stats_kernel(
     const typename Ops::Elem* __restrict__ q, const typename Ops::Elem* __restrict__ k,
     const typename Ops::Elem* __restrict__ v, const typename Ops::Elem* __restrict__ dout,
     const int* __restrict__ kv_lengths, float* __restrict__ stats, int H, int Tq, int Tk,
-    Strides qs_, Strides ks_, Strides vs_, Strides ds_, float sm_scale, int causal,
+    Strides qs_, Strides ks_, Strides vs_, Strides ds_, float sm_scale, Mask mask,
     Dropout drop) {
   using E = typename Ops::Elem;
   constexpr int kBQ = kRows, kBK = kWalk, S = Tiles<Ops, D>::kStride, NT = kDqThreads;
@@ -202,31 +210,39 @@ flash_attention_bwd_stats_kernel(
 
   int n_valid = Tk;
   if (kv_lengths != nullptr) n_valid = min(max(kv_lengths[b], 0), Tk);
-  // keys past the tile's last query are masked for every row under causal
-  const int k_end = causal ? min(n_valid, q0 + kBQ) : n_valid;
+  // the keys the tile's rows see, and those of the warp's 16 rows
+  const int q_last = min(q0 + kBQ, Tq) - 1;
+  const int k_begin = mask.keys_of(q0).x;
+  const int k_end = min(n_valid, mask.keys_of(q_last).y);
+  const int wk_begin = mask.keys_of(q0 + qw).x;
+  const int wk_end = min(n_valid, mask.keys_of(min(q0 + qw + 15, q_last)).y);
 
-  // the lane's two rows (g, g + 8): position, running max (log2 units),
-  // and the lane's parts of l and a = sum exp2(s' - m) dP o D
-  int qrow[2];
+  // the lane's two rows (g, g + 8): position, visible keys [klo, khi),
+  // running max (log2 units), and the lane's parts of l and a = sum
+  // exp2(s' - m) dP o D
+  int qrow[2], klo[2], khi[2];
   float m[2], l[2], acc[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     qrow[r] = q0 + qw + g + 8 * r;
+    const int2 ks = mask.keys_of(qrow[r]);
+    klo[r] = ks.x;
+    khi[r] = min(ks.y, n_valid);
     m[r] = kNegInf;
     l[r] = acc[r] = 0.f;
   }
 
   const E* kb = k + b * ks_.b + h * ks_.h;
   const E* vb = v + b * vs_.b + h * vs_.h;
-  if (k_end > 0) {
+  if (k_begin < k_end) {
     stage_rows<Ops, D, kBQ, NT>(qsm, q + b * qs_.b + h * qs_.h, qs_.t, q0, Tq, tid);
     stage_rows<Ops, D, kBQ, NT>(dosm, dout + b * ds_.b + h * ds_.h, ds_.t, q0, Tq, tid);
-    stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, 0, Tk, tid);
-    stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, 0, Tk, tid);
+    stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, k_begin, Tk, tid);
+    stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, k_begin, Tk, tid);
     cp_async_commit();
   }
   int buf = 0;
-  for (int k0 = 0; k0 < k_end; k0 += kBK, buf ^= 1) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK, buf ^= 1) {
     if (k0 + kBK < k_end) {
       stage_rows<Ops, D, kBK, NT>(ksm + (buf ^ 1) * kBK * S, kb, ks_.t, k0 + kBK, Tk, tid);
       stage_rows<Ops, D, kBK, NT>(vsm + (buf ^ 1) * kBK * S, vb, vs_.t, k0 + kBK, Tk, tid);
@@ -238,7 +254,7 @@ flash_attention_bwd_stats_kernel(
     __syncthreads();
 
     // warp-uniform: does this step hold a pair the warp's rows can see?
-    if (q0 + qw < Tq && (!causal || k0 <= q0 + qw + 15)) {
+    if (q0 + qw < Tq && k0 < wk_end && k0 + kBK > wk_begin) {
       float s[kBK / 8][4], dp[kBK / 8][4];
       score_products<Ops, D>(s, dp, qsm, dosm, ksm + buf * kBK * S, vsm + buf * kBK * S, qw,
                              lane);
@@ -251,7 +267,7 @@ flash_attention_bwd_stats_kernel(
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           const int key = k0 + j * 8 + t2 + (e & 1);
-          const bool ok = key < n_valid && (!causal || key <= qrow[r]);
+          const bool ok = key >= klo[r] && key < khi[r];
           s[j][e] = ok ? __fmul_rn(s[j][e], scale_log2) : kNegInf;
           mt[r] = fmaxf(mt[r], s[j][e]);
         }
@@ -329,7 +345,7 @@ flash_attention_bwd_dkv_kernel(
     const typename Ops::Elem* __restrict__ v, const typename Ops::Elem* __restrict__ dout,
     const float* __restrict__ stats, const int* __restrict__ kv_lengths,
     typename Ops::Elem* __restrict__ dk, typename Ops::Elem* __restrict__ dv, int H, int Tq,
-    int Tk, Strides qs_, Strides ks_, Strides vs_, Strides ds_, float sm_scale, int causal,
+    int Tk, Strides qs_, Strides ks_, Strides vs_, Strides ds_, float sm_scale, Mask mask,
     Dropout drop) {
   using E = typename Ops::Elem;
   constexpr int kBK = kRows, kBQ = kWalk, S = Tiles<Ops, D>::kStride, kK = Ops::kK;
@@ -361,10 +377,24 @@ flash_attention_bwd_dkv_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  // queries before the block's first key see none of its keys under causal;
-  // a block whose keys are all padding walks nothing and writes zeros
-  int q_begin = causal ? (k0 / kBQ) * kBQ : 0;
-  if (k0 >= n_valid) q_begin = Tq;
+  // the queries that see the block's valid keys (the mask's intervals of
+  // its first and last valid key); a block whose keys are all padding
+  // walks nothing and writes zeros
+  int q_begin = Tq, q_end = Tq;
+  if (k0 < n_valid) {
+    q_begin = mask.queries_of(k0).x;
+    q_end = min(Tq, mask.queries_of(min(k0 + kBK, n_valid) - 1).y);
+  }
+  // the lane's two key rows (g, g + 8): the queries [qlo, qhi) that see
+  // them, none for a padded key
+  int qlo[2], qhi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + kw + g + 8 * r;
+    const int2 qs = mask.queries_of(key);
+    qlo[r] = qs.x;
+    qhi[r] = key < n_valid ? min(qs.y, Tq) : 0;
+  }
   const E* qb = q + b * qs_.b + h * qs_.h;
   const E* db = dout + b * ds_.b + h * ds_.h;
   // the row statistic this thread stages, if any (threads 0-95): m, 1 / l
@@ -383,15 +413,15 @@ flash_attention_bwd_dkv_kernel(
     }
   };
 
-  if (q_begin < Tq) {
+  if (q_begin < q_end) {
     stage_rows<Ops, D, kBK, NT>(ksm, k + b * ks_.b + h * ks_.h, ks_.t, k0, Tk, tid);
     stage_rows<Ops, D, kBK, NT>(vsm, v + b * vs_.b + h * vs_.h, vs_.t, k0, Tk, tid);
     stage_queries(q_begin, 0);
     cp_async_commit();
 
     int buf = 0;
-    for (int q0 = q_begin; q0 < Tq; q0 += kBQ, buf ^= 1) {
-      if (q0 + kBQ < Tq) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kBQ, buf ^= 1) {
+      if (q0 + kBQ < q_end) {
         stage_queries(q0 + kBQ, buf ^ 1);
         cp_async_commit();
         cp_async_wait<1>();
@@ -448,7 +478,7 @@ flash_attention_bwd_dkv_kernel(
           const int key = k0 + kw + g + (e >> 1) * 8;
           const int qi = j * 8 + t2 + (e & 1);
           const int qp = q0 + qi;
-          const bool ok = key < n_valid && qp < Tq && (!causal || key <= qp);
+          const bool ok = qp >= qlo[e >> 1] && qp < qhi[e >> 1];
           const float p = ok ? weight(st[j][e], scale_log2, mr[qi], iv[qi]) : 0.f;
           const bool keep =
               !kDropout || dropout_keep(drop.seed, bh, (uint32_t)qp, (uint32_t)key, drop.thresh);
@@ -498,7 +528,7 @@ __device__ __forceinline__ void dq_body(
     const typename Ops::Elem* __restrict__ v, const typename Ops::Elem* __restrict__ dout,
     const float* __restrict__ stats, const int* __restrict__ kv_lengths,
     typename Ops::Elem* __restrict__ dq, int H, int Tq, int Tk, Strides qs_, Strides ks_,
-    Strides vs_, Strides ds_, float sm_scale, int causal, Dropout drop) {
+    Strides vs_, Strides ds_, float sm_scale, Mask mask, Dropout drop) {
   using E = typename Ops::Elem;
   constexpr int kBQ = kRows, kBK = kWalk, S = Tiles<Ops, D>::kStride, kK = Ops::kK;
   constexpr int NT = kDqThreads;
@@ -518,14 +548,20 @@ __device__ __forceinline__ void dq_body(
 
   int n_valid = Tk;
   if (kv_lengths != nullptr) n_valid = min(max(kv_lengths[b], 0), Tk);
-  const int k_end = causal ? min(n_valid, q0 + kBQ) : n_valid;
+  // the keys the tile's rows see
+  const int k_begin = mask.keys_of(q0).x;
+  const int k_end = min(n_valid, mask.keys_of(min(q0 + kBQ, Tq) - 1).y);
 
-  // the lane's two rows (g, g + 8): position, m, 1 / l and delta
-  int qrow[2];
+  // the lane's two rows (g, g + 8): position, visible keys [klo, khi), m,
+  // 1 / l and delta
+  int qrow[2], klo[2], khi[2];
   float m_r[2], inv_r[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     qrow[r] = q0 + qw + g + 8 * r;
+    const int2 ks = mask.keys_of(qrow[r]);
+    klo[r] = ks.x;
+    khi[r] = qrow[r] < Tq ? min(ks.y, n_valid) : 0;
     const long long at = ((long long)b * H + h) * Tq + min(qrow[r], Tq - 1);
     m_r[r] = qrow[r] < Tq ? stats[at] : 0.f;
     inv_r[r] = qrow[r] < Tq ? stats[rows + at] : 0.f;
@@ -540,15 +576,15 @@ __device__ __forceinline__ void dq_body(
 
   const E* kb = k + b * ks_.b + h * ks_.h;
   const E* vb = v + b * vs_.b + h * vs_.h;
-  if (k_end > 0) {
+  if (k_begin < k_end) {
     stage_rows<Ops, D, kBQ, NT>(qsm, q + b * qs_.b + h * qs_.h, qs_.t, q0, Tq, tid);
     stage_rows<Ops, D, kBQ, NT>(dosm, dout + b * ds_.b + h * ds_.h, ds_.t, q0, Tq, tid);
-    stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, 0, Tk, tid);
-    stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, 0, Tk, tid);
+    stage_rows<Ops, D, kBK, NT>(ksm, kb, ks_.t, k_begin, Tk, tid);
+    stage_rows<Ops, D, kBK, NT>(vsm, vb, vs_.t, k_begin, Tk, tid);
     cp_async_commit();
   }
   int buf = 0;
-  for (int k0 = 0; k0 < k_end; k0 += kBK, buf ^= 1) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK, buf ^= 1) {
     if (k0 + kBK < k_end) {
       stage_rows<Ops, D, kBK, NT>(ksm + (buf ^ 1) * kBK * S, kb, ks_.t, k0 + kBK, Tk, tid);
       stage_rows<Ops, D, kBK, NT>(vsm + (buf ^ 1) * kBK * S, vb, vs_.t, k0 + kBK, Tk, tid);
@@ -571,7 +607,7 @@ __device__ __forceinline__ void dq_body(
         const int r = e >> 1;
         const int key = k0 + j * 8 + t2 + (e & 1);
         const int qp = qrow[r];
-        const bool ok = key < n_valid && qp < Tq && (!causal || key <= qp);
+        const bool ok = key >= klo[r] && key < khi[r];
         const float p = ok ? weight(s[j][e], scale_log2, m_r[r], inv_r[r]) : 0.f;
         float dpd = dp[j][e];
         if (kDropout) {
@@ -611,9 +647,9 @@ __device__ __forceinline__ void dq_body(
       const typename Ops::Elem *__restrict__ v, const typename Ops::Elem *__restrict__ dout, \
       const float *__restrict__ stats, const int *__restrict__ kv_lengths,                 \
       typename Ops::Elem *__restrict__ dq, int H, int Tq, int Tk, Strides qs_,             \
-      Strides ks_, Strides vs_, Strides ds_, float sm_scale, int causal, Dropout drop
+      Strides ks_, Strides vs_, Strides ds_, float sm_scale, Mask mask, Dropout drop
 #define OPENASR_DQ_ARGS                                                                    \
-  q, k, v, dout, stats, kv_lengths, dq, H, Tq, Tk, qs_, ks_, vs_, ds_, sm_scale, causal, drop
+  q, k, v, dout, stats, kv_lengths, dq, H, Tq, Tk, qs_, ks_, vs_, ds_, sm_scale, mask, drop
 
 template <typename Ops, int D, bool kDropout>
 __global__ void __launch_bounds__(kDqThreads) flash_attention_bwd_dq_kernel(OPENASR_DQ_PARAMS) {
@@ -642,7 +678,7 @@ struct Args {
   int B, H, Tq, Tk;
   Strides qs, ks, vs, ds;
   float sm_scale;
-  int causal;
+  Mask mask;
   Dropout drop;
   int device;
 };
@@ -659,7 +695,7 @@ cudaError_t launch_stats(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kDqThreads, smem, stream>>>(
       static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
       static_cast<const E*>(a.dout), a.kv_lengths, a.stats, a.H, a.Tq, a.Tk, a.qs, a.ks, a.vs,
-      a.ds, a.sm_scale, a.causal, a.drop);
+      a.ds, a.sm_scale, a.mask, a.drop);
   return cudaGetLastError();
 }
 
@@ -677,7 +713,7 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kDkvThreads, smem, stream>>>(
       static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
       static_cast<const E*>(a.dout), a.stats, a.kv_lengths, static_cast<E*>(a.dk),
-      static_cast<E*>(a.dv), a.H, a.Tq, a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.causal,
+      static_cast<E*>(a.dv), a.H, a.Tq, a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.mask,
       a.drop);
   return cudaGetLastError();
 }
@@ -699,7 +735,7 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kDqThreads, smem, stream>>>(
       static_cast<const E*>(a.q), static_cast<const E*>(a.k), static_cast<const E*>(a.v),
       static_cast<const E*>(a.dout), a.stats, a.kv_lengths, static_cast<E*>(a.dq), a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.causal, a.drop);
+      a.Tk, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.mask, a.drop);
   return cudaGetLastError();
 }
 
@@ -730,9 +766,9 @@ cudaError_t dispatch_d(int which, int D, const Args& a, cudaStream_t stream) {
 
 int run(int which, const void* q, const void* k, const void* v, const void* dout, void* stats,
         const void* kv_lengths, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk,
-        int D, const long long* strides, float sm_scale, int causal, unsigned int dropout_seed,
-        unsigned int keep_thresh, float drop_scale, int dropout, int dtype, int device,
-        void* stream) {
+        int D, const long long* strides, float sm_scale, const Mask& mask,
+        unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale, int dropout,
+        int dtype, int device, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -742,7 +778,7 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
          B, H, Tq, Tk,
          {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
          {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]},
-         sm_scale, causal, {dropout != 0, dropout_seed, keep_thresh, drop_scale}, device};
+         sm_scale, mask, {dropout != 0, dropout_seed, keep_thresh, drop_scale}, device};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
@@ -767,15 +803,17 @@ extern "C" {
 // [B, Tk, H, D], each addressed through its (batch, time, head) strides,
 // given in `strides` as q, k, v, dout triples (12 values), with unit stride
 // along D, 16-byte aligned rows (each pointer and stride a multiple of 16
-// bytes); kv_lengths: [B] int32 or null.  Dropout arguments as in the
-// forward.
+// bytes); kv_lengths: [B] int32 or null.  Mask (causal; chunk,
+// left_chunks, phase) and dropout arguments as in the forward.
 int openasr_flash_attention_bwd_stats(
     const void* q, const void* k, const void* v, const void* dout, void* stats_out,
     const void* kv_lengths, int B, int H, int Tq, int Tk, int D, const long long* strides,
-    float sm_scale, int causal, unsigned int dropout_seed, unsigned int keep_thresh,
-    float drop_scale, int dropout, int dtype, int device, void* stream) {
+    float sm_scale, int causal, int chunk, int left_chunks, int phase,
+    unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale, int dropout,
+    int dtype, int device, void* stream) {
   return openasr::run(2, q, k, v, dout, stats_out, kv_lengths, nullptr, nullptr, nullptr, B, H,
-                      Tq, Tk, D, strides, sm_scale, causal, dropout_seed, keep_thresh,
+                      Tq, Tk, D, strides, sm_scale,
+                      {causal, chunk, left_chunks, phase}, dropout_seed, keep_thresh,
                       drop_scale, dropout, dtype, device, stream);
 }
 
@@ -784,11 +822,12 @@ int openasr_flash_attention_bwd_stats(
 int openasr_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* stats,
     const void* kv_lengths, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
-    const long long* strides, float sm_scale, int causal, unsigned int dropout_seed,
-    unsigned int keep_thresh, float drop_scale, int dropout, int dtype, int device,
-    void* stream) {
+    const long long* strides, float sm_scale, int causal, int chunk, int left_chunks,
+    int phase, unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale,
+    int dropout, int dtype, int device, void* stream) {
   return openasr::run(0, q, k, v, dout, const_cast<void*>(stats), kv_lengths, nullptr, dk, dv,
-                      B, H, Tq, Tk, D, strides, sm_scale, causal, dropout_seed, keep_thresh,
+                      B, H, Tq, Tk, D, strides, sm_scale,
+                      {causal, chunk, left_chunks, phase}, dropout_seed, keep_thresh,
                       drop_scale, dropout, dtype, device, stream);
 }
 
@@ -796,11 +835,12 @@ int openasr_flash_attention_bwd_dkv(
 int openasr_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const void* stats,
     const void* kv_lengths, void* dq, int B, int H, int Tq, int Tk, int D,
-    const long long* strides, float sm_scale, int causal, unsigned int dropout_seed,
-    unsigned int keep_thresh, float drop_scale, int dropout, int dtype, int device,
-    void* stream) {
+    const long long* strides, float sm_scale, int causal, int chunk, int left_chunks,
+    int phase, unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale,
+    int dropout, int dtype, int device, void* stream) {
   return openasr::run(1, q, k, v, dout, const_cast<void*>(stats), kv_lengths, dq, nullptr,
-                      nullptr, B, H, Tq, Tk, D, strides, sm_scale, causal, dropout_seed,
+                      nullptr, B, H, Tq, Tk, D, strides, sm_scale,
+                      {causal, chunk, left_chunks, phase}, dropout_seed,
                       keep_thresh, drop_scale, dropout, dtype, device, stream);
 }
 

@@ -30,6 +30,42 @@ struct Strides {
   long long b, t, h;
 };
 
+// The structured mask of one launch, beside the key padding: causal (key k
+// visible to query q iff k <= q) and the chunk mode of streaming encoders
+// (chunk > 0; openasr_tpu/ops/masks.py:chunk_bias): q and k lie in chunks
+// qc = (q + phase) / chunk and kc = (k + phase) / chunk, and k is visible
+// iff qc - left <= kc <= qc (every earlier chunk when left < 0).  Either
+// way the keys a query sees form one interval, and so do the queries that
+// see a key, and both intervals only move right as q or k grows: so the
+// masks are two compares an element, and a tile of rows sees the union of
+// its first and last row's intervals, which the kernels walk and nothing
+// else.  Positions are never negative, so the divisions round down.
+struct Mask {
+  int causal, chunk, left, phase;
+
+  // keys [lo, hi) that query q sees, before the key padding
+  __device__ __forceinline__ int2 keys_of(int q) const {
+    int lo = 0, hi = 0x7fffffff;
+    if (causal) hi = q + 1;
+    if (chunk > 0) {
+      const int c = (q + phase) / chunk;
+      hi = min(hi, (c + 1) * chunk - phase);
+      if (left >= 0) lo = max(0, (c - left) * chunk - phase);
+    }
+    return make_int2(lo, hi);
+  }
+  // queries [lo, hi) that see key k, before the end of the queries
+  __device__ __forceinline__ int2 queries_of(int k) const {
+    int lo = causal ? k : 0, hi = 0x7fffffff;
+    if (chunk > 0) {
+      const int c = (k + phase) / chunk;
+      lo = max(lo, c * chunk - phase);
+      if (left >= 0) hi = (c + left + 1) * chunk - phase;
+    }
+    return make_int2(max(lo, 0), hi);
+  }
+};
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ----------------------------------------------------------- operands

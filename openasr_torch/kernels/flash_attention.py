@@ -15,6 +15,15 @@ pads to a lane width (:670-672): zero columns of q and k leave QK^T as it
 is, the extra columns of O, dQ, dK and dV are sliced off, sm_scale comes
 from the true D, and the hash mask keys on positions, not on D.
 
+The chunk mode (`chunk_mask`, a `ChunkMask`) is the mask of a streaming
+encoder, which the JAX package applies as a dense bias
+(`chunk_bias`, openasr_tpu/models/encoder.py:205-227) and the kernels as
+a runtime mask that skips whole tiles outside each chunk window.  A query
+that sees no key (a padded query whose window starts past the length)
+gets O = 0, lse = +inf and zero gradients, where the JAX dense path gives
+softmax over NEG_INF; nothing reads such rows.  It does not combine with
+`causal`.
+
 `flash_attention` is differentiable: a `torch.autograd.Function` saves q,
 k, v, O and lse, and its backward launches three kernels: the statistics
 pass (one walk over the keys that writes each query row's max m of the
@@ -36,7 +45,14 @@ from typing import Optional
 import torch
 
 from openasr_torch import kernels
-from openasr_torch.ops.masks import NEG_INF, causal_bias, combine_bias, padding_bias
+from openasr_torch.ops.masks import (
+    NEG_INF,
+    ChunkMask,
+    causal_bias,
+    chunk_bias,
+    combine_bias,
+    padding_bias,
+)
 
 HEAD_DIMS = (32, 64, 128)
 LOG2E = 1.4426950408889634
@@ -99,17 +115,34 @@ def _f32_plain(fn):
     return wrapped
 
 
-def _bias(q, k, kv_lengths, causal):
+def _bias(q, k, kv_lengths, causal, chunk_mask=None):
     b, tq = q.shape[:2]
     tk = k.shape[1]
     lengths = (
         kv_lengths.to(q.device) if kv_lengths is not None
         else torch.full((b,), tk, device=q.device)
     )
+    t = max(tq, tk)
     return combine_bias(
         padding_bias(lengths, tk),
-        causal_bias(max(tq, tk), q.device)[..., :tq, :tk] if causal else None,
+        causal_bias(t, q.device)[..., :tq, :tk] if causal else None,
+        None if chunk_mask is None
+        else chunk_bias(t, *chunk_mask, device=q.device)[..., :tq, :tk],
     )
+
+
+def _mask_args(causal, chunk_mask):
+    """The C interface's mask arguments (causal, chunk, left, phase);
+    raises on a mask the kernels do not take."""
+    if chunk_mask is None:
+        return int(causal), 0, -1, 0
+    chunk, left, phase = (int(x) for x in chunk_mask)
+    if causal:
+        raise ValueError("flash_attention: causal and chunk_mask do not combine")
+    if chunk < 1 or phase < 0 or left >= 1 << 20:
+        raise ValueError(f"flash_attention: chunk_mask {tuple(chunk_mask)} needs chunk >= 1, "
+                         "phase >= 0 and left < 2^20")
+    return 0, chunk, left, phase
 
 
 @_f32_plain
@@ -122,6 +155,7 @@ def flash_attention_reference(
     sm_scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: int = 0,
+    chunk_mask: Optional[ChunkMask] = None,
 ):
     """Plain version: additive bias + f32 softmax, dropout on the normalized
     weights.  q [B, Tq, H, D], k/v [B, Tk, H, D] -> (out [B, Tq, H, D] in
@@ -130,7 +164,7 @@ def flash_attention_reference(
     tk = k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    bias = _bias(q, k, kv_lengths, causal)
+    bias = _bias(q, k, kv_lengths, causal, chunk_mask)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     scores = scores + bias
     valid = (bias > 0.5 * NEG_INF).expand_as(scores)
@@ -152,7 +186,7 @@ def flash_attention_reference(
 @_f32_plain
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
                                   causal=False, sm_scale=None,
-                                  dropout_rate=0.0, dropout_seed=0):
+                                  dropout_rate=0.0, dropout_seed=0, chunk_mask=None):
     """Plain version of the backward in f32 -> (dq, dk, dv) in the dtypes
     of q, k, v: the softmax gradient dS = P o (dP - delta) with P
     recomputed as the forward computes it (rows summing to 1) and delta =
@@ -166,7 +200,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
-    bias = _bias(q, k, kv_lengths, causal)
+    bias = _bias(q, k, kv_lengths, causal, chunk_mask)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale + bias
     # the forward's probabilities, recomputed as the forward computes them
     # (rows sum to 1, so delta below cancels dp exactly where a row is
@@ -247,21 +281,22 @@ def _dropout_args(dropout_rate, seed):
     return seed, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
 
 
-def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
+def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed, chunk_mask=None):
     """The forward kernel (CUDA) or its plain version (CPU)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_lengths, causal, sm_scale,
-                                         dropout_rate, seed)
+                                         dropout_rate, seed, chunk_mask)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp != d:
         out, lse = _flash_fwd(*(pad_head_dim(t, dp) for t in (q, k, v)), kv_lengths,
-                              causal, sm_scale, dropout_rate, seed)
+                              causal, sm_scale, dropout_rate, seed, chunk_mask)
         return out[..., :d], lse
     _check_qkv(q, k, v)
     check_flash_alignment(q=q, k=k, v=v)
+    mask = _mask_args(causal, chunk_mask)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     lens, lens_ptr = _lengths_arg(kv_lengths, b, q.device)
@@ -276,7 +311,7 @@ def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(sm_scale), int(causal), *_dropout_args(dropout_rate, seed),
+            float(sm_scale), *mask, *_dropout_args(dropout_rate, seed),
             kernels.dtype_code(q.dtype), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -290,7 +325,7 @@ def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
 
 @_f32_plain
 def flash_bwd_stats_reference(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
-                              dropout_rate=0.0, dropout_seed=0):
+                              dropout_rate=0.0, dropout_seed=0, chunk_mask=None):
     """Plain version of the statistics pass -> [3, B, H, Tq] f32: for each
     query row, over its valid keys and in log2 units s' = S sm_scale
     log2(e), the max m, 1 / l with l = sum exp2(s' - m), and delta =
@@ -300,7 +335,7 @@ def flash_bwd_stats_reference(q, k, v, dout, kv_lengths=None, causal=False, sm_s
     tk = k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    valid = (_bias(q, k, kv_lengths, causal) > 0.5 * NEG_INF).expand(b, h, tq, tk)
+    valid = (_bias(q, k, kv_lengths, causal, chunk_mask) > 0.5 * NEG_INF).expand(b, h, tq, tk)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (sm_scale * LOG2E)
     s = torch.where(valid, s, torch.full_like(s, float("-inf")))
     any_key = valid.any(-1)
@@ -317,7 +352,7 @@ def flash_bwd_stats_reference(q, k, v, dout, kv_lengths=None, causal=False, sm_s
 
 
 def flash_bwd_stats(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
-                    dropout_rate=0.0, dropout_seed=0):
+                    dropout_rate=0.0, dropout_seed=0, chunk_mask=None):
     """The backward's row statistics -> [3, B, H, Tq] f32, contiguous: each
     query row's max m of s' = S sm_scale log2(e), 1 / l with l = sum
     exp2(s' - m), and delta = rowsum(P o dP o D), P = exp2(s' - m) / l.
@@ -327,14 +362,14 @@ def flash_bwd_stats(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
     `flash_bwd_stats_reference`."""
     if q.device.type == "cpu":
         return flash_bwd_stats_reference(q, k, v, dout, kv_lengths, causal, sm_scale,
-                                         dropout_rate, dropout_seed)
+                                         dropout_rate, dropout_seed, chunk_mask)
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     dp = padded_head_dim(d)
     if dp != d:
         return flash_bwd_stats(*(pad_head_dim(t, dp) for t in (q, k, v, dout)), kv_lengths,
-                               causal, sm_scale, dropout_rate, dropout_seed)
+                               causal, sm_scale, dropout_rate, dropout_seed, chunk_mask)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     # every row is written, (0, 0, 0) where it has no valid key
@@ -344,7 +379,7 @@ def flash_bwd_stats(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
         return stats.zero_()
     code = kernels.library().openasr_flash_attention_bwd_stats(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-        lens_ptr, b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        lens_ptr, b, h, tq, tk, d, strides, float(sm_scale), *_mask_args(causal, chunk_mask),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -395,7 +430,7 @@ def _bwd_inputs(q, k, v, out, dout, stats, kv_lengths):
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
                             causal=False, sm_scale=None, dropout_rate=0.0,
-                            dropout_seed=0):
+                            dropout_seed=0, chunk_mask=None):
     """dK, dV of `flash_attention` -> (dk [B, Tk, H, D], dv), in k's dtype,
     with stats = `flash_bwd_stats(...)` of the same inputs.  CUDA tensors
     launch the dK/dV kernel, which takes P from the statistics, not from
@@ -404,7 +439,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
-            dropout_rate, dropout_seed)[1:]
+            dropout_rate, dropout_seed, chunk_mask)[1:]
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -412,7 +447,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
     if dp != d:
         dk, dv = flash_attention_bwd_dkv(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
-            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
+            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed, chunk_mask)
         return dk[..., :d], dv[..., :d]
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -424,7 +459,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
     code = kernels.library().openasr_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         lens_ptr, dk.data_ptr(), dv.data_ptr(),
-        b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        b, h, tq, tk, d, strides, float(sm_scale), *_mask_args(causal, chunk_mask),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -435,14 +470,14 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
                            causal=False, sm_scale=None, dropout_rate=0.0,
-                           dropout_seed=0):
+                           dropout_seed=0, chunk_mask=None):
     """dQ of `flash_attention` -> dq [B, Tq, H, D] in q's dtype, with stats
     = `flash_bwd_stats(...)` of the same inputs.  CUDA tensors launch the
     dQ kernel; CPU tensors take the plain backward."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
-            dropout_rate, dropout_seed)[0]
+            dropout_rate, dropout_seed, chunk_mask)[0]
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -450,7 +485,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
     if dp != d:
         return flash_attention_bwd_dq(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
-            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)[..., :d]
+            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed,
+            chunk_mask)[..., :d]
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
@@ -460,7 +496,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
     code = kernels.library().openasr_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         lens_ptr, dq.data_ptr(),
-        b, h, tq, tk, d, strides, float(sm_scale), int(causal),
+        b, h, tq, tk, d, strides, float(sm_scale), *_mask_args(causal, chunk_mask),
         *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -470,14 +506,14 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
-                        sm_scale=None, dropout_rate=0.0, dropout_seed=0):
+                        sm_scale=None, dropout_rate=0.0, dropout_seed=0, chunk_mask=None):
     """The whole backward of `flash_attention` -> (dq, dk, dv): on the card
     the statistics pass, then the dK/dV kernel and the dQ kernel; on the CPU
     the plain backward."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_lengths,
                                              causal, sm_scale, dropout_rate,
-                                             dropout_seed)
+                                             dropout_seed, chunk_mask)
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -485,23 +521,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
     if dp != d:  # pad once for both kernels
         grads = flash_attention_bwd(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
-            kv_lengths, causal, sm_scale, dropout_rate, dropout_seed)
+            kv_lengths, causal, sm_scale, dropout_rate, dropout_seed, chunk_mask)
         return tuple(g[..., :d] for g in grads)
     stats = flash_bwd_stats(q, k, v, dout, kv_lengths, causal, sm_scale, dropout_rate,
-                            dropout_seed)
+                            dropout_seed, chunk_mask)
     args = (q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
-            dropout_rate, dropout_seed)
+            dropout_rate, dropout_seed, chunk_mask)
     dk, dv = flash_attention_bwd_dkv(*args)
     return flash_attention_bwd_dq(*args), dk, dv
 
 
 class _FlashFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed):
+    def forward(ctx, q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed, chunk_mask):
         out, lse = _flash_fwd(q, k, v, kv_lengths, causal, sm_scale,
-                              dropout_rate, seed)
+                              dropout_rate, seed, chunk_mask)
         ctx.save_for_backward(q, k, v, out, lse, kv_lengths)
-        ctx.args = (causal, sm_scale, dropout_rate, seed)
+        ctx.args = (causal, sm_scale, dropout_rate, seed, chunk_mask)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -510,7 +546,7 @@ class _FlashFn(torch.autograd.Function):
         q, k, v, out, lse, kv_lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(q.dtype),
                                          kv_lengths, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -522,6 +558,7 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    chunk_mask: Optional[ChunkMask] = None,
 ):
     """Streaming masked attention -> (out [B, Tq, H, D], lse [B, H, Tq]),
     differentiable in q, k and v.
@@ -530,10 +567,12 @@ def flash_attention(
     unit stride along D and 16-byte aligned rows on the card (the
     projection views are read in place; `check_flash_alignment`);
     kv_lengths: optional [B] int — keys >= length are masked; causal:
-    query t attends to keys <= t; D <= 128 on the card (any other D than
+    query t attends to keys <= t; chunk_mask: the chunk mode of a
+    streaming encoder (not with causal); D <= 128 on the card (any other D than
     32, 64 or 128 runs zero-padded to the next of them).
     dropout_rate > 0 drops normalized weights by the positional hash mask
     of `dropout_seed` (a uint32; `draw_dropout_seed` draws one)."""
+    _mask_args(causal, chunk_mask)  # raises on a mask no route takes
     seed = 0
     if dropout_rate > 0.0:
         if dropout_seed is None:
@@ -543,9 +582,9 @@ def flash_attention(
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashFn.apply(q, k, v, kv_lengths, causal, float(sm_scale),
-                              float(dropout_rate), seed)
+                              float(dropout_rate), seed, chunk_mask)
     return _flash_fwd(q, k, v, kv_lengths, causal, float(sm_scale),
-                      float(dropout_rate), seed)
+                      float(dropout_rate), seed, chunk_mask)
 
 
 # kernel launches since the last reset (the plain route never counts):

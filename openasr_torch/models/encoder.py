@@ -6,9 +6,13 @@ layers (flash self-attention over the valid frames) -> final LayerNorm.
 The subsampler is ConvV1, ConvV2 or Stack (`encoder.sub.type`); without
 one the input passes as it is when input_dim == d_model, else through a
 Dense `affine`.
-Given a `TrainRNG` the forward is the train-mode one (dropout on).  Streaming
-(chunk masks), pipeline (stacked layers) and MoE encoders are later
-slices of the port.
+Given a `TrainRNG` the forward is the train-mode one (dropout on).
+`encoder.streaming: {chunk, left_chunks}` trains (and decodes in one
+pass) under the chunk mask of ops/masks.py:chunk_bias, with the phase
+of the model's frontend (models/speech.py:streaming_phase_of), through
+the chunk mode of the attention kernels, so that the cached streaming
+executor (openasr_torch/streaming.py) computes the same encoder states.
+Pipeline (stacked layers) and MoE encoders are later slices of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from openasr_torch.models.subsample import (
     Conv2dSubsample,
     Conv2dSubsampleV2,
 )
+from openasr_torch.ops.masks import ChunkMask
 
 SUB_TYPES = ("ConvV1", "ConvV2", "Stack", None)
 
@@ -49,9 +54,15 @@ class TransformerEncoder(nn.Module):
         dropout_rate: float = 0.1,
         context_width: int = 3,
         subsample: int = 1,
+        streaming_chunk: int = 0,
+        streaming_left: int = -1,
+        streaming_phase: int = 1,
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
+        # the chunk-attention mask in encoder frames (chunk 0: none)
+        self.chunk_mask = (ChunkMask(streaming_chunk, streaming_left, streaming_phase)
+                           if streaming_chunk > 0 else None)
         self.sub = self.affine = None
         if sub_type == "ConvV1":
             self.sub = Conv2dSubsample(input_dim, d_model)
@@ -88,7 +99,8 @@ class TransformerEncoder(nn.Module):
         x = dropout(positional_encoding(x), self.dropout_rate, rng)
         empty_rows = any_empty(lengths, empty_rows)
         for layer in self.layers:
-            x = layer(x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows)
+            x = layer(x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows,
+                      chunk_mask=self.chunk_mask)
         return self.final_norm(x), lengths
 
     def output_lengths(self, lengths):
@@ -101,15 +113,30 @@ class TransformerEncoder(nn.Module):
         return self.dtype_probe.dtype
 
     @staticmethod
-    def from_config(cfg) -> "TransformerEncoder":
-        for key, item in (
-            ("streaming", "11 (streaming)"),
-            ("moe", "14 (MoE)"),
-        ):
-            if cfg.get(key):
-                raise NotImplementedError(
-                    f"encoder.{key} is not ported yet: ROADMAP queue 1 item {item}"
-                )
+    def from_config(cfg, streaming_phase: int = 1) -> "TransformerEncoder":
+        """`streaming_phase`: the chunk mask's phase, 2 for an fbank
+        frontend and 1 for offline features (`streaming_phase_of` in
+        models/speech.py)."""
+        streaming = cfg.get("streaming") or {}
+        moe = cfg.get("moe") or {}
+        # the JAX encoder's own errors where streaming meets MoE or the
+        # pipeline, before the refusals of what the port lacks
+        if streaming.get("chunk", 0) and int(moe.get("num_experts", 0)) > 0:
+            raise NotImplementedError(
+                "encoder.moe does not compose with encoder.streaming: "
+                "per-chunk expert capacity would diverge from the batch "
+                "forward, breaking the executor's exactness guarantee"
+            )
+        if streaming.get("chunk", 0) and cfg.get("pipeline"):
+            raise NotImplementedError(
+                "encoder.streaming does not compose with "
+                "encoder.pipeline: the GPipe stack threads only "
+                "kv_lengths through its stages"
+            )
+        if moe:
+            raise NotImplementedError(
+                "encoder.moe is not ported yet: ROADMAP queue 1 item 14 (MoE)"
+            )
         if cfg.get("pipeline"):
             raise NotImplementedError(
                 "encoder.pipeline is not ported yet: ROADMAP queue 1 item 15 "
@@ -128,4 +155,7 @@ class TransformerEncoder(nn.Module):
             dropout_rate=float(cfg.get("dropout_rate", 0.1)),
             context_width=int(cfg.get("context_width", 3)),
             subsample=int(cfg.get("subsample", 1)),
+            streaming_chunk=int(streaming.get("chunk", 0)),
+            streaming_left=int(streaming.get("left_chunks", -1)),
+            streaming_phase=streaming_phase,
         )

@@ -33,7 +33,13 @@ from openasr_torch.kernels.flash_attention import (
     flash_attention,
 )
 from openasr_torch.kernels.layer_norm import fused_layer_norm
-from openasr_torch.ops.masks import causal_bias, combine_bias, padding_bias
+from openasr_torch.ops.masks import (
+    ChunkMask,
+    causal_bias,
+    chunk_bias,
+    combine_bias,
+    padding_bias,
+)
 
 
 class TrainRNG:
@@ -145,7 +151,8 @@ def dot_product_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _empty_rows_dense(out, q, k, v, kv_lengths, causal, dropout_rate, seed):
+def _empty_rows_dense(out, q, k, v, kv_lengths, causal, dropout_rate, seed,
+                      chunk_mask=None):
     """Batch rows with no valid key (kv_length <= 0) take the JAX package's
     dense-path value, which the flash kernel (O = 0 there) does not give:
     softmax(scores + NEG_INF) in f32, which is the mean of V over all Tk
@@ -154,11 +161,15 @@ def _empty_rows_dense(out, q, k, v, kv_lengths, causal, dropout_rate, seed):
     attention runs on those rows only, with the hash dropout mask of the
     flash call, and autograd carries its gradient into q, k and v as JAX's
     autodiff of the dense path does.  Finding the rows reads them back to
-    the host, so callers run this only for a batch known to hold one."""
+    the host, so callers run this only for a batch known to hold one.
+    Under a streaming encoder's `chunk_mask` the bias adds the chunk mask,
+    as the JAX package's combined bias does."""
     idx = (kv_lengths <= 0).nonzero()[:, 0].to(out.device)
     bias = combine_bias(
         padding_bias(kv_lengths[idx].to(out.device), k.shape[1]),
         causal_bias(q.shape[1], out.device) if causal else None,
+        None if chunk_mask is None else chunk_bias(q.shape[1], *chunk_mask,
+                                                   device=out.device),
     )
     keep = None
     if dropout_rate > 0.0:
@@ -171,7 +182,8 @@ def _empty_rows_dense(out, q, k, v, kv_lengths, causal, dropout_rate, seed):
 
 class MultiHeadAttention(nn.Module):
     """Separate q/k/v/out projections.  The structured call (`kv_lengths`
-    and/or `causal`) goes through the flash-attention wrapper, with
+    and/or `causal`, or a streaming encoder's `chunk_mask`) goes through
+    the flash-attention wrapper, with
     attention dropout when given an rng; the decode step's `attend_step`
     attends densely against cached K/V.
 
@@ -210,15 +222,16 @@ class MultiHeadAttention(nn.Module):
         causal: bool = False,
         rng: Optional[TrainRNG] = None,
         empty_rows: bool = False,
+        chunk_mask: Optional[ChunkMask] = None,
     ) -> torch.Tensor:
         q = self._heads(self.q(inputs_q))
         k, v = self.project_kv(inputs_kv)
         rate = self.dropout_rate if rng is not None and self.dropout_rate > 0.0 else 0.0
         seed = draw_dropout_seed(rng.host) if rate else 0
         out, _ = flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal,
-                                 dropout_rate=rate, dropout_seed=seed)
+                                 dropout_rate=rate, dropout_seed=seed, chunk_mask=chunk_mask)
         if empty_rows and kv_lengths is not None:
-            out = _empty_rows_dense(out, q, k, v, kv_lengths, causal, rate, seed)
+            out = _empty_rows_dense(out, q, k, v, kv_lengths, causal, rate, seed, chunk_mask)
         return self._merge(out)
 
     def project_kv(self, inputs_kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,8 +304,9 @@ class TransformerEncoderLayer(nn.Module):
                 kv_lengths: Optional[torch.Tensor] = None,
                 causal: bool = False,
                 rng: Optional[TrainRNG] = None,
-                empty_rows: bool = False) -> torch.Tensor:
-        attn = self.self_attn(x, x, kv_lengths, causal, rng, empty_rows)
+                empty_rows: bool = False,
+                chunk_mask: Optional[ChunkMask] = None) -> torch.Tensor:
+        attn = self.self_attn(x, x, kv_lengths, causal, rng, empty_rows, chunk_mask)
         x = self.norm1(x + dropout(attn, self.dropout_rate, rng))
         return self.norm2(x + dropout(self.ffn(x, rng), self.dropout_rate, rng))
 

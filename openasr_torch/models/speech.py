@@ -51,6 +51,14 @@ def splayer_from_config(signal_cfg) -> SPLayer:
     )
 
 
+def streaming_phase_of(signal_cfg) -> int:
+    """The chunk mask's phase for a streaming encoder (ops/masks.py:
+    chunk_bias): 2 when the model takes raw waves through the fbank
+    frontend (the streaming executor's fbank stage adds one x4 feature slot
+    of delay to the subsampler's one conv slot), 1 for offline features."""
+    return 2 if (signal_cfg or {}).get("feature_type") == "fbank" else 1
+
+
 def _f32_head(head: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     with torch.autocast(x.device.type, enabled=False):
         return head(x.float())
@@ -67,7 +75,8 @@ class ConvTransformerModule(nn.Module):
     def __init__(self, configs: Config):
         super().__init__()
         self.splayer = splayer_from_config(configs.signal)
-        self.encoder = TransformerEncoder.from_config(configs.encoder)
+        self.encoder = TransformerEncoder.from_config(
+            configs.encoder, streaming_phase_of(configs.signal))
         self.decoder = transformer_decoder_from_config(configs.decoder)
 
     def encoder_lengths(self, input_lengths):
@@ -110,7 +119,8 @@ class ConvCTCModule(nn.Module):
     def __init__(self, configs: Config):
         super().__init__()
         self.splayer = splayer_from_config(configs.signal)
-        self.encoder = TransformerEncoder.from_config(configs.encoder)
+        self.encoder = TransformerEncoder.from_config(
+            configs.encoder, streaming_phase_of(configs.signal))
         self.fc = nn.Linear(
             int(configs.encoder["d_model"]), int(configs.decoder["vocab_size"]),
             bias=False,

@@ -2,7 +2,8 @@
 
 Counterpart of `ctc_prefix_beam_device` in openasr_tpu/ops/ctc_beam_device.py
 (the one-shot search, with LM shallow fusion and Aho-Corasick hotword
-biasing; the streaming variant is ROADMAP queue 1 item 11).  The JAX
+biasing) and of its streaming variant, `ctc_beam_stream_init` and
+`ctc_beam_stream_step`, which carry the same state across chunks.  The JAX
 package vmaps one utterance's `lax.scan`; here every tensor carries a
 leading batch dimension and the scan is a Python loop over the frames
 whose body reads nothing back to the host (no `.item()`, no shape that
@@ -418,3 +419,87 @@ def ctc_prefix_beam_device(
     order = torch.argsort(-total, dim=1, stable=True)
     toks = state["toks"].gather(1, order[:, :, None].expand_as(state["toks"]))
     return toks, state["lens"].gather(1, order), total.gather(1, order)
+
+
+# ------------------------------------------------------ streaming variant
+
+@torch.no_grad()
+def ctc_beam_stream_init(batch: int, beam: int, max_frames: int, lm_step_fn=None,
+                         init_lm_cache=None, sos_id: int = 1, num_phrases: int = 0,
+                         device=None) -> dict:
+    """The prefix beam's state for chunkwise decoding (`ctc_beam_stream_step`;
+    openasr_tpu/ops/ctc_beam_device.py:ctc_beam_stream_init): the state the
+    one-shot search carries from frame to frame, its token buffer sized to
+    the stream's `max_frames`, and `fed`, the valid frames fed so far a
+    stream (each can append one token, so `fed` bounds the lengths).
+    Chunk boundaries do not exist in the recursion: any chunking of the
+    same frames gives the state of the one-shot search.
+
+    With `lm_step_fn` and its `init_lm_cache` (leading dim batch * beam)
+    the LM is seeded with `sos_id` here, as the one-shot search seeds it;
+    `num_phrases` sizes the hotword match counters."""
+    state = init_state(batch, beam, max_frames, num_phrases, device)
+    state["fed"] = torch.zeros((batch,), dtype=torch.int64, device=device)
+    if lm_step_fn is not None:
+        sos = torch.full((batch * beam,), sos_id, dtype=torch.long, device=device)
+        logp0, state["lm_cache"] = lm_step_fn(sos, init_lm_cache)
+        state["lm_logp"] = logp0.float().reshape(batch, beam, -1)
+    return state
+
+
+@torch.no_grad()
+def ctc_beam_stream_step(state: dict, log_probs: torch.Tensor, frame_valid, blank: int,
+                         beam: int = 10, cutoff_top_n: int = 40, cutoff_logp: float = -20.0,
+                         lm_step_fn=None, lm_weight: float = 0.0, context_tables=None,
+                         context_weight: float = 0.0):
+    """Advance the streaming prefix beam over one chunk
+    (openasr_tpu/ops/ctc_beam_device.py:ctc_beam_stream_step).
+
+    log_probs [B, ch, V] (log-softmax, f32) of the chunk's frames;
+    frame_valid [B, ch] bool: the stream's warm-up and final-padding frames
+    leave the state as it was.  Pass the `lm_step_fn` the state was seeded
+    with and `lm_weight` to fuse the LM, `context_tables`
+    (`build_context_tables`) with `context_weight` to bias (the state's
+    counters sized by init's `num_phrases`).
+
+    -> (new state, (tokens [B, beam, max_frames], lengths [B, beam],
+    scores [B, beam])), the n-best after this chunk.  Any chunking of T
+    frames equals `ctc_prefix_beam_device` over [B, T, V], with fusion and
+    biasing too.  Raises before the token buffer could overflow."""
+    dev = log_probs.device
+    valid = torch.as_tensor(frame_valid, device=dev).bool()
+    cap = state["toks"].shape[-1]
+    fed_now, incoming = int(state["fed"].max()), int(valid.sum(dim=1).max())
+    if fed_now + incoming > cap:
+        raise ValueError(
+            f"stream exceeds the beam token buffer: {fed_now} valid "
+            f"frames fed + {incoming} incoming > max_frames={cap}; "
+            f"re-init ctc_beam_stream_init with a larger max_frames"
+        )
+    ctx = None
+    if context_tables is not None and context_weight != 0.0:
+        n_phrases = int(np.shape(context_tables["plen"])[0])
+        if state["cmatch"].shape[-1] != n_phrases:
+            raise ValueError(
+                f"state carries {state['cmatch'].shape[-1]} phrase "
+                f"counters but context_tables has {n_phrases} phrases — init "
+                f"the stream state with num_phrases matching the table"
+            )
+        ctx = context_tensors(context_tables, dev)
+    if lm_weight == 0.0:
+        lm_step_fn = None
+    log_probs = log_probs.float()
+    cand = _frame_candidates(log_probs, int(blank), int(cutoff_top_n), float(cutoff_logp))
+    new = state
+    for t in range(log_probs.shape[1]):
+        new = _step(new, log_probs[:, t], cand[:, t], valid[:, t], blank=int(blank), ctx=ctx,
+                    ctx_weight=float(context_weight), lm_step_fn=lm_step_fn,
+                    lm_weight=float(lm_weight))
+    # what the frames' steps do not carry: the frame count and, unfused,
+    # the LM state as it was
+    new = {**{k: v for k, v in state.items() if k not in new}, **new}
+    new["fed"] = state["fed"] + valid.sum(dim=1)
+    total = _logaddexp(new["pb"], new["pnb"])
+    order = torch.argsort(-total, dim=1, stable=True)
+    toks = new["toks"].gather(1, order[:, :, None].expand_as(new["toks"]))
+    return new, (toks, new["lens"].gather(1, order), total.gather(1, order))

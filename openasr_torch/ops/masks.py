@@ -6,6 +6,8 @@ Counterpart of openasr_tpu/ops/masks.py.  Biases are float32 tensors,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 NEG_INF = -1.0e9
@@ -42,3 +44,32 @@ def combine_bias(*biases):
             continue
         out = b if out is None else out + b
     return torch.clamp(out, min=NEG_INF) if out is not None else None
+
+
+class ChunkMask(NamedTuple):
+    """The chunk-attention mask of a streaming encoder (`chunk_bias`):
+    chunks of `chunk` frames, `left` chunks of left context (all earlier
+    chunks when < 0), frames shifted by `phase`."""
+
+    chunk: int
+    left: int = -1
+    phase: int = 0
+
+
+def chunk_bias(length: int, chunk: int, left_chunks: int = -1, phase: int = 0,
+               device=None) -> torch.Tensor:
+    """[1, 1, T, T] additive chunk-attention bias (openasr_tpu/ops/masks.py:
+    chunk_bias): frame t lies in chunk (t + phase) // chunk and attends to
+    the frames of chunks [c - left_chunks, c] (every earlier chunk when
+    left_chunks < 0), within its own chunk without restriction.  `phase`
+    aligns the training chunks with the streaming executor's start-up
+    slots (openasr_torch/streaming.py)."""
+    pos = torch.arange(length, device=device)
+    qc = ((pos + phase) // chunk)[:, None]
+    kc = ((pos + phase) // chunk)[None, :]
+    ok = kc <= qc
+    if left_chunks >= 0:
+        ok = ok & (kc >= qc - left_chunks)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=device)
+    return torch.where(ok, zero, neg)[None, None]

@@ -28,7 +28,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "kernels.fbank", "ops.ctc_decode", "ops.prefix_beam", "ops.ctc_beam_device",
                  "utils.metrics", "bin.wer", "ops.cif", "models.assigner", "models.cif",
                  "solvers.cif", "models.lm", "bin.train_lm", "data.manifest",
-                 "data.collate"):
+                 "data.collate", "streaming", "bin.stream_infer"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

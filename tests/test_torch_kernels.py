@@ -924,3 +924,94 @@ def test_layer_norm_bwd_is_deterministic(cuda_card, dtype, rows, d):
     second = layer_norm_bwd(x, dy, g, mean, rstd)
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+# ----------------------------------------------------------- chunk mode
+
+# b, t, h, d, kv_lengths, (chunk, left, phase): the streaming config's
+# shape (chunk 16, left 4) at T' 139 and 300, rows whose chunk window
+# starts past their length (left 0, and length 0), unlimited left context
+CHUNK_CASES = [
+    (3, 139, 8, 64, [139, 100, 37], (16, 4, 1)),
+    (2, 300, 2, 64, [300, 180], (16, 4, 2)),
+    (2, 65, 2, 32, [65, 9], (4, 0, 1)),
+    (2, 77, 2, 128, [77, 50], (5, -1, 0)),
+    (2, 17, 2, 64, [17, 0], (16, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_chunk_mode_plain_backward_is_autograd_of_the_plain_forward(rate):
+    """On the CPU the chunk mode's plain backward (and the statistics that
+    the kernels take) equal autograd of the plain forward; rows that see no
+    key have O = 0, lse = +inf, statistics (0, 0, 0) and zero gradients."""
+    from openasr_torch.ops.masks import ChunkMask
+
+    mask = ChunkMask(4, 0, 1)
+    gen = torch.Generator().manual_seed(17)
+    q, k, v, dout = (torch.randn(2, 13, 2, 8, generator=gen) for _ in range(4))
+    lens = torch.tensor([13, 5])
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    seed = 987654321 if rate else 0
+    out, lse = flash_attention_reference(q, k, v, lens, False, None, rate, seed, mask)
+    want = torch.autograd.grad(out, (q, k, v), dout)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None, rate, seed, mask)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= FLASH_GRAD_TOL
+    # row 1 (length 5): chunks 0-2 | 3-6 | 7-10 | 11-12, left 0: rows 7-12 see none
+    assert (out[1, 7:] == 0).all() and torch.isinf(lse[1, :, 7:]).all()
+    assert not flash_bwd_stats(q, k, v, dout, lens, False, None, rate, seed,
+                               mask)[:, 1, :, 7:].any()
+    assert not got[0][1, 7:].any() and not got[1][1, 5:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,h,d,lengths,mask", CHUNK_CASES)
+def test_flash_chunk_kernels_match_plain(cuda_card, dtype, tol, rate, b, t, h, d, lengths,
+                                         mask):
+    """The chunk mode of the forward (O, lse), the statistics pass and the
+    backward on the card against the plain versions (dense under
+    chunk_bias) on the same inputs and seed: O to the forward's tolerance,
+    the statistics to 1e-4, the gradients to the backward's; rows that see
+    no key give O = 0, lse = +inf, statistics 0 and zero gradients."""
+    from openasr_torch.ops.masks import ChunkMask
+
+    mask = ChunkMask(*mask)
+    q, k, v, dout = _bwd_case(b, t, t, h, d, dtype, t * 5 + h)
+    lens = torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else 0
+    before = (flash_attention.launches + flash_attention.dropout_launches,
+              flash_bwd_stats.launches, flash_attention_bwd_dkv.launches,
+              flash_attention_bwd_dq.launches)
+    out, lse = flash_attention(q, k, v, kv_lengths=lens, dropout_rate=rate,
+                               dropout_seed=seed, chunk_mask=mask)
+    stats = flash_bwd_stats(q, k, v, dout, lens, False, None, rate, seed, mask)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None, rate, seed, mask)
+    after = (flash_attention.launches + flash_attention.dropout_launches,
+             flash_bwd_stats.launches, flash_attention_bwd_dkv.launches,
+             flash_attention_bwd_dq.launches)
+    assert after == (before[0] + 1, before[1] + 2, before[2] + 1, before[3] + 1)
+    out_r, lse_r = flash_attention_reference(q, k, v, lens, False, None, rate, seed, mask)
+    fwd_tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - out_r.float()).abs().max().item() <= fwd_tol
+    empty = torch.isinf(lse_r)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert (lse - lse_r)[~empty].abs().max().item() <= 1e-4 * max(1.0, lse_r[~empty].abs().max())
+    want_stats = flash_bwd_stats_reference(q, k, v, dout, lens, False, None, rate, seed, mask)
+    (m, inv, delta), (m_w, inv_w, delta_w) = stats, want_stats
+    assert (m - m_w).abs().max().item() <= 1e-4 * max(1.0, m_w.abs().max().item())
+    assert torch.equal(inv == 0, inv_w == 0) and torch.equal(inv == 0, empty)
+    assert ((inv - inv_w).abs() <= 1e-4 * inv_w).all()
+    assert (delta - delta_w).abs().max().item() <= 1e-4 * max(1.0, delta_w.abs().max().item())
+    want = flash_attention_bwd_reference(q, k, v, out_r, lse_r, dout, lens, False, None,
+                                         rate, seed, mask)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g.float() - w.float()).abs().max().item() <= tol * max(
+            1.0, w.float().abs().max().item())
+    rows = empty.any(dim=1)  # [B, T]: no head sees a key
+    assert not out[rows].any() and not got[0][rows].any()
+    for i, n in enumerate(lengths):
+        assert not got[1][i, n:].any() and not got[2][i, n:].any()

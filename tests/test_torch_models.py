@@ -211,7 +211,7 @@ def test_conv_transformer_type_and_bfloat16_decode():
 
 
 @pytest.mark.parametrize("section,patch,match", [
-    ("encoder", {"streaming": {"chunk": 4}}, "item 11"),
+    ("type", "wav2vec_ctc", "item 13"),
     ("encoder", {"moe": {"num_experts": 2}}, "item 14"),
     ("encoder", {"pipeline": True}, "item 15"),
     ("type", "gru_ctc", "item 13"),
