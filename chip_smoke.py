@@ -132,6 +132,22 @@ SDPA with the equivalent bool mask, after holding them to their plain
 versions there and on a batch whose short rows leave padded queries with
 no visible key (O = 0, zero gradients), with dropout 0 and 0.1.
 
+Last, the serving path (`[serving path]`): `openasr_torch.serving`
+exports, for cuda at full width, the flagship package's attention beam
+(beam 5, SERVE_MAXLEN steps) with f32 weights, with int8 weights and with
+the [lm path]'s Transformer LM fused; conv-ctc's device prefix beam of 10
+with the LM and a hotword file (over each decode utterance's first 32
+frames); the streaming tick of the streaming package and of the online
+streaming model (B 8); and the streaming prefix beam of 10 with the LM
+and the hotwords.  Each kind runs in a worker process of its own
+(`chip_smoke.py --serving-worker KIND`), all started together; each
+serves its artifact from a fresh loader and holds it to the live decode
+on the card (n-best equal, scores within 1e-5; every tick within
+TOL_STREAM; int8 against f32 weights within 0.05, the 1-best equal off
+ties), requires the exported call's kernel launches to equal the live
+call's, and prints its export and load seconds, artifact bytes, graph
+nodes and warm wall ms a batch or tick, exported against live.
+
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
 gradients and the f32 fbank features are also checked against the same
@@ -2652,7 +2668,7 @@ def phase_preemption(vocab, chars, rng):
 
     manifest, _ = small_corpus("preempt", rng, chars)
     exp = os.path.join(WORK, "exp_preempt")
-    epochs = 40
+    epochs = 8
     cfg = test_config(exp, manifest, manifest, vocab, num_epoch=epochs)
     proc = subprocess.Popen([sys.executable, "-m", "openasr_torch.bin.train", cfg,
                              "--device", "cuda"], cwd=ROOT, stdout=subprocess.PIPE,
@@ -4358,6 +4374,478 @@ def phase_streaming_online(wtest_json, wtest, launches) -> dict:
     return {"ticks": n_ticks, "enc_err": err, "launches": n}
 
 
+# ----------------------------------------------------------- serving path
+#
+# Each artifact kind is exported, served and timed by a worker process of
+# its own (`chip_smoke.py --serving-worker KIND`), all started together: a
+# torch.export trace and its serialization are single-threaded host work of
+# some milliseconds a graph node, so the seven exports run on seven of the
+# machine's cores at once.  The workers hold each exported program to the
+# live decode and count both calls' launches as they go; their timed runs
+# wait until every worker has loaded its artifact and then take turns
+# (a file lock), so that no export or other timing shares the host or the
+# card with them.
+
+SERVE_DIR = os.path.join(WORK, "serving")
+SERVE_KINDS = ("beam", "beam int8", "beam lm", "ctc_beam", "streaming", "streaming online",
+               "stream_beam")
+SERVE_BEAM = 5
+# the attention beams' steps in the exported programs (the live CLI decode
+# takes 40): the graph grows with steps x layers, and its export, save and
+# load take milliseconds a node on the host
+SERVE_MAXLEN = 8
+# the device CTC beam's graph grows with the encoder frames: its bucket
+# takes each decode utterance's first 32 feature frames (7 encoder frames)
+SERVE_CTC_FRAMES = 32
+SERVE_TIMED = 5
+# int8 weights against f32, as tests/test_quant.py:72 holds them: scores
+# within 0.05 + 0.05 |score|.  At the flagship's random weights the beams'
+# scores lie close, so a 1-best may swap: each must be equal unless the f32
+# top two lie within twice the largest score change the int8 weights made
+TOL_INT8_SCORES = 0.05
+
+
+def serve_job(pkg, ctc_pkg, lm_pkg, stream_pkg, vocab, test_feats, wtest) -> dict:
+    """The workers' inputs, written to SERVE_DIR/job.json: the packages,
+    the decode utterances' features and waves (padded, .npy), a hotword
+    file, and the online streaming model's package (random weights from
+    SEED, as `phase_streaming_online` builds it)."""
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import save_package
+
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    utts = sorted(test_feats)
+    x, lens = padded_features(test_feats, utts)
+    np.save(os.path.join(SERVE_DIR, "feats.npy"), x)
+    np.save(os.path.join(SERVE_DIR, "lens.npy"), lens)
+    wl = np.array([wtest[u].shape[0] for u in sorted(wtest)])
+    w = np.zeros((len(wl), quantize(int(wl.max()))), np.float32)
+    for i, u in enumerate(sorted(wtest)):
+        w[i, : wl[i]] = wtest[u]
+    np.save(os.path.join(SERVE_DIR, "waves.npy"), w)
+    np.save(os.path.join(SERVE_DIR, "wave_lens.npy"), wl)
+    online = get_model_class("conv-ctc-transformer").create_model(
+        stream_model_cfg(online=True), device="cuda",
+        generator=torch.Generator().manual_seed(SEED))
+    online_pkg = os.path.join(SERVE_DIR, "stream_online.pkg")
+    save_package({"model": online.package()}, online_pkg)
+    chars = [line.strip() for line in open(vocab, encoding="utf-8")]
+    hot = write_text("serve_hot.txt", [" ".join(chars[i: i + 3]) for i in (10, 200, 3000)])
+    job = {"pkg": pkg, "ctc_pkg": ctc_pkg, "lm_pkg": lm_pkg, "stream_pkg": stream_pkg,
+           "online_pkg": online_pkg, "vocab": vocab, "hot": hot, "kinds": list(SERVE_KINDS)}
+    with open(os.path.join(SERVE_DIR, "job.json"), "w") as f:
+        json.dump(job, f)
+    return job
+
+
+def phase_serving(job) -> dict:
+    """Start one worker a kind, wait for all, print their reports; every
+    worker must exit 0."""
+    procs = {}
+    for kind in SERVE_KINDS:
+        log = open(os.path.join(SERVE_DIR, f"{kind.replace(' ', '_')}.log"), "w")
+        procs[kind] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serving-worker", kind],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log)
+    results, failed = {}, []
+    t0 = time.time()
+    for kind, (proc, log) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, 900 - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        name = kind.replace(" ", "_")
+        with open(os.path.join(SERVE_DIR, f"{name}.log")) as f:
+            print(f.read().rstrip())
+        path = os.path.join(SERVE_DIR, f"{name}.json")
+        if rc != 0 or not os.path.exists(path):
+            failed.append(f"{kind} (rc {rc})")
+            continue
+        with open(path) as f:
+            results[kind] = json.load(f)
+    print(f"[time] serving workers done in {time.time() - t0:.1f}s")
+    require(not failed, f"serving workers failed: {failed}")
+    return results
+
+
+def serve_load(path):
+    from openasr_torch.utils.checkpoint import load_package
+
+    pkg = load_package(path)
+    return pkg.get("model", pkg)
+
+
+def serve_model(path, model_type="conv-ctc-transformer"):
+    from openasr_torch.models import get_model_class
+
+    pkg = serve_load(path)
+    model = get_model_class(model_type).create_model(pkg["configs"], device="cuda")
+    model.restore(pkg)
+    return model
+
+
+def serve_turn(kind, timed: dict) -> dict:
+    """Wait until every worker is ready, then, holding the lock, time each
+    of `timed` (name -> fn, a batch or tick that ends synchronized): one
+    warm-up call each, then SERVE_TIMED rounds in turn; median wall ms."""
+    import fcntl
+
+    ready = os.path.join(SERVE_DIR, "ready")
+    os.makedirs(ready, exist_ok=True)
+    open(os.path.join(ready, kind.replace(" ", "_")), "w").close()
+    t0 = time.time()
+    while len(os.listdir(ready)) < len(SERVE_KINDS) and time.time() - t0 < 600:
+        time.sleep(0.5)
+    with open(os.path.join(SERVE_DIR, "timing.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        walls = {name: [] for name in timed}
+        for fn in timed.values():
+            fn()
+        for _ in range(SERVE_TIMED):
+            for name, fn in timed.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t) * 1e3)
+        fcntl.flock(lock, fcntl.LOCK_UN)
+    ms = {name: float(np.median(w)) for name, w in walls.items()}
+    print(f"[serving path] {kind}: warm wall ms, median of {SERVE_TIMED}: " + ", ".join(
+        f"{name} {v:.3f}" for name, v in ms.items()))
+    return ms
+
+
+def same_launches(kind, live_fn, exported_fn) -> dict:
+    """Both calls' kernel launches (counters set to 0 just before each and
+    read just after): required equal."""
+    reset_counters()
+    live_fn()
+    live = read_counters()
+    reset_counters()
+    exported_fn()
+    exported = read_counters()
+    print(f"[serving path] {kind}: launches live {live}, exported {exported}")
+    require(live == exported, f"{kind}: the exported call's launches differ from the live call's")
+    return exported
+
+
+def nbest_tie_close(name, got, want, tol) -> dict:
+    """int8 against f32 (TOL_INT8_SCORES): scores within tol + tol |score|;
+    each 1-best equal unless the reference's top two lie within twice the
+    largest score difference e (a tie the int8 weights can swap)."""
+    g_t, g_l, g_s = (a.cpu().numpy() for a in got)
+    w_t, w_l, w_s = (a.cpu().numpy() for a in want)
+    e = float(np.abs(g_s - w_s).max())
+    top = [g_t[i, 0, : g_l[i, 0]].tolist() == w_t[i, 0, : w_l[i, 0]].tolist()
+           for i in range(len(g_s))]
+    gaps = [float(w_s[i, 0] - w_s[i, 1]) for i in range(len(w_s))]
+    lists = sum(g_t[i].tolist() == w_t[i].tolist() for i in range(len(g_s)))
+    print(f"[serving path] {name}: scores err {e:.3g} (tol {tol} + {tol} |score|); 1-best "
+          f"equal {sum(top)} of {len(top)} (f32 top-two gaps where not: "
+          f"{[round(g, 4) for g, t in zip(gaps, top) if not t]}), n-best lists equal "
+          f"{lists} of {len(top)}")
+    require(np.allclose(g_s, w_s, rtol=tol, atol=tol), f"{name}: scores differ by {e:.3g}")
+    require(all(t or gap <= 2 * e for t, gap in zip(top, gaps)),
+            f"{name}: a 1-best differs off a tie")
+    return {"scores_err": e, "top1_equal": sum(top), "lists_equal": lists}
+
+
+def exact_nbest(name, got, want) -> float:
+    """Tokens and lengths equal, scores within 1e-5 (rtol and atol)."""
+    for g, w, what in zip(got[:2], want[:2], ("tokens", "lengths")):
+        require(torch.equal(g.cpu(), w.cpu()), f"{name}: {what} differ")
+    e = float((got[2].float() - want[2].float()).abs().max())
+    require(torch.allclose(got[2].float(), want[2].float(), rtol=1e-5, atol=1e-5),
+            f"{name}: scores differ by {e:.3g}")
+    return e
+
+
+def serve_export(kind, export_fn, loader_cls, path) -> tuple:
+    t0 = time.time()
+    export_fn(path)
+    export_s = time.time() - t0
+    t0 = time.time()
+    loader = loader_cls(path, device="cuda")
+    load_s = time.time() - t0
+    programs = getattr(loader, "_fns", None) or {"init": loader._init, "tick": loader._tick}
+    nodes = sum(len(list(fn.graph.nodes)) for fn in programs.values())
+    size = os.path.getsize(path)
+    print(f"[serving path] {kind}: exported in {export_s:.1f}s (trace and save), "
+          f"loaded in {load_s:.1f}s, {size / 1e6:.2f} MB, {nodes} graph nodes")
+    return loader, {"export_s": export_s, "load_s": load_s, "bytes": size, "nodes": nodes}
+
+
+def serve_beam(kind, job) -> dict:
+    """The flagship's attention beam (f32 weights, int8 weights, or the
+    Transformer LM fused at LM_WEIGHT) over the 8 decode utterances in one
+    bucket, against the live `batch_beam_decode`."""
+    from openasr_torch import quant, serving
+
+    model = serve_model(job["pkg"])
+    x = torch.from_numpy(np.load(os.path.join(SERVE_DIR, "feats.npy"))).cuda()
+    lens = torch.from_numpy(np.load(os.path.join(SERVE_DIR, "lens.npy"))).cuda()
+    lm = load_lm(job["lm_pkg"], "cuda") if kind == "beam lm" else None
+    lm_kw = {"lm": lm, "lm_weight": LM_WEIGHT} if lm is not None else {}
+    int8 = kind == "beam int8"
+    path = os.path.join(SERVE_DIR, kind.replace(" ", "_") + ".zip")
+    dec, rec = serve_export(kind, lambda p: serving.export_beam_decode(
+        model, [tuple(x.shape[:2])], p, beam_size=SERVE_BEAM, max_decode_len=SERVE_MAXLEN,
+        platforms=("cuda",), weights="int8" if int8 else "float32", **lm_kw),
+        serving.ExportedDecoder, path)
+    params = dec.prepare_params(serve_load(job["pkg"]))
+    call_kw = {"lm_params": dec.prepare_lm_params(serve_load(job["lm_pkg"]))} if lm else {}
+    n_params = sum(p.numel() * p.element_size() for p in model.module.parameters())
+    rec["param_bytes"] = n_params
+    rec["input_bytes"] = sum(p.numel() * p.element_size() for p in params)
+    require(rec["bytes"] < 0.2 * n_params, f"{kind}: the artifact holds {rec['bytes']} bytes "
+                                           f"beside {n_params} of parameters")
+
+    def exported():
+        return dec(params, x, lens, **call_kw)
+
+    live_model = model
+    if int8:
+        # the live decode with the same weights: the quantized package
+        # dequantized into a second model
+        from openasr_torch.models import get_model_class
+
+        pkg = serve_load(job["pkg"])
+        live_model = get_model_class("conv-ctc-transformer").create_model(
+            pkg["configs"], device="cuda")
+        state = quant.dequantize_params(quant.bridge_quantized(
+            pkg["model_type"], quant.quantize_params(pkg["components"])))
+        live_model.module.load_state_dict(state)
+
+    def live(full=False):
+        return live_model.batch_beam_decode(x, lens, beam_size=SERVE_BEAM,
+                                            max_decode_len=SERVE_MAXLEN,
+                                            stop_when_finished=not full, **lm_kw)
+
+    with torch.inference_mode():
+        got, want = exported(), live()
+        rec["scores_err"] = exact_nbest(f"{kind}: exported vs live", got, want)
+        print(f"[serving path] {kind}: exported vs live on the card: n-best equal, scores "
+              f"err {rec['scores_err']:.3g}")
+        if int8:
+            f32 = model.batch_beam_decode(x, lens, beam_size=SERVE_BEAM,
+                                          max_decode_len=SERVE_MAXLEN)
+            rec["vs_f32"] = nbest_tie_close(f"{kind}: int8 vs f32 weights", got, f32,
+                                            TOL_INT8_SCORES)
+        rec["launches"] = same_launches(kind, lambda: live(full=True), exported)
+        rec["ms"] = serve_turn(kind, {"exported": exported, "live": live})
+    return rec
+
+
+def serve_ctc_beam(kind, job) -> dict:
+    """conv-ctc's device prefix beam of 10 with the Transformer LM and the
+    hotword file, over each decode utterance's first SERVE_CTC_FRAMES
+    frames (lengths 32 down to 25), against the live search on the live
+    model's log-probs."""
+    from openasr_torch import serving
+    from openasr_torch.data.tokenizer import CharTokenizer, load_context_phrases
+    from openasr_torch.models.lm import make_lm_fusion
+    from openasr_torch.ops.ctc_beam_device import build_context_tables, ctc_prefix_beam_device
+
+    model = serve_model(job["ctc_pkg"], "conv-ctc")
+    lm = load_lm(job["lm_pkg"], "cuda")
+    tok = CharTokenizer(job["vocab"], add_blk=True)
+    phrases = load_context_phrases(tok, job["hot"])
+    x = torch.from_numpy(np.load(os.path.join(SERVE_DIR, "feats.npy"))[:, :SERVE_CTC_FRAMES])
+    x = x.cuda()
+    lens = torch.arange(SERVE_CTC_FRAMES, SERVE_CTC_FRAMES - x.shape[0], -1,
+                        dtype=torch.int32, device="cuda")
+    vocab = tok.unit_num()
+    path = os.path.join(SERVE_DIR, "ctc_beam.zip")
+    dec, rec = serve_export(kind, lambda p: serving.export_beam_decode(
+        model, [tuple(x.shape[:2])], p, beam_size=CTC_BEAM, platforms=("cuda",),
+        ctc_device_beam=True, lm=lm, lm_weight=LM_WEIGHT, context_phrases=phrases,
+        context_weight=2.0), serving.ExportedDecoder, path)
+    params = dec.prepare_params(serve_load(job["ctc_pkg"]))
+    lm_params = dec.prepare_lm_params(serve_load(job["lm_pkg"]))
+    tables = build_context_tables(phrases, vocab)
+
+    def exported():
+        return dec(params, x, lens, lm_params=lm_params)
+
+    def live():
+        logits, len_logits = model.get_logits(x, lens)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        step_fn, cache = make_lm_fusion(lm, lp.shape[0] * CTC_BEAM, lp.shape[1] + 1)
+        return ctc_prefix_beam_device(lp, len_logits, blank=vocab - 1, beam=CTC_BEAM,
+                                      lm_step_fn=step_fn, init_lm_cache=cache,
+                                      lm_weight=LM_WEIGHT, context_tables=tables,
+                                      context_weight=2.0)
+
+    with torch.inference_mode():
+        rec["scores_err"] = exact_nbest(f"{kind}: exported vs live", exported(), live())
+        print(f"[serving path] {kind}: exported vs live on the card: n-best equal, scores "
+              f"err {rec['scores_err']:.3g}")
+        rec["launches"] = same_launches(kind, live, exported)
+        rec["ms"] = serve_turn(kind, {"exported": exported, "live": live})
+    return rec
+
+
+def serve_stream_inputs(online):
+    x = np.load(os.path.join(SERVE_DIR, "waves.npy" if online else "feats.npy"))
+    lens = np.load(os.path.join(SERVE_DIR, "wave_lens.npy" if online else "lens.npy"))
+    return x, lens
+
+
+def serve_streaming(kind, job) -> dict:
+    """The streaming tick at B 8 (offline: the trained streaming package
+    over the decode features; online: the online model over the decode
+    waves, one fbank launch a tick): every tick's encoder states and CTC
+    logits exported against live (TOL_STREAM of max(1, |x|))."""
+    from openasr_torch import serving
+    from openasr_torch.streaming import StreamingRecognizer
+
+    online = kind == "streaming online"
+    pkg_path = job["online_pkg"] if online else job["stream_pkg"]
+    model = serve_model(pkg_path)
+    rec_live = StreamingRecognizer(model)
+    x, lens = serve_stream_inputs(online)
+    b = x.shape[0]
+    path = os.path.join(SERVE_DIR, kind.replace(" ", "_") + ".zip")
+    st, rec = serve_export(kind, lambda p: serving.export_streaming_step(
+        model, [b], p, platforms=("cuda",)), serving.ExportedStreamer, path)
+    params = st.prepare_params(serve_load(pkg_path))
+    unit = rec_live.chunk_samples if online else rec_live.chunk_feats
+    n = -(-x.shape[1] // unit)
+    xp = np.pad(x, [(0, 0), (0, n * unit - x.shape[1])] + [(0, 0)] * (x.ndim - 2))
+    chunks = [torch.from_numpy(xp[:, i * unit:(i + 1) * unit]).cuda() for i in range(n)]
+    clens = [torch.from_numpy(np.clip(lens - i * unit, 0, unit)).cuda() for i in range(n)]
+    err = 0.0
+    with torch.inference_mode():
+        s_live, s_exp = rec_live.init_state(b), st.init_state(b)
+        for i in range(n):
+            s_live, o_live = rec_live.step(s_live, chunks[i], clens[i])
+            s_exp, o_exp = st.step(params, s_exp, chunks[i], clens[i])
+            require(torch.equal(o_live["valid"], o_exp["valid"]), f"{kind}: valid differs")
+            for key in ("enc", "logits"):
+                e = max_err(o_exp[key], o_live[key])
+                scale = max(1.0, float(o_live[key].abs().max()))
+                require(e <= TOL_STREAM * scale, f"{kind} tick {i}: {key} err {e:.3g}")
+                err = max(err, e / scale)
+        print(f"[serving path] {kind}: {n} ticks exported vs live on the card: enc and "
+              f"logits err {err:.3g} of max(1, |x|) (tol {TOL_STREAM})")
+        rec.update(ticks=n, err=err)
+        state = {"live": rec_live.init_state(b), "exported": st.init_state(b)}
+        rec["launches"] = same_launches(
+            kind, lambda: rec_live.step(state["live"], chunks[0], clens[0]),
+            lambda: st.step(params, state["exported"], chunks[0], clens[0]))
+        require(rec["launches"]["layer_norm_fwd"] == STREAM_TICK_LN
+                and rec["launches"]["fbank"] == int(online), f"{kind}: a tick's launches")
+        rec["ms"] = serve_turn(kind, {
+            "exported": lambda: st.step(params, state["exported"], chunks[0], clens[0]),
+            "live": lambda: rec_live.step(state["live"], chunks[0], clens[0])})
+    return rec
+
+
+def serve_stream_beam(kind, job) -> dict:
+    """The streaming prefix beam of 10 with the Transformer LM and the
+    hotword file at B 8 and the streaming model's chunk (16), fed each
+    tick's log-softmax of the live streaming tick's logits: every tick's
+    n-best exported against the live `ctc_beam_stream_step` (equal, scores
+    within 1e-5)."""
+    from openasr_torch import serving
+    from openasr_torch.data.tokenizer import CharTokenizer, load_context_phrases
+    from openasr_torch.models.lm import make_lm_step_spec
+    from openasr_torch.ops.ctc_beam_device import (
+        build_context_tables,
+        ctc_beam_stream_init,
+        ctc_beam_stream_step,
+    )
+    from openasr_torch.streaming import StreamingRecognizer
+
+    model = serve_model(job["stream_pkg"])
+    rec_live = StreamingRecognizer(model)
+    lm = load_lm(job["lm_pkg"], "cuda")
+    spec = make_lm_step_spec(lm)
+    tok = CharTokenizer(job["vocab"], add_blk=True)
+    phrases = load_context_phrases(tok, job["hot"])
+    tables = build_context_tables(phrases, tok.unit_num())
+    x, lens = serve_stream_inputs(False)
+    b, unit = x.shape[0], rec_live.chunk_feats
+    n = -(-x.shape[1] // unit)
+    cap = n * rec_live.chunk
+    path = os.path.join(SERVE_DIR, "stream_beam.zip")
+    sb, rec = serve_export(kind, lambda p: serving.export_stream_beam(
+        p, batch=b, beam=STREAM_BEAM, chunk=rec_live.chunk, max_frames=cap,
+        vocab_size=tok.unit_num(), blank=rec_live.blank, platforms=("cuda",), lm=lm,
+        lm_weight=LM_WEIGHT, context_phrases=phrases, context_weight=2.0),
+        serving.ExportedStreamBeam, path)
+    lm_params = sb.prepare_lm_params(serve_load(job["lm_pkg"]))
+    xp = np.pad(x, [(0, 0), (0, n * unit - x.shape[1]), (0, 0)])
+    beam_kw = dict(lm_step_fn=spec["step_fn"], lm_weight=LM_WEIGHT, context_tables=tables,
+                   context_weight=2.0)
+
+    def live_init():
+        return ctc_beam_stream_init(b, STREAM_BEAM, cap, spec["step_fn"],
+                                    spec["init_cache_fn"](b * STREAM_BEAM, cap + 1),
+                                    num_phrases=len(phrases), device="cuda")
+
+    err = 0.0
+    with torch.inference_mode():
+        state = rec_live.init_state(b)
+        ticks = []
+        for i in range(n):
+            piece = torch.from_numpy(xp[:, i * unit:(i + 1) * unit]).cuda()
+            state, out = rec_live.step(state, piece, np.clip(lens - i * unit, 0, unit))
+            ticks.append((torch.log_softmax(out["logits"], dim=-1), out["valid"]))
+        s_live, s_exp = live_init(), sb.init_state(lm_params)
+        for i, (lp, valid) in enumerate(ticks):
+            s_live, n_live = ctc_beam_stream_step(s_live, lp, valid, rec_live.blank,
+                                                  STREAM_BEAM, **beam_kw)
+            s_exp, n_exp = sb.step(s_exp, lp, valid, lm_params)
+            err = max(err, exact_nbest(f"{kind} tick {i}", n_exp, n_live))
+        print(f"[serving path] {kind}: {n} ticks exported vs live on the card: n-best equal "
+              f"every tick, scores err {err:.3g}")
+        rec.update(ticks=n, scores_err=err)
+        lp, valid = ticks[0]
+        state = {"live": live_init(), "exported": sb.init_state(lm_params)}
+        rec["launches"] = same_launches(
+            kind, lambda: ctc_beam_stream_step(state["live"], lp, valid, rec_live.blank,
+                                               STREAM_BEAM, **beam_kw),
+            lambda: sb.step(state["exported"], lp, valid, lm_params))
+        rec["ms"] = serve_turn(kind, {
+            "exported": lambda: sb.step(state["exported"], lp, valid, lm_params),
+            "live": lambda: ctc_beam_stream_step(state["live"], lp, valid, rec_live.blank,
+                                                 STREAM_BEAM, **beam_kw)})
+    return rec
+
+
+SERVE_WORKERS = {"beam": serve_beam, "beam int8": serve_beam, "beam lm": serve_beam,
+                 "ctc_beam": serve_ctc_beam, "streaming": serve_streaming,
+                 "streaming online": serve_streaming, "stream_beam": serve_stream_beam}
+
+
+def serving_worker(kind) -> int:
+    """One kind of the [serving path], in its own process (see SERVE_DIR)."""
+    sys.path.insert(0, ROOT)
+    # full f32, as the infer CLI sets it: cuDNN would run the convolutions
+    # in TF32 otherwise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(SERVE_DIR, "job.json")) as f:
+        job = json.load(f)
+    try:
+        res = SERVE_WORKERS[kind](kind, job)
+    except PhaseError as e:
+        print(f"[serving path] {kind}: FAILED: {e}")
+        return 1
+    finally:
+        ready = os.path.join(SERVE_DIR, "ready", kind.replace(" ", "_"))
+        if not os.path.exists(ready):  # (a failed worker releases the others)
+            os.makedirs(os.path.dirname(ready), exist_ok=True)
+            open(ready, "w").close()
+    with open(os.path.join(SERVE_DIR, kind.replace(" ", "_") + ".json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def load_package_configs(path) -> dict:
     from openasr_torch.utils.checkpoint import load_package
 
@@ -4373,6 +4861,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--serving-worker"]:
+        return serving_worker(sys.argv[2])
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -4447,6 +4937,11 @@ def main() -> int:
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
                 + streaming_rows(stream, errs, launches))
+        # last: its workers' timed turns share the machine with nothing else
+        serve = phase_serving(serve_job(
+            pkg, ctc_pkg, lm["runs"]["transformer_lm float32"]["pkg"], stream["pkg"], vocab,
+            test_feats, wtest))
+        print(f"[time] serving path done at {time.time() - t_start:.1f}s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4499,7 +4994,12 @@ def main() -> int:
     print(f"[recipe gate] CER {gate['cer']} after {gate['steps']} steps "
           f"({GATE_EPOCHS} epochs, train rows x{GATE_REPEAT}); train {gate['train_s']:.2f}s, "
           f"decode {gate['decode_s']:.2f}s wall; launches a step {gate['per_step']}")
-    print(nvidia_smi())
+    card = nvidia_smi()
+    print("[serving path] " + "; ".join(
+        f"{k}: export {r['export_s']:.1f}s, load {r['load_s']:.1f}s, {r['bytes'] / 1e6:.2f} MB, "
+        f"{r['nodes']} nodes, warm wall ms exported {r['ms']['exported']:.3f} vs live "
+        f"{r['ms']['live']:.3f}" for k, r in serve.items()) + f" ({card})")
+    print(card)
     print(json.dumps({"kernels": rows}))
     # the run drives one card (cuda:0)
     print(json.dumps({"ok": True, "device": {

@@ -70,18 +70,20 @@ _ATTENTION = ("self_attn", "cross_attn")
 
 
 def _components_of(model_type: str, configs=None):
+    # the speech models' components need no import of the models (a
+    # serving process bridges its checkpoints without them)
+    if model_type in COMPONENTS:
+        return COMPONENTS[model_type]
     from openasr_torch.models.lm import LM_TYPES, lm_components
 
-    if model_type in LM_TYPES:
-        if configs is None:
-            raise ValueError(f"the components of a {model_type} come from its config")
-        return lm_components(model_type, configs)
-    if model_type not in COMPONENTS:
+    if model_type not in LM_TYPES:
         raise ValueError(
             f"no weight bridge for model type {model_type!r}; bridged: "
             f"{sorted(COMPONENTS)}"
         )
-    return COMPONENTS[model_type]
+    if configs is None:
+        raise ValueError(f"the components of a {model_type} come from its config")
+    return lm_components(model_type, configs)
 
 
 def _is_norm(module_name: str) -> bool:

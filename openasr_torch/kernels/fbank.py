@@ -19,10 +19,12 @@ PyTorch ops, the accuracy oracle of the card checks.  `fused_fbank` takes F as a
 tensor whose last axis has unit stride: either a strided view of the
 padded waves (the frames are never written to memory) or the materialized
 frames of a dithered forward.  It also zeroes every frame at or past an
-utterance's frame count.  A CUDA tensor launches the kernel; a CPU tensor
-takes `fbank_reference`, the folded products in float32 (TF32 is off:
-torch's default, which the CLIs and chip_smoke.py keep); there is no
-other route.
+utterance's frame count.  It calls the operator `torch.ops.openasr.fbank`
+(kernels/ops.py), which takes the config's tables as tensors and its
+scalars as ints and floats: on a CUDA tensor it launches the kernel; on a
+CPU tensor it runs the plain version, the folded products in float32
+(TF32 is off: torch's default, which the CLIs and chip_smoke.py keep);
+there is no other route.
 """
 
 from __future__ import annotations
@@ -188,11 +190,17 @@ def fbank_reference(frames: torch.Tensor, feat_lengths: torch.Tensor, cfg) -> to
     """Plain version: frames [B, T, ws] f32 -> [B, T, M] f32, zero at frames
     t >= feat_lengths[b]."""
     m = device_matrices(cfg, frames.device)
+    return fbank_plain(frames, feat_lengths, m["mc"], m["ms"], m["mel_t"],
+                       bool(cfg.use_log_fbank))
+
+
+def fbank_plain(frames, feat_lengths, mc, ms, mel_t, use_log: bool) -> torch.Tensor:
+    """`fbank_reference` from the folded matrices (`fused_matrices`)."""
     frames = frames.float()
-    re = torch.matmul(frames, m["mc"])
-    im = torch.matmul(frames, m["ms"])
-    mel = torch.matmul(re * re + im * im, m["mel_t"])
-    if cfg.use_log_fbank:
+    re = torch.matmul(frames, mc)
+    im = torch.matmul(frames, ms)
+    mel = torch.matmul(re * re + im * im, mel_t)
+    if use_log:
         mel = torch.log(torch.clamp_min(mel, EPSILON))
     return mask_frames(mel, feat_lengths)
 
@@ -204,34 +212,41 @@ def fused_fbank(frames: torch.Tensor, feat_lengths: torch.Tensor, cfg) -> torch.
     (the FFT kernel, or where nfft is not a power of two the folded one),
     reading each frame through the tensor's batch and frame strides; CPU
     tensors take `fbank_reference`."""
-    if frames.device.type == "cpu":
-        return fbank_reference(frames, feat_lengths, cfg)
-    if frames.device.type != "cuda":
-        raise RuntimeError(f"fused_fbank: no kernel for device {frames.device}")
+    m = device_matrices(cfg, frames.device)
+    return torch.ops.openasr.fbank(
+        frames, feat_lengths, m["window"], m["twiddle"], m["twiddle_lo"], m["mel_idx"],
+        m["mel_w"], m["mel_order"], m.get("cs"), m["mc"], m["ms"], m["mel_t"],
+        int(cfg.padded_window_size), int(cfg.num_mel_bins), float(cfg.preemphasis),
+        bool(cfg.remove_dc_offset), bool(cfg.use_log_fbank))
+
+
+def fbank_cuda(frames, feat_lengths, window, twiddle, twiddle_lo, mel_idx, mel_w, mel_order,
+               cs, nfft: int, n_mel: int, preemphasis: float, remove_dc: bool,
+               use_log: bool) -> torch.Tensor:
+    """The fbank kernel: the CUDA implementation of `torch.ops.openasr.fbank`,
+    from the tables of `kernel_tables` on the card (`cs` only where nfft is
+    not a power of two)."""
     b, t, ws = frames.shape
-    if frames.dtype != torch.float32 or ws != cfg.window_size or (t and frames.stride(2) != 1):
+    if frames.dtype != torch.float32 or ws != window.numel() or (t and frames.stride(2) != 1):
         raise ValueError(
-            f"fused_fbank: frames must be float32 [B, T, {cfg.window_size}] with "
+            f"fused_fbank: frames must be float32 [B, T, {window.numel()}] with "
             f"unit stride on the last axis, got {frames.dtype} {tuple(frames.shape)} "
             f"strides {frames.stride()}"
         )
     if (feat_lengths.shape != (b,) or feat_lengths.dtype != torch.int32
             or feat_lengths.device != frames.device):
         raise ValueError(f"fused_fbank: feat_lengths must be int32 [{b}] on {frames.device}")
-    m = device_matrices(cfg, frames.device)
-    n_mel = cfg.num_mel_bins
     out = torch.empty((b, t, n_mel), dtype=torch.float32, device=frames.device)
     if b * t == 0:
         return out
     lengths = feat_lengths.contiguous()
     code = kernels.library().openasr_fbank(
-        frames.data_ptr(), lengths.data_ptr(), out.data_ptr(), m["window"].data_ptr(),
-        m["twiddle"].data_ptr(), m["twiddle_lo"].data_ptr(), m["mel_idx"].data_ptr(),
-        m["mel_w"].data_ptr(), m["mel_order"].data_ptr(),
-        m["cs"].data_ptr() if "cs" in m else None, b, t, ws, cfg.padded_window_size,
-        n_mel, m["mel_w"].numel(), frames.stride(0), frames.stride(1),
-        float(cfg.preemphasis), int(bool(cfg.remove_dc_offset)),
-        int(bool(cfg.use_log_fbank)), frames.device.index,
+        frames.data_ptr(), lengths.data_ptr(), out.data_ptr(), window.data_ptr(),
+        twiddle.data_ptr(), twiddle_lo.data_ptr(), mel_idx.data_ptr(),
+        mel_w.data_ptr(), mel_order.data_ptr(),
+        cs.data_ptr() if cs is not None else None, b, t, ws, nfft,
+        n_mel, mel_w.numel(), frames.stride(0), frames.stride(1),
+        float(preemphasis), int(bool(remove_dc)), int(bool(use_log)), frames.device.index,
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     kernels.check(code, "fbank")
@@ -241,3 +256,5 @@ def fused_fbank(frames: torch.Tensor, feat_lengths: torch.Tensor, cfg) -> torch.
 
 # kernel launches since the last reset (the plain route never counts)
 fused_fbank.launches = 0
+
+from openasr_torch.kernels import ops  # noqa: E402,F401  (registers torch.ops.openasr)

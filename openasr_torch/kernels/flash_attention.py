@@ -24,15 +24,21 @@ gets O = 0, lse = +inf and zero gradients, where the JAX dense path gives
 softmax over NEG_INF; nothing reads such rows.  It does not combine with
 `causal`.
 
-`flash_attention` is differentiable: a `torch.autograd.Function` saves q,
-k, v, O and lse, and its backward launches three kernels: the statistics
+The wrappers call the operators `torch.ops.openasr.flash_fwd`,
+`flash_bwd_stats`, `flash_bwd_dkv` and `flash_bwd_dq` (kernels/ops.py),
+whose CUDA implementations launch the kernels and whose CPU
+implementations are the plain versions.  `flash_attention` is
+differentiable through the forward operator's autograd formula, which
+saves q, k, v, O and lse; its backward launches three kernels: the statistics
 pass (one walk over the keys that writes each query row's max m of the
 log2-scaled scores, 1 / l with l = sum exp2(s' - m), and delta =
 rowsum(P o dP o D) with P = exp2(s' - m) / l), then dK/dV and dQ, which
 take P and delta from the same products, bit for bit, so that dS is
 exactly 0 where a softmax row is one-hot.  Every wrapper launches
 csrc/flash_attention*.cu for CUDA tensors and runs its plain version for
-CPU tensors; there is no other route.
+CPU tensors; there is no other route.  On the CPU, `flash_attention_bwd`
+runs the plain backward once (the three backward operators' plain
+versions would run it twice over).
 """
 
 from __future__ import annotations
@@ -281,19 +287,33 @@ def _dropout_args(dropout_rate, seed):
     return seed, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
 
 
-def _flash_fwd(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed, chunk_mask=None):
-    """The forward kernel (CUDA) or its plain version (CPU)."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_lengths, causal, sm_scale,
-                                         dropout_rate, seed, chunk_mask)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+def chunk_args(chunk_mask: Optional[ChunkMask]):
+    """The operators' three ints of a chunk mask: (chunk, left, phase),
+    chunk 0 = no chunk mask."""
+    return (0, -1, 0) if chunk_mask is None else tuple(int(x) for x in chunk_mask)
+
+
+def chunk_mask_of(chunk: int, left: int, phase: int) -> Optional[ChunkMask]:
+    """The inverse of `chunk_args`."""
+    return ChunkMask(chunk, left, phase) if chunk > 0 else None
+
+
+def _scale(q, sm_scale) -> float:
+    """sm_scale, 1 / sqrt(D) by default (D: q's true head dim)."""
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else float(sm_scale)
+
+
+def flash_fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed,
+                   chunk_mask=None):
+    """The forward kernel: the CUDA implementation of
+    `torch.ops.openasr.flash_fwd`; a head dim other than 32, 64 or 128 runs
+    zero-padded, and O comes back contiguous at the true D."""
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp != d:
-        out, lse = _flash_fwd(*(pad_head_dim(t, dp) for t in (q, k, v)), kv_lengths,
-                              causal, sm_scale, dropout_rate, seed, chunk_mask)
-        return out[..., :d], lse
+        out, lse = flash_fwd_cuda(*(pad_head_dim(t, dp) for t in (q, k, v)), kv_lengths,
+                                  causal, sm_scale, dropout_rate, seed, chunk_mask)
+        return out[..., :d].contiguous(), lse
     _check_qkv(q, k, v)
     check_flash_alignment(q=q, k=k, v=v)
     mask = _mask_args(causal, chunk_mask)
@@ -360,16 +380,21 @@ def flash_bwd_stats(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
     kernel does, bit for bit.  CUDA tensors launch the statistics pass of
     csrc/flash_attention_bwd.cu (one walk over the keys); CPU tensors take
     `flash_bwd_stats_reference`."""
-    if q.device.type == "cpu":
-        return flash_bwd_stats_reference(q, k, v, dout, kv_lengths, causal, sm_scale,
-                                         dropout_rate, dropout_seed, chunk_mask)
+    return torch.ops.openasr.flash_bwd_stats(
+        q, k, v, dout, kv_lengths, bool(causal), _scale(q, sm_scale), float(dropout_rate),
+        int(dropout_seed), *chunk_args(chunk_mask))
+
+
+def flash_bwd_stats_cuda(q, k, v, dout, kv_lengths, causal, sm_scale, dropout_rate,
+                         dropout_seed, chunk_mask=None):
+    """The statistics pass: the CUDA implementation of
+    `torch.ops.openasr.flash_bwd_stats`."""
     d = q.shape[-1]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
     dp = padded_head_dim(d)
     if dp != d:
-        return flash_bwd_stats(*(pad_head_dim(t, dp) for t in (q, k, v, dout)), kv_lengths,
-                               causal, sm_scale, dropout_rate, dropout_seed, chunk_mask)
+        return flash_bwd_stats_cuda(*(pad_head_dim(t, dp) for t in (q, k, v, dout)),
+                                    kv_lengths, causal, sm_scale, dropout_rate,
+                                    dropout_seed, chunk_mask)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     # every row is written, (0, 0, 0) where it has no valid key
@@ -436,19 +461,22 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
     launch the dK/dV kernel, which takes P from the statistics, not from
     lse; CPU tensors take the plain backward (which forms its statistics
     itself)."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_reference(
-            q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
-            dropout_rate, dropout_seed, chunk_mask)[1:]
+    return torch.ops.openasr.flash_bwd_dkv(
+        q, k, v, out, lse, dout, stats, kv_lengths, bool(causal), _scale(q, sm_scale),
+        float(dropout_rate), int(dropout_seed), *chunk_args(chunk_mask))
+
+
+def flash_bwd_dkv_cuda(q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
+                       dropout_rate, dropout_seed, chunk_mask=None):
+    """The dK/dV kernel: the CUDA implementation of
+    `torch.ops.openasr.flash_bwd_dkv`."""
     d = q.shape[-1]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
     dp = padded_head_dim(d)
     if dp != d:
-        dk, dv = flash_attention_bwd_dkv(
+        dk, dv = flash_bwd_dkv_cuda(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
             stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed, chunk_mask)
-        return dk[..., :d], dv[..., :d]
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
@@ -474,19 +502,22 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
     """dQ of `flash_attention` -> dq [B, Tq, H, D] in q's dtype, with stats
     = `flash_bwd_stats(...)` of the same inputs.  CUDA tensors launch the
     dQ kernel; CPU tensors take the plain backward."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_reference(
-            q, k, v, out, lse, dout, kv_lengths, causal, sm_scale,
-            dropout_rate, dropout_seed, chunk_mask)[0]
+    return torch.ops.openasr.flash_bwd_dq(
+        q, k, v, out, lse, dout, stats, kv_lengths, bool(causal), _scale(q, sm_scale),
+        float(dropout_rate), int(dropout_seed), *chunk_args(chunk_mask))
+
+
+def flash_bwd_dq_cuda(q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
+                      dropout_rate, dropout_seed, chunk_mask=None):
+    """The dQ kernel: the CUDA implementation of
+    `torch.ops.openasr.flash_bwd_dq`."""
     d = q.shape[-1]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
     dp = padded_head_dim(d)
     if dp != d:
-        return flash_attention_bwd_dq(
+        return flash_bwd_dq_cuda(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
             stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed,
-            chunk_mask)[..., :d]
+            chunk_mask)[..., :d].contiguous()
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
@@ -531,24 +562,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_lengths=None, causal=False,
     return flash_attention_bwd_dq(*args), dk, dv
 
 
-class _FlashFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kv_lengths, causal, sm_scale, dropout_rate, seed, chunk_mask):
-        out, lse = _flash_fwd(q, k, v, kv_lengths, causal, sm_scale,
-                              dropout_rate, seed, chunk_mask)
-        ctx.save_for_backward(q, k, v, out, lse, kv_lengths)
-        ctx.args = (causal, sm_scale, dropout_rate, seed, chunk_mask)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, kv_lengths = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.to(q.dtype),
-                                         kv_lengths, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
-
-
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -578,13 +591,8 @@ def flash_attention(
         if dropout_seed is None:
             raise ValueError("flash_attention: dropout_rate > 0 needs a dropout_seed")
         seed = int(dropout_seed) & _MASK32
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashFn.apply(q, k, v, kv_lengths, causal, float(sm_scale),
-                              float(dropout_rate), seed, chunk_mask)
-    return _flash_fwd(q, k, v, kv_lengths, causal, float(sm_scale),
-                      float(dropout_rate), seed, chunk_mask)
+    return torch.ops.openasr.flash_fwd(q, k, v, kv_lengths, bool(causal), _scale(q, sm_scale),
+                                       float(dropout_rate), seed, *chunk_args(chunk_mask))
 
 
 # kernel launches since the last reset (the plain route never counts):
@@ -594,3 +602,5 @@ flash_attention.dropout_launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_bwd_stats.launches = 0
+
+from openasr_torch.kernels import ops  # noqa: E402,F401  (registers torch.ops.openasr)

@@ -6,11 +6,13 @@ var = E[x^2] - E[x]^2, y = (x - mean) * rstd * gamma + beta cast back to
 x's dtype.  Unlike torch.nn.LayerNorm (eps 1e-5, two-pass variance) this
 is the JAX package's exact formula.
 
-`fused_layer_norm` is differentiable: a `torch.autograd.Function` saves x,
-gamma, mean and rstd, and its backward is `layer_norm_bwd` (dx, dgamma and
-dbeta from one library call: the row kernel and its column sum).  Each
-wrapper launches csrc/layer_norm.cu for a CUDA tensor and runs its plain
-version for a CPU tensor; there is no other route.
+The wrappers call the operators `torch.ops.openasr.layer_norm_fwd` and
+`layer_norm_bwd` (kernels/ops.py), whose CUDA implementations launch
+csrc/layer_norm.cu and whose CPU implementations are the plain versions;
+there is no other route.  `fused_layer_norm` is differentiable through the
+forward operator's autograd formula, which saves x, gamma, mean and rstd
+and calls the backward operator (dx, dgamma and dbeta from one library
+call: the row kernel and its column sum).
 """
 
 from __future__ import annotations
@@ -67,12 +69,9 @@ def _check_params(x, **params):
         raise ValueError(f"layer_norm: last dim {d} is empty")
 
 
-def _layer_norm_fwd(x, scale, bias, eps):
-    """The forward kernel (CUDA) or its plain version (CPU)."""
-    if x.device.type == "cpu":
-        return layer_norm_reference(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"fused_layer_norm: no kernel for device {x.device}")
+def layer_norm_fwd_cuda(x, scale, bias, eps):
+    """The forward kernel: the CUDA implementation of
+    `torch.ops.openasr.layer_norm_fwd`."""
     _check_params(x, scale=scale, bias=bias)
     d = x.shape[-1]
     lead = x.shape[:-1]
@@ -116,10 +115,16 @@ def layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta: bool = True):
     the JAX package's `_bwd_dx_kernel`): it returns (dx, None, None).
     CUDA tensors launch csrc/layer_norm.cu; CPU tensors take
     `layer_norm_bwd_reference`."""
-    if x.device.type == "cpu":
-        return layer_norm_bwd_reference(x, dy, scale, mean, rstd, dgamma_dbeta)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"layer_norm_bwd: no kernel for device {x.device}")
+    dx, dg, db = torch.ops.openasr.layer_norm_bwd(x, dy, scale, mean, rstd,
+                                                 bool(dgamma_dbeta))
+    return (dx, dg, db) if dgamma_dbeta else (dx, None, None)
+
+
+def layer_norm_bwd_cuda(x, dy, scale, mean, rstd, dgamma_dbeta):
+    """The backward kernels: the CUDA implementation of
+    `torch.ops.openasr.layer_norm_bwd`; dgamma and dbeta come back empty
+    ([0]) in the dx-only mode, as the operator's schema has no optional
+    outputs."""
     _check_params(x, scale=scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("layer_norm_bwd: dy must match x's shape, dtype and device")
@@ -138,7 +143,7 @@ def layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta: bool = True):
     dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0:
         zero = torch.zeros((d,), dtype=torch.float32, device=x.device)
-        return dx.reshape(x.shape), *((zero, zero.clone()) if dgamma_dbeta else (None, None))
+        return dx.reshape(x.shape), *((zero, zero.clone()) if dgamma_dbeta else _no_dgamma(x))
     if dgamma_dbeta:
         rows = _partial_rows_at_most(n, d, x.device)
         # (the launch uses its first 2 * r * d floats, as [2, r, d], r <= rows)
@@ -157,24 +162,15 @@ def layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta: bool = True):
     kernels.check(code, "layer_norm_bwd")
     if not dgamma_dbeta:
         layer_norm_bwd.dx_launches += 1
-        return dx.reshape(x.shape), None, None
+        return dx.reshape(x.shape), *_no_dgamma(x)
     layer_norm_bwd.launches += 1
     return dx.reshape(x.shape), dg, db
 
 
-class _LayerNormFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        y, mean, rstd = _layer_norm_fwd(x, scale, bias, eps)
-        ctx.save_for_backward(x, scale, mean, rstd)
-        ctx.mark_non_differentiable(mean, rstd)
-        return y, mean, rstd
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _drstd):
-        x, scale, mean, rstd = ctx.saved_tensors
-        dx, dg, db = layer_norm_bwd(x, dy.to(x.dtype), scale, mean, rstd)
-        return dx, dg, db, None
+def _no_dgamma(x):
+    """The dx-only mode's dgamma and dbeta: two empty f32 tensors."""
+    return (torch.empty((0,), dtype=torch.float32, device=x.device),
+            torch.empty((0,), dtype=torch.float32, device=x.device))
 
 
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -183,11 +179,7 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
     `layer_norm_reference`, differentiable in x, scale and bias.  CUDA
     tensors go through the kernels (x f32 or bf16, any last dim;
     scale/bias f32); CPU tensors through the plain versions."""
-    if torch.is_grad_enabled() and (
-        x.requires_grad or scale.requires_grad or bias.requires_grad
-    ):
-        return _LayerNormFn.apply(x, scale, bias, float(eps))
-    return _layer_norm_fwd(x, scale, bias, eps)
+    return torch.ops.openasr.layer_norm_fwd(x, scale, bias, float(eps))
 
 
 # kernel launches since the last reset (the plain route never counts);
@@ -195,3 +187,5 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
 fused_layer_norm.launches = 0
 layer_norm_bwd.launches = 0
 layer_norm_bwd.dx_launches = 0
+
+from openasr_torch.kernels import ops  # noqa: E402,F401  (registers torch.ops.openasr)

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from openasr_torch.models.layers import TrainRNG
+from openasr_torch.models.layers import TrainRNG, autocast_off
 from openasr_torch.ops.fbank import FbankConfig, fbank, num_frames_of
 from openasr_torch.ops.specaug import spec_aug, spec_aug_config_from_cfg
 
@@ -42,7 +42,7 @@ class SPLayer(nn.Module):
         return lengths
 
     def forward(self, inputs, lengths, rng: Optional[TrainRNG] = None):
-        with torch.autocast(inputs.device.type, enabled=False):
+        with autocast_off(inputs.device.type):
             if self.feature_type == "fbank":
                 dither = rng.device if rng is not None and self.apply_dither else None
                 inputs, lengths = fbank(inputs, lengths, self.fbank_config, dither)

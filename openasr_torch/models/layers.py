@@ -18,6 +18,7 @@ deterministic.  The modules' train()/eval() flag plays no part.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import lru_cache
 from typing import Optional, Tuple
@@ -82,6 +83,15 @@ def activation_dtype(x: torch.Tensor) -> torch.dtype:
     if torch.is_autocast_enabled(x.device.type):
         return torch.get_autocast_dtype(x.device.type)
     return x.dtype
+
+
+def autocast_off(device_type: str):
+    """A context with autocast off for `device_type`, entered only where
+    autocast is on: a traced program (serving.py) then holds no empty
+    autocast region."""
+    if torch.is_autocast_enabled(device_type):
+        return torch.autocast(device_type, enabled=False)
+    return contextlib.nullcontext()
 
 
 class LayerNorm(nn.Module):

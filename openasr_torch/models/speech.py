@@ -23,7 +23,7 @@ from openasr_torch.models import Framework, register_model
 from openasr_torch.models.decoder import transformer_decoder_from_config
 from openasr_torch.models.encoder import TransformerEncoder
 from openasr_torch.models.frontend import SPLayer
-from openasr_torch.models.layers import TrainRNG, any_empty
+from openasr_torch.models.layers import TrainRNG, any_empty, autocast_off
 from openasr_torch.models.lm import make_lm_fusion
 from openasr_torch.ops.beam_search import batch_beam_search, beam_expand
 from openasr_torch.ops.ctc_decode import ctc_greedy_decode
@@ -60,7 +60,7 @@ def streaming_phase_of(signal_cfg) -> int:
 
 
 def _f32_head(head: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    with torch.autocast(x.device.type, enabled=False):
+    with autocast_off(x.device.type):
         return head(x.float())
 
 
@@ -190,20 +190,24 @@ class ConvTransformer(_SpeechFramework):
     @torch.inference_mode()
     def batch_beam_decode(self, inputs, lengths, beam_size=5, max_decode_len=100,
                           empty_rows: Optional[bool] = None, context_tables=None,
-                          context_weight: float = 0.0, lm=None, lm_weight: float = 0.0):
+                          context_weight: float = 0.0, lm=None, lm_weight: float = 0.0,
+                          stop_when_finished: bool = True):
         """-> (preds [B, beam, L], lengths [B, beam], scores [B, beam]);
         `context_tables` (ops.ctc_beam_device.build_context_tables) and
         `context_weight` bias the beam toward hotwords; an `lm` (an LM
         framework of models/lm.py) with `lm_weight` != 0 fuses its
-        log-probs (shallow fusion)."""
+        log-probs (shallow fusion); `stop_when_finished=False` runs every
+        step with no host read (ops/beam_search.py), for an export."""
         encoded, elens = self.encode(inputs, lengths, empty_rows)
         return self.beam_decode_encoded(encoded, elens, beam_size, max_decode_len,
-                                        context_tables, context_weight, lm, lm_weight)
+                                        context_tables, context_weight, lm, lm_weight,
+                                        stop_when_finished)
 
     @torch.inference_mode()
     def beam_decode_encoded(self, encoded, elens, beam_size=5, max_decode_len=100,
                             context_tables=None, context_weight: float = 0.0,
-                            lm=None, lm_weight: float = 0.0):
+                            lm=None, lm_weight: float = 0.0,
+                            stop_when_finished: bool = True):
         """Beam search over precomputed encoder states."""
         b = encoded.shape[0]
         enc_bb = beam_expand(encoded, beam_size)
@@ -223,6 +227,7 @@ class ConvTransformer(_SpeechFramework):
             decoder.vocab_size, device=encoded.device,
             context_tables=context_tables, context_weight=context_weight,
             lm_step_fn=lm_step_fn, init_lm_cache=init_lm_cache, lm_weight=lm_weight,
+            stop_when_finished=stop_when_finished,
         )
 
 

@@ -4,7 +4,12 @@ Counterpart of openasr_tpu/ops/beam_search.py (`batch_beam_search`,
 `beam_expand`) with LM shallow fusion and Aho-Corasick hotword biasing.
 The JAX `lax.while_loop` becomes a Python loop that keeps its
 all-finished early exit (one device->host read of the finished flags a
-step).  Kept as in the JAX package:
+step); `stop_when_finished=False` runs all `max_decode_len` steps with no
+host read, for a traced program (serving.py).  The result is the same:
+a finished beam is frozen on EOS with log-prob 0, so a step after every
+beam finished keeps each beam's tokens and score, and its top-k only
+sorts the beams by score, stably, as the final sort does.  Kept as in
+the JAX package:
 
   * initial scores [0, -inf, ...] per batch, so identical initial beams
     don't duplicate;
@@ -81,6 +86,7 @@ def batch_beam_search(
     lm_step_fn: Optional[Callable] = None,
     init_lm_cache=None,
     lm_weight: float = 0.0,
+    stop_when_finished: bool = True,
 ):
     """Run beam search, optionally with LM fusion and hotword biasing.
 
@@ -95,6 +101,9 @@ def batch_beam_search(
         ops.ctc_beam_device.build_context_tables (off when either is
         None or 0).
       use_eos: EOS finishes a beam (False: every beam runs every step).
+      stop_when_finished: with `use_eos`, stop once every beam has
+        finished (a host read a step); False runs every step, with the
+        same result.
 
     Returns:
       preds [B, beam, max_decode_len] (EOS-padded, no SOS),
@@ -121,7 +130,7 @@ def batch_beam_search(
     use_lm = lm_step_fn is not None and lm_weight != 0.0
     cache, lm_cache = init_cache, init_lm_cache
     for step in range(max_decode_len):
-        if use_eos and bool(finished.all()):
+        if use_eos and stop_when_finished and bool(finished.all()):
             break
         logits, cache = step_fn(tokens, step, cache)
         z = torch.log_softmax(logits.float(), dim=-1)

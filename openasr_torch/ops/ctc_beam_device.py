@@ -466,16 +466,38 @@ def ctc_beam_stream_step(state: dict, log_probs: torch.Tensor, frame_valid, blan
     scores [B, beam])), the n-best after this chunk.  Any chunking of T
     frames equals `ctc_prefix_beam_device` over [B, T, V], with fusion and
     biasing too.  Raises before the token buffer could overflow."""
-    dev = log_probs.device
-    valid = torch.as_tensor(frame_valid, device=dev).bool()
+    valid = torch.as_tensor(frame_valid, device=log_probs.device).bool()
+    check_token_capacity(state, valid)
+    return ctc_beam_stream_body(state, log_probs, valid, blank, beam, cutoff_top_n, cutoff_logp,
+                                lm_step_fn, lm_weight, context_tables, context_weight)
+
+
+def check_token_capacity(state: dict, frame_valid: torch.Tensor) -> None:
+    """Raise before a chunk of `frame_valid` [B, ch] could overflow the
+    state's token buffer: each valid frame can append one token.  Reads
+    the frames fed back to the host, so it stays outside the traceable
+    `ctc_beam_stream_body`; serving.ExportedStreamBeam replays it (its
+    max_frames is the export's)."""
     cap = state["toks"].shape[-1]
-    fed_now, incoming = int(state["fed"].max()), int(valid.sum(dim=1).max())
+    fed_now = int(state["fed"].max())
+    incoming = int(torch.as_tensor(frame_valid).bool().sum(dim=1).max())
     if fed_now + incoming > cap:
         raise ValueError(
             f"stream exceeds the beam token buffer: {fed_now} valid "
             f"frames fed + {incoming} incoming > max_frames={cap}; "
             f"re-init ctc_beam_stream_init with a larger max_frames"
         )
+
+
+@torch.no_grad()
+def ctc_beam_stream_body(state: dict, log_probs: torch.Tensor, valid: torch.Tensor,
+                         blank: int, beam: int = 10, cutoff_top_n: int = 40,
+                         cutoff_logp: float = -20.0, lm_step_fn=None, lm_weight: float = 0.0,
+                         context_tables=None, context_weight: float = 0.0):
+    """`ctc_beam_stream_step` without its capacity guard: no host read, so
+    a program can trace it (serving.export_stream_beam).  valid [B, ch]
+    bool on log_probs' device."""
+    dev = log_probs.device
     ctx = None
     if context_tables is not None and context_weight != 0.0:
         n_phrases = int(np.shape(context_tables["plen"])[0])
@@ -496,8 +518,9 @@ def ctc_beam_stream_step(state: dict, log_probs: torch.Tensor, frame_valid, blan
                     ctx_weight=float(context_weight), lm_step_fn=lm_step_fn,
                     lm_weight=float(lm_weight))
     # what the frames' steps do not carry: the frame count and, unfused,
-    # the LM state as it was
-    new = {**{k: v for k, v in state.items() if k not in new}, **new}
+    # the LM state as it was; in the input's key order, so that a traced
+    # tick's state comes back in the layout it takes (serving.py)
+    new = {k: new.get(k, v) for k, v in state.items()}
     new["fed"] = state["fed"] + valid.sum(dim=1)
     total = _logaddexp(new["pb"], new["pnb"])
     order = torch.argsort(-total, dim=1, stable=True)

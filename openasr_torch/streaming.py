@@ -21,7 +21,10 @@ place (models/speech.py:streaming_phase_of).
 
 The state is a dict of fixed-shape tensors on the model's device (KV
 caches [B, L*ch, H, Dh] a layer, the feature and wave caches, the frames
-fed) and the chunk index, a host integer.  A tick is one call of `step`:
+fed, and the chunk index, a 0-d int64 tensor as in the JAX package, so
+that a traced tick (serving.py) takes it as an input).  `step` reads the
+chunk index back for its positional-encoding capacity guard, which stays
+on the host, outside the traceable `_step_impl`.  A tick is one call of `step`:
 on the card the fbank kernel once (waves), the 2-D convolutions, the
 LayerNorm kernel twice a layer and once for the final norm, and the
 GEMMs; the chunk's attention against the cache is dense
@@ -143,7 +146,7 @@ class StreamingRecognizer:
             "kv": {f"layer{i}": {"k": torch.zeros(kv_shape, dtype=dtype, device=dev),
                                  "v": torch.zeros(kv_shape, dtype=dtype, device=dev)}
                    for i in range(len(self.encoder.layers))},
-            "chunk_idx": 0,
+            "chunk_idx": torch.zeros((), dtype=torch.int64, device=dev),
             "fed": torch.zeros((b,), dtype=torch.int64, device=dev),  # samples or frames
             "feat_cache": torch.zeros((b, 4, self.feat_dim), dtype=torch.float32, device=dev),
         }
@@ -164,7 +167,7 @@ class StreamingRecognizer:
         if chunk_lens is None:
             chunk_lens = torch.full((chunk.shape[0],), chunk.shape[1], dtype=torch.int64)
         chunk_lens = torch.as_tensor(chunk_lens, dtype=torch.int64, device=self.device)
-        cur = state["chunk_idx"]
+        cur = int(state["chunk_idx"])
         if (cur + 1) * self.chunk - self.phase > self.max_frames:
             raise ValueError(
                 f"stream exceeds positional-encoding capacity: chunk "
@@ -226,7 +229,9 @@ class StreamingRecognizer:
             "logits": None if self.head is None else _f32_head(self.head, x),
         }
         new_state.update(kv=kv, chunk_idx=cur + 1, fed=fed)
-        return new_state, out
+        # in the input's key order: a traced tick's state comes back in the
+        # layout it takes (serving.py)
+        return {k: new_state[k] for k in state}, out
 
     # ------------------------------------------------------ host driving
 

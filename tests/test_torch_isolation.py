@@ -28,7 +28,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "kernels.fbank", "ops.ctc_decode", "ops.prefix_beam", "ops.ctc_beam_device",
                  "utils.metrics", "bin.wer", "ops.cif", "models.assigner", "models.cif",
                  "solvers.cif", "models.lm", "bin.train_lm", "data.manifest",
-                 "data.collate", "streaming", "bin.stream_infer"):
+                 "data.collate", "streaming", "bin.stream_infer", "kernels.ops", "quant",
+                 "serving", "bin.export_decode"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
