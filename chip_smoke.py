@@ -132,6 +132,28 @@ SDPA with the equivalent bool mask, after holding them to their plain
 versions there and on a batch whose short rows leave padded queries with
 no visible key (O = 0, zero gradients), with dropout 0 and 0.1.
 
+Then the raw-wave families (`[wave path]`), at vocabulary 4233:
+egs/wav2vec/configs/wav2vec_ctc.yaml's model and training sections as
+they are (WavConv 512, d512 x 6 post-LN layers, 8 heads, GELU 2048,
+dropout 0.1, batch_time 1600000, accumulate_grad_batch 2) but for
+freeze_finetune_updates 10000 -> 2, trained through the train CLI for one
+epoch of 6 micro-batches (3 steps) in f32 and bf16 on 45 random-tone wavs
+of 0.25-30 s, three of them 25-30 s (T' 2500-3000); the gate shown by the
+encoder's largest move, one first Adam step at count 3; the f32 package
+decoded (8 wavs of up to 30 s, greedy and the device prefix beam of 10);
+its logits and one training forward's gradients on the card against the
+CPU (1e-3, at the card's WavConv ReLU decisions); each run's launches
+held to the built module's (13 LayerNorm and 6 attention calls a
+forward).  egs/libri/configs/cpc_pretrain.yaml through `bin/train_cpc.py
+--type pretrain` and gru_ctc_finetune.yaml through `--type finetune` from
+its package (`load_splayer`), 3 steps each on 34 and 17 wavs of 1.25-15
+s: no kernel launch (cuDNN convolutions and GRUs), the splayer unchanged,
+the finetuned package decoded greedily and with the host prefix beam, and
+the CPC and CTC losses on the card against the CPU (1e-4 of scale).  The
+kernel line adds the attention forward (4w) and backward (5+6w) at the
+wav2vec run's largest batch (T' up to 3000) beside SDPA with the same key
+mask, after holding them to their plain versions there.
+
 Last, the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
 (beam 5, SERVE_MAXLEN steps) with f32 weights, with int8 weights and with
@@ -988,16 +1010,17 @@ def write_corpus(name, rng, chars, n_utts, frames, tokens, dim=80, phones=None):
     return manifest, feats
 
 
-def write_wave_corpus(name, rng, chars, n_utts, samples, tokens):
-    """`n_utts` 16 kHz PCM16 wav files of `samples` (lo, hi) samples -- three
-    random tones over noise, with a near-silent stretch -- and `tokens`
-    (lo, hi) random characters each, as a wave manifest."""
+def write_wave_corpus(name, rng, chars, n_utts, samples, tokens, lengths=None):
+    """`n_utts` 16 kHz PCM16 wav files of `samples` (lo, hi) samples (or of
+    the given `lengths`) -- three random tones over noise, with a
+    near-silent stretch -- and `tokens` (lo, hi) random characters each,
+    as a wave manifest."""
     from openasr_torch.data.audio import write_wav
 
     os.makedirs(os.path.join(WORK, name))
     rows, waves = [], {}
     for i in range(n_utts):
-        n = int(rng.randint(samples[0], samples[1] + 1))
+        n = int(rng.randint(samples[0], samples[1] + 1) if lengths is None else lengths[i])
         t = np.arange(n) / RATE
         w = 100.0 * rng.randn(n)
         for f0 in rng.uniform(100.0, 4000.0, size=3):
@@ -2887,10 +2910,10 @@ def cif_train_run(tag, cfg_path, model_cfg, launches, min_steps) -> dict:
 
 
 class ReluMasks:
-    """The ReLUs of the ConvV2 subsampler, the CIF assigner and the relu
-    FFNs of models/layers.py (their modules' `F.relu`), recording each call's input on one forward and
-    replaying the recorded inputs' masks `x > 0`, in call order, on
-    another.  A ReLU's gradient jumps at 0: a pre-activation within
+    """The ReLUs of the ConvV2 subsampler, the CIF assigner, WavConv and the
+    relu FFNs of models/layers.py (their modules' `F.relu`), recording
+    each call's input on one forward and replaying the recorded inputs'
+    masks `x > 0`, in call order, on another.  A ReLU's gradient jumps at 0: a pre-activation within
     rounding of 0 may fall on one side on the card and on the other on
     the CPU, and with the assigner's ReLUs on top of the encoder such a
     flip reaches every encoder layer's gradient.  Replaying the card's
@@ -2931,29 +2954,36 @@ class ReluMasks:
         return torch.where(mask, x, torch.zeros_like(x))
 
     def installed(self, replay: bool):
-        from openasr_torch.models import assigner, layers, subsample
+        from openasr_torch.models import assigner, frontend, layers, subsample
 
         @contextlib.contextmanager
         def patch():
-            saved = assigner.F, subsample.F, layers.F
+            saved = assigner.F, subsample.F, layers.F, frontend.F
             self.replay, self.calls = replay, 0
-            assigner.F = subsample.F = layers.F = self.functional
+            assigner.F = subsample.F = layers.F = frontend.F = self.functional
             try:
                 yield
             finally:
-                assigner.F, subsample.F, layers.F = saved
+                assigner.F, subsample.F, layers.F, frontend.F = saved
 
         return patch()
 
 
-def grad_errs(got, want):
-    """-> (worst error of a parameter's gradient over its largest
-    magnitude, the parameter); a k-projection bias, whose true gradient
-    is 0, against its weight's."""
-    worst, worst_name = 0.0, None
+def param_errs(got, want) -> dict:
+    """{parameter: error of its gradient over its largest magnitude}; a
+    k-projection bias, whose true gradient is 0, against its weight's."""
+    out = {}
     for name, w in want.items():
         ref = want[name[: -len("bias")] + "weight"] if name.endswith(".k.bias") else w
-        rel = max_err(got[name], w) / max(float(ref.abs().max()), 1e-30)
+        out[name] = max_err(got[name], w) / max(float(ref.abs().max()), 1e-30)
+    return out
+
+
+def grad_errs(got, want):
+    """-> (worst error of a parameter's gradient over its largest
+    magnitude, the parameter), as `param_errs` measures them."""
+    worst, worst_name = 0.0, None
+    for name, rel in param_errs(got, want).items():
         if not rel <= worst:
             worst, worst_name = rel, name
     return worst, worst_name
@@ -4374,6 +4404,462 @@ def phase_streaming_online(wtest_json, wtest, launches) -> dict:
     return {"ticks": n_ticks, "enc_err": err, "launches": n}
 
 
+# --------------------------------------------------------------- wave path
+
+WAV2VEC_YAML = os.path.join(ROOT, "egs", "wav2vec", "configs", "wav2vec_ctc.yaml")
+CPC_YAML = os.path.join(ROOT, "egs", "libri", "configs", "cpc_pretrain.yaml")
+GRU_CTC_YAML = os.path.join(ROOT, "egs", "libri", "configs", "gru_ctc_finetune.yaml")
+WAVE_FREEZE = 2            # wav2vec's freeze_finetune_updates, cut from 10000
+WAVE_STEPS = 3             # optimizer steps of each wave-path training run
+# Adam's first update from zero moments at count 3 moves each weight of
+# a large gradient by lr * (0.1 / (1 - 0.9^3)) / sqrt(0.001 / (1 - 0.999^3))
+FIRST_STEP_AT_3 = (0.1 / (1 - 0.9 ** 3)) / (0.001 / (1 - 0.999 ** 3)) ** 0.5
+TOL_WAVE_CPU = 1e-3        # wav2vec f32 logits and gradients, card vs CPU
+TOL_WAVE_LOSS = 1e-4       # CPC and GRU-CTC losses, card vs CPU, of their scale
+
+
+def conv_frames(n: int) -> int:
+    """WavConv's output frames for n padded samples."""
+    from openasr_torch.models.frontend import WavConv
+
+    for k, s, p in WavConv.LAYERS:
+        n = (n + 2 * p - k) // s + 1
+    return n
+
+
+def wave_config(yaml_path, exp, data, model=None, **training) -> str:
+    """A wave-path YAML with its model and training sections as they are,
+    but for this run's data, one epoch, a log line a batch and the given
+    changes."""
+    import yaml
+
+    with open(yaml_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(data, fetchworker_num=2)
+    cfg["training"].update(exp_dir=exp, num_epoch=1, print_inteval=1, **training)
+    for section, change in (model or {}).items():
+        cfg["model"][section].update(change)
+    os.makedirs(exp, exist_ok=True)
+    path = os.path.join(exp, "train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def wav2vec_launches(module) -> dict:
+    """Launches of a wav2vec micro-batch (each LayerNorm forward and
+    backward, each attention's dropout forward and its three backward
+    kernels) and of a deterministic forward (a dev batch, a decode batch)."""
+    n_ln, n_attn = count_layer_norms(module), count_attention(module)
+    return {"step": {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+                     "flash_attention_fwd_dropout": n_attn, "flash_bwd_stats": n_attn,
+                     "flash_attention_bwd_dkv": n_attn, "flash_attention_bwd_dq": n_attn},
+            "forward": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn}}
+
+
+def wave_train_run(tag, argv, main, launches, per=None) -> dict:
+    """One training CLI run on the card between counter reads: finite
+    losses, WAVE_STEPS optimizer steps, and exactly `per`'s launches a
+    micro-batch and a dev forward (the dev pass and the CTC solver's
+    sample decode of its first batch), or none at all."""
+    from openasr_torch.utils.checkpoint import load_package
+
+    exp = os.path.dirname(argv[0])
+    reset_counters()
+    t0 = time.time()
+    main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    rows = read_metrics(exp)
+    tr = [r for r in rows if r["phase"] == "train"]
+    cv = [r for r in rows if r["phase"] == "cv"]
+    pkg = load_package(os.path.join(exp, "last.pkg"))
+    losses = {k: [round(r[k], 4) for r in tr] for k in tr[-1] if k.endswith(("loss", "acc"))}
+    print(f"[wave path] {tag}: {len(tr)} micro-batches, {pkg['solver_state']['step']} steps, "
+          f"{len(cv)} dev batch(es) in {wall:.2f}s wall; {losses}; launches {n}")
+    require(pkg["solver_state"]["step"] == WAVE_STEPS and len(cv) >= 1,
+            f"{tag}: {pkg['solver_state']['step']} steps, {len(cv)} dev batches")
+    require(all(np.isfinite(v) for r in rows for k, v in r.items() if k.endswith("loss")),
+            f"{tag}: a non-finite loss")
+    want = {k: 0 for k in n}
+    if per is not None:
+        for k, c in per["step"].items():
+            want[k] += c * len(tr)
+        for k, c in per["forward"].items():
+            want[k] += c * (len(cv) + 1)
+    require(n == want, f"{tag}: launches {n} != {want}")
+    launches[("wave train", tag)] = {"total": n, "micro_batches": len(tr), "dev_batches": len(cv),
+                                     "per_step": None if per is None else per["step"],
+                                     "wall": wall}
+    return {"exp": exp, "pkg": os.path.join(exp, "last.pkg"), "wall": wall,
+            "micro_batches": len(tr)}
+
+
+def wave_decode(tag, argv, n_utts, per_batch, launches) -> dict:
+    """One infer CLI run on wave manifests between counter reads: a hyp
+    line an utterance and `per_batch` launches a decode batch."""
+    from openasr_torch.bin import infer
+
+    reset_counters()
+    t0 = time.time()
+    infer.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    with open(argv[argv.index("--output") + 1], encoding="utf-8") as f:
+        lines = [line for line in f if line.strip()]
+    batches = (n["layer_norm_fwd"] // per_batch["layer_norm_fwd"]
+               if per_batch.get("layer_norm_fwd") else None)
+    print(f"[wave path] decode {tag}: {len(lines)} hyps in {wall:.2f}s wall; launches {n}")
+    require(len(lines) == n_utts, f"{tag}: {len(lines)} hyp lines for {n_utts} utterances")
+    want = {k: per_batch.get(k, 0) * (batches or 0) for k in n}
+    require(n == want and (batches is None or batches > 0), f"{tag}: launches {n} != {want}")
+    launches[("wave decode", tag)] = n
+    return {"wall": wall, "batches": batches}
+
+
+def wave_batch(waves, utts, rng, n_tokens=(12, 9), vocab_size=4233):
+    """The utterances' waves padded as the collate pads them, and CTC
+    targets."""
+    from openasr_torch.data.collate import gen_causal_targets, quantize
+
+    lengths = np.array([waves[u].shape[0] for u in utts], np.int32)
+    x = np.zeros((len(utts), quantize(int(lengths.max()))), np.float32)
+    for i, u in enumerate(utts):
+        x[i, : lengths[i]] = waves[u]
+    toks = [list(rng.randint(3, vocab_size - 1, size=n)) for n in n_tokens[: len(utts)]]
+    ids, labels, paddings = gen_causal_targets(toks, add_eos=False)
+    return {"waves": x, "wave_lengths": lengths, "ids": ids.astype(np.int64),
+            "labels": labels, "paddings": paddings}
+
+
+def check_wav2vec_against_cpu(pkg_path, waves) -> dict:
+    """The f32 wav2vec model (wav2vec_ctc.yaml at full width, dropout off)
+    on the card against the CPU, TF32 off, on the two shortest utterances
+    (at most 1 s of each): the logits of the deterministic forward
+    (running statistics), 1e-3 of their largest magnitude; and one
+    training forward's gradients (the batch's statistics), against the
+    same model in float64 on the CPU: each parameter's error (of its
+    largest gradient; a k-projection bias of its weight's) within
+    TOL_WAVE_CPU of the CPU f32 run's own error there.  Through WavConv's
+    BatchNorms the f32 gradient of the frontend is ill-conditioned on
+    such batches (a quiet stretch and padding): the CPU's own f32 run is
+    a few percent off float64 there, so the card is held to the CPU's
+    accuracy rather than to its f32 rounding.  The CPU runs take the
+    card's ReLU decisions (`ReluMasks`, WavConv's ReLUs), their flips
+    bounded as rounding ties."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.layers import TrainRNG
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pkg = load_package(pkg_path)["model"]
+    cfg = Config(pkg["configs"])
+    cfg.encoder["dropout_rate"] = 0.0
+    utts = sorted(waves, key=lambda u: waves[u].shape[0])[:2]
+    batch = wave_batch({u: waves[u][:16000] for u in utts}, utts,
+                       np.random.RandomState(SEED + 21))
+    relus = ReluMasks()
+    logits, grads = {}, {}
+    for tag, device, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                               ("cpu f64", "cpu", torch.float64)):
+        model = get_model_class("wav2vec_ctc").create_model(cfg, device=device)
+        model.restore(pkg)
+        model.module.to(dtype)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        tb["waves"] = tb["waves"].to(dtype)
+        if dtype == torch.float32:
+            logits[tag] = model.get_logits(tb["waves"], tb["wave_lengths"])[0].cpu()
+        with relus.installed(tag != "cuda"):
+            losses = model.loss(tb, TrainRNG(0, device))
+        (losses["ctc_loss"] / losses["n_seqs"]).backward()
+        grads[tag] = {n: p.grad.detach().cpu().double()
+                      for n, p in model.module.named_parameters()}
+    scale = float(logits["cpu"].abs().max())
+    e_logits = max_err(logits["cuda"], logits["cpu"]) / scale
+    direct, direct_name = grad_errs(grads["cuda"], grads["cpu"])
+    card = param_errs(grads["cuda"], grads["cpu f64"])
+    cpu = param_errs(grads["cpu"], grads["cpu f64"])
+    card_err, cpu_err = max(card.values()), max(cpu.values())
+    margin_name = max(card, key=lambda n: card[n] - cpu[n])
+    margin = card[margin_name] - cpu[margin_name]
+    flip_abs = max((f["flip_abs_rel"] for f in relus.flipped), default=0.0)
+    print(f"[wave check] wav2vec f32 card vs CPU, {len(utts)} utts "
+          f"{batch['waves'].shape}: logits err {e_logits:.3g} of their max abs (tol "
+          f"{TOL_WAVE_CPU}); one training forward's gradients, {len(grads['cpu'])} parameters, "
+          f"against float64 on the CPU: the card's worst {card_err:.3g}, the CPU f32 run's "
+          f"worst {cpu_err:.3g}, the card's largest excess over the CPU's {margin:.3g} "
+          f"({margin_name}; tol {TOL_WAVE_CPU}); card vs CPU f32 directly {direct:.3g} "
+          f"({direct_name}); {relus.flips} ReLU inputs flipped, the largest |x| at a flip "
+          f"{flip_abs:.3g} of its call's largest")
+    require(bool(torch.isfinite(logits["cuda"]).all()), "non-finite wav2vec logits on the card")
+    require(e_logits <= TOL_WAVE_CPU, "wav2vec logits: card and CPU disagree")
+    require(relus.flips <= CIF_RELU_MAX_FLIPS and flip_abs <= CIF_RELU_TIE,
+            f"{relus.flips} WavConv ReLU flips, the largest at {flip_abs:.3g}: not rounding ties")
+    require(margin <= TOL_WAVE_CPU,
+            f"wav2vec gradient of {margin_name}: the card {margin:.3g} farther from float64 "
+            "than the CPU's f32 run")
+    return {"logits_err": e_logits, "grad_err": card_err, "grad_err_cpu": cpu_err,
+            "grad_excess": margin, "grad_err_direct": direct, "relu_flips": relus.flips}
+
+
+def check_cpc_gru_against_cpu(cpc_pkg, gru_pkg, waves) -> dict:
+    """The CPC loss (a training forward: the batch's statistics) at a fixed
+    anchor and negatives, and the GRU-CTC CTC loss (deterministic), f32 on
+    the card against the CPU on one batch (the three shortest utterances,
+    at most 1.5 s of each), TF32 off: each within TOL_WAVE_LOSS of its
+    scale."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.cpc import draw_anchor
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    utts = sorted(waves, key=lambda u: waves[u].shape[0])[:3]
+    batch = wave_batch({u: waves[u][:24000] for u in utts}, utts,
+                       np.random.RandomState(SEED + 22), (20, 15, 10))
+    out = {}
+    for tag, path in (("cpc", cpc_pkg), ("gru_ctc", gru_pkg)):
+        pkg = load_package(path)["model"]
+        got = {}
+        for device in ("cuda", "cpu"):
+            model = get_model_class(pkg["model_type"]).create_model(Config(pkg["configs"]),
+                                                                   device=device)
+            model.restore(pkg)
+            tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            with torch.no_grad():
+                if tag == "cpc":
+                    t, neg = draw_anchor(tb["wave_lengths"].cpu(), model.module.n_steps,
+                                         len(utts), torch.Generator().manual_seed(SEED))
+                    acc, loss = model.module(tb["waves"], tb["wave_lengths"], t.to(device),
+                                             neg.to(device), train=True)
+                    got[device] = (float(loss), float(acc))
+                else:
+                    got[device] = (float(model.loss(tb)["ctc_loss"]), 0.0)
+        err = abs(got["cuda"][0] - got["cpu"][0]) / max(abs(got["cpu"][0]), 1.0)
+        print(f"[wave check] {tag} loss f32 card {got['cuda'][0]:.6f} vs CPU "
+              f"{got['cpu'][0]:.6f}: err {err:.3g} of its scale (tol {TOL_WAVE_LOSS})"
+              + (f"; acc {got['cuda'][1]:.4f} vs {got['cpu'][1]:.4f}" if tag == "cpc" else ""))
+        require(np.isfinite(got["cuda"][0]) and err <= TOL_WAVE_LOSS,
+                f"{tag} loss: card and CPU disagree")
+        out[tag] = err
+    return out
+
+
+def wave_train_shape(train_json) -> dict:
+    """The wav2vec training path's largest batch by attention work (B T'^2):
+    B, T' (WavConv frames of the padded samples) and the frame counts."""
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.data.manifest import SpeechDataset
+    from openasr_torch.data.sampler import TimeBasedSampler
+
+    ds = SpeechDataset(train_json, feat_range=(4000, 480000), label_range=(1, 100))
+    best = None
+    for batch in TimeBasedSampler(ds, 1600000).batches:
+        lens = np.array([ds[i]["feat_length"] for i in batch])
+        t = conv_frames(quantize(int(lens.max())))
+        if best is None or len(batch) * t * t > best["b"] * best["t"] ** 2:
+            best = {"b": len(batch), "t": t, "enc_lens": lens // 160}
+    return best
+
+
+def phase_wave(vocab, chars, launches) -> dict:
+    """The raw-wave families on the card (`[wave path]`, see the module
+    docstring); counters reset just before each run and read just after."""
+    import yaml
+
+    from openasr_torch.bin import train, train_cpc
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.ops.schedules import get_schedule
+    from openasr_torch.utils.checkpoint import load_package
+
+    rng = np.random.RandomState(SEED + 20)
+    # 6 micro-batches of batch_time 1600000 (3 steps at accumulate_grad_batch
+    # 2), the last two holding the three utterances of 25-30 s (T' >= 2500)
+    lengths = np.concatenate([rng.randint(400000, 480001, 3), rng.randint(120000, 300001, 34),
+                              rng.randint(4000, 60001, 8)])
+    train_json, train_waves = write_wave_corpus("w2vtrain", rng, chars, len(lengths), None,
+                                                (5, 20), lengths=lengths)
+    dev_json, _ = write_wave_corpus("w2vdev", rng, chars, 4, (4000, 160000), (5, 20))
+    test_json, test_waves = write_wave_corpus("w2vtest", rng, chars, 8, (4000, 480000),
+                                              (5, 20))
+    require(sum(int(n) >= 400000 for n in lengths) >= 3, "fewer than 3 utterances of T' >= 2500")
+    with open(WAV2VEC_YAML) as f:
+        w2v_cfg = yaml.safe_load(f)["model"]
+    w2v_cfg["decoder"]["vocab_size"] = 4233
+    w2v_cfg["encoder"]["freeze_finetune_updates"] = WAVE_FREEZE
+    with torch.device("meta"):
+        per = wav2vec_launches(get_model_class("wav2vec_ctc").build_module(Config(w2v_cfg)))
+    print(f"[wave path] wav2vec_ctc.yaml at full width; cuts: {WAVE_STEPS} optimizer steps "
+          f"(one epoch of 6 micro-batches, accumulate_grad_batch 2), freeze_finetune_updates "
+          f"10000 -> {WAVE_FREEZE}; {len(lengths)} train utterances of "
+          f"{int(lengths.min())}-{int(lengths.max())} samples; launches a micro-batch "
+          f"{per['step']}, a forward {per['forward']}")
+    data = {"trainset": train_json, "devset": dev_json, "vocab_path": vocab}
+    runs = {}
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        cfg = wave_config(WAV2VEC_YAML, os.path.join(WORK, f"exp_w2v_{name}"), data,
+                          {"encoder": {"freeze_finetune_updates": WAVE_FREEZE}},
+                          compute_dtype=name)
+        runs[name] = wave_train_run(f"wav2vec {name}", [cfg], train.main, launches, per)
+
+    # the gate: the encoder moved in step 3 alone, fc in every step
+    pkg = load_package(runs["float32"]["pkg"])
+    state = pkg["optim_state"]
+    require(state["gate_count"] == state["count"] == WAVE_STEPS,
+            f"gate count {state['gate_count']}, Adam count {state['count']}")
+    init = get_model_class("wav2vec_ctc").create_model(
+        pkg["model"]["configs"], device="cpu",
+        generator=torch.Generator().manual_seed(0)).package()["components"]
+    # the lr of the update that takes Adam's count from 2 to 3
+    solver_cfg = pkg["solver_config"]
+    lr = float(solver_cfg["init_lr"]) * float(get_schedule(solver_cfg["lr_scheduler"])(WAVE_STEPS))
+    # weights below 1/16 in magnitude: their f32 spacing (<= 3.8e-9) is
+    # fine against the step (about 1.2e-7)
+    moved = {k: largest_move(pkg["model"]["components"][k], init[k], 1 / 16)
+             for k in ("encoder", "fc")}
+    ratio = moved["encoder"] / (lr * FIRST_STEP_AT_3)
+    print(f"[wave path] freeze gate: gate count {state['gate_count']}; the encoder's largest "
+          f"move {moved['encoder']:.4g} = {ratio:.3f} x one first Adam step at count 3 "
+          f"(lr {lr:.4g}; a move in steps 1-3 would be about 1.6 x), fc's {moved['fc']:.4g}")
+    require(0.9 <= ratio <= 1.1, "the encoder did not move by exactly one first Adam step: "
+            "it moved before the gate opened, or not at step 3")
+
+    n_test = len(test_waves)
+    decodes = {}
+    base = ["--model_type", "wav2vec_ctc", "--model_pkg", runs["float32"]["pkg"],
+            "--vocab_path", vocab, "--json_file", test_json, "--add_blk",
+            "--batch_frames", "1600000"]
+    for tag, extra in (("greedy", []), (f"device beam {CTC_BEAM}",
+                                        ["--ctc_beam", str(CTC_BEAM), "--ctc_beam_device"])):
+        hyp = os.path.join(WORK, f"hyp_w2v_{tag.replace(' ', '_')}.txt")
+        decodes[tag] = wave_decode(f"wav2vec {tag}", base + extra + ["--output", hyp],
+                                   n_test, per["forward"], launches)
+    check = check_wav2vec_against_cpu(runs["float32"]["pkg"], train_waves)
+
+    # CPC -> GRU-CTC: 3 batches of 1600000 for CPC, 3 of 800000 for GRU-CTC
+    rng = np.random.RandomState(SEED + 21)
+    cpc_lengths = rng.randint(20000, 240001, 34)
+    cpc_json, _ = write_wave_corpus("cpctrain", rng, chars, len(cpc_lengths), None, (5, 30),
+                                    lengths=cpc_lengths)
+    with open(cpc_json, encoding="utf-8") as f:
+        rows = json.load(f)
+    gru_json = os.path.join(WORK, "grutrain.json")
+    with open(gru_json, "w", encoding="utf-8") as f:
+        json.dump(rows[:17], f, ensure_ascii=False)
+    cpc_dev, _ = write_wave_corpus("cpcdev", rng, chars, 4, (20000, 240000), (5, 30))
+    cpc_test, cpc_waves = write_wave_corpus("cpctest", rng, chars, 8, (20000, 240000), (5, 30))
+    cpc_cfg = wave_config(CPC_YAML, os.path.join(WORK, "exp_cpc"),
+                          {"trainset": cpc_json, "devset": cpc_dev})
+    cpc = wave_train_run("cpc pretrain", [cpc_cfg, "--type", "pretrain"], train_cpc.main,
+                         launches)
+    gru_cfg = wave_config(GRU_CTC_YAML, os.path.join(WORK, "exp_gru"),
+                          {"trainset": gru_json, "devset": cpc_dev, "vocab_path": vocab},
+                          load_splayer=cpc["pkg"])
+    gru = wave_train_run("gru_ctc finetune", [gru_cfg, "--type", "finetune"], train_cpc.main,
+                         launches)
+    before = load_package(cpc["pkg"])["model"]["components"]["splayer"]
+    after = load_package(gru["pkg"])["model"]["components"]["splayer"]
+    same = largest_move(after, before) == 0.0
+    print(f"[wave path] gru_ctc's splayer after {WAVE_STEPS} finetune steps equals the CPC "
+          f"package's: {same}")
+    require(same, "the frozen splayer changed in the finetune")
+    for tag, extra in (("greedy", []), (f"host beam {CTC_BEAM}", ["--ctc_beam", str(CTC_BEAM)])):
+        hyp = os.path.join(WORK, f"hyp_gru_{tag.replace(' ', '_')}.txt")
+        decodes[f"gru_ctc {tag}"] = wave_decode(
+            f"gru_ctc {tag}", ["--model_type", "gru_ctc", "--model_pkg", gru["pkg"],
+                               "--vocab_path", vocab, "--json_file", cpc_test, "--add_blk",
+                               "--batch_frames", "800000", "--output", hyp] + extra,
+            len(cpc_waves), {}, launches)
+    losses = check_cpc_gru_against_cpu(cpc["pkg"], gru["pkg"], cpc_waves)
+    return {"runs": runs, "cpc": cpc, "gru": gru, "decodes": decodes, "check": check,
+            "losses": losses, "train_json": train_json, "per": per, "gate_ratio": ratio}
+
+
+def largest_move(after, before, below=None) -> float:
+    """The largest |after - before| over two trees' leaves (only where
+    |before| < `below`, when given)."""
+    old = dict(leaves(before))
+    out = 0.0
+    for name, a in leaves(after):
+        d = np.abs(a.astype(np.float64) - old[name])
+        if below is not None:
+            d = d[np.abs(old[name]) < below]
+        if d.size:
+            out = max(out, float(d.max()))
+    return out
+
+
+def wave_rows(wave, errs, launches):
+    """Rows 4w and 5+6w: the attention forward (dropout 0.1) and the whole
+    backward at the wav2vec training run's largest batch [B, T' up to
+    3000, 8, 64] with its key lengths, each held to its plain version
+    there and timed beside SDPA with the same key-length mask; the
+    LayerNorm forward and backward at its rows; their launches from the
+    run."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+    )
+
+    shape = wave_train_shape(wave["train_json"])
+    b, t, lens = shape["b"], shape["t"], shape["enc_lens"]
+    print(f"[wave rows] the wav2vec training path's largest batch: B {b}, T' {t}, frames "
+          f"{lens.tolist()}")
+    require(t >= 2500, f"the largest wav2vec batch has T' {t} < 2500")
+    rng = np.random.RandomState(SEED + 23)
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        tr = launches[("wave train", f"wav2vec {name}")]
+        common = {"launches_per_micro_batch": tr["per_step"]["flash_attention_fwd_dropout"]}
+        row = attention_fwd_row(b, 8, 64, t, t, False, lens, dtype, rng, errs, DROPOUT)
+        rows.append({"name": f"flash_attention_fwd_dropout_wav2vec[{name}]", **row, **common,
+                     "launches": tr["total"]["flash_attention_fwd_dropout"],
+                     "launches_are": "dropout forward calls of the wav2vec training run",
+                     "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, its own "
+                                   "Philox mask, a bool key-padding mask)",
+                     "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+                     "tol": TOL_FLASH[dtype]})
+        at = attention_bwd_times(b, 8, 64, t, t, False, lens, dtype, rng, cold=False)
+        args = at["kernel_args"][:6] + at["kernel_args"][7:]
+        got, want = flash_attention_bwd(*args), flash_attention_bwd_reference(*args)
+        err = (0.0, 0.0)
+        for g, w in zip(got, want):
+            e, scale = scaled_err(g, w)
+            err = (max(err[0], e), max(err[1], e / scale))
+        del got, want
+        torch.cuda.empty_cache()
+        print(f"[wave rows] flash backward {name} [{b}, {t}, {t}, 8, 64] with key lengths, "
+              f"dropout 0.1: err {err[0]:.3g}, scaled {err[1]:.3g} (tol {TOL_FLASH_BWD[dtype]})")
+        require(err[1] <= TOL_FLASH_BWD[dtype], "the backward disagrees at the wav2vec shape")
+        rows.append({
+            "name": f"flash_attention_bwd_wav2vec[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327)",
+            "shape": at["shape"], **common,
+            "launches": tr["total"]["flash_attention_bwd_dkv"],
+            "launches_are": "backward calls of the wav2vec training run, each launching "
+                            "statistics, dK/dV and dQ once",
+            **bwd_errs(err, TOL_FLASH_BWD[dtype]),
+            **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")},
+            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
+                          "mask) forward + backward minus forward (graph replay)",
+        })
+        del at
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ----------------------------------------------------------- serving path
 #
 # Each artifact kind is exported, served and timed by a worker process of
@@ -4933,10 +5419,13 @@ def main() -> int:
             launches)
         stream["online"] = phase_streaming_online(wtest_json, wtest, launches)
         print(f"[time] streaming path done at {time.time() - t_start:.1f}s")
+        wave = phase_wave(vocab, chars, launches)
+        print(f"[time] wave path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
-                + streaming_rows(stream, errs, launches))
+                + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches))
+        print(f"[time] kernel rows done at {time.time() - t_start:.1f}s")
         # last: its workers' timed turns share the machine with nothing else
         serve = phase_serving(serve_job(
             pkg, ctc_pkg, lm["runs"]["transformer_lm float32"]["pkg"], stream["pkg"], vocab,
@@ -4987,6 +5476,18 @@ def main() -> int:
           f"encoder {stream['online']['enc_err']:.3g}; training gradients card vs CPU "
           f"{stream['grad_err']:.3g}; launches a training step "
           f"{launches[('streaming train', torch.float32)]['per_step']}")
+    print("[wave path] " + "; ".join(
+        f"wav2vec {k}: {r['micro_batches']} micro-batches in {r['wall']:.2f}s wall"
+        for k, r in wave["runs"].items())
+        + f"; cpc {wave['cpc']['wall']:.2f}s, gru_ctc {wave['gru']['wall']:.2f}s wall "
+          f"({WAVE_STEPS} steps each); decodes "
+        + ", ".join(f"{k} {r['wall']:.2f}s" for k, r in wave["decodes"].items())
+        + f"; card vs CPU: wav2vec logits {wave['check']['logits_err']:.3g}, gradients vs "
+          f"float64 {wave['check']['grad_err']:.3g} (the CPU f32's "
+          f"{wave['check']['grad_err_cpu']:.3g}), cpc loss {wave['losses']['cpc']:.3g}, gru_ctc "
+          f"loss {wave['losses']['gru_ctc']:.3g}; freeze gate move ratio "
+          f"{wave['gate_ratio']:.3f}; launches a wav2vec micro-batch {wave['per']['step']}, "
+          f"a forward {wave['per']['forward']}; cpc and gru_ctc none")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

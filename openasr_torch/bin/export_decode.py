@@ -82,6 +82,10 @@ def get_args(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = get_args(argv)
+    if args.model_type.lower().replace("-", "_") in ("gru_ctc", "wav2vec_ctc"):
+        raise SystemExit(
+            f"--model_type {args.model_type}: exporting the raw-wave families (WavConv "
+            "and the GRU in a traced program) is still to come, ROADMAP queue 1 item 13a")
     device = resolve_device(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.compute_dtype]
     platforms = tuple(args.platforms.split(","))

@@ -12,9 +12,10 @@ each utterance a batch of its own), it decodes
   * CIF / ctc_cif with the CIF beam (`--maxlen` steps, each a full
     forward of the CIF decoder, no EOS finishing; each hypothesis cut to
     its utterance's CIF length);
-  * conv-ctc greedily (`--ctc_beam 0`), with the native host prefix beam
-    (`--ctc_beam N`), or with the prefix beam on the device
-    (`--ctc_beam N --ctc_beam_device`);
+  * the CTC families, conv-ctc and (on wave manifests, through their
+    WavConv) gru_ctc and wav2vec_ctc, greedily (`--ctc_beam 0`), with the
+    native host prefix beam (`--ctc_beam N`), or with the prefix beam on
+    the device (`--ctc_beam N --ctc_beam_device`);
 
 and biases the attention or CIF beam or the device CTC beam toward the
 phrases of `--context_file`.  `--lm_pkg` with `--lm_weight` != 0 fuses an
@@ -57,7 +58,7 @@ from openasr_torch.utils.checkpoint import load_package
 
 ATTENTION_BEAM_TYPES = ("conv_transformer", "conv_ctc_transformer", "cif", "ctc_cif")
 CTC_TYPES = ("conv_ctc", "gru_ctc", "wav2vec_ctc")
-PORTED_TYPES = ATTENTION_BEAM_TYPES + ("conv_ctc",)
+PORTED_TYPES = ATTENTION_BEAM_TYPES + CTC_TYPES
 
 
 def get_args(argv=None):
@@ -132,9 +133,9 @@ def check_ported(args) -> None:
     if args.model_type.lower().replace("-", "_") not in PORTED_TYPES:
         raise SystemExit(
             f"--model_type {args.model_type}: conv-transformer, conv-ctc-transformer, "
-            "conv-ctc, CIF and ctc_cif decode in the port so far (CIF_FC and CIF_MIX "
-            "have no beam); the other families are ROADMAP queue 1 item 13 (GRU-CTC, "
-            "wav2vec, text)"
+            "conv-ctc, gru_ctc, wav2vec_ctc, CIF and ctc_cif decode in the port so far "
+            "(CIF_FC and CIF_MIX have no beam); the text families are ROADMAP queue 1 "
+            "item 13b (Embed_Decoder, Embed_Decoder_CTC)"
         )
     if args.lm_pkg and args.lm_weight != 0.0 and is_ctc and not (
             args.ctc_beam > 0 and args.ctc_beam_device):

@@ -7,7 +7,9 @@ output layers stay fresh, init_lr * 0.1).  It trains conv-ctc-transformer,
 conv-transformer, conv-ctc, CIF and ctc_cif on offline features
 (`signal.feature_type: offline`, batches of `training.batch_frames`
 frames) or on raw waves through the fbank frontend (`feature_type:
-fbank`, batches of `training.batch_time` samples), and the phone-level
+fbank`, batches of `training.batch_time` samples), the raw-wave
+wav2vec_ctc and gru_ctc (`feature_type: wave`, batches of
+`training.batch_time` samples, no sample-rate check), and the phone-level
 CIF_FC and CIF_MIX on offline features with phone targets (`vocab_phone`,
 else `vocab_path`, tokenizes them; CIF_MIX adds paired char targets and
 zips `data.acousticset`'s acoustic batches beside them), on the card by
@@ -39,7 +41,7 @@ from openasr_torch.data.loader import DataLoader
 from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer
-from openasr_torch.models import get_model_class
+from openasr_torch.models import UNPORTED_MODEL_TYPES, get_model_class
 from openasr_torch.solvers import DTYPES, get_solver_class
 from openasr_torch.utils.checkpoint import load_package
 
@@ -90,8 +92,11 @@ def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_
     else:
         dataset, sampler = SpeechDataset, TimeBasedSampler
         budget = int(trainingconfig["batch_time"])
+        # the fbank geometry comes from signal.sample_rate; the raw-wave
+        # encoders take any rate, as in the JAX package
         collate = WaveCollate(tokenizer, add_eos, label_type,
-                              expected_rate=signal.get("sample_rate", 16000))
+                              expected_rate=signal.get("sample_rate", 16000)
+                              if signal["feature_type"] == "fbank" else None)
     train_set = dataset(dataconfig["trainset"], feat_range=feat_range,
                         label_range=label_range)
     valid_set = dataset(dataconfig["devset"], reverse=True)
@@ -110,18 +115,20 @@ def check_ported(args, config) -> None:
             "sequence and pipeline parallelism and multi-host training are "
             "ROADMAP queue 1 item 15 (multi-device)"
         )
+    if _norm_type(config["model"]) in UNPORTED_MODEL_TYPES:
+        raise SystemExit(
+            f"model type {config['model']['type']!r}: the text families (Embed_Decoder, "
+            "Embed_Decoder_CTC, the GAN) are ROADMAP queue 1 item "
+            f"{UNPORTED_MODEL_TYPES[_norm_type(config['model'])]}"
+        )
     sig = config["model"].get("signal") or {}
     if _norm_type(config["model"]) in PHONE_TYPES:
         offline = True  # features and phones; no wave frontend
     elif "feature_type" not in sig:
         raise ValueError(
             "config: model.signal.feature_type is required ('offline' for "
-            "precomputed features, 'fbank' for the online wave frontend)"
-        )
-    elif sig["feature_type"] in ("wave", "wav_conv"):
-        raise SystemExit(
-            f"signal.feature_type {sig['feature_type']!r}: the raw-wave encoders "
-            "(WavConv, GRU-CTC, CPC, wav2vec) are ROADMAP queue 1 item 13"
+            "precomputed features, 'fbank' for the online wave frontend, "
+            "'wave' for the raw-wave encoders)"
         )
     else:
         offline = sig["feature_type"] == "offline"

@@ -24,6 +24,14 @@ from the config (`models/lm.py:lm_components`); the LSTM cells' gate
 kernels `ii`...`ho` are Dense kernels, and the Transformer LM's
 attention heads are its own config's `nhead`.
 
+The raw-wave families add WavConv (`conv{i}` 1-D WIO kernels, `bn{i}`
+BatchNorm scale and bias, and in `batch_stats` its running `mean` and
+`var`, the port's buffers of those names) and the GRU: a flax GRUCell's
+`ir`, `iz`, `in` (kernel and bias), `hr`, `hz` (kernel) and `hn` (kernel
+and bias) are the port's `weight_ih` = [ir; iz; in] and `weight_hh` =
+[hr; hz; hn] (Linear layouts stacked by gate), `bias_ih` = [ir; iz; in]
+and `b_hn`.  CPC's components depend on its `n_steps` (`mappings_{k}`).
+
 The CIF families add the assigner (`conv{i}` 1-D WIO or 2-D HWIO,
 `linear`, and the 2-D variant's `affine`), the CIF decoder (`emb`,
 `input_affine`, `output_affine`, `layer{i}`), `phone_fc` and CIF_MIX's
@@ -34,20 +42,25 @@ Both directions are exact (pure transposes and reshapes).
 The optimizer states bridge the same way (`jax_optim_state_to_port`,
 `port_optim_state_to_jax`): their moments are elementwise in the weights,
 so each moment tree maps through the weights' own path mapping and
-layout transposes, and the counters carry over.
+layout transposes, and the counters carry over.  optax's `masked` (the
+`frozen_components` of GRU-CTC after `load_splayer`) holds no moments for
+the frozen leaves (`MaskedNode`), nor does the port's optimizer; the
+wav2vec `freeze_until` gate's step counter is the port's `gate_count`.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
 import torch
 
-from openasr_torch.ops.fused_adam import FusedClipAdamState
+from openasr_torch.ops.fused_adam import FusedClipAdamState, host_copy
 from openasr_torch.ops.optimizers import (
     ApplyIfFiniteState,
     EmptyState,
+    MaskedNode,
     MaskedState,
     ScaleByAdamState,
     ScaleByScheduleState,
@@ -62,6 +75,8 @@ COMPONENTS = {
     "ctc_cif": ("encoder", "assigner", "decoder", "ctc_fc"),
     "CIF_FC": ("encoder", "assigner", "ctc_fc", "phone_fc"),
     "CIF_MIX": ("encoder", "assigner", "char_decoder", "ctc_fc", "phone_fc"),
+    "gru_ctc": ("splayer", "encoder", "fc"),
+    "wav2vec_ctc": ("encoder", "fc"),
 }
 # the config section of a component's attention heads, where it is not
 # the component's own name
@@ -74,6 +89,11 @@ def _components_of(model_type: str, configs=None):
     # serving process bridges its checkpoints without them)
     if model_type in COMPONENTS:
         return COMPONENTS[model_type]
+    if model_type == "encoder_cpc":
+        if configs is None:
+            raise ValueError("the components of an encoder_cpc come from its config")
+        n_steps = int((configs.get("cpc") or configs.get("decoder") or {}).get("n_steps", 12))
+        return ("splayer", "rnn") + tuple(f"mappings_{k}" for k in range(n_steps))
     from openasr_torch.models.lm import LM_TYPES, lm_components
 
     if model_type not in LM_TYPES:
@@ -86,8 +106,45 @@ def _components_of(model_type: str, configs=None):
     return lm_components(model_type, configs)
 
 
+_BATCH_NORM = re.compile(r"bn\d+")
+_GRU = re.compile(r"gru\d+")
+_GRU_GATES = {"weight_ih": ("ir", "iz", "in"), "weight_hh": ("hr", "hz", "hn"),
+              "bias_ih": ("ir", "iz", "in")}
+
+
 def _is_norm(module_name: str) -> bool:
-    return module_name.startswith("norm") or module_name.endswith("_norm")
+    return (module_name.startswith("norm") or module_name.endswith("_norm")
+            or _BATCH_NORM.fullmatch(module_name) is not None)
+
+
+def is_batch_stat(key: str) -> bool:
+    """Whether a state_dict key is a BatchNorm running statistic (the
+    package's `batch_stats`, not its `components`)."""
+    path = key.split(".")
+    return (len(path) > 1 and path[-1] in ("mean", "var")
+            and _BATCH_NORM.fullmatch(path[-2]) is not None)
+
+
+def _gru_to_torch(cell: dict) -> Dict[str, np.ndarray]:
+    """A flax GRUCell's parameters -> the port's GRULayer's."""
+    def stack(leaf, key, transpose):
+        parts = [np.asarray(cell[g][key], np.float32) for g in _GRU_GATES[leaf]]
+        return np.concatenate([p.T for p in parts] if transpose else parts)
+
+    return {"weight_ih": stack("weight_ih", "kernel", True),
+            "weight_hh": stack("weight_hh", "kernel", True),
+            "bias_ih": stack("bias_ih", "bias", False),
+            "b_hn": np.asarray(cell["hn"]["bias"], np.float32)}
+
+
+def _gru_leaf_to_jax(node: dict, leaf: str, arr: np.ndarray) -> None:
+    """One GRULayer tensor into the flax GRUCell tree `node`."""
+    if leaf == "b_hn":
+        node.setdefault("hn", {})["bias"] = arr
+        return
+    for gate, part in zip(_GRU_GATES[leaf], np.split(arr, 3, axis=0)):
+        key = "bias" if leaf == "bias_ih" else "kernel"
+        node.setdefault(gate, {})[key] = np.ascontiguousarray(part if key == "bias" else part.T)
 
 
 def _in_attention(path) -> bool:
@@ -127,18 +184,33 @@ def jax_components_to_state_dict(model_type: str, components: dict,
             f"expected {sorted(expected)}"
         )
     state: Dict[str, torch.Tensor] = {}
-
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(v, path + (k,))
-            return
-        leaf, arr = _leaf_to_torch(path, np.asarray(tree, dtype=np.float32))
-        state[".".join(path[:-1] + (leaf,))] = torch.tensor(arr)
-
     for name in expected:
         if name in components:
-            walk(components[name], (name,))
+            _walk_to_torch(components[name], (name,), state)
+    return state
+
+
+def _walk_to_torch(tree, path, state: dict) -> None:
+    """The flax subtree at `path` into `state` (torch names and layouts)."""
+    if isinstance(tree, MaskedNode):  # optax.masked: no state for a frozen leaf
+        return
+    if isinstance(tree, dict) and path and _GRU.fullmatch(path[-1]) and "ir" in tree:
+        for leaf, arr in _gru_to_torch(tree).items():
+            state[".".join(path + (leaf,))] = torch.tensor(arr)
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _walk_to_torch(v, path + (k,), state)
+        return
+    leaf, arr = _leaf_to_torch(path, np.asarray(tree, dtype=np.float32))
+    state[".".join(path[:-1] + (leaf,))] = torch.tensor(arr)
+
+
+def subtree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+    """One flax subtree (a component, or a module inside one) -> the
+    state_dict of the matching torch submodule, keys relative to it."""
+    state: Dict[str, torch.Tensor] = {}
+    _walk_to_torch(tree, (), state)
     return state
 
 
@@ -156,8 +228,14 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
         path = key.split(".")
         if path[0] not in expected:
             raise ValueError(f"state_dict key {key!r} outside {expected}")
-        arr = tensor.detach().float().cpu().numpy()
+        arr = host_copy(tensor)
         leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
+        if _GRU.fullmatch(parent) and leaf in ("weight_ih", "weight_hh", "bias_ih", "b_hn"):
+            node = components
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            _gru_leaf_to_jax(node, leaf, arr)
+            continue
         attention = _in_attention(path)
         if attention:
             heads = lm_heads or int(configs[HEADS_SECTION.get(path[0], path[0])]["nhead"])
@@ -202,11 +280,15 @@ def _moments_to_jax(model_type: str, moments: dict, configs) -> dict:
 def jax_optim_state_to_port(model_type: str, state, configs=None) -> dict:
     """The JAX package's optimizer state (as `load_package` reads it) ->
     the port's optimizer `state_dict`: FusedClipAdamState -> `count`,
-    `notfinite`, `mu`, `nu`; optax's apply_if_finite(chain(clip, sgd |
-    adam)) -> `count`, `trace` or `mu` and `nu`, and apply_if_finite's
-    `notfinite` (its total_notfinite), `notfinite_count`, `last_finite`.
+    `notfinite`, `mu`, `nu`; optax's apply_if_finite(chain([freeze_until,]
+    [clip,] sgd | adam)) -> `count`, `trace` or `mu` and `nu`, the gate's
+    `gate_count`, and apply_if_finite's `notfinite` (its total_notfinite),
+    `notfinite_count`, `last_finite`; either inside optax's `masked`
+    (frozen components: their leaves are MaskedNodes and are left out).
     The moments come keyed by torch parameter name, in torch layouts,
-    f32; `configs` is needed for an LM (its depth)."""
+    f32; `configs` is needed for an LM (its depth) and CPC (its steps)."""
+    if isinstance(state, MaskedState):
+        state = state.inner_state
     if isinstance(state, FusedClipAdamState):
         return {
             "count": int(state.count),
@@ -221,12 +303,13 @@ def jax_optim_state_to_port(model_type: str, state, configs=None) -> dict:
                    last_finite=bool(state.last_finite))
         state = state.inner_state
     if isinstance(state, MaskedState):
-        raise NotImplementedError(
-            "the optimizer state masks frozen components, which only the "
-            "wav2vec family has (ROADMAP queue 1 item 13)"
-        )
-    # optax.chain([clip_by_global_norm,] sgd | adam): (EmptyState(), opt) or (opt,)
+        state = state.inner_state
+    # optax.chain([freeze_until,] [clip_by_global_norm,] sgd | adam):
+    # ({"count"}, EmptyState(), opt), (EmptyState(), opt) or (opt,)
     parts = [s for s in state if not isinstance(s, EmptyState)]
+    if parts and isinstance(parts[0], dict) and set(parts[0]) == {"count"}:
+        out["gate_count"] = int(parts[0]["count"])
+        parts = parts[1:]
     if len(parts) != 1 or len(parts[0]) != 2 or not isinstance(parts[0][1], ScaleByScheduleState):
         raise ValueError(f"unknown optimizer state layout: {state!r:.200}")
     inner, schedule = parts[0]
@@ -243,25 +326,43 @@ def jax_optim_state_to_port(model_type: str, state, configs=None) -> dict:
     return out
 
 
-def port_optim_state_to_jax(model_type: str, state: dict, configs, clip: bool):
+def _masked_nodes(tree):
+    if isinstance(tree, dict):
+        return {k: _masked_nodes(v) for k, v in tree.items()}
+    return MaskedNode()
+
+
+def port_optim_state_to_jax(model_type: str, state: dict, configs, clip: bool,
+                            frozen=None):
     """The inverse of `jax_optim_state_to_port`: the port's optimizer
     `state_dict` -> the JAX solver's state, in the port's NamedTuples of
     the same fields (the JAX solver restores a state by its leaves).
-    `clip`: the chain holds clip_by_global_norm (grad_max_norm > 0)."""
+    `clip`: the chain holds clip_by_global_norm (grad_max_norm > 0).
+    `frozen`: the JAX-layout trees of the frozen components ({name: tree},
+    as a package's `components` holds them), whose moments become
+    MaskedNodes inside optax's `masked`."""
+    masked = {} if frozen is None else _masked_nodes(frozen)
+
+    def moments(key):
+        return {**_moments_to_jax(model_type, state[key], configs), **masked}
+
+    def wrap(inner):
+        return inner if frozen is None else MaskedState(inner)
+
     count = np.asarray(state["count"], np.int32)
     if "notfinite" in state and "last_finite" not in state:
-        return FusedClipAdamState(
-            count, _moments_to_jax(model_type, state["mu"], configs),
-            _moments_to_jax(model_type, state["nu"], configs),
-            np.asarray(state["notfinite"], np.int32),
-        )
+        return wrap(FusedClipAdamState(count, moments("mu"), moments("nu"),
+                                       np.asarray(state["notfinite"], np.int32)))
     if "trace" in state:
-        inner = TraceState(_moments_to_jax(model_type, state["trace"], configs))
+        inner = TraceState(moments("trace"))
     else:
-        inner = ScaleByAdamState(count, _moments_to_jax(model_type, state["mu"], configs),
-                                 _moments_to_jax(model_type, state["nu"], configs))
-    opt = (inner, ScaleByScheduleState(count))
-    chain = (EmptyState(), opt) if clip else (opt,)
+        inner = ScaleByAdamState(count, moments("mu"), moments("nu"))
+    chain = ((inner, ScaleByScheduleState(count)),)
+    if clip:
+        chain = (EmptyState(),) + chain
+    if "gate_count" in state:
+        chain = ({"count": np.asarray(state["gate_count"], np.int32)},) + chain
+    chain = wrap(chain)
     if "last_finite" not in state:
         return chain
     return ApplyIfFiniteState(

@@ -1,6 +1,7 @@
 """Collates: sample dicts -> padded NumPy batches with quantized shapes.
 
-Counterpart of `FeatureCollate`, `WaveCollate`, `load_wave_batch` and the
+Counterpart of `FeatureCollate`, `WaveCollate`, `WaveOnlyCollate`,
+`load_wave_batch` and the
 phone collates of the CIF families (`PhoneCharCollate`, `FeatPhoneCollate`,
 `FeatPhoneCharCollate`) and the LMs' `TextCollate` in
 openasr_tpu/data/collate.py.  Padded
@@ -181,6 +182,23 @@ class WaveCollate:
             "ids": ids,
             "labels": labels,
             "paddings": paddings,
+        }
+
+
+class WaveOnlyCollate:
+    """Waves without labels (CPC pretraining): `uttids`, `waves`,
+    `wave_lengths`."""
+
+    def __init__(self, quantize_shapes=True):
+        self.quantize_shapes = quantize_shapes
+
+    def __call__(self, batch: List[dict]) -> Dict:
+        waves, wave_lengths = load_wave_batch([d["feat"] for d in batch],
+                                              self.quantize_shapes)
+        return {
+            "uttids": [d["uttid"] for d in batch],
+            "waves": waves,
+            "wave_lengths": wave_lengths,
         }
 
 

@@ -5,6 +5,7 @@ Counterpart of openasr_tpu/data/tokenizer.py: id 0 = <unk>, 1 = <sos>,
 field), and — with ``add_blk`` — a trailing <blk> as the LAST id, so the
 CTC blank is always ``vocab_size - 1``.  `load_context_phrases` reads a
 hotword file into the phrase table the biased beams take.
+`SubwordTokenizer` decodes BPE units (CPC finetuning's vocabulary).
 """
 
 from __future__ import annotations
@@ -65,6 +66,30 @@ class CharTokenizer:
 
     def unit_num(self) -> int:
         return len(self.id2unit)
+
+
+class SubwordTokenizer(CharTokenizer):
+    """BPE subword units: decoding rejoins the '@@' continuations
+    ('hel@@ lo' -> 'hello', also without `split_token`)."""
+
+    def decode(
+        self,
+        ids: Iterable[int],
+        split_token: bool = True,
+        remove_special_sym: bool = True,
+    ) -> str:
+        text = super().decode(ids, split_token, remove_special_sym)
+        return text.replace("@@ " if split_token else "@@", "")
+
+
+def build_tokenizer(vocab_path: str, add_blk: bool = False, kind: str = "char"):
+    """A `CharTokenizer` (`kind` "char") or a `SubwordTokenizer` ("subword"
+    or "bpe")."""
+    if kind == "char":
+        return CharTokenizer(vocab_path, add_blk=add_blk)
+    if kind in ("subword", "bpe"):
+        return SubwordTokenizer(vocab_path, add_blk=add_blk)
+    raise ValueError(f"Unknown tokenizer kind: {kind}")
 
 
 def load_context_phrases(tokenizer: CharTokenizer, path: str) -> np.ndarray:

@@ -40,20 +40,24 @@ def _normalize(name: str) -> str:
 
 # the JAX package's other model types, by their ROADMAP queue 1 item
 UNPORTED_MODEL_TYPES = {
-    "gru_ctc": 13, "wav2vec_ctc": 13, "encoder_cpc": 13, "cpc_model": 13,
-    "embed_decoder": 13, "embed_decoder_ctc": 13, "gan_phone2char": 13,
+    "embed_decoder": "13b", "embed_decoder_ctc": "13b", "gan_phone2char": "13b",
 }
+# other spellings of a model type
+_MODEL_ALIASES = {"cpc_model": "encoder_cpc"}
 
 
 def get_model_class(name: str) -> type:
     """Resolve a model type, case-insensitive over '-'/'_'."""
     import openasr_torch.models.cif  # noqa: F401  (fills the registry)
+    import openasr_torch.models.cpc  # noqa: F401
     import openasr_torch.models.lm  # noqa: F401
     import openasr_torch.models.speech  # noqa: F401
+    import openasr_torch.models.wav2vec  # noqa: F401
 
     by_norm = {_normalize(k): k for k in MODEL_REGISTRY}
-    if _normalize(name) in by_norm:
-        return MODEL_REGISTRY[by_norm[_normalize(name)]]
+    norm = _MODEL_ALIASES.get(_normalize(name), _normalize(name))
+    if norm in by_norm:
+        return MODEL_REGISTRY[by_norm[norm]]
     if _normalize(name) in UNPORTED_MODEL_TYPES:
         raise NotImplementedError(
             f"model type {name!r} is not ported yet: ROADMAP queue 1 item "
@@ -88,37 +92,53 @@ def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from `generator` (a CPU generator; no global
-    RNG) with the JAX package's initializers: LayerNorm scales 1, biases 0,
+    RNG) with the JAX package's initializers: LayerNorm and BatchNorm
+    scales 1, biases 0 (and BatchNorm's running mean 0 and variance 1),
     convolution kernels and layers marked `kernel_init = "lecun_normal"`
     flax's default lecun_normal (a normal truncated at two standard
-    deviations, variance 1 / fan_in), layers marked `"xavier_normal"` the
+    deviations, variance 1 / fan_in), `"kaiming_normal"` the same at
+    variance 2 / fan_in, layers marked `"xavier_normal"` the
     same truncated normal at variance 2 / (fan_in + fan_out), layers
     marked `"orthogonal"` flax's orthogonal init (the Q of a normal
-    matrix's QR, its columns' signs fixed by R's diagonal), other weights
-    Xavier-uniform."""
+    matrix's QR, its columns' signs fixed by R's diagonal), and
+    `"orthogonal_gates"` that per block of a gate-stacked weight, other
+    weights Xavier-uniform.  A module's `param_inits` marks its own
+    parameters by name."""
+    from openasr_torch.models.frontend import BatchNorm
     from openasr_torch.models.layers import LayerNorm
 
-    norms = {id(m.weight) for m in module.modules() if isinstance(m, LayerNorm)}
+    norms = {id(m.weight) for m in module.modules() if isinstance(m, (LayerNorm, BatchNorm))}
     inits = {id(m.weight): "lecun_normal" for m in module.modules()
              if isinstance(m, (nn.Conv1d, nn.Conv2d))}
     inits.update({id(m.weight): m.kernel_init for m in module.modules()
                   if getattr(m, "kernel_init", None)})
+    for m in module.modules():
+        inits.update({id(getattr(m, n)): kind for n, kind in getattr(m, "param_inits", {}).items()})
+
+    def orthogonal(rows, cols):
+        normal = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
+        q, r = torch.linalg.qr(normal)
+        q = q * torch.sign(torch.diagonal(r))
+        return q if rows >= cols else q.T
+
     with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                m.reset_running_stats()
         for name, p in module.named_parameters():
             if id(p) in norms:
                 p.fill_(1.0)
             elif name.endswith("bias") or p.dim() < 2:
                 p.zero_()
             elif inits.get(id(p)) == "orthogonal":
-                rows, cols = p.shape
-                normal = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
-                q, r = torch.linalg.qr(normal)
-                q = q * torch.sign(torch.diagonal(r))
-                p.copy_(q if rows >= cols else q.T)
+                p.copy_(orthogonal(*p.shape))
+            elif inits.get(id(p)) == "orthogonal_gates":
+                rows, cols = p.shape[0] // 3, p.shape[1]
+                p.copy_(torch.cat([orthogonal(rows, cols) for _ in range(3)]))
             elif id(p) in inits:
                 fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
-                var = (1.0 / fan_in if inits[id(p)] == "lecun_normal"
-                       else 2.0 / (fan_in + fan_out))
+                var = {"lecun_normal": 1.0 / fan_in, "kaiming_normal": 2.0 / fan_in}.get(
+                    inits[id(p)], 2.0 / (fan_in + fan_out))
                 # flax divides by the truncated normal's standard deviation
                 std = math.sqrt(var) / 0.87962566103423978
                 p.copy_(_truncated_normal(p.shape, generator) * std)
@@ -131,15 +151,17 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the module to `dtype` for inference, keeping in f32 the LayerNorm
-    parameters (the norms compute their statistics in f32 either way), the
-    decoders' and LMs' `out_bias` (added to f32 logits) and the CTC and
-    phone heads (f32 as in the JAX package).  Training keeps every weight
+    and BatchNorm parameters and running statistics (the norms compute
+    their statistics in f32 either way), the decoders' and LMs'
+    `out_bias` (added to f32 logits) and the CTC and phone heads (f32 as
+    in the JAX package).  Training keeps every weight
     f32 and runs bf16 under autocast instead."""
+    from openasr_torch.models.frontend import BatchNorm
     from openasr_torch.models.layers import LayerNorm
 
     module.to(dtype)
     for name, m in module.named_modules():
-        if isinstance(m, LayerNorm) or name in ("ctc_fc", "fc", "phone_fc"):
+        if isinstance(m, (LayerNorm, BatchNorm)) or name in ("ctc_fc", "fc", "phone_fc"):
             m.float()
     for name, p in module.named_parameters():
         if name.split(".")[-1] == "out_bias":
@@ -179,22 +201,30 @@ class Framework:
 
     def package(self) -> dict:
         """Checkpoint package in the JAX layout: model type + configs +
-        per-component states as f32 NumPy."""
-        from openasr_torch.convert import state_dict_to_jax_components
+        per-component states as f32 NumPy, and for a model with BatchNorm
+        its running statistics as `batch_stats`."""
+        from openasr_torch.convert import is_batch_stat, state_dict_to_jax_components
 
-        return {
+        state = self.module.state_dict()
+        pkg = {
             "model_type": self.model_type,
             "configs": self.configs.to_dict(),
             "components": state_dict_to_jax_components(
-                self.model_type, self.module.state_dict(), self.configs
-            ),
+                self.model_type, {k: v for k, v in state.items() if not is_batch_stat(k)},
+                self.configs),
         }
+        stats = {k: v for k, v in state.items() if is_batch_stat(k)}
+        if stats:
+            pkg["batch_stats"] = state_dict_to_jax_components(self.model_type, stats,
+                                                               self.configs)
+        return pkg
 
     def restore(self, pkg: dict, without_fc: bool = False) -> None:
         """Load a JAX-layout package after validating config compatibility.
         `without_fc` keeps the current output layers
-        (`fc_component_names`) for transfer learning."""
-        from openasr_torch.convert import jax_components_to_state_dict
+        (`fc_component_names`) for transfer learning.  The package's
+        `batch_stats`, where it has them, replace the running statistics."""
+        from openasr_torch.convert import is_batch_stat, jax_components_to_state_dict
 
         saved_cfg = pkg.get("configs", {})
         for section, cfg in self.configs.to_dict().items():
@@ -206,8 +236,12 @@ class Framework:
         }
         state = jax_components_to_state_dict(self.model_type, components,
                                              partial=without_fc, configs=self.configs)
-        if without_fc:
-            state = {**self.module.state_dict(), **state}
+        if pkg.get("batch_stats") is not None:
+            state.update(jax_components_to_state_dict(
+                self.model_type, pkg["batch_stats"], partial=True, configs=self.configs))
+        current = self.module.state_dict()
+        state = {**{k: v for k, v in current.items() if without_fc or is_batch_stat(k)},
+                 **state}
         self.module.load_state_dict(state, strict=True)
 
     def fc_component_names(self) -> tuple:

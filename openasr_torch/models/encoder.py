@@ -1,4 +1,4 @@
-"""Transformer encoder with conv subsampling.
+"""Transformer encoder with conv subsampling, and the GRU encoder.
 
 Counterpart of `TransformerEncoder` in openasr_tpu/models/encoder.py, the
 per-layer path: subsample -> x * sqrt(d) + PE -> dropout -> N post-LN
@@ -13,6 +13,15 @@ of the model's frontend (models/speech.py:streaming_phase_of), through
 the chunk mode of the attention kernels, so that the cached streaming
 executor (openasr_torch/streaming.py) computes the same encoder states.
 Pipeline (stacked layers) and MoE encoders are later slices of the port.
+
+`GRUEncoder` is the JAX package's: a unidirectional multi-layer GRU over
+the full padded sequence (no packing), dropout between layers.  Each layer
+is a flax 0.12 `GRUCell`, which has biases on its `ir`, `iz`, `in` and
+`hn` projections only; `torch.nn.GRU` would train two more (`b_hr`,
+`b_hz`).  So a `GRULayer` keeps its own `weight_ih` and `weight_hh` (gates
+r, z, n), `bias_ih` and `b_hn`, and calls the cuDNN GRU (`torch._VF.gru`)
+with `bias_hh = [0, 0, b_hn]`: the same gates, h' = (1 - z) n + z h.
+The JAX package scans the cell outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from torch import nn
 
 from openasr_torch.models.layers import (
     LayerNorm,
+    activation_dtype,
+    autocast_off,
     TrainRNG,
     TransformerEncoderLayer,
     any_empty,
@@ -158,4 +169,61 @@ class TransformerEncoder(nn.Module):
             streaming_chunk=int(streaming.get("chunk", 0)),
             streaming_left=int(streaming.get("left_chunks", -1)),
             streaming_phase=streaming_phase,
+        )
+
+
+class GRULayer(nn.Module):
+    """One flax GRUCell scanned over [B, T, d_input] -> [B, T, d_model],
+    from a zero state.  It runs in the activation dtype (bf16 under
+    autocast), as the JAX cell takes the model's dtype."""
+
+    # init_parameters: flax's kaiming_normal input kernels and an
+    # orthogonal recurrent kernel per gate
+    param_inits = {"weight_ih": "kaiming_normal", "weight_hh": "orthogonal_gates"}
+
+    def __init__(self, d_input: int, d_model: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.empty(3 * d_model, d_input))
+        self.weight_hh = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * d_model))
+        self.b_hn = nn.Parameter(torch.zeros(d_model))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = activation_dtype(x)
+        h = self.b_hn.shape[0]
+        with autocast_off(x.device.type):
+            bias_hh = torch.cat([self.b_hn.new_zeros(2 * h), self.b_hn])
+            weights = [w.to(dt) for w in (self.weight_ih, self.weight_hh, self.bias_ih, bias_hh)]
+            h0 = x.new_zeros((1, x.shape[0], h), dtype=dt)
+            out, _ = torch._VF.gru(x.to(dt), h0, weights, True, 1, 0.0,
+                                   torch.is_grad_enabled(), False, True)
+        return out
+
+
+class GRUEncoder(nn.Module):
+    def __init__(self, d_input: int, d_model: int, n_layers: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        for i in range(n_layers):
+            self.add_module(f"gru{i}", GRULayer(d_input if i == 0 else d_model, d_model))
+        self.layers = [getattr(self, f"gru{i}") for i in range(n_layers)]
+
+    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor,
+                rng: Optional[TrainRNG] = None):
+        """feats [B, T, d_input] -> ([B, T, d_model], feat_lengths); with
+        `rng` the dropout between layers is on."""
+        x = feats
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i + 1 < len(self.layers):
+                x = dropout(x, self.dropout_rate, rng)
+        return x, feat_lengths
+
+    @staticmethod
+    def from_config(cfg) -> "GRUEncoder":
+        return GRUEncoder(
+            d_input=int(cfg["d_input"]),
+            d_model=int(cfg["d_model"]),
+            n_layers=int(cfg["n_layers"]),
+            dropout_rate=float(cfg.get("dropout", 0.0)),
         )

@@ -1,6 +1,6 @@
-"""Signal front-end.
+"""Signal front-ends: SPLayer and the WavConv raw-wave encoder.
 
-Counterpart of `SPLayer` in openasr_tpu/models/frontend.py: `offline`
+Counterpart of openasr_tpu/models/frontend.py.  `SPLayer`: `offline`
 passes precomputed features through; `fbank` computes log-mel features
 from raw waves (ops/fbank.py, through the fused fbank kernel on a card),
 with Kaldi dither in a training forward when the config asks for it
@@ -8,6 +8,15 @@ with Kaldi dither in a training forward when the config asks for it
 SpecAugment then masks the features with widths drawn from `rng.host`.
 The frontend has no parameters and always runs in f32 with autocast off,
 as the JAX SPLayer has no dtype: fbank feeds a log.
+
+`WavConv` (CPC, GRU-CTC, wav2vec): five strided Conv1d + BatchNorm + ReLU
+layers, x160 in all, on raw waves.  Its `BatchNorm` is flax's
+(`nn.BatchNorm(momentum=0.9)`), not torch's: statistics in f32 over every
+padded sample, the variance E[x^2] - E[x]^2 (biased, clipped at 0) both to
+normalise and to update the running statistics (torch's BatchNorm1d keeps
+the unbiased variance), which live in the buffers `mean` and `var`, the
+JAX package's `batch_stats`.  The convolutions stay cuDNN (PyTorch)
+calls, as the JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+import torch.nn.functional as F
 
 from openasr_torch.models.layers import TrainRNG, autocast_off
 from openasr_torch.ops.fbank import FbankConfig, fbank, num_frames_of
@@ -49,3 +60,69 @@ class SPLayer(nn.Module):
             if rng is not None and self.spec_aug is not None:
                 inputs = spec_aug(inputs.float(), lengths, self.spec_aug, generator=rng.host)
         return inputs, lengths
+
+
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm over the channels of [B, C, T]: momentum 0.9 (the
+    retention of the running statistics), epsilon 1e-5.  `train` normalises
+    with the batch's statistics and updates the running ones; otherwise
+    it normalises with the running ones.  Statistics, weight and bias stay
+    f32 in any compute dtype; the output takes the input's dtype."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def reset_running_stats(self) -> None:
+        with torch.no_grad():
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        with autocast_off(x.device.type):
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            if train:
+                mean = xf.mean(dim=(0, 2))
+                var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+                with torch.no_grad():
+                    self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                    self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+            else:
+                mean, var = self.mean, self.var
+            mul = torch.rsqrt(var + self.epsilon) * self.weight
+            y = (xf - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        return y.to(x.dtype)
+
+
+class WavConv(nn.Module):
+    """Raw waves [B, N] -> ([B, T', d_model], wave_lengths // 160), T' the
+    padded length's (no masking: padded samples enter the statistics, as
+    in the JAX package)."""
+
+    LAYERS = ((10, 5, 3), (8, 4, 2), (4, 2, 1), (4, 2, 1), (4, 2, 1))
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        c_in = 1
+        for i, (k, s, p) in enumerate(self.LAYERS):
+            self.add_module(f"conv{i}", nn.Conv1d(c_in, d_model, k, s, p, bias=False))
+            self.add_module(f"bn{i}", BatchNorm(d_model))
+            c_in = d_model
+
+    @staticmethod
+    def output_lengths(lengths):
+        """Frames of `lengths` samples (torch or NumPy)."""
+        return lengths // 160
+
+    def forward(self, waves: torch.Tensor, wave_lengths: torch.Tensor, train: bool = False):
+        # the first weight's dtype: f32 under autocast (which casts), the
+        # model's dtype for inference
+        x = waves[:, None, :].to(self.conv0.weight.dtype)
+        for i in range(len(self.LAYERS)):
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train))
+        return x.transpose(1, 2), self.output_lengths(wave_lengths)

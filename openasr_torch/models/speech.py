@@ -1,4 +1,5 @@
-"""Speech model families: conv-transformer, conv-ctc-transformer, conv-ctc.
+"""Speech model families: conv-transformer, conv-ctc-transformer, conv-ctc,
+gru_ctc.
 
 Counterpart of ConvTransformer / ConvCTCTransformer / ConvCTC in
 openasr_tpu/models/speech.py: the training losses (`loss`, raw sums plus
@@ -6,7 +7,10 @@ token and sequence counts, as the JAX package returns them); for the
 attention families, the attention beam over the KV-cached decoder (with
 optional LM shallow fusion and hotword biasing); for conv-ctc, its logits and greedy decode
 (the CLI drives the CTC prefix beams over those logits).
-conv-ctc-transformer also carries `ctc_fc`, the CTC head.  The CTC heads
+conv-ctc-transformer also carries `ctc_fc`, the CTC head.  gru_ctc
+(GRUCTC) is WavConv (x160) -> GRU -> `fc` (no bias) -> CTC on raw waves;
+`load_splayer` warm-starts its WavConv, weights and running statistics,
+from a CPC package and freezes it (`frozen_components`).  The CTC heads
 run in f32 also under bf16 autocast: flax's Dense without a dtype
 promotes the bf16 encoder output and the f32 kernel to f32.
 """
@@ -21,8 +25,8 @@ from torch import nn
 from openasr_torch.config import Config
 from openasr_torch.models import Framework, register_model
 from openasr_torch.models.decoder import transformer_decoder_from_config
-from openasr_torch.models.encoder import TransformerEncoder
-from openasr_torch.models.frontend import SPLayer
+from openasr_torch.models.encoder import GRUEncoder, TransformerEncoder
+from openasr_torch.models.frontend import SPLayer, WavConv
 from openasr_torch.models.layers import TrainRNG, any_empty, autocast_off
 from openasr_torch.models.lm import make_lm_fusion
 from openasr_torch.ops.beam_search import batch_beam_search, beam_expand
@@ -60,8 +64,10 @@ def streaming_phase_of(signal_cfg) -> int:
 
 
 def _f32_head(head: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """The head at least in f32 (its weight's dtype, f32 but for a float64
+    reference model)."""
     with autocast_off(x.device.type):
-        return head(x.float())
+        return head(x.to(torch.promote_types(x.dtype, head.weight.dtype)))
 
 
 def _counts(batch: dict) -> dict:
@@ -247,3 +253,56 @@ class ConvCTCTransformer(ConvTransformer):
         ctc = cal_ctc_loss(ctc_logits, len_ctc, batch["labels"], tlen - 1)
         ce = cal_ce_loss(ce_logits, batch["labels"], batch["paddings"], label_smooth)
         return {"ctc_loss": ctc, "ce_loss": ce, **_counts(batch)}
+
+
+class GRUCTCModule(nn.Module):
+    def __init__(self, configs: Config):
+        super().__init__()
+        self.splayer = WavConv(int(configs.signal["d_model"]))
+        self.encoder = GRUEncoder.from_config(configs.encoder)
+        self.fc = nn.Linear(int(configs.encoder["d_model"]),
+                            int(configs.decoder["vocab_size"]), bias=False)
+
+    @staticmethod
+    def encoder_lengths(input_lengths):
+        return WavConv.output_lengths(input_lengths)
+
+    def forward(self, waves, wave_lengths, rng: Optional[TrainRNG] = None,
+                empty_rows: Optional[bool] = None):
+        """-> (logits [B, T', V] f32, lengths [B]); with `rng` the train
+        forward (BatchNorm on the batch's statistics, dropout)."""
+        del empty_rows
+        x, lens = self.splayer(waves, wave_lengths, train=rng is not None)
+        x, lens = self.encoder(x, lens, rng)
+        return _f32_head(self.fc, x), lens
+
+
+def load_component(module: nn.Module, prefix: str, pkg: dict, name: str) -> None:
+    """Load component `name` of a JAX-layout package (either package's),
+    with its `batch_stats` where it has them, into the submodule at
+    `prefix` of `module`."""
+    from openasr_torch.convert import subtree_to_state_dict
+
+    state = subtree_to_state_dict(pkg["components"][name])
+    if pkg.get("batch_stats") is not None and name in pkg["batch_stats"]:
+        state.update(subtree_to_state_dict(pkg["batch_stats"][name]))
+    sub = module.get_submodule(prefix)
+    sub.load_state_dict({**sub.state_dict(), **state}, strict=True)
+
+
+@register_model("gru_ctc")
+class GRUCTC(ConvCTC):
+    module_cls = GRUCTCModule
+
+    def __init__(self, module: nn.Module, configs: Config):
+        super().__init__(module, configs)
+        self.frozen_components = ()
+
+    def load_splayer(self, pkg: dict) -> None:
+        """Warm-start the WavConv from a CPC package (its `splayer`
+        weights and running statistics) and freeze it."""
+        load_component(self.module, "splayer", pkg, "splayer")
+        self.frozen_components = ("splayer",)
+
+    def fc_component_names(self) -> tuple:
+        return ("fc",)

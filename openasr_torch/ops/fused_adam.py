@@ -28,6 +28,13 @@ import numpy as np
 import torch
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """An f32 NumPy copy of a parameter or moment: on the CPU .numpy()
+    would alias the live tensor, which the next step changes in place
+    while the asynchronous writer pickles the package."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
 class FusedClipAdamState(NamedTuple):
     """The JAX package's state of this optimizer, field for field
     (`openasr_tpu.ops.fused_adam.FusedClipAdamState`): packages it wrote
@@ -127,8 +134,8 @@ class FusedClipAdam:
         return {
             "count": int(self.count),
             "notfinite": int(self.notfinite),
-            "mu": {n: m.float().cpu().numpy() for n, m in zip(self.names, self.mu)},
-            "nu": {n: v.float().cpu().numpy() for n, v in zip(self.names, self.nu)},
+            "mu": {n: host_copy(m) for n, m in zip(self.names, self.mu)},
+            "nu": {n: host_copy(v) for n, v in zip(self.names, self.nu)},
         }
 
     def load_state_dict(self, state: dict) -> None:

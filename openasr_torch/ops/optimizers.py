@@ -17,6 +17,11 @@ with optax's arithmetic, in its order:
   dtype, bf16 by default) and nu likewise, and updates by
   -lr(count) ((mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps)), n the
   incremented count;
+- with a `gate` (wav2vec's `freeze_finetune_updates`, the JAX solver's
+  `freeze_until` first in the chain), the gated parameters' gradients are
+  zeroed during the first n updates, before the clip, so its norm leaves
+  them out; Adam's count runs on through those steps, and the gate's own
+  counter (`gate_count`) advances with every accepted step;
 - the schedule's own counter starts at 0, so the first update uses
   lr_fn(0); a rejected step advances no counter;
 - `apply_if_finite` rejects a step whose gradients hold an inf or nan
@@ -36,10 +41,12 @@ wrote.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from openasr_torch.ops.fused_adam import host_copy
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -93,7 +100,9 @@ class StockOptimizer:
     """`kind` "sgd" (momentum 0.9) or "adam" (b1 0.9, b2 0.999, eps 1e-8,
     the JAX solver's) after the global-norm clip, inside `apply_if_finite`
     when `skip_nonfinite`.  `mu_dtype` is Adam's first-moment dtype (None:
-    the parameters')."""
+    the parameters').  `gate`: (component names, n) zeroes the gradients
+    of the parameters under those top-level components for the first n
+    updates."""
 
     momentum, b1, b2, eps = 0.9, 0.9, 0.999, 1e-8
 
@@ -105,6 +114,7 @@ class StockOptimizer:
         max_norm: float = 0.0,
         mu_dtype: Optional[torch.dtype] = None,
         skip_nonfinite: bool = False,
+        gate: Optional[Tuple[Tuple[str, ...], int]] = None,
     ):
         if kind not in ("sgd", "adam"):
             raise ValueError(f"Unknown optimizer {kind}")
@@ -121,6 +131,10 @@ class StockOptimizer:
         self.notfinite_count = zero.clone()
         self.last_finite = torch.ones((), dtype=torch.bool, device=device)
         self.notfinite = zero.clone()  # apply_if_finite's total_notfinite
+        self.gate = gate
+        if gate is not None:
+            self.gated = [n.split(".")[0] in gate[0] for n in self.names]
+            self.gate_count = zero.clone()
         if kind == "sgd":
             self.trace = [torch.zeros_like(p) for p in self.params]
         else:
@@ -143,6 +157,10 @@ class StockOptimizer:
             self.notfinite = torch.where(finite, self.notfinite, self.notfinite + 1).int()
             self.last_finite = finite
             accept = finite | (self.notfinite_count > MAX_CONSECUTIVE_ERRORS)
+        if self.gate is not None:
+            open_ = (self.gate_count >= self.gate[1]).float()
+            g = [x * open_ if gated else x for x, gated in zip(g, self.gated)]
+            self.gate_count = self.gate_count + (1 if accept is None else accept.int())
         if self.max_norm > 0:
             norm = global_norm(g)
             clipped = torch._foreach_mul(torch._foreach_div(g, norm), self.max_norm)
@@ -188,19 +206,23 @@ class StockOptimizer:
         total_notfinite), `notfinite_count` and `last_finite`."""
         state = {"count": int(self.count)}
         for key, tensors in self._moments().items():
-            state[key] = {n: t.float().cpu().numpy() for n, t in zip(self.names, tensors)}
+            state[key] = {n: host_copy(t) for n, t in zip(self.names, tensors)}
         if self.skip_nonfinite:
             state.update(notfinite=int(self.notfinite),
                          notfinite_count=int(self.notfinite_count),
                          last_finite=bool(self.last_finite))
+        if self.gate is not None:
+            state["gate_count"] = int(self.gate_count)
         return state
 
     def load_state_dict(self, state: dict) -> None:
         moments = self._moments()
-        if set(state) - {"notfinite", "notfinite_count", "last_finite"} != {"count", *moments}:
+        gate = {"gate_count"} if self.gate is not None else set()
+        if set(state) - {"notfinite", "notfinite_count", "last_finite"} != {"count", *moments,
+                                                                            *gate}:
             raise ValueError(
                 f"optimizer state {sorted(state)} is not that of the stock "
-                f"{self.kind} optimizer ({sorted(moments)} and count)"
+                f"{self.kind} optimizer ({sorted({'count', *moments, *gate})})"
             )
         for key in moments:
             if set(state[key]) != set(self.names):
@@ -210,6 +232,8 @@ class StockOptimizer:
         self.notfinite_count = torch.full_like(self.notfinite_count,
                                                int(state.get("notfinite_count", 0)))
         self.last_finite = torch.full_like(self.last_finite, bool(state.get("last_finite", True)))
+        if self.gate is not None:
+            self.gate_count = torch.full_like(self.gate_count, int(state["gate_count"]))
         with torch.no_grad():
             for key, tensors in moments.items():
                 for n, t in zip(self.names, tensors):

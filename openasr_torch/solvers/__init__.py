@@ -32,9 +32,17 @@ opens a `torch.profiler` window over those steps and writes its Chrome
 trace to `logdir` (default exp_dir/profile); `training.tensorboard: true`
 or OPENASR_TENSORBOARD=1 mirrors metrics.jsonl into TensorBoard scalars.
 
+BatchNorm models (the raw-wave families) update their running statistics
+in every training forward, micro-batch by micro-batch, and read them in
+the dev pass, as the JAX solver threads its `batch_stats`; the packages
+carry them.  A model's `frozen_components` (GRU-CTC after
+`load_splayer`) are left out of the optimizer: no update, no moments, no
+share of the clip norm.  A model's `freeze_gate` (wav2vec's
+`freeze_finetune_updates`) takes the stock optimizer, as in the JAX
+solver, with the gate first in its chain.
+
 Not ported here (ROADMAP): the mesh and its parallelisms (data, tensor,
-sequence, pipeline, ZeRO-1), MoE auxiliaries, batch_stats models and
-`freeze_until`.
+sequence, pipeline, ZeRO-1) and MoE auxiliaries.
 """
 
 from __future__ import annotations
@@ -105,7 +113,13 @@ class Solver:
         self.seed = seed
         self.rng = TrainRNG(seed, self.device)
         self._niter = 0
-        self.params = dict(model.module.named_parameters())
+        frozen = tuple(getattr(model, "frozen_components", ()))
+        self.params = {}
+        for name, p in model.module.named_parameters():
+            if name.split(".")[0] in frozen:
+                p.requires_grad_(False)
+            else:
+                self.params[name] = p
         self.optimizer = self._make_optimizer(config)
         os.makedirs(self.exp_dir, exist_ok=True)
         self._ckpt = AsyncCheckpointer()
@@ -118,9 +132,11 @@ class Solver:
 
     def _make_optimizer(self, config):
         """The fused clip + Adam, or for `optimtype: sgd` / `fused_adam:
-        false` the stock optimizers, each rejecting non-finite steps when
-        `skip_nonfinite_grads` (default on)."""
+        false` / a model's `freeze_gate` the stock optimizers, each
+        rejecting non-finite steps when `skip_nonfinite_grads` (default
+        on)."""
         opt_type = config.get("optimtype", "adam")
+        gate = getattr(self.model, "freeze_gate", None)
 
         def dtype_of(key, default):
             name = config.get(key, default)
@@ -133,7 +149,7 @@ class Solver:
         mu_dtype = dtype_of("adam_mu_dtype", "bfloat16")
         nu_dtype = dtype_of("adam_nu_dtype", None)
         skip_nonfinite = bool(config.get("skip_nonfinite_grads", True))
-        if opt_type == "adam" and config.get("fused_adam", True):
+        if opt_type == "adam" and not gate and config.get("fused_adam", True):
             return FusedClipAdam(
                 self.params, lr_fn, b1=0.9, b2=0.999, eps=1e-8,
                 max_norm=self.grad_max_norm, mu_dtype=mu_dtype, nu_dtype=nu_dtype,
@@ -142,15 +158,15 @@ class Solver:
         if nu_dtype is not None:
             logger.warning(
                 "training.adam_nu_dtype=%s is ignored on the non-fused optimizer "
-                "path (fused_adam: false / optimtype!=adam): the second moment "
-                "stays float32", config.get("adam_nu_dtype"),
+                "path (freeze_gate / fused_adam: false / optimtype!=adam): the "
+                "second moment stays float32", config.get("adam_nu_dtype"),
             )
         if opt_type == "sgd" and "adam_mu_dtype" in config:
             logger.warning("training.adam_mu_dtype is ignored with optimtype=sgd")
         return StockOptimizer(
             self.params, lr_fn, opt_type, max_norm=self.grad_max_norm,
             mu_dtype=mu_dtype if opt_type == "adam" else None,
-            skip_nonfinite=skip_nonfinite,
+            skip_nonfinite=skip_nonfinite, gate=gate,
         )
 
     def current_lr(self) -> float:
@@ -490,12 +506,15 @@ SOLVER_REGISTRY = {
     "conv-transformer": CESolver,
     "conv-ctc-transformer": CTCCESolver,
     "conv-ctc": CTCSolver,
+    "gru_ctc": CTCSolver,
+    "wav2vec_ctc": CTCSolver,
 }
 
 
 def get_solver_class(model_type: str):
     """Case- and -/_-insensitive, as model types resolve."""
     import openasr_torch.solvers.cif  # noqa: F401  (fills the registry)
+    import openasr_torch.solvers.cpc  # noqa: F401
 
     norm = model_type.lower().replace("-", "_")
     for name, cls in SOLVER_REGISTRY.items():
@@ -503,6 +522,6 @@ def get_solver_class(model_type: str):
             return cls
     raise ValueError(
         f"No solver for model type {model_type!r} in the port; it trains "
-        f"{sorted(SOLVER_REGISTRY)} (the CPC and phone2char solvers are "
-        "ROADMAP queue 1 item 13)"
+        f"{sorted(SOLVER_REGISTRY)} (the phone2char solvers are "
+        "ROADMAP queue 1 item 13b)"
     )

@@ -176,8 +176,8 @@ def test_online_input_and_other_families_exit(corpus):
     online = [a for a in _argv(corpus, "unused.txt") if a != "--offline"]
     check_ported(get_args(online + ["--device", "cpu"]))
     other = _argv(corpus, "unused.txt") + ["--device", "cpu"]
-    other[other.index("conv-ctc-transformer")] = "gru_ctc"
-    with pytest.raises(SystemExit, match="item 13 \\(GRU-CTC"):
+    other[other.index("conv-ctc-transformer")] = "embed_decoder"
+    with pytest.raises(SystemExit, match="item 13b \\(Embed_Decoder"):
         torch_infer(other)
 
 

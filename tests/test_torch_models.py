@@ -211,10 +211,10 @@ def test_conv_transformer_type_and_bfloat16_decode():
 
 
 @pytest.mark.parametrize("section,patch,match", [
-    ("type", "wav2vec_ctc", "item 13"),
+    ("type", "embed_decoder", "item 13"),
     ("encoder", {"moe": {"num_experts": 2}}, "item 14"),
     ("encoder", {"pipeline": True}, "item 15"),
-    ("type", "gru_ctc", "item 13"),
+    ("type", "gan_phone2char", "item 13"),
 ])
 def test_unported_configs_name_their_roadmap_item(section, patch, match):
     cfg = small_config()

@@ -412,14 +412,18 @@ def test_online_flagship_config_validates_in_both_packages():
     assert online["model"] == want["model"] and online["training"] == want["training"]
 
 
-@pytest.mark.parametrize("signal,training,error,match", [
-    ({"feature_type": "wav_conv"}, {"batch_time": 1000}, SystemExit, "item 13"),
-    ({"feature_type": "fbank"}, {"batch_frames": 1000}, ValueError, "training.batch_time"),
-    ({"feature_type": "offline"}, {"batch_time": 1000}, ValueError, "training.batch_frames"),
+@pytest.mark.parametrize("model_type,signal,training,error,match", [
+    ("embed_decoder", {"feature_type": "fbank"}, {"batch_time": 1000}, SystemExit,
+     "item 13"),
+    (None, {"feature_type": "fbank"}, {"batch_frames": 1000}, ValueError,
+     "training.batch_time"),
+    (None, {"feature_type": "offline"}, {"batch_time": 1000}, ValueError,
+     "training.batch_frames"),
 ])
-def test_train_cli_checks_the_frontend_and_its_budget(wave_corpus, tmp_path, signal,
-                                                      training, error, match):
+def test_train_cli_checks_the_frontend_and_its_budget(wave_corpus, tmp_path, model_type,
+                                                      signal, training, error, match):
     cfg = milestone_config(wave_corpus, tmp_path / "exp")
+    cfg["model"]["type"] = model_type or cfg["model"]["type"]
     cfg["model"]["signal"] = signal
     del cfg["training"]["batch_time"]
     cfg["training"].update(training)
