@@ -154,6 +154,33 @@ kernel line adds the attention forward (4w) and backward (5+6w) at the
 wav2vec run's largest batch (T' up to 3000) beside SDPA with the same key
 mask, after holding them to their plain versions there.
 
+Then the text families (`[text path]`), from the repo's vocabularies
+(egs/IPA2char/data/callhome.IPA, 72 phones; vocab.char, 3671 characters)
+on seeded phone->char pairs of 20-120 phones and 8-50 characters (at
+least 2 phones a character), in f32 as the phone2char CLIs run:
+egs/IPA2char/configs/callhome_ma_IPA.yaml (Embed_Decoder_CTC: d512 x 6,
+8 heads, GLU 2048, dropout 0.1, batch_phones 4000, accumulate_grad_batch
+8) and IPA2char.yaml (Embed_Decoder: 4 decoder layers) as they are,
+each trained through `openasr_torch.bin.train_phone2char` for one epoch
+of 3 steps and its dev pass (the CTC model's with its dev WER), and
+semi_callhome_ma_IPA.yaml (gan_phone2char: G at those widths, D a
+2-layer ConvV2 of d512 over the character vocabulary, batch_phones 1000,
+unpaired_batch_size 16) through `bin/semi_train_phone2char` from the CTC
+package (`G_path`) for 24 iterations (3 steps); the CTC package decoded
+greedily and the Embed_Decoder package with the attention beam (5, 80
+steps) through `bin/infer_phone2char` over 16 test pairs (a hyp line a
+pair, the `WER:` line); each run's launches held to those counted from
+the built module (a GAN iteration runs G three times: twice with
+dropout and backward, once in eval mode for the D term); on the two
+shortest pairs f32 on the card against the CPU: the CTC logits and one
+training forward's gradients, the beam's 1-best scores (the share of
+equal n-best lists printed), the GAN's three losses and one step's
+gradients, D's with the gradient penalty's second-order term, at D's
+ReLU decisions on the card (1e-3 each).  The kernel line adds the
+attention forward (4p) and backward (5+6p) at the CTC run's largest
+batch beside SDPA with the same key-length mask, after holding them to
+their plain versions there.
+
 Last, the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
 (beam 5, SERVE_MAXLEN steps) with f32 weights, with int8 weights and with
@@ -4860,6 +4887,433 @@ def wave_rows(wave, errs, launches):
     return rows
 
 
+# --------------------------------------------------------------- text path
+
+IPA2CHAR = os.path.join(ROOT, "egs", "IPA2char")
+TEXT_YAMLS = {name: os.path.join(IPA2CHAR, "configs", f"{stem}.yaml") for name, stem in (
+    ("Embed_Decoder_CTC", "callhome_ma_IPA"), ("Embed_Decoder", "IPA2char"),
+    ("gan_phone2char", "semi_callhome_ma_IPA"))}
+TEXT_VOCABS = {"vocab_phone": os.path.join(IPA2CHAR, "data", "callhome.IPA"),
+               "vocab_char": os.path.join(IPA2CHAR, "data", "vocab.char")}
+TEXT_STEPS = 3             # optimizer steps of each text-path training run
+TEXT_BEAM, TEXT_MAXLEN = 5, 80
+TOL_TEXT_CPU = 1e-3        # f32 logits, losses and gradients, card vs CPU, of their scale
+
+
+def text_units(path) -> list:
+    with open(path, encoding="utf-8") as f:
+        return [line.split()[0] for line in f if line.strip()]
+
+
+def write_text_pairs(name, rng, phones, chars, n=None, total_phones=None) -> str:
+    """Phone->char pairs of 20-120 phones and 8-50 characters, at least 2
+    phones a character (the rate_in_out filter): n of them, or as many as
+    reach `total_phones`."""
+    rows, total = [], 0
+    while (n is not None and len(rows) < n) or (n is None and total < total_phones):
+        n_c = rng.randint(8, 51)
+        n_p = rng.randint(max(20, 2 * n_c), 121)
+        rows.append({"uttid": f"{name}{len(rows):05d}",
+                     "phones": " ".join(rng.choice(phones, n_p)), "phone_length": int(n_p),
+                     "tokens": " ".join(rng.choice(chars, n_c)), "token_length": int(n_c)})
+        total += n_p
+    path = os.path.join(WORK, f"{name}.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(rows, f, ensure_ascii=False)
+    return path
+
+
+def text_training(model_type) -> dict:
+    import yaml
+
+    with open(TEXT_YAMLS[model_type]) as f:
+        return yaml.safe_load(f)["training"]
+
+
+def text_config(model_type, exp, data, **training) -> str:
+    """The text YAML of `model_type` with its model and training sections as
+    they are, but for this run's data, one epoch and a log line a batch."""
+    import yaml
+
+    with open(TEXT_YAMLS[model_type]) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(data, **TEXT_VOCABS)
+    cfg["training"].update(exp_dir=exp, num_epoch=1, print_inteval=1, **training)
+    os.makedirs(exp, exist_ok=True)
+    path = os.path.join(exp, "train.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+    return path
+
+
+def text_model_cfg(model_type) -> dict:
+    """The YAML's model section with the vocabularies' sizes, as the CLIs
+    set them."""
+    import yaml
+
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    with open(TEXT_YAMLS[model_type]) as f:
+        cfg = yaml.safe_load(f)["model"]
+    n_phone = CharTokenizer(TEXT_VOCABS["vocab_phone"]).unit_num()
+    n_char = CharTokenizer(TEXT_VOCABS["vocab_char"], add_blk=cfg.get("add_blk", False)).unit_num()
+    g = cfg["G"] if "G" in cfg else cfg
+    g["encoder"]["vocab_size"], g["decoder"]["vocab_size"] = n_phone, n_char
+    if "D" in cfg:
+        cfg["D"]["encoder"]["d_input"] = n_char
+    return cfg
+
+
+def text_launches(model_type) -> dict:
+    """Launches of a training micro-batch (or GAN iteration) and of a
+    deterministic forward, counted from the built module: each LayerNorm
+    and attention of the stack once a forward, each backward once.  A GAN
+    iteration runs G three times: the supervised and the G term with
+    dropout and backward, the D term in eval mode without gradient."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+
+    with torch.device("meta"):
+        module = get_model_class(model_type).build_module(Config(text_model_cfg(model_type)))
+    stack = module.G if model_type == "gan_phone2char" else module
+    n_ln, n_attn = count_layer_norms(stack), count_attention(stack)
+    train = 2 if model_type == "gan_phone2char" else 1
+    step = {"layer_norm_fwd": train * n_ln, "layer_norm_bwd": train * n_ln,
+            "flash_attention_fwd_dropout": train * n_attn, "flash_bwd_stats": train * n_attn,
+            "flash_attention_bwd_dkv": train * n_attn, "flash_attention_bwd_dq": train * n_attn}
+    if model_type == "gan_phone2char":
+        step.update(layer_norm_fwd=3 * n_ln, flash_attention_fwd=n_attn)
+    return {"step": step, "forward": {"layer_norm_fwd": n_ln, "flash_attention_fwd": n_attn}}
+
+
+def text_train_run(model_type, argv, main, launches, micro_batches=None) -> dict:
+    """One phone2char training CLI run on the card between counter reads:
+    TEXT_STEPS optimizer steps, finite losses, a dev pass (with its
+    dev_wer for the CTC models), and exactly the module-counted launches:
+    a micro-batch's (an iteration's for the GAN, `micro_batches` of them)
+    and a forward's for each dev batch, twice for the CTC models (the dev
+    loss, then the greedy decode of the dev WER)."""
+    from openasr_torch.utils.checkpoint import load_package
+
+    per = text_launches(model_type)
+    exp = os.path.dirname(argv[0])
+    reset_counters()
+    t0 = time.time()
+    main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    rows = read_metrics(exp)
+    tr = [r for r in rows if r["phase"] == "train"]
+    cv = [r for r in rows if r["phase"] == "cv" and "batch" in r]
+    wers = [r["dev_wer"] for r in rows if "dev_wer" in r]
+    epoch = [r for r in rows if r["phase"] == "epoch"]
+    pkg = load_package(os.path.join(exp, "last.pkg"))
+    micro = len(tr) if micro_batches is None else micro_batches
+    ctc = model_type != "Embed_Decoder"
+    losses = {k: [round(r[k], 4) for r in tr] for k in (tr[-1] if tr else {})
+              if k.endswith("loss")}
+    print(f"[text path] {model_type}: {micro} micro-batches, {pkg['solver_state']['step']} "
+          f"steps, {len(cv)} dev batch(es), dev WER {wers}, tr_loss "
+          f"{[round(r['tr_loss'], 4) for r in epoch]} in {wall:.2f}s wall; {losses}; launches "
+          f"{n}; a micro-batch {per['step']}, a forward {per['forward']}")
+    require(pkg["solver_state"]["step"] == TEXT_STEPS and len(cv) >= 1 and len(epoch) == 1,
+            f"{model_type}: {pkg['solver_state']['step']} steps, {len(cv)} dev batches")
+    require(len(wers) == (1 if ctc else 0) and all(0.0 <= w for w in wers),
+            f"{model_type}: dev WER records {wers}")
+    require(all(np.isfinite(v) for r in rows for k, v in r.items() if k.endswith("loss")),
+            f"{model_type}: a non-finite loss")
+    want = {k: per["step"].get(k, 0) * micro + per["forward"].get(k, 0) * len(cv)
+            * (2 if ctc else 1) for k in n}
+    require(n == want, f"{model_type}: launches {n} != {want}")
+    launches[("text train", model_type)] = {"total": n, "micro_batches": micro,
+                                            "dev_batches": len(cv), "per_step": per["step"],
+                                            "wall": wall}
+    return {"pkg": os.path.join(exp, "last.pkg"), "wall": wall, "micro_batches": micro,
+            "dev_wer": wers, "per": per}
+
+
+def text_decode(model_type, pkg, test_json, n_utts, extra, launches) -> dict:
+    """infer_phone2char on the card between counter reads: a hyp and a ref
+    line an utterance, the `WER:` line, and a forward's launches a batch
+    (greedy), or the decoder's LayerNorms once a beam step and no
+    attention kernel (the beam attends to its caches densely)."""
+    import io
+
+    from openasr_torch.bin import infer_phone2char
+
+    out_dir = os.path.join(WORK, f"decode_{model_type}")
+    argv = ["--model_type", model_type, "--model_pkg", pkg, "--json_file", test_json,
+            "--output_dir", out_dir, "--vocab_phone", TEXT_VOCABS["vocab_phone"],
+            "--vocab_char", TEXT_VOCABS["vocab_char"], "--device", "cuda"] + extra
+    reset_counters()
+    stdout = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(stdout):
+        infer_phone2char.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = read_counters()
+    last = stdout.getvalue().strip().splitlines()[-1]
+    hyps, refs = ([line for line in open(os.path.join(out_dir, name), encoding="utf-8")
+                   if line.strip()] for name in ("hyp.txt", "ref.txt"))
+    per = text_launches(model_type)["forward"]
+    if model_type == "Embed_Decoder":
+        per = {"layer_norm_fwd": per["layer_norm_fwd"]}  # the decoder's, once a beam step
+    steps = n["layer_norm_fwd"] // per["layer_norm_fwd"]
+    want = {k: per.get(k, 0) * steps for k in n}
+    unit = "beam steps" if model_type == "Embed_Decoder" else "batches"
+    print(f"[text path] decode {model_type} {' '.join(extra)}: {len(hyps)} hyps, '{last}' in "
+          f"{wall:.2f}s wall; launches {n} ({steps} {unit})")
+    require(len(hyps) == len(refs) == n_utts, f"{model_type}: {len(hyps)} hyp lines for {n_utts}")
+    require(last.startswith("WER: "), f"{model_type}: no WER line: {last!r}")
+    require(steps > 0 and n == want, f"{model_type} decode: launches {n} != {want}")
+    launches[("text decode", model_type)] = n
+    return {"wall": wall, "wer": last, "steps": steps}
+
+
+def text_batch(test_json, n, add_blk, add_eos) -> dict:
+    """The `n` shortest pairs of a manifest, collated as the CLIs do."""
+    from openasr_torch.data.collate import PhoneCharCollate
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    with open(test_json, encoding="utf-8") as f:
+        rows = sorted(json.load(f), key=lambda r: r["phone_length"])[:n]
+    collate = PhoneCharCollate(CharTokenizer(TEXT_VOCABS["vocab_phone"]),
+                               CharTokenizer(TEXT_VOCABS["vocab_char"], add_blk=add_blk), add_eos)
+    return {k: v for k, v in collate(rows).items() if isinstance(v, np.ndarray)}
+
+
+def text_models(pkg_path, device):
+    """The package's model on `device` (f32), dropout off."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    pkg = load_package(pkg_path)["model"]
+    cfg = Config(pkg["configs"])
+    (cfg.G or cfg).decoder["dropout_rate"] = 0.0
+    model = get_model_class(pkg["model_type"]).create_model(cfg, device=device)
+    model.restore(pkg)
+    return model
+
+
+def check_text_against_cpu(runs, test_json, unpaired) -> dict:
+    """f32 on the card against the CPU, TF32 off, dropout off, on the two
+    shortest test pairs: Embed_Decoder_CTC's logits and one training
+    forward's gradients; Embed_Decoder's beam (TEXT_BEAM, TEXT_MAXLEN): the
+    1-best scores, and the share of equal n-best lists reported; the GAN's
+    three losses (at a fixed alpha) and one step's gradients, D's with the
+    penalty's second-order term, the CPU at the card's ReLU decisions (D's
+    ConvV2 ReLUs sit above G's attention layers; `ReluMasks`), the flips
+    bounded as rounding ties.  Each within TOL_TEXT_CPU of its scale (a
+    gradient of its parameter's largest; a key bias of its weight's)."""
+    from openasr_torch.data.collate import TokenCollate
+    from openasr_torch.data.tokenizer import CharTokenizer
+    from openasr_torch.models.layers import TrainRNG
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    batch = text_batch(test_json, 2, True, False)
+    logits, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        model = text_models(runs["Embed_Decoder_CTC"]["pkg"], device)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        logits[device] = model.get_logits(tb["phones"], tb["phone_lengths"])[0].cpu()
+        losses = model.loss(tb, TrainRNG(0, device), empty_rows=False)
+        (losses["ctc_loss"] / losses["n_tokens"]).backward()
+        grads[device] = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+    out["ctc_logits"] = max_err(logits["cuda"], logits["cpu"]) / max(
+        float(logits["cpu"].abs().max()), 1.0)
+    out["ctc_grads"], ctc_worst = grad_errs(grads["cuda"], grads["cpu"])
+
+    batch = text_batch(test_json, 2, False, True)
+    beams = {}
+    for device in ("cuda", "cpu"):
+        model = text_models(runs["Embed_Decoder"]["pkg"], device)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        beams[device] = [x.cpu() for x in model.batch_beam_decode(
+            tb["phones"], tb["phone_lengths"], TEXT_BEAM, TEXT_MAXLEN)]
+    (pg, lg, sg), (pc, lc, sc) = beams["cuda"], beams["cpu"]
+    out["beam_scores"] = float(((sg[:, 0] - sc[:, 0]).abs()
+                                / sc[:, 0].abs().clamp(min=1.0)).max())
+    same = [bool(torch.equal(pg[i], pc[i]) and torch.equal(lg[i], lc[i]))
+            for i in range(pg.shape[0])]
+    out["beam_same_nbest"] = sum(same) / len(same)
+
+    batch = text_batch(test_json, 2, True, False)
+    for key, path, tokenizer in (("unpaired_phones", unpaired[0], TEXT_VOCABS["vocab_phone"]),
+                                 ("unpaired_text", unpaired[1], TEXT_VOCABS["vocab_char"])):
+        with open(path, encoding="utf-8") as f:
+            lines = sorted((line.split(maxsplit=1)[1] for line in f),
+                           key=lambda t: len(t.split()))[:2]
+        tok = TokenCollate(CharTokenizer(tokenizer, add_blk=key == "unpaired_text"))(lines)
+        batch[key], batch[key + "_lengths"] = tok["tokens"], tok["token_lengths"]
+    alpha = torch.tensor([0.25, 0.75]).reshape(2, 1, 1)
+    relus = ReluMasks()
+    gan_losses, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        model = text_models(runs["gan_phone2char"]["pkg"], device)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with relus.installed(device != "cuda"):
+            losses = model.loss(tb, TrainRNG(0, device), empty_rows=False, alpha=alpha)
+            (losses["ctc_loss"] / losses["n_tokens"] + losses["g_loss"]
+             + losses["d_loss"]).backward()
+        gan_losses[device] = {k: float(losses[k].detach()) for k in ("ctc_loss", "g_loss", "d_loss")}
+        grads[device] = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+    out["gan_losses"] = max(abs(gan_losses["cuda"][k] - v) / max(abs(v), 1.0)
+                            for k, v in gan_losses["cpu"].items())
+    out["gan_grads"], gan_worst = grad_errs(grads["cuda"], grads["cpu"])
+    out["relu_flips"] = relus.flips
+    flip_abs = max((f["flip_abs_rel"] for f in relus.flipped), default=0.0)
+    print(f"[text check] f32 card vs CPU, 2 pairs: Embed_Decoder_CTC logits "
+          f"{out['ctc_logits']:.3g}, gradients {out['ctc_grads']:.3g} ({ctc_worst}); "
+          f"Embed_Decoder beam {TEXT_BEAM} x {TEXT_MAXLEN}: 1-best scores {out['beam_scores']:.3g} "
+          f"of their scale ({sg[:, 0].tolist()} vs {sc[:, 0].tolist()}), equal n-best lists "
+          f"{out['beam_same_nbest']:.2f}; GAN losses {gan_losses['cuda']} vs "
+          f"{gan_losses['cpu']}: {out['gan_losses']:.3g}, gradients {out['gan_grads']:.3g} "
+          f"({gan_worst}), {relus.flips} ReLU inputs flipped, the largest |x| at a flip "
+          f"{flip_abs:.3g} of its call's largest (tol {TOL_TEXT_CPU})")
+    for key in ("ctc_logits", "ctc_grads", "beam_scores", "gan_losses", "gan_grads"):
+        require(out[key] <= TOL_TEXT_CPU, f"text check {key}: card and CPU disagree ({out[key]:.3g})")
+    require(relus.flips <= CIF_RELU_MAX_FLIPS and flip_abs <= CIF_RELU_TIE,
+            f"{relus.flips} D ReLU flips, the largest at {flip_abs:.3g}: not rounding ties")
+    return out
+
+
+def phase_text(launches) -> dict:
+    """The text families on the card (`[text path]`, see the module
+    docstring); counters reset just before each run and read just after."""
+    from openasr_torch.bin import semi_train_phone2char, train_phone2char
+    from openasr_torch.data.manifest import PhoneCharDataset
+    from openasr_torch.data.sampler import BudgetBatchSampler
+
+    rng = np.random.RandomState(SEED + 30)
+    phones, chars = text_units(TEXT_VOCABS["vocab_phone"]), text_units(TEXT_VOCABS["vocab_char"])
+    ctc_cfg, gan_cfg = text_training("Embed_Decoder_CTC"), text_training("gan_phone2char")
+    budget, accum = int(ctc_cfg["batch_phones"]), int(ctc_cfg["accumulate_grad_batch"])
+    # about accum * (TEXT_STEPS - 0.3) micro-batches: TEXT_STEPS steps
+    train_json = write_text_pairs("p2c_train", rng, phones, chars,
+                                  total_phones=int(budget * accum * (TEXT_STEPS - 0.3)))
+    dev_json = write_text_pairs("p2c_dev", rng, phones, chars, n=16)
+    test_json = write_text_pairs("p2c_test", rng, phones, chars, n=16)
+    unpaired_bs = int(gan_cfg.get("unpaired_batch_size", 16))  # the semi CLI's default
+    n_unpaired = int(gan_cfg["accumulate_grad_batch"]) * TEXT_STEPS * unpaired_bs
+    unpaired = (
+        write_text("p2c_unpaired_phone", [
+            f"up{i} " + " ".join(rng.choice(phones, rng.randint(20, 121)))
+            for i in range(n_unpaired)]),
+        write_text("p2c_unpaired_text", [
+            f"ut{i} " + " ".join(rng.choice(chars, rng.randint(8, 51))) for i in range(64)]))
+    train_set = PhoneCharDataset(train_json, feat_range=(1, 1000), label_range=(1, 120))
+    n_batches = len(BudgetBatchSampler(train_set, budget, key="phone_length"))
+    print(f"[text path] at full width, f32, from the YAMLs as they are (vocabularies "
+          f"callhome.IPA {len(phones)} and vocab.char {len(chars)}); cuts: one epoch of "
+          f"{TEXT_STEPS} optimizer steps each ({len(train_set)} train pairs of 20-120 phones and "
+          f"8-50 characters: {n_batches} micro-batches of batch_phones {budget} at "
+          f"accumulate_grad_batch {accum}; the GAN {n_unpaired} unpaired phone lines, "
+          f"{n_unpaired // unpaired_bs} iterations), a dev set of 16 pairs, 16 test pairs")
+    require(accum * (TEXT_STEPS - 1) < n_batches <= accum * TEXT_STEPS,
+            f"{n_batches} micro-batches do not make {TEXT_STEPS} steps")
+    data = {"trainset": train_json, "devset": dev_json}
+    runs = {}
+    for model_type in ("Embed_Decoder_CTC", "Embed_Decoder"):
+        cfg = text_config(model_type, os.path.join(WORK, f"exp_{model_type}"), data)
+        runs[model_type] = text_train_run(model_type, [cfg], train_phone2char.main, launches)
+    cfg = text_config("gan_phone2char", os.path.join(WORK, "exp_gan"),
+                      dict(data, unpaired_phone=unpaired[0], unpaired_text=unpaired[1]),
+                      G_path=runs["Embed_Decoder_CTC"]["pkg"])
+    runs["gan_phone2char"] = text_train_run("gan_phone2char", [cfg], semi_train_phone2char.main,
+                                            launches, micro_batches=n_unpaired // unpaired_bs)
+    decodes = {
+        "greedy": text_decode("Embed_Decoder_CTC", runs["Embed_Decoder_CTC"]["pkg"], test_json,
+                              16, ["--add_blk"], launches),
+        f"beam {TEXT_BEAM}": text_decode("Embed_Decoder", runs["Embed_Decoder"]["pkg"],
+                                         test_json, 16, ["--nbest", str(TEXT_BEAM), "--maxlen",
+                                                         str(TEXT_MAXLEN)], launches),
+    }
+    check = check_text_against_cpu(runs, test_json, unpaired)
+    return {"runs": runs, "decodes": decodes, "check": check, "train_json": train_json}
+
+
+def text_train_shape(train_json) -> dict:
+    """The Embed_Decoder_CTC training run's largest batch by attention work
+    (B T^2): B, T (the padded phones) and the phone counts."""
+    from openasr_torch.data.collate import quantize
+    from openasr_torch.data.manifest import PhoneCharDataset
+    from openasr_torch.data.sampler import BudgetBatchSampler
+
+    ds = PhoneCharDataset(train_json, feat_range=(1, 1000), label_range=(1, 120))
+    budget = int(text_training("Embed_Decoder_CTC")["batch_phones"])
+    best = None
+    for batch in BudgetBatchSampler(ds, budget, key="phone_length").batches:
+        lens = np.array([ds[i]["phone_length"] for i in batch])
+        t = quantize(int(lens.max()))
+        if best is None or len(batch) * t * t > best["b"] * best["t"] ** 2:
+            best = {"b": len(batch), "t": t, "lens": lens}
+    return best
+
+
+def text_rows(text, errs, launches):
+    """Rows 4p and 5+6p: the attention forward (dropout 0.1) and the whole
+    backward at the Embed_Decoder_CTC training run's largest batch
+    [B, T_phones, T_phones, 8, 64] with its phone lengths, each held to its
+    plain version there and timed beside SDPA with the same key-length
+    mask; their launches from the run."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+    )
+
+    shape = text_train_shape(text["train_json"])
+    b, t, lens = shape["b"], shape["t"], shape["lens"]
+    tr = launches[("text train", "Embed_Decoder_CTC")]
+    print(f"[text rows] the Embed_Decoder_CTC training path's largest batch: B {b}, T {t}, "
+          f"phones {lens.tolist()}")
+    rng = np.random.RandomState(SEED + 31)
+    common = {"launches_per_micro_batch": tr["per_step"]["flash_attention_fwd_dropout"]}
+    rows = []
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        row = attention_fwd_row(b, 8, 64, t, t, False, lens, dtype, rng, errs, DROPOUT)
+        rows.append({"name": f"flash_attention_fwd_dropout_phone2char[{name}]", **row, **common,
+                     "launches": tr["total"]["flash_attention_fwd_dropout"],
+                     "launches_are": "dropout forward calls of the Embed_Decoder_CTC training "
+                                     "run (f32)",
+                     "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, its own "
+                                   "Philox mask, a bool key-padding mask)",
+                     "max_abs_err": errs[("flash_attention_fwd_dropout", dtype)],
+                     "tol": TOL_FLASH[dtype]})
+        at = attention_bwd_times(b, 8, 64, t, t, False, lens, dtype, rng, cold=False)
+        args = at["kernel_args"][:6] + at["kernel_args"][7:]
+        got, want = flash_attention_bwd(*args), flash_attention_bwd_reference(*args)
+        err = (0.0, 0.0)
+        for g, w in zip(got, want):
+            e, scale = scaled_err(g, w)
+            err = (max(err[0], e), max(err[1], e / scale))
+        print(f"[text rows] flash backward {name} [{b}, {t}, {t}, 8, 64] with phone lengths, "
+              f"dropout 0.1: err {err[0]:.3g}, scaled {err[1]:.3g} (tol {TOL_FLASH_BWD[dtype]})")
+        require(err[1] <= TOL_FLASH_BWD[dtype], "the backward disagrees at the phone2char shape")
+        rows.append({
+            "name": f"flash_attention_bwd_phone2char[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: "
+                        "delta :468, dK/dV :238, dQ :327)",
+            "shape": at["shape"], **common,
+            "launches": tr["total"]["flash_attention_bwd_dkv"],
+            "launches_are": "backward calls of the Embed_Decoder_CTC training run (f32), each "
+                            "launching statistics, dK/dV and dQ once",
+            **bwd_errs(err, TOL_FLASH_BWD[dtype]),
+            **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")},
+            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
+                          "mask) forward + backward minus forward (graph replay)",
+        })
+    return rows
+
+
 # ----------------------------------------------------------- serving path
 #
 # Each artifact kind is exported, served and timed by a worker process of
@@ -5421,10 +5875,13 @@ def main() -> int:
         print(f"[time] streaming path done at {time.time() - t_start:.1f}s")
         wave = phase_wave(vocab, chars, launches)
         print(f"[time] wave path done at {time.time() - t_start:.1f}s")
+        text = phase_text(launches)
+        print(f"[time] text path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
-                + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches))
+                + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches)
+                + text_rows(text, errs, launches))
         print(f"[time] kernel rows done at {time.time() - t_start:.1f}s")
         # last: its workers' timed turns share the machine with nothing else
         serve = phase_serving(serve_job(
@@ -5488,6 +5945,16 @@ def main() -> int:
           f"loss {wave['losses']['gru_ctc']:.3g}; freeze gate move ratio "
           f"{wave['gate_ratio']:.3f}; launches a wav2vec micro-batch {wave['per']['step']}, "
           f"a forward {wave['per']['forward']}; cpc and gru_ctc none")
+    tc = text["check"]
+    print("[text path] " + "; ".join(
+        f"{k}: {r['micro_batches']} micro-batches in {r['wall']:.2f}s wall, launches a "
+        f"micro-batch {r['per']['step']}, dev WER {r['dev_wer']}" for k, r in text["runs"].items())
+        + "; decodes " + ", ".join(f"{k} {r['wall']:.2f}s ({r['wer']})"
+                                   for k, r in text["decodes"].items())
+        + f"; card vs CPU: Embed_Decoder_CTC logits {tc['ctc_logits']:.3g}, gradients "
+          f"{tc['ctc_grads']:.3g}; Embed_Decoder 1-best scores {tc['beam_scores']:.3g}, equal "
+          f"n-best {tc['beam_same_nbest']:.2f}; GAN losses {tc['gan_losses']:.3g}, gradients "
+          f"{tc['gan_grads']:.3g} ({tc['relu_flips']} ReLU flips)")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

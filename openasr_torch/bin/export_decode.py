@@ -84,8 +84,10 @@ def main(argv=None):
     args = get_args(argv)
     if args.model_type.lower().replace("-", "_") in ("gru_ctc", "wav2vec_ctc"):
         raise SystemExit(
-            f"--model_type {args.model_type}: exporting the raw-wave families (WavConv "
-            "and the GRU in a traced program) is still to come, ROADMAP queue 1 item 13a")
+            f"--model_type {args.model_type}: the raw-wave families are not exported; the "
+            "JAX package's export_beam_decode cannot export them either (it reads "
+            "encoder.input_dim, which they do not set, and traces [B, T, input_dim] "
+            "features, not waves)")
     device = resolve_device(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.compute_dtype]
     platforms = tuple(args.platforms.split(","))

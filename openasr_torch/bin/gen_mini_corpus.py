@@ -5,11 +5,14 @@ package: for the same arguments and seed it writes byte-identical files,
 through the port's `data.kaldi_io.write_ark_scp` and `data.audio.write_wav`.
 
 Features carry a per-token activation pattern and the labels follow it;
-in `--wave` mode each token is a tone segment of its own frequency in
+`--phones_per_char 2` doubles each token's phone, so that the
+phone->char CLIs' datasets keep the pairs (at least 2 phones a
+character; with 1, the default, they keep none); in `--wave` mode each token is a tone segment of its own frequency in
 16 kHz PCM16 wavs.
 
   python -m openasr_torch.bin.gen_mini_corpus --out data/mini
   python -m openasr_torch.bin.gen_mini_corpus --out data/gate --wave --num_utts 256
+  python -m openasr_torch.bin.gen_mini_corpus --out data/p2c --phones_per_char 2
 
 Outputs under --out: feats.ark/.scp, train.json, dev.json, test.json,
 chars.txt, phones.txt, test_text.txt (the scoring reference),
@@ -85,9 +88,11 @@ def gen_wave_corpus(out: str, num_utts: int, seed: int) -> None:
     print(f"mini wave corpus: {num_utts} utts -> {out}")
 
 
-def gen_feature_corpus(out: str, num_utts: int, feat_dim: int, seed: int) -> None:
+def gen_feature_corpus(out: str, num_utts: int, feat_dim: int, seed: int,
+                       phones_per_char: int = 1) -> None:
     """Kaldi ark features with an 8-frame block of ones per token in the
-    token's 4 feature columns, and the manifests, vocabularies and texts."""
+    token's 4 feature columns, and the manifests, vocabularies and texts;
+    each token's phone written `phones_per_char` times."""
     rng = np.random.RandomState(seed)
     _write_text(os.path.join(out, "chars.txt"), "\n".join(CHARS) + "\n")
     _write_text(os.path.join(out, "phones.txt"), "\n".join(PHONES) + "\n")
@@ -103,14 +108,14 @@ def gen_feature_corpus(out: str, num_utts: int, feat_dim: int, seed: int) -> Non
         key = f"utt{i:03d}"
         mats.append((key, feat))
         tokens = " ".join(CHARS[k] for k in toks)
-        phones = " ".join(PHONES[k] for k in toks)
+        phones = " ".join(PHONES[k] for k in toks for _ in range(phones_per_char))
         samples.append({
             "uttid": key,
             "feat_length": int(t),
             "tokens": tokens,
             "token_length": int(n_tok),
             "phones": phones,
-            "phone_length": int(n_tok),
+            "phone_length": int(n_tok) * phones_per_char,
         })
         text_lines.append(f"{key} {tokens}")
 
@@ -141,12 +146,17 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--wave", action="store_true",
                         help="write 16 kHz wavs and wave manifests")
+    parser.add_argument("--phones_per_char", type=int, default=1,
+                        help="each token's phone this many times: 2 gives pairs that "
+                             "the phone->char datasets keep (at least 2 phones a "
+                             "character); the default is tools/gen_mini_corpus.py's")
     args = parser.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     if args.wave:
         gen_wave_corpus(args.out, args.num_utts, args.seed)
     else:
-        gen_feature_corpus(args.out, args.num_utts, args.feat_dim, args.seed)
+        gen_feature_corpus(args.out, args.num_utts, args.feat_dim, args.seed,
+                           args.phones_per_char)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,8 @@ whatever `--dtype`) into the attention and CIF beams and the device CTC
 beam (shallow fusion; a CTC model without `--ctc_beam N --ctc_beam_device`
 exits, as the host decoders have no fusion hook).  The log-probs of the
 CTC beams are the f32 log-softmax of the logits, also under `--dtype
-bfloat16`.  The other model families exit with the ROADMAP item that will
-port them.
+bfloat16`.  The other model types exit; the text families name
+`bin/infer_phone2char.py`.
 
   python -m openasr_torch.bin.infer --model_type conv-ctc \\
       --model_pkg last.pkg --vocab_path chars.txt --json_file test.json \\
@@ -132,10 +132,10 @@ def check_ported(args) -> None:
         )
     if args.model_type.lower().replace("-", "_") not in PORTED_TYPES:
         raise SystemExit(
-            f"--model_type {args.model_type}: conv-transformer, conv-ctc-transformer, "
-            "conv-ctc, gru_ctc, wav2vec_ctc, CIF and ctc_cif decode in the port so far "
-            "(CIF_FC and CIF_MIX have no beam); the text families are ROADMAP queue 1 "
-            "item 13b (Embed_Decoder, Embed_Decoder_CTC)"
+            f"--model_type {args.model_type}: this CLI decodes conv-transformer, "
+            "conv-ctc-transformer, conv-ctc, gru_ctc, wav2vec_ctc, CIF and ctc_cif "
+            "(CIF_FC and CIF_MIX have no beam); the text families (Embed_Decoder, "
+            "Embed_Decoder_CTC) decode through openasr_torch.bin.infer_phone2char"
         )
     if args.lm_pkg and args.lm_weight != 0.0 and is_ctc and not (
             args.ctc_beam > 0 and args.ctc_beam_device):

@@ -16,7 +16,9 @@ zips `data.acousticset`'s acoustic batches beside them), on the card by
 default, `--device cpu` on the CPU; without a card `--device cuda`
 raises.
 `training.compute_dtype: bfloat16` runs the forward in bf16 over f32
-weights.  The multi-device flags exit naming their ROADMAP item.
+weights.  The multi-device flags exit naming their ROADMAP item; the text
+families exit naming `bin/train_phone2char.py` and
+`bin/semi_train_phone2char.py`.
 
   python -m openasr_torch.bin.train egs/aishell1/configs/conv-ctc-transformer.yaml
 """
@@ -41,7 +43,7 @@ from openasr_torch.data.loader import DataLoader
 from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer
-from openasr_torch.models import UNPORTED_MODEL_TYPES, get_model_class
+from openasr_torch.models import get_model_class
 from openasr_torch.solvers import DTYPES, get_solver_class
 from openasr_torch.utils.checkpoint import load_package
 
@@ -61,6 +63,8 @@ def setup_logging():
 
 
 PHONE_TYPES = ("cif_fc", "cif_mix")
+# trained by bin/train_phone2char.py and bin/semi_train_phone2char.py
+TEXT_TYPES = ("embed_decoder", "embed_decoder_ctc", "gan_phone2char")
 
 
 def _norm_type(modelconfig) -> str:
@@ -115,11 +119,12 @@ def check_ported(args, config) -> None:
             "sequence and pipeline parallelism and multi-host training are "
             "ROADMAP queue 1 item 15 (multi-device)"
         )
-    if _norm_type(config["model"]) in UNPORTED_MODEL_TYPES:
+    if _norm_type(config["model"]) in TEXT_TYPES:
         raise SystemExit(
-            f"model type {config['model']['type']!r}: the text families (Embed_Decoder, "
-            "Embed_Decoder_CTC, the GAN) are ROADMAP queue 1 item "
-            f"{UNPORTED_MODEL_TYPES[_norm_type(config['model'])]}"
+            f"model type {config['model']['type']!r}: the text families train through "
+            "openasr_torch.bin.train_phone2char (Embed_Decoder, Embed_Decoder_CTC) and "
+            "openasr_torch.bin.semi_train_phone2char (gan_phone2char); this CLI trains "
+            "the speech families"
         )
     sig = config["model"].get("signal") or {}
     if _norm_type(config["model"]) in PHONE_TYPES:

@@ -37,6 +37,13 @@ The CIF families add the assigner (`conv{i}` 1-D WIO or 2-D HWIO,
 `input_affine`, `output_affine`, `layer{i}`), `phone_fc` and CIF_MIX's
 `char_decoder`, whose attention heads are the `decoder` section's.
 
+The text families: Embed_Decoder's `emb` (the phone Embed) and `decoder`;
+Embed_Decoder_CTC's `emb`, `encoder_block` (its heads are the `decoder`
+section's, which configures the stack) and `ctc_fc`; gan_phone2char's
+`G` (those three, nested) and `D` (`encoder`: `conv{i}` HWIO and the
+folded `affine`, as ConvV2's; `score_fc`), G's heads from
+`G.decoder`.
+
 Both directions are exact (pure transposes and reshapes).
 
 The optimizer states bridge the same way (`jax_optim_state_to_port`,
@@ -77,10 +84,14 @@ COMPONENTS = {
     "CIF_MIX": ("encoder", "assigner", "char_decoder", "ctc_fc", "phone_fc"),
     "gru_ctc": ("splayer", "encoder", "fc"),
     "wav2vec_ctc": ("encoder", "fc"),
+    "Embed_Decoder": ("emb", "decoder"),
+    "Embed_Decoder_CTC": ("emb", "encoder_block", "ctc_fc"),
+    "gan_phone2char": ("G", "D"),
 }
-# the config section of a component's attention heads, where it is not
-# the component's own name
-HEADS_SECTION = {"char_decoder": "decoder"}
+# the config path of a component's attention heads, where it is not the
+# component's own name
+HEADS_SECTION = {"char_decoder": ("decoder",), "encoder_block": ("decoder",),
+                 "G": ("G", "decoder")}
 _ATTENTION = ("self_attn", "cross_attn")
 
 
@@ -214,6 +225,14 @@ def subtree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _section_heads(configs, component: str) -> int:
+    """The attention heads of `component`, from its config section."""
+    section = configs
+    for key in HEADS_SECTION.get(component, (component,)):
+        section = section[key]
+    return int(section["nhead"])
+
+
 def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
     """The port's state_dict -> JAX-layout components (f32 NumPy).  The
     attention head count comes from the `encoder`/`decoder` config section
@@ -238,7 +257,7 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
             continue
         attention = _in_attention(path)
         if attention:
-            heads = lm_heads or int(configs[HEADS_SECTION.get(path[0], path[0])]["nhead"])
+            heads = lm_heads or _section_heads(configs, path[0])
         if leaf == "weight":
             if _is_norm(parent):
                 leaf = "scale"

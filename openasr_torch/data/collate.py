@@ -3,8 +3,8 @@
 Counterpart of `FeatureCollate`, `WaveCollate`, `WaveOnlyCollate`,
 `load_wave_batch` and the
 phone collates of the CIF families (`PhoneCharCollate`, `FeatPhoneCollate`,
-`FeatPhoneCharCollate`) and the LMs' `TextCollate` in
-openasr_tpu/data/collate.py.  Padded
+`FeatPhoneCharCollate`), the GAN's unpaired `TokenCollate` and the LMs'
+`TextCollate` in openasr_tpu/data/collate.py.  Padded
 dimensions are rounded up onto the same geometric ladder as the JAX
 package, so both packages see identical batch shapes.  Batches are dicts
 of NumPy arrays plus a "uttids" list:
@@ -255,6 +255,21 @@ class FeatPhoneCharCollate(PhoneCharCollate):
                                               self.quantize_shapes)
         return {**PhoneCharCollate.__call__(self, batch), "feats": feats,
                 "feat_lengths": feat_lengths}
+
+
+class TokenCollate:
+    """Unpaired token lines -> `tokens [B, T]` int32 padded with <eos> to
+    the quantized length, and `token_lengths [B]`."""
+
+    def __init__(self, tokenizer, quantize_shapes=True):
+        self.tokenizer = tokenizer
+        self.quantize_shapes = quantize_shapes
+
+    def __call__(self, batch: List[str]) -> Dict:
+        toks = [np.asarray(self.tokenizer.encode(t), np.int32) for t in batch]
+        lens = np.asarray([len(t) for t in toks], np.int32)
+        return {"tokens": pad_list(toks, EOS_ID, quantize(int(lens.max()), self.quantize_shapes)),
+                "token_lengths": lens}
 
 
 class TextCollate:

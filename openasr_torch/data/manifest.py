@@ -1,11 +1,14 @@
 """Manifest datasets, length-sorted and filtered.
 
 Counterpart of `load_json_manifest`, `load_flist`, `SpeechDataset` and
-`ArkDataset` in openasr_tpu/data/manifest.py, and `TextLineByLineDataset`
-(the LMs' text lines).  Json manifests carry
+`ArkDataset` in openasr_tpu/data/manifest.py, `TextLineByLineDataset`
+(the LMs' text lines), and the phone->char sets: `PhoneCharDataset`,
+`load_token_lines`, `TokenDataset` and `SemiPhoneCharDataset`.  Json
+manifests carry
 `uttid / feat / feat_length / tokens / token_length` rows (for waves,
-`feat` is an audio path or scheme and `feat_length` its sample count); a
-path may also be a directory of *.json files.
+`feat` is an audio path or scheme and `feat_length` its sample count; the
+phone->char manifests `phones / phone_length` in place of the features);
+a path may also be a directory of *.json files.
 """
 
 from __future__ import annotations
@@ -129,3 +132,58 @@ class TextLineByLineDataset:
 
     def __len__(self) -> int:
         return len(self.data)
+
+
+class PhoneCharDataset(TextLineByLineDataset):
+    """phone->char pairs filtered on phone_length, token_length and their
+    ratio (phones a character, `rate_in_out`), sorted by phone_length
+    (longest first with `reverse`) when `sort`, the list repeated `multi`
+    times."""
+
+    def __init__(self, json_path: str, sort: bool = True, reverse: bool = False,
+                 multi: int = 1, feat_range=(1, 99999), label_range=(1, 100),
+                 rate_in_out=(2, 999)):
+        data = load_json_manifest(json_path, x="phone_length", x_range=feat_range,
+                                  y_range=label_range, rate=rate_in_out)
+        if sort:
+            data = sorted(data, key=lambda s: float(s["phone_length"]))
+            if reverse:
+                data.reverse()
+        self.data = data * multi if multi > 1 else data
+
+
+def load_token_lines(token_file: str) -> List[str]:
+    """The tokens of `uttid tok tok ...` lines (a line without tokens is
+    skipped)."""
+    out = []
+    with open(token_file, encoding="utf-8") as f:
+        for line in f:
+            fields = line.strip().split(maxsplit=1)
+            if len(fields) == 2:
+                out.append(fields[1])
+    return out
+
+
+class TokenDataset(TextLineByLineDataset):
+    """Unpaired token lines (the GAN's phones or text), the list repeated
+    `multi` times."""
+
+    def __init__(self, token_path: str, multi: int = 1):
+        data = load_token_lines(token_path)
+        self.data = data * multi if multi > 1 else data
+
+
+class SemiPhoneCharDataset(PhoneCharDataset):
+    """The paired json (as PhoneCharDataset, sorted by phone_length) and
+    the unpaired phone and text lines beside it."""
+
+    def __init__(self, phone_path: str, text_path: str, json_path: str,
+                 feat_range=(1, 99999), label_range=(1, 100), rate_in_out=(2, 999)):
+        super().__init__(json_path, feat_range=feat_range, label_range=label_range,
+                         rate_in_out=rate_in_out)
+        self.phone_data = load_token_lines(phone_path)
+        self.text_data = load_token_lines(text_path)
+
+    def sizes(self) -> dict:
+        return {"paired": len(self.data), "phone": len(self.phone_data),
+                "text": len(self.text_data)}

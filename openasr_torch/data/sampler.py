@@ -20,13 +20,15 @@ import numpy as np
 
 
 class BudgetBatchSampler:
-    """Pack batches until cumulative `feat_length` >= budget, batch size
-    divisible by `divisible_by`."""
+    """Pack batches until cumulative `key` (`feat_length`, or the phone
+    datasets' `phone_length`) >= budget, batch size divisible by
+    `divisible_by`."""
 
     def __init__(
         self,
         dataset: Sequence[dict],
         budget: float,
+        key: str = "feat_length",
         divisible_by: int = 1,
         shuffle: bool = False,
         seed: int = 0,
@@ -38,7 +40,7 @@ class BudgetBatchSampler:
         acc = 0.0
         for idx in range(len(dataset)):
             batch.append(idx)
-            acc += float(dataset[idx]["feat_length"])
+            acc += float(dataset[idx][key])
             if acc >= budget and len(batch) % divisible_by == 0:
                 batches.append(batch)
                 batch = []

@@ -38,10 +38,6 @@ def _normalize(name: str) -> str:
     return name.lower().replace("-", "_")
 
 
-# the JAX package's other model types, by their ROADMAP queue 1 item
-UNPORTED_MODEL_TYPES = {
-    "embed_decoder": "13b", "embed_decoder_ctc": "13b", "gan_phone2char": "13b",
-}
 # other spellings of a model type
 _MODEL_ALIASES = {"cpc_model": "encoder_cpc"}
 
@@ -50,22 +46,19 @@ def get_model_class(name: str) -> type:
     """Resolve a model type, case-insensitive over '-'/'_'."""
     import openasr_torch.models.cif  # noqa: F401  (fills the registry)
     import openasr_torch.models.cpc  # noqa: F401
+    import openasr_torch.models.gan  # noqa: F401
     import openasr_torch.models.lm  # noqa: F401
     import openasr_torch.models.speech  # noqa: F401
+    import openasr_torch.models.text  # noqa: F401
     import openasr_torch.models.wav2vec  # noqa: F401
 
     by_norm = {_normalize(k): k for k in MODEL_REGISTRY}
     norm = _MODEL_ALIASES.get(_normalize(name), _normalize(name))
     if norm in by_norm:
         return MODEL_REGISTRY[by_norm[norm]]
-    if _normalize(name) in UNPORTED_MODEL_TYPES:
-        raise NotImplementedError(
-            f"model type {name!r} is not ported yet: ROADMAP queue 1 item "
-            f"{UNPORTED_MODEL_TYPES[_normalize(name)]}"
-        )
     raise ValueError(
-        f"Model type {name!r} is not ported; the port has {sorted(MODEL_REGISTRY)} "
-        "(ROADMAP queue 1 lists the other families)"
+        f"Unknown model type {name!r}; the port has {sorted(MODEL_REGISTRY)}, "
+        "every type of the JAX package"
     )
 
 

@@ -20,7 +20,8 @@ intervals and epoch ends.
 
 The CTC solver logs the greedy decode of the first dev utterance
 (`dev sample greedy ids: [...]`) after the first dev batch.  The CIF
-families' solvers are in solvers/cif.py.
+families' solvers are in solvers/cif.py, CPC's in solvers/cpc.py, the
+phone2char ones (and the GAN's epoch) in solvers/phone2char.py.
 
 `optimtype: sgd` and `fused_adam: false` take the stock optimizers
 (ops/optimizers.py).  Packages are written by an `AsyncCheckpointer`,
@@ -515,6 +516,7 @@ def get_solver_class(model_type: str):
     """Case- and -/_-insensitive, as model types resolve."""
     import openasr_torch.solvers.cif  # noqa: F401  (fills the registry)
     import openasr_torch.solvers.cpc  # noqa: F401
+    import openasr_torch.solvers.phone2char  # noqa: F401
 
     norm = model_type.lower().replace("-", "_")
     for name, cls in SOLVER_REGISTRY.items():
@@ -522,6 +524,5 @@ def get_solver_class(model_type: str):
             return cls
     raise ValueError(
         f"No solver for model type {model_type!r} in the port; it trains "
-        f"{sorted(SOLVER_REGISTRY)} (the phone2char solvers are "
-        "ROADMAP queue 1 item 13b)"
+        f"{sorted(SOLVER_REGISTRY)}"
     )

@@ -169,7 +169,8 @@ def test_unported_flags_exit_naming_roadmap_item(corpus, model_type, extra, item
 
 def test_online_input_and_other_families_exit(corpus):
     """Online wave input (no --offline) is ported: it passes the checks
-    (tests/test_torch_online.py decodes it); the other families exit."""
+    (tests/test_torch_online.py decodes it); the text families exit naming
+    their own CLI, bin/infer_phone2char.py."""
     from openasr_torch.bin.infer import check_ported, get_args
     from openasr_torch.bin.infer import main as torch_infer
 
@@ -177,7 +178,7 @@ def test_online_input_and_other_families_exit(corpus):
     check_ported(get_args(online + ["--device", "cpu"]))
     other = _argv(corpus, "unused.txt") + ["--device", "cpu"]
     other[other.index("conv-ctc-transformer")] = "embed_decoder"
-    with pytest.raises(SystemExit, match="item 13b \\(Embed_Decoder"):
+    with pytest.raises(SystemExit, match="openasr_torch.bin.infer_phone2char"):
         torch_infer(other)
 
 

@@ -173,11 +173,11 @@ def test_jax_written_package_decodes_alike(trained, corpus, tmp_path, caplog, mo
 
 @pytest.mark.parametrize("model_type", ["gru_ctc", "wav2vec_ctc"])
 def test_export_of_the_wave_families_exits_naming_its_item(model_type):
-    """Their export through serving.py is still to come: the CLI says so
-    before it reads anything."""
+    """They are not exported, as the JAX package cannot export them: the CLI
+    says so before it reads anything."""
     from openasr_torch.bin.export_decode import main as export_main
 
-    with pytest.raises(SystemExit, match="item 13a"):
+    with pytest.raises(SystemExit, match="cannot export them either"):
         export_main(["--model_type", model_type, "--model_pkg", "unused.pkg",
                      "--vocab_path", "unused.txt", "--out", "unused.zip", "--device", "cpu"])
 
