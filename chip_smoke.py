@@ -181,10 +181,30 @@ attention forward (4p) and backward (5+6p) at the CTC run's largest
 batch beside SDPA with the same key-length mask, after holding them to
 their plain versions there.
 
+Then the mixture of experts (`[moe path]`):
+egs/aishell1/configs/conv-ctc-transformer-moe.yaml as it is (the
+flagship with layers 1, 3 and 5 of the encoder 8 GLU experts each, top-2,
+capacity factor 1.25, aux weight 0.01) at vocabulary 4233, trained
+through the train CLI for one epoch of the flagship run's 128 utterances
+(2 steps and a dev batch) in f32 and bf16 from one seeded package, with
+`moe_aux_loss` finite and positive in every logged row and each run's
+launches those of the flagship's steps; the f32 package's 8 test
+utterances decoded through the infer CLI with the attention beam and,
+its encoder and CTC head as a conv-ctc package, greedily; on two
+utterances f32 on the card against the CPU for the topk router and for
+an expert_choice variant at the same weights: the logits and one step's
+gradients of the solver's objective (1e-3 each), the CPU at the card's
+routing (`RouteReplay`: at most 16 tokens routed otherwise, each a
+rounding tie); and the device ms of one MoE layer at the training batch,
+forward and backward, by stage (router and combine tensor, dispatch,
+expert products, combine) beside the dense GLU FFN (`[moe layer]`).
+
 Last, the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
 (beam 5, SERVE_MAXLEN steps) with f32 weights, with int8 weights and with
-the [lm path]'s Transformer LM fused; conv-ctc's device prefix beam of 10
+the [lm path]'s Transformer LM fused, and the [moe path]'s f32 package's
+with int8 weights through `openasr_torch.bin.export_decode --int8`;
+conv-ctc's device prefix beam of 10
 with the LM and a hotword file (over each decode utterance's first 32
 frames); the streaming tick of the streaming package and of the online
 streaming model (B 8); and the streaming prefix beam of 10 with the LM
@@ -1102,13 +1122,9 @@ def phase_decode(pkg, vocab, manifest, launches, online=False):
     once per encoder layer of a batch and the fbank kernel once per online
     batch."""
     from openasr_torch.bin import infer
-    from openasr_torch.data.manifest import ArkDataset, SpeechDataset
-    from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 
-    dataset, sampler, budget = ((SpeechDataset, TimeBasedSampler, 5760000) if online
-                                else (ArkDataset, FrameBasedSampler, 36000))
-    n_batches = len(sampler(dataset(manifest, feat_range=(1, 10**9), label_range=(0, 10**9),
-                                    rate_in_out=(0, 10**9)), budget))
+    budget = 5760000 if online else 36000
+    n_batches = decode_batches(manifest, budget, online)
     n_utts = len(json.load(open(manifest)))
     tag = "online decode" if online else "decode"
     for dtype in DTYPES:
@@ -1135,6 +1151,18 @@ def phase_decode(pkg, vocab, manifest, launches, online=False):
         require(n_flash == 6 * n_batches, f"flash launched {n_flash} times")
         require(n_ln >= 13 * n_batches, f"layer_norm launched {n_ln} times")
         require(n["fbank"] == (n_batches if online else 0), f"fbank launched {n['fbank']} times")
+
+
+def decode_batches(manifest, budget=36000, online=False) -> int:
+    """The infer CLI's batches of `manifest` at `budget` frames (samples
+    for waves)."""
+    from openasr_torch.data.manifest import ArkDataset, SpeechDataset
+    from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
+
+    dataset, sampler = (SpeechDataset, TimeBasedSampler) if online else (ArkDataset,
+                                                                          FrameBasedSampler)
+    return len(sampler(dataset(manifest, feat_range=(1, 10**9), label_range=(0, 10**9),
+                               rate_in_out=(0, 10**9)), budget))
 
 
 def padded_features(feats, utts):
@@ -1989,13 +2017,13 @@ def stats_row_errs(err) -> dict:
                       "and without dropout"}
 
 
-def backward_ms(fwd, inputs, grad_out) -> float:
+def backward_ms(fwd, inputs, grad_out, calls: int = 20, reps: int = 10) -> float:
     """Device ms of the backward of `fwd`: forward + backward minus the
     forward alone, both by CUDA-graph replay."""
     def both():
         torch.autograd.grad(fwd(), inputs, grad_out)
 
-    return device_ms(both) - device_ms(fwd)
+    return device_ms(both, calls, reps) - device_ms(fwd, calls, reps)
 
 
 def attention_shapes(shapes, model_cfg=FLAGSHIP):
@@ -4569,13 +4597,10 @@ def check_wav2vec_against_cpu(pkg_path, waves) -> dict:
     training forward's gradients (the batch's statistics), against the
     same model in float64 on the CPU: each parameter's error (of its
     largest gradient; a k-projection bias of its weight's) within
-    TOL_WAVE_CPU of the CPU f32 run's own error there.  Through WavConv's
-    BatchNorms the f32 gradient of the frontend is ill-conditioned on
-    such batches (a quiet stretch and padding): the CPU's own f32 run is
-    a few percent off float64 there, so the card is held to the CPU's
-    accuracy rather than to its f32 rounding.  The CPU runs take the
-    card's ReLU decisions (`ReluMasks`, WavConv's ReLUs), their flips
-    bounded as rounding ties."""
+    TOL_WAVE_CPU, the card's and the CPU f32 run's (WavConv pads its
+    inputs explicitly for the CPU's sake: models/frontend.py).  The CPU
+    runs take the card's ReLU decisions (`ReluMasks`, WavConv's ReLUs),
+    their flips bounded as rounding ties."""
     from openasr_torch.config import Config
     from openasr_torch.models import get_model_class
     from openasr_torch.models.layers import TrainRNG
@@ -4610,27 +4635,26 @@ def check_wav2vec_against_cpu(pkg_path, waves) -> dict:
     direct, direct_name = grad_errs(grads["cuda"], grads["cpu"])
     card = param_errs(grads["cuda"], grads["cpu f64"])
     cpu = param_errs(grads["cpu"], grads["cpu f64"])
-    card_err, cpu_err = max(card.values()), max(cpu.values())
-    margin_name = max(card, key=lambda n: card[n] - cpu[n])
-    margin = card[margin_name] - cpu[margin_name]
+    card_name, cpu_name = max(card, key=card.get), max(cpu, key=cpu.get)
+    card_err, cpu_err = card[card_name], cpu[cpu_name]
     flip_abs = max((f["flip_abs_rel"] for f in relus.flipped), default=0.0)
     print(f"[wave check] wav2vec f32 card vs CPU, {len(utts)} utts "
           f"{batch['waves'].shape}: logits err {e_logits:.3g} of their max abs (tol "
           f"{TOL_WAVE_CPU}); one training forward's gradients, {len(grads['cpu'])} parameters, "
-          f"against float64 on the CPU: the card's worst {card_err:.3g}, the CPU f32 run's "
-          f"worst {cpu_err:.3g}, the card's largest excess over the CPU's {margin:.3g} "
-          f"({margin_name}; tol {TOL_WAVE_CPU}); card vs CPU f32 directly {direct:.3g} "
+          f"against float64 on the CPU: the card's worst {card_err:.3g} ({card_name}), the CPU "
+          f"f32 run's worst {cpu_err:.3g} ({cpu_name}; tol {TOL_WAVE_CPU} each); card vs CPU "
+          f"f32 directly {direct:.3g} "
           f"({direct_name}); {relus.flips} ReLU inputs flipped, the largest |x| at a flip "
           f"{flip_abs:.3g} of its call's largest")
     require(bool(torch.isfinite(logits["cuda"]).all()), "non-finite wav2vec logits on the card")
     require(e_logits <= TOL_WAVE_CPU, "wav2vec logits: card and CPU disagree")
     require(relus.flips <= CIF_RELU_MAX_FLIPS and flip_abs <= CIF_RELU_TIE,
             f"{relus.flips} WavConv ReLU flips, the largest at {flip_abs:.3g}: not rounding ties")
-    require(margin <= TOL_WAVE_CPU,
-            f"wav2vec gradient of {margin_name}: the card {margin:.3g} farther from float64 "
-            "than the CPU's f32 run")
+    require(card_err <= TOL_WAVE_CPU and cpu_err <= TOL_WAVE_CPU,
+            f"wav2vec gradients against float64: the card's {card_name} {card_err:.3g}, the "
+            f"CPU f32 run's {cpu_name} {cpu_err:.3g}")
     return {"logits_err": e_logits, "grad_err": card_err, "grad_err_cpu": cpu_err,
-            "grad_excess": margin, "grad_err_direct": direct, "relu_flips": relus.flips}
+            "grad_err_direct": direct, "relu_flips": relus.flips}
 
 
 def check_cpc_gru_against_cpu(cpc_pkg, gru_pkg, waves) -> dict:
@@ -5314,6 +5338,325 @@ def text_rows(text, errs, launches):
     return rows
 
 
+# --------------------------------------------------------------- moe path
+
+MOE_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer-moe.yaml")
+# the card-vs-CPU routing replay (ROADMAP queue 3 item 9's rule for MoE):
+# at most MOE_MAX_FLIPS tokens routed otherwise on the CPU, each a rounding
+# tie: the gates of its card pick and of its CPU pick within MOE_GATE_TIE of
+# the layer's largest gate
+MOE_MAX_FLIPS = 16
+MOE_GATE_TIE = 1e-5
+
+
+def moe_model_cfg(router="topk") -> dict:
+    """The model section of conv-ctc-transformer-moe.yaml as it is, at the
+    smoke test's vocabulary; `router="expert_choice"` is the variant the
+    phase writes (the YAML is not edited)."""
+    import yaml
+
+    with open(MOE_YAML) as f:
+        model = yaml.safe_load(f)["model"]
+    model["decoder"]["vocab_size"] = FLAGSHIP["decoder"]["vocab_size"]
+    if router != "topk":
+        model["encoder"]["moe"]["router"] = router
+    return model
+
+
+class RouteReplay:
+    """The MoE layers' discrete choices (every `moe.top_indices` call: the
+    topk router's expert picks a token, expert_choice's token picks an
+    expert), recorded in call order on one forward and replayed on
+    another, as `ReluMasks` replays ReLU decisions.  The replay counts the
+    tokens routed otherwise than recorded (topk: the tokens whose picks
+    differ; expert_choice: the tokens that enter or leave an expert's
+    slots) and keeps each call's largest gate margin among them, |gate of
+    the recorded pick - gate of the own pick| over the call's largest
+    gate."""
+
+    def __init__(self, router: str):
+        from openasr_torch.models import moe
+
+        self.router, self.plain, self.picks, self.mode = router, moe.top_indices, [], None
+        self.flips, self.margins, self.calls = 0, [], 0
+
+    def top_indices(self, values, k):
+        own = self.plain(values, k)
+        if self.mode == "record":
+            self.picks.append(own.detach().clone())
+            return own
+        card = self.picks[self.calls].to(values.device)
+        self.calls += 1
+        rows = (card != own).any(dim=-1)
+        if bool(rows.any()):
+            v = values.detach()
+            gap = (v.gather(-1, card) - v.gather(-1, own)).abs()[card != own]
+            if self.router == "topk":
+                n = int(rows.sum())
+            else:
+                n = sum(len(set(card[tuple(r)].tolist()) ^ set(own[tuple(r)].tolist()))
+                        for r in rows.nonzero())
+            self.flips += n
+            self.margins.append(float(gap.max()) / float(v.max()))
+        return card
+
+    def installed(self, mode):
+        """`mode`: "record", "replay", or None (each layer's own choices)."""
+        from openasr_torch.models import moe
+
+        @contextlib.contextmanager
+        def patch():
+            self.mode, self.calls = mode, 0
+            if mode is not None:
+                moe.top_indices = self.top_indices
+            try:
+                yield
+            finally:
+                moe.top_indices = self.plain
+
+        return patch()
+
+
+def check_moe_against_cpu(pkg_path, feats, router) -> dict:
+    """The f32 MoE model (conv-ctc-transformer-moe.yaml at full width, the
+    f32 run's package; for expert_choice the same weights under that
+    router) on the card against the CPU, TF32 off, on two utterances: the
+    deterministic forward's CTC and decoder logits, and one step's
+    gradients of the solver's objective (ce / n_tokens + ctc / n_seqs +
+    moe_aux_loss), 1e-3 of each parameter's largest gradient (the
+    k-projection biases against their weights'), the CPU at the card's
+    routing (`RouteReplay`, which counts where the CPU's own routing
+    differs)."""
+    from openasr_torch.config import Config
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pkg = load_package(pkg_path)["model"]
+    cfg = Config(moe_model_cfg(router))
+    pkg["configs"]["encoder"]["moe"] = dict(cfg.encoder["moe"])
+    batch = padded_batch(feats, sorted(feats)[:2], np.random.RandomState(SEED + 41))
+    replay = RouteReplay(router)
+    outs, grads = {}, {}
+    t0 = time.time()
+    for tag, device, mode in (("cuda", "cuda", "record"), ("cpu", "cpu", "replay")):
+        model = get_model_class("conv-ctc-transformer").create_model(cfg, device=device)
+        model.restore(pkg)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with replay.installed(mode):
+            with torch.no_grad():
+                ctc, _, ce = model.module(tb["feats"], tb["feat_lengths"], tb["ids"])
+            losses = model.loss(tb, None, label_smooth=0.1, empty_rows=False)
+        total = (losses["ce_loss"] / losses["n_tokens"] + losses["ctc_loss"] / losses["n_seqs"]
+                 + losses["moe_aux_loss"])
+        total.backward()
+        outs[tag] = (ctc.cpu(), ce.cpu(), float(losses["moe_aux_loss"].detach()))
+        grads[tag] = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+    card, mine = outs["cuda"], outs["cpu"]
+    e_ctc, e_ce = max_err(card[0], mine[0]), max_err(card[1], mine[1])
+    worst, worst_name = grad_errs(grads["cuda"], grads["cpu"])
+    margin = max(replay.margins, default=0.0)
+    print(f"[moe check] {router} f32 card vs CPU, 2 utts {list(batch['feats'].shape)}, "
+          f"{time.time() - t0:.1f}s: ctc_fc logits err {e_ctc:.3g}, decoder logits err "
+          f"{e_ce:.3g} (tol 1e-3); one step's gradients, {len(grads['cpu'])} parameters, the "
+          f"CPU at the card's routing: worst err {worst:.3g} of the gradient's max abs "
+          f"({worst_name}; tol 1e-3); moe_aux_loss card {card[2]:.6g}, CPU {mine[2]:.6g}; "
+          f"{replay.flips} token(s) the CPU's own routing sends otherwise in "
+          f"{len(replay.picks)} routing calls (at most {MOE_MAX_FLIPS}), the largest gate "
+          f"margin {margin:.3g} of its layer's largest gate (tol {MOE_GATE_TIE})")
+    require(bool(torch.isfinite(card[0]).all() and torch.isfinite(card[1]).all()),
+            f"non-finite MoE logits on the card ({router})")
+    require(replay.flips <= MOE_MAX_FLIPS and margin <= MOE_GATE_TIE,
+            f"{replay.flips} tokens routed otherwise, the largest margin {margin:.3g}: not "
+            "rounding ties")
+    require(e_ctc <= 1e-3 and e_ce <= 1e-3, f"MoE logits: card and CPU disagree ({router})")
+    require(worst <= 1e-3, f"MoE gradient of {worst_name} disagrees: {worst:.3g} ({router})")
+    return {"logits_err": max(e_ctc, e_ce), "grad_err": worst, "flips": replay.flips,
+            "margin": margin, "calls": len(replay.picks)}
+
+
+def moe_layer_split(shapes) -> dict:
+    """Device ms (CUDA-graph replay, warm L2) of one MoE layer of the
+    config (8 GLU experts, top-2, capacity factor 1.25) at the training
+    path's largest batch [B, T', 512] with its encoder lengths, forward and
+    backward, by stage: the router and the combine tensor (`route`), the
+    dispatch einsum, the expert products (`expert_ffn`) and the combine
+    einsum; beside them the whole layer and the dense GLU FFN
+    (models/layers.py:FeedForward) at the same shape; f32 and bf16
+    (autocast).  Each stage takes milliseconds, so 5 calls a graph, 4
+    replays."""
+    from openasr_torch.models import init_parameters
+    from openasr_torch.models.layers import FeedForward
+    from openasr_torch.models.moe import MoEFeedForward
+
+    b, t, lens = shapes["b"], shapes["t"], shapes["enc_lens"]
+    enc = moe_model_cfg()["encoder"]
+    d, f, moe = int(enc["d_model"]), int(enc["dim_feedforward"]), enc["moe"]
+    gen = torch.Generator().manual_seed(SEED + 43)
+    layer = MoEFeedForward(d, f, int(moe["num_experts"]), int(moe["top_k"]),
+                           float(moe["capacity_factor"]), enc["activation"], 0.0)
+    dense = FeedForward(d, f, enc["activation"])
+    for m in (layer, dense):
+        init_parameters(m, gen)
+        m.to("cuda")
+    pad = (torch.arange(t)[None, :] < torch.from_numpy(lens)[:, None]).to("cuda")
+    out = {"shape": [b, t, d]}
+    for dtype in DTYPES:
+        def ac():
+            return torch.autocast("cuda", dtype=torch.bfloat16, cache_enabled=False,
+                                  enabled=dtype == torch.bfloat16)
+
+        x = torch.randn(b, t, d, device="cuda", requires_grad=True)
+        with ac():
+            combine = layer.route(x, pad).detach().requires_grad_(True)
+            xin = layer.dispatch(combine, x).detach().requires_grad_(True)
+            y_e = layer.expert_ffn(xin).detach().requires_grad_(True)
+        weights = [p for p in layer.parameters() if p is not layer.router.weight
+                   and p is not layer.router.bias]
+        stages = {
+            "route": (lambda: layer.route(x, pad), [x, layer.router.weight, layer.router.bias]),
+            "dispatch": (lambda: layer.dispatch(combine, x), [x]),
+            "experts": (lambda: layer.expert_ffn(xin), [xin] + weights),
+            "combine": (lambda: layer.combine(y_e, combine), [y_e, combine]),
+            "moe layer": (lambda: layer(x, None, pad), [x] + list(layer.parameters())),
+            "dense ffn": (lambda: dense(x), [x] + list(dense.parameters())),
+        }
+        row = {}
+        for name, (fn, inputs) in stages.items():
+            def fwd(fn=fn):
+                with ac():
+                    return fn()
+
+            grad_out = torch.randn_like(fwd())
+            row[name] = {"fwd": device_ms(fwd, 5, 4),
+                         "bwd": backward_ms(fwd, inputs, grad_out, 5, 4)}
+        row["capacity"] = int(combine.shape[-1])
+        out[DTYPE_NAME[dtype]] = row
+    return out
+
+
+def phase_moe(train_json, dev_json, vocab, test_json, train_feats, launches) -> dict:
+    """conv-ctc-transformer-moe.yaml at full width (`[moe path]`): one epoch
+    through the train CLI in f32 and bf16 from one seeded package (the
+    flagship run's cut: 128 utterances, 2 steps and a dev batch), with
+    `moe_aux_loss` finite and positive in every logged row and each run's
+    launches those of the flagship's steps; the f32 package's 8 test
+    utterances through the infer CLI (attention beam 5, maxlen 40; CTC
+    greedy, the package's encoder and CTC head as a conv-ctc package); card
+    vs CPU for both routers (`check_moe_against_cpu`); the layer's split
+    (`moe_layer_split`).  The int8 export is the serving path's kind
+    "beam moe int8".  Counters set to 0 just before each run, read just
+    after."""
+    from openasr_torch.bin import infer, train
+    from openasr_torch.config import Config
+    from openasr_torch.models.speech import ConvCTCModule
+    from openasr_torch.utils.checkpoint import load_package, save_package
+
+    t_phase = time.time()
+    cfg = moe_model_cfg()
+    per = per_step_launches(cfg)
+    require(per == per_step_launches(FLAGSHIP),
+            f"an MoE step's launches {per} are not the flagship's {per_step_launches(FLAGSHIP)}")
+    print(f"[moe path] cuts: {MOE_YAML} as it is (d512 x 6+6, layers 1, 3 and 5 with 8 GLU "
+          f"experts, top-2, capacity factor 1.25, aux weight 0.01) at vocabulary 4233 with "
+          f"random weights from seed {SEED}; one epoch of the flagship run's 128 random-"
+          f"feature utterances (2 steps and a dev batch), f32 and bf16; decode 8 utterances; "
+          f"the export one bucket, beam {SERVE_BEAM}, {SERVE_MAXLEN} steps; expert_choice only "
+          f"in the card-vs-CPU check")
+    out = {"runs": {}, "per": per}
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        exp = os.path.join(WORK, f"exp_moe_{name}")
+        os.makedirs(exp)
+        save_flagship_package(os.path.join(exp, "last.pkg"),
+                              {"epoch": 0, "step": 0, "tr_loss": [], "cv_loss": []}, cfg)
+        path = train_config(train_json, dev_json, vocab, exp, dtype, MOE_YAML)
+        reset_counters()
+        t0 = time.time()
+        train.main([path, "--continue-training", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        rows = read_metrics(exp)
+        tr = [r for r in rows if r["phase"] == "train"]
+        cv = [r for r in rows if r["phase"] == "cv"]
+        aux = [r.get("moe_aux_loss") for r in tr + cv]
+        losses = [v for r in rows for k, v in r.items() if k.endswith("loss")]
+        print(f"[moe path] train {name}: {len(tr)} steps + {len(cv)} dev batch(es) in "
+              f"{wall:.2f}s wall; losses {[round(r['ctc_loss'], 4) for r in tr]} (ctc), "
+              f"{[round(r['ce_loss'], 4) for r in tr]} (ce); moe_aux_loss (per token, as "
+              f"logged) train {[r['moe_aux_loss'] for r in tr]}, dev "
+              f"{[r['moe_aux_loss'] for r in cv]}; launches {n}")
+        require(len(tr) >= 2 and len(cv) >= 1, f"{len(tr)} steps, {len(cv)} dev batches")
+        require(all(a is not None and np.isfinite(a) and a > 0 for a in aux),
+                f"moe_aux_loss not finite and positive in every row: {aux}")
+        require(all(np.isfinite(v) for v in losses), f"non-finite loss logged: {losses}")
+        want = {k: 0 for k in n}
+        for k, c in per["train"].items():
+            want[k] += c * len(tr)
+        for k, c in per["dev"].items():
+            want[k] += c * len(cv)
+        require(n == want, f"launches {n} != {want} ({per['train']} a step, {per['dev']} a "
+                           f"dev batch)")
+        launches[("moe train", dtype)] = {"total": n, "steps": len(tr), "dev_batches": len(cv)}
+        out["runs"][name] = {"wall": wall, "steps": len(tr), "aux": aux,
+                             "pkg": os.path.join(exp, "last.pkg")}
+    pkg_path = out["runs"]["float32"]["pkg"]
+    n_batches = decode_batches(test_json)
+    pkg = load_package(pkg_path)["model"]
+    ctc_pkg = os.path.join(WORK, "moe_ctc.pkg")
+    configs = dict(pkg["configs"], type="conv-ctc",
+                   decoder={"vocab_size": pkg["configs"]["decoder"]["vocab_size"]})
+    save_package({"model_type": "conv-ctc", "configs": configs,
+                  "components": {"encoder": pkg["components"]["encoder"],
+                                 "fc": pkg["components"]["ctc_fc"]}}, ctc_pkg)
+    with torch.device("meta"):
+        ctc_forward = module_launches(ConvCTCModule(Config(configs)))["forward"]
+    out["decodes"] = {}
+    for name, model_type, model_pkg, extra in (
+            ("attention beam", "conv-ctc-transformer", pkg_path, ["--nbest", "5", "--maxlen", "40"]),
+            ("ctc greedy", "conv-ctc", ctc_pkg, [])):
+        hyp = os.path.join(WORK, f"hyp_moe_{name.replace(' ', '_')}.txt")
+        reset_counters()
+        t0 = time.time()
+        infer.main(["--model_type", model_type, "--model_pkg", model_pkg, "--vocab_path", vocab,
+                    "--json_file", test_json, "--output", hyp, "--add_blk", "--offline",
+                    "--batch_frames", "36000", "--device", "cuda"] + extra)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = read_counters()
+        with open(hyp, encoding="utf-8") as f:
+            lines = [line for line in f if line.strip()]
+        print(f"[moe path] decode {name}: {len(lines)} hyps in {wall:.2f}s wall, {n_batches} "
+              f"batch(es); launches {n}")
+        require(len(lines) == 8, f"{len(lines)} hyp lines for 8 utterances")
+        require(n["flash_attention_fwd"] == 6 * n_batches, f"flash launched "
+                                                           f"{n['flash_attention_fwd']} times")
+        if name == "ctc greedy":
+            require(n["layer_norm_fwd"] == ctc_forward["layer_norm_fwd"] * n_batches,
+                    f"layer_norm launched {n['layer_norm_fwd']} times")
+        else:
+            require(n["layer_norm_fwd"] >= 13 * n_batches,
+                    f"layer_norm launched {n['layer_norm_fwd']} times")
+        launches[("moe decode", name)] = n
+        out["decodes"][name] = {"wall": wall, "launches": n}
+    out["check"] = {router: check_moe_against_cpu(pkg_path, train_feats, router)
+                    for router in ("topk", "expert_choice")}
+    t0 = time.time()
+    out["split"] = moe_layer_split(train_shapes(train_json))
+    print(f"[moe path] the layer's split timed in {time.time() - t0:.1f}s")
+    card = nvidia_smi()
+    for dtype in ("float32", "bfloat16"):
+        s = out["split"][dtype]
+        print(f"[moe layer] {dtype} at [{', '.join(map(str, out['split']['shape']))}] "
+              f"(capacity {s['capacity']}), device ms forward / backward: "
+              + "; ".join(f"{k} {v['fwd']:.4f} / {v['bwd']:.4f}" for k, v in s.items()
+                          if isinstance(v, dict)) + f" ({card})")
+    out["wall"] = time.time() - t_phase
+    return out
+
+
 # ----------------------------------------------------------- serving path
 #
 # Each artifact kind is exported, served and timed by a worker process of
@@ -5328,7 +5671,7 @@ def text_rows(text, errs, launches):
 
 SERVE_DIR = os.path.join(WORK, "serving")
 SERVE_KINDS = ("beam", "beam int8", "beam lm", "ctc_beam", "streaming", "streaming online",
-               "stream_beam")
+               "stream_beam", "beam moe int8")
 SERVE_BEAM = 5
 # the attention beams' steps in the exported programs (the live CLI decode
 # takes 40): the graph grows with steps x layers, and its export, save and
@@ -5345,8 +5688,9 @@ SERVE_TIMED = 5
 TOL_INT8_SCORES = 0.05
 
 
-def serve_job(pkg, ctc_pkg, lm_pkg, stream_pkg, vocab, test_feats, wtest) -> dict:
-    """The workers' inputs, written to SERVE_DIR/job.json: the packages,
+def serve_job(pkg, ctc_pkg, lm_pkg, stream_pkg, moe_pkg, vocab, test_feats, wtest) -> dict:
+    """The workers' inputs, written to SERVE_DIR/job.json: the packages (the
+    MoE one the [moe path]'s f32 run's),
     the decode utterances' features and waves (padded, .npy), a hotword
     file, and the online streaming model's package (random weights from
     SEED, as `phase_streaming_online` builds it)."""
@@ -5373,7 +5717,7 @@ def serve_job(pkg, ctc_pkg, lm_pkg, stream_pkg, vocab, test_feats, wtest) -> dic
     chars = [line.strip() for line in open(vocab, encoding="utf-8")]
     hot = write_text("serve_hot.txt", [" ".join(chars[i: i + 3]) for i in (10, 200, 3000)])
     job = {"pkg": pkg, "ctc_pkg": ctc_pkg, "lm_pkg": lm_pkg, "stream_pkg": stream_pkg,
-           "online_pkg": online_pkg, "vocab": vocab, "hot": hot, "kinds": list(SERVE_KINDS)}
+           "moe_pkg": moe_pkg, "online_pkg": online_pkg, "vocab": vocab, "hot": hot, "kinds": list(SERVE_KINDS)}
     with open(os.path.join(SERVE_DIR, "job.json"), "w") as f:
         json.dump(job, f)
     return job
@@ -5520,22 +5864,37 @@ def serve_export(kind, export_fn, loader_cls, path) -> tuple:
 
 def serve_beam(kind, job) -> dict:
     """The flagship's attention beam (f32 weights, int8 weights, or the
-    Transformer LM fused at LM_WEIGHT) over the 8 decode utterances in one
-    bucket, against the live `batch_beam_decode`."""
+    Transformer LM fused at LM_WEIGHT), or the MoE model's with int8
+    weights exported through `bin/export_decode.py --int8`, over the 8
+    decode utterances in one bucket, against the live `batch_beam_decode`."""
     from openasr_torch import quant, serving
+    from openasr_torch.bin import export_decode
 
-    model = serve_model(job["pkg"])
+    moe = kind == "beam moe int8"
+    pkg_path = job["moe_pkg"] if moe else job["pkg"]
+    model = serve_model(pkg_path)
     x = torch.from_numpy(np.load(os.path.join(SERVE_DIR, "feats.npy"))).cuda()
     lens = torch.from_numpy(np.load(os.path.join(SERVE_DIR, "lens.npy"))).cuda()
     lm = load_lm(job["lm_pkg"], "cuda") if kind == "beam lm" else None
     lm_kw = {"lm": lm, "lm_weight": LM_WEIGHT} if lm is not None else {}
-    int8 = kind == "beam int8"
+    int8 = kind in ("beam int8", "beam moe int8")
     path = os.path.join(SERVE_DIR, kind.replace(" ", "_") + ".zip")
-    dec, rec = serve_export(kind, lambda p: serving.export_beam_decode(
-        model, [tuple(x.shape[:2])], p, beam_size=SERVE_BEAM, max_decode_len=SERVE_MAXLEN,
-        platforms=("cuda",), weights="int8" if int8 else "float32", **lm_kw),
-        serving.ExportedDecoder, path)
-    params = dec.prepare_params(serve_load(job["pkg"]))
+
+    def export(p):
+        if moe:
+            export_decode.main(["--model_type", "conv-ctc-transformer", "--model_pkg", pkg_path,
+                                "--vocab_path", job["vocab"], "--add_blk", "--out", p,
+                                "--buckets", "x".join(map(str, x.shape[:2])),
+                                "--nbest", str(SERVE_BEAM), "--maxlen", str(SERVE_MAXLEN),
+                                "--platforms", "cuda", "--int8", "--device", "cuda"])
+        else:
+            serving.export_beam_decode(
+                model, [tuple(x.shape[:2])], p, beam_size=SERVE_BEAM,
+                max_decode_len=SERVE_MAXLEN, platforms=("cuda",),
+                weights="int8" if int8 else "float32", **lm_kw)
+
+    dec, rec = serve_export(kind, export, serving.ExportedDecoder, path)
+    params = dec.prepare_params(serve_load(pkg_path))
     call_kw = {"lm_params": dec.prepare_lm_params(serve_load(job["lm_pkg"]))} if lm else {}
     n_params = sum(p.numel() * p.element_size() for p in model.module.parameters())
     rec["param_bytes"] = n_params
@@ -5552,7 +5911,7 @@ def serve_beam(kind, job) -> dict:
         # dequantized into a second model
         from openasr_torch.models import get_model_class
 
-        pkg = serve_load(job["pkg"])
+        pkg = serve_load(pkg_path)
         live_model = get_model_class("conv-ctc-transformer").create_model(
             pkg["configs"], device="cuda")
         state = quant.dequantize_params(quant.bridge_quantized(
@@ -5759,7 +6118,8 @@ def serve_stream_beam(kind, job) -> dict:
 
 SERVE_WORKERS = {"beam": serve_beam, "beam int8": serve_beam, "beam lm": serve_beam,
                  "ctc_beam": serve_ctc_beam, "streaming": serve_streaming,
-                 "streaming online": serve_streaming, "stream_beam": serve_stream_beam}
+                 "streaming online": serve_streaming, "stream_beam": serve_stream_beam,
+                 "beam moe int8": serve_beam}
 
 
 def serving_worker(kind) -> int:
@@ -5877,6 +6237,8 @@ def main() -> int:
         print(f"[time] wave path done at {time.time() - t_start:.1f}s")
         text = phase_text(launches)
         print(f"[time] text path done at {time.time() - t_start:.1f}s")
+        moe = phase_moe(train_json, dev_json, vocab, test_json, train_feats, launches)
+        print(f"[time] moe path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
@@ -5885,8 +6247,8 @@ def main() -> int:
         print(f"[time] kernel rows done at {time.time() - t_start:.1f}s")
         # last: its workers' timed turns share the machine with nothing else
         serve = phase_serving(serve_job(
-            pkg, ctc_pkg, lm["runs"]["transformer_lm float32"]["pkg"], stream["pkg"], vocab,
-            test_feats, wtest))
+            pkg, ctc_pkg, lm["runs"]["transformer_lm float32"]["pkg"], stream["pkg"],
+            moe["runs"]["float32"]["pkg"], vocab, test_feats, wtest))
         print(f"[time] serving path done at {time.time() - t_start:.1f}s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -5955,6 +6317,15 @@ def main() -> int:
           f"{tc['ctc_grads']:.3g}; Embed_Decoder 1-best scores {tc['beam_scores']:.3g}, equal "
           f"n-best {tc['beam_same_nbest']:.2f}; GAN losses {tc['gan_losses']:.3g}, gradients "
           f"{tc['gan_grads']:.3g} ({tc['relu_flips']} ReLU flips)")
+    mc = moe["check"]
+    print("[moe path] " + "; ".join(
+        f"train {k}: {r['steps']} steps in {r['wall']:.2f}s wall" for k, r in moe["runs"].items())
+        + "; decodes " + ", ".join(f"{k} {r['wall']:.2f}s" for k, r in moe["decodes"].items())
+        + "; card vs CPU at the card's routing: " + "; ".join(
+            f"{k} logits {r['logits_err']:.3g}, gradients {r['grad_err']:.3g} ({r['flips']} "
+            f"tokens routed otherwise, margin {r['margin']:.3g})" for k, r in mc.items())
+        + f"; launches a step {moe['per']['train']} (the flagship's); the phase "
+          f"{moe['wall']:.1f}s")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

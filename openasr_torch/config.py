@@ -3,9 +3,8 @@
 Counterpart of openasr_tpu/config.py with the identical YAML schema
 (`data / training / model`, model subsections `signal / encoder / decoder`),
 its key-surface validation (`validate_config`, the same table of known
-keys) and `parse_range`.  The JAX module's MoE checks are not carried: the
-port rejects an `encoder.moe` section when it builds the model (ROADMAP
-queue 1 item 14).
+keys), the MoE checks it runs at load time (`validate_moe`, the same
+messages) and `parse_range`.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from __future__ import annotations
 import copy
 import difflib
 import logging
+import warnings
 from typing import Any, Mapping, Sequence
 
 import yaml
@@ -176,9 +176,106 @@ _KNOWN_KEYS["model.G.decoder.moe"] = _KNOWN_KEYS["model.encoder.moe"]
 _KNOWN_KEYS["model.D.encoder"] = {"d_input", "d_model", "layer_num"}
 
 
+def validate_moe(model_cfg: Mapping) -> None:
+    """Load-time checks of every `moe` block (encoder, decoder, G.encoder,
+    G.decoder), raising ValueError: the model type must collect the
+    routers' auxiliary from that section (`Framework.moe_capable` and
+    `moe_section`); num_experts present (0 runs dense, with a warning);
+    1 <= every <= num_layers (else no layer would be MoE); top_k >= 1;
+    capacity_factor > 0; the activation and the router ones
+    models/moe.py implements."""
+    from openasr_torch.models.moe import MoEFeedForward
+
+    model_cfg = model_cfg or {}
+    sections = (
+        ("encoder", model_cfg.get("encoder")),
+        ("decoder", model_cfg.get("decoder")),
+        ("G.encoder", (model_cfg.get("G") or {}).get("encoder")),
+        # the GAN generator's 'decoder' section builds its encoder stack
+        ("G.decoder", (model_cfg.get("G") or {}).get("decoder")),
+    )
+    for section, enc in sections:
+        enc = enc if isinstance(enc, Mapping) else {}
+        moe = enc.get("moe") or {}
+        if not moe:
+            continue
+        prefix = f"model.{section}"
+        path = f"{prefix}.moe"
+        num = int(moe.get("num_experts", 0) or 0)
+        if num < 1:
+            if "num_experts" in moe:
+                warnings.warn(
+                    f"config: {path}.num_experts="
+                    f"{moe.get('num_experts')!r} disables MoE — the "
+                    f"model runs dense FFNs; remove the moe section to "
+                    f"silence this"
+                )
+                continue
+            raise ValueError(
+                f"config: {path} is missing num_experts (>= 1 enables "
+                f"MoE, 0 runs dense); got keys {sorted(moe)}"
+            )
+        mtype = model_cfg.get("type")
+        if mtype is not None:
+            from openasr_torch.models import get_model_class
+
+            cls = get_model_class(str(mtype))
+            capable = (getattr(cls, "moe_capable", False)
+                       and getattr(cls, "moe_section", "encoder") == section)
+            if not capable:
+                options = sorted(_moe_capable_types())
+                raise ValueError(
+                    f"config: {path} is not supported for model type "
+                    f"{mtype!r}: this family would never collect the MoE "
+                    f"router's load-balance auxiliary from that section, "
+                    f"so the router would silently train unbalanced "
+                    f"(expert collapse with no error). MoE-capable "
+                    f"(type, section) pairs: {options}"
+                )
+        every = int(moe.get("every", 2) or 0)
+        if every < 1:
+            raise ValueError(f"config: {path}.every must be >= 1 (got {moe.get('every')!r})")
+        num_layers = enc.get("num_layers")
+        if num_layers is not None and every > int(num_layers):
+            raise ValueError(
+                f"config: {path}.every={every} exceeds "
+                f"{prefix}.num_layers={num_layers}: no layer index i "
+                f"satisfies i % every == every - 1, so the model would "
+                f"have ZERO MoE layers while the config claims MoE is on"
+            )
+        if int(moe.get("top_k", 2) or 0) < 1:
+            raise ValueError(f"config: {path}.top_k must be >= 1 (got {moe.get('top_k')!r})")
+        if float(moe.get("capacity_factor", 1.25) or 0.0) <= 0.0:
+            raise ValueError(f"config: {path}.capacity_factor must be > 0 "
+                             f"(got {moe.get('capacity_factor')!r})")
+        act = enc.get("activation", "relu")
+        if act not in MoEFeedForward.SUPPORTED_ACTIVATIONS:
+            supported = "/".join(MoEFeedForward.SUPPORTED_ACTIVATIONS)
+            raise ValueError(
+                f"config: {prefix}.activation={act!r} has no MoE expert "
+                f"implementation (MoEFeedForward supports {supported})"
+            )
+        router = moe.get("router", "topk")
+        if router not in MoEFeedForward.SUPPORTED_ROUTERS:
+            raise ValueError(
+                f"config: {path}.router={router!r} unknown "
+                f"(supported: {MoEFeedForward.SUPPORTED_ROUTERS})"
+            )
+
+
+def _moe_capable_types() -> list:
+    """(type, section) pairs whose losses collect the MoE auxiliary."""
+    from openasr_torch.models import MODEL_REGISTRY, get_model_class
+
+    get_model_class("conv-ctc")  # fills the registry
+    return [(name, getattr(cls, "moe_section", "encoder"))
+            for name, cls in MODEL_REGISTRY.items() if getattr(cls, "moe_capable", False)]
+
+
 def validate_config(config: Mapping, required: Sequence[str] = ()) -> list:
     """Warn on keys outside the known surface (returned as dotted paths);
-    raise ValueError naming the first missing `required` dotted path."""
+    run `validate_moe` on the model section; raise ValueError naming the
+    first missing `required` dotted path."""
     unknown = []
 
     def walk(section: Mapping, path: str) -> None:
@@ -198,6 +295,7 @@ def validate_config(config: Mapping, required: Sequence[str] = ()) -> list:
                 walk(v, full)
 
     walk(config, "")
+    validate_moe(config.get("model") or {})
     for path in required:
         node: Any = config
         for part in path.split("."):

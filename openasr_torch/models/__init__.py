@@ -94,9 +94,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     same truncated normal at variance 2 / (fan_in + fan_out), layers
     marked `"orthogonal"` flax's orthogonal init (the Q of a normal
     matrix's QR, its columns' signs fixed by R's diagonal), and
-    `"orthogonal_gates"` that per block of a gate-stacked weight, other
-    weights Xavier-uniform.  A module's `param_inits` marks its own
-    parameters by name."""
+    `"orthogonal_gates"` that per block of a gate-stacked weight,
+    `"xavier_uniform_stacked"` flax's Xavier-uniform over a stack of
+    matrices [S, in, out] (fans in * S and out * S: the MoE expert tables),
+    `"zeros"` zero, other weights Xavier-uniform.  A module's
+    `param_inits` marks its own parameters by name."""
     from openasr_torch.models.frontend import BatchNorm
     from openasr_torch.models.layers import LayerNorm
 
@@ -121,13 +123,18 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         for name, p in module.named_parameters():
             if id(p) in norms:
                 p.fill_(1.0)
-            elif name.endswith("bias") or p.dim() < 2:
+            elif name.endswith("bias") or p.dim() < 2 or inits.get(id(p)) == "zeros":
                 p.zero_()
             elif inits.get(id(p)) == "orthogonal":
                 p.copy_(orthogonal(*p.shape))
             elif inits.get(id(p)) == "orthogonal_gates":
                 rows, cols = p.shape[0] // 3, p.shape[1]
                 p.copy_(torch.cat([orthogonal(rows, cols) for _ in range(3)]))
+            elif inits.get(id(p)) == "xavier_uniform_stacked":
+                stack = math.prod(p.shape[:-2])
+                bound = (6.0 / (stack * (p.shape[-2] + p.shape[-1]))) ** 0.5
+                u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+                p.copy_(u * (2 * bound) - bound)
             elif id(p) in inits:
                 fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
                 var = {"lecun_normal": 1.0 / fan_in, "kaiming_normal": 2.0 / fan_in}.get(
@@ -146,15 +153,16 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the module to `dtype` for inference, keeping in f32 the LayerNorm
     and BatchNorm parameters and running statistics (the norms compute
     their statistics in f32 either way), the decoders' and LMs'
-    `out_bias` (added to f32 logits) and the CTC and phone heads (f32 as
-    in the JAX package).  Training keeps every weight
+    `out_bias` (added to f32 logits), the CTC and phone heads and the MoE
+    routers (f32 as in the JAX package).  Training keeps every weight
     f32 and runs bf16 under autocast instead."""
     from openasr_torch.models.frontend import BatchNorm
     from openasr_torch.models.layers import LayerNorm
 
     module.to(dtype)
     for name, m in module.named_modules():
-        if isinstance(m, (LayerNorm, BatchNorm)) or name in ("ctc_fc", "fc", "phone_fc"):
+        if (isinstance(m, (LayerNorm, BatchNorm)) or name in ("ctc_fc", "fc", "phone_fc")
+                or name.endswith("moe_ffn.router")):
             m.float()
     for name, p in module.named_parameters():
         if name.split(".")[-1] == "out_bias":
@@ -163,13 +171,37 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 class Framework:
-    """Base: owns module + configs."""
+    """Base: owns module + configs.
+
+    `moe_capable` families add the MoE routers' load-balance auxiliary to
+    their losses (`forward_with_moe_aux`); every other family refuses a
+    `moe` section at construction, since a router whose balance loss is
+    dropped trains toward expert collapse with no diagnostic.
+    `moe_section` names the config section the family's MoE encoder is
+    built from ("decoder" for Embed_Decoder_CTC)."""
 
     model_type: str = "base"
+    moe_capable: bool = False
+    moe_section: str = "encoder"
 
     def __init__(self, module: nn.Module, configs: Config):
         self.module = module
         self.configs = configs if isinstance(configs, Config) else Config(configs)
+        expected = type(self).moe_section if type(self).moe_capable else None
+        stray = [s for s in self._moe_sections_present() if s != expected]
+        if stray:
+            raise ValueError(
+                f"moe is not supported in config section(s) {stray} for "
+                f"model type {self.model_type!r}: "
+                + (
+                    f"this family reads its MoE config from {expected!r} only."
+                    if expected
+                    else "its loss path does not collect the MoE "
+                    "router's load-balance auxiliary (the router would "
+                    "silently train unbalanced). Remove the moe section "
+                    "or use an MoE-capable model type."
+                )
+            )
 
     @classmethod
     def build_module(cls, configs: Config) -> nn.Module:
@@ -189,6 +221,56 @@ class Framework:
         init_parameters(module, generator)
         set_compute_dtype(module, dtype)
         return cls(module.eval(), configs)
+
+    # ------------------------------------------------------------ MoE
+
+    def _moe_sections_present(self) -> list:
+        """The config sections with a configured moe block (num_experts >
+        0), scanned in full: encoder, decoder, G.encoder and G.decoder
+        (the GAN generator's stack)."""
+        cfg = self.configs.to_dict()
+        found = []
+        for name, sub in (
+            ("encoder", cfg.get("encoder")),
+            ("decoder", cfg.get("decoder")),
+            ("G.encoder", (cfg.get("G") or {}).get("encoder")),
+            ("G.decoder", (cfg.get("G") or {}).get("decoder")),
+        ):
+            moe = ((sub or {}) if isinstance(sub, dict) else {}).get("moe") or {}
+            if int(moe.get("num_experts", 0) or 0) > 0:
+                found.append(name)
+        return found
+
+    def moe_config(self) -> Optional[dict]:
+        """The family's moe section (from `moe_section`) when MoE layers
+        are configured, else None."""
+        enc = self.configs.to_dict().get(type(self).moe_section) or {}
+        moe = (enc.get("moe") or {}) if isinstance(enc, dict) else {}
+        return moe if int(moe.get("num_experts", 0) or 0) > 0 else None
+
+    def forward_with_moe_aux(self, *args, **kwargs):
+        """self.module(*args, **kwargs) -> (outputs, weighted auxiliary):
+        None without MoE layers, else `moe.aux_weight` (default 0.01) times
+        the mean of the MoE layers' auxiliaries (0 when no layer gives one:
+        expert_choice), for the solver to add to its objective.  The layers
+        write into a list of this call (their `aux_sink`), reset after it."""
+        from openasr_torch.models.moe import MoEFeedForward
+
+        moe = self.moe_config()
+        if moe is None:
+            return self.module(*args, **kwargs), None
+        layers = [m for m in self.module.modules() if isinstance(m, MoEFeedForward)]
+        sink: list = []
+        for m in layers:
+            m.aux_sink = sink
+        try:
+            out = self.module(*args, **kwargs)
+        finally:
+            for m in layers:
+                m.aux_sink = None
+        aux = (sum(sink) / len(sink) if sink
+               else torch.zeros((), device=next(self.module.parameters()).device))
+        return out, float(moe.get("aux_weight", 0.01)) * aux
 
     # ------------------------------------------------------------ packaging
 

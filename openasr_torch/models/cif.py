@@ -36,6 +36,7 @@ from openasr_torch.models.lm import make_lm_fusion
 from openasr_torch.models.speech import (
     ConvTransformerModule,
     _f32_head,
+    _with_moe_aux,
     splayer_from_config,
     target_lengths_of,
 )
@@ -109,6 +110,7 @@ def _counts(n_tokens: torch.Tensor, n_seqs: int, device) -> dict:
 
 
 class _CIFFramework(Framework):
+    moe_capable = True
     decoder: Optional[str] = None
     use_ctc = False
     use_phone_fc = False
@@ -131,11 +133,13 @@ class CIF(_CIFFramework):
 
     def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
              label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
-        """{qua_loss, ce_loss[, ctc_loss], n_tokens, n_seqs}; `rng` makes it
-        the train forward; `empty_rows` is `has_empty_rows` of the batch."""
+        """{qua_loss, ce_loss[, ctc_loss], n_tokens, n_seqs[, moe_aux_loss]};
+        `rng` makes it the train forward; `empty_rows` is `has_empty_rows`
+        of the batch."""
         inputs, lengths = self.batch_inputs(batch)
         tlen = target_lengths_of(batch["paddings"])
-        out = self.module(inputs, lengths, tlen, batch["ids"], rng=rng, empty_rows=empty_rows)
+        out, moe_aux = self.forward_with_moe_aux(inputs, lengths, tlen, batch["ids"], rng=rng,
+                                                 empty_rows=empty_rows)
         losses = {
             "qua_loss": cal_qua_loss(out["raw_num"], tlen),
             "ce_loss": cal_ce_loss(out["logits"], batch["labels"], batch["paddings"],
@@ -146,7 +150,7 @@ class CIF(_CIFFramework):
         if self.use_ctc:
             losses["ctc_loss"] = cal_ctc_loss(out["ctc_logits"], out["ctc_lengths"],
                                               batch["labels"], tlen)
-        return losses
+        return _with_moe_aux(losses, moe_aux)
 
     @torch.inference_mode()
     def get_encoded(self, inputs, lengths, capacity: int, empty_rows: Optional[bool] = None):
@@ -206,23 +210,25 @@ class CIFFC(_CIFFramework):
     use_ctc = True
     use_phone_fc = True
 
-    def _phone_losses(self, batch: dict, out: dict, label_smooth: float) -> dict:
+    def _phone_losses(self, batch: dict, out: dict, label_smooth: float, moe_aux) -> dict:
         phones, plen = batch["phones"], batch["phone_lengths"]
         paddings = 1.0 - sequence_mask(plen, phones.shape[1]).float()
-        return {
+        return _with_moe_aux({
             "ctc_loss": cal_ctc_loss(out["ctc_logits"], out["ctc_lengths"], phones, plen),
             "qua_loss": cal_qua_loss(out["raw_num"], plen),
             "ce_loss": cal_ce_loss(out["phone_logits"], phones, paddings, label_smooth),
             **_counts((1.0 - paddings).sum(), phones.shape[0], phones.device),
-        }
+        }, moe_aux)
 
     def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
              label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
-        """{ctc_loss, qua_loss, ce_loss, n_tokens, n_seqs} over the phones."""
+        """{ctc_loss, qua_loss, ce_loss, n_tokens, n_seqs[, moe_aux_loss]}
+        over the phones."""
         inputs, lengths = self.batch_inputs(batch)
-        out = self.module(inputs, lengths, batch["phone_lengths"], batch["phones"], rng=rng,
-                          empty_rows=empty_rows)
-        return self._phone_losses(batch, out, label_smooth)
+        out, moe_aux = self.forward_with_moe_aux(inputs, lengths, batch["phone_lengths"],
+                                                 batch["phones"], rng=rng,
+                                                 empty_rows=empty_rows)
+        return self._phone_losses(batch, out, label_smooth, moe_aux)
 
     @torch.inference_mode()
     def greedy_phone_decode(self, inputs, lengths, max_decode_len: int = 100,
@@ -260,9 +266,10 @@ class CIFMIX(CIFFC):
         if paired:
             chars = {"char_ids": batch["ids"],
                      "char_lengths": target_lengths_of(batch["paddings"])}
-        out = self.module(inputs, lengths, batch["phone_lengths"], batch["phones"], rng=rng,
-                          empty_rows=empty_rows, **chars)
-        losses = self._phone_losses(batch, out, label_smooth)
+        out, moe_aux = self.forward_with_moe_aux(inputs, lengths, batch["phone_lengths"],
+                                                 batch["phones"], rng=rng,
+                                                 empty_rows=empty_rows, **chars)
+        losses = self._phone_losses(batch, out, label_smooth, moe_aux)
         if paired:
             losses["ce_char_loss"] = cal_ce_loss(out["char_logits"], batch["labels"],
                                                  batch["paddings"], label_smooth)

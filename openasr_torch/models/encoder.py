@@ -12,7 +12,11 @@ pass) under the chunk mask of ops/masks.py:chunk_bias, with the phase
 of the model's frontend (models/speech.py:streaming_phase_of), through
 the chunk mode of the attention kernels, so that the cached streaming
 executor (openasr_torch/streaming.py) computes the same encoder states.
-Pipeline (stacked layers) and MoE encoders are later slices of the port.
+`encoder.moe: {num_experts, top_k, capacity_factor, every, router}` makes
+layer i a mixture of experts (models/moe.py) where i % every == every - 1;
+`num_experts: 0` runs dense.  MoE refuses streaming and the pipeline with
+the JAX encoder's errors; the pipeline (stacked layers) is a later slice
+of the port.
 
 `GRUEncoder` is the JAX package's: a unidirectional multi-layer GRU over
 the full padded sequence (no packing), dropout between layers.  Each layer
@@ -68,6 +72,11 @@ class TransformerEncoder(nn.Module):
         streaming_chunk: int = 0,
         streaming_left: int = -1,
         streaming_phase: int = 1,
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity: float = 1.25,
+        moe_every: int = 2,
+        moe_router: str = "topk",
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
@@ -89,10 +98,12 @@ class TransformerEncoder(nn.Module):
         # f32), whatever the input layer
         self.register_buffer("dtype_probe", torch.zeros(()), persistent=False)
         for i in range(num_layers):
+            moe_here = moe_experts > 0 and i % moe_every == moe_every - 1
             self.add_module(
                 f"layer{i}",
                 TransformerEncoderLayer(d_model, nhead, dim_feedforward, activation,
-                                        dropout_rate),
+                                        dropout_rate, moe_experts if moe_here else 0,
+                                        moe_top_k, moe_capacity, moe_router),
             )
         self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
         self.final_norm = LayerNorm(d_model)
@@ -130,9 +141,26 @@ class TransformerEncoder(nn.Module):
         models/speech.py)."""
         streaming = cfg.get("streaming") or {}
         moe = cfg.get("moe") or {}
-        # the JAX encoder's own errors where streaming meets MoE or the
-        # pipeline, before the refusals of what the port lacks
-        if streaming.get("chunk", 0) and int(moe.get("num_experts", 0)) > 0:
+        if moe:
+            # config.validate_moe rejects these at load time with richer
+            # messages; this guard covers programmatic construction
+            every = int(moe.get("every", 2))
+            if every < 1 or int(moe.get("top_k", 2)) < 1:
+                raise ValueError(f"invalid encoder.moe config: {moe}")
+            if int(moe.get("num_experts", 0)) > 0 and every > int(cfg["num_layers"]):
+                raise ValueError(
+                    f"encoder.moe.every={every} > num_layers="
+                    f"{cfg['num_layers']}: zero MoE layers would be built"
+                )
+        moe_experts = int(moe.get("num_experts", 0))
+        # the JAX encoder's own errors where MoE meets the pipeline or
+        # streaming, before the refusal of what the port lacks
+        if moe_experts > 0 and cfg.get("pipeline"):
+            raise NotImplementedError(
+                "encoder.moe does not compose with encoder.pipeline: the "
+                "GPipe stack scans over structurally identical layers"
+            )
+        if streaming.get("chunk", 0) and moe_experts > 0:
             raise NotImplementedError(
                 "encoder.moe does not compose with encoder.streaming: "
                 "per-chunk expert capacity would diverge from the batch "
@@ -143,10 +171,6 @@ class TransformerEncoder(nn.Module):
                 "encoder.streaming does not compose with "
                 "encoder.pipeline: the GPipe stack threads only "
                 "kv_lengths through its stages"
-            )
-        if moe:
-            raise NotImplementedError(
-                "encoder.moe is not ported yet: ROADMAP queue 1 item 14 (MoE)"
             )
         if cfg.get("pipeline"):
             raise NotImplementedError(
@@ -169,6 +193,11 @@ class TransformerEncoder(nn.Module):
             streaming_chunk=int(streaming.get("chunk", 0)),
             streaming_left=int(streaming.get("left_chunks", -1)),
             streaming_phase=streaming_phase,
+            moe_experts=moe_experts,
+            moe_top_k=int(moe.get("top_k", 2)),
+            moe_capacity=float(moe.get("capacity_factor", 1.25)),
+            moe_every=int(moe.get("every", 2)),
+            moe_router=str(moe.get("router", "topk")),
         )
 
 

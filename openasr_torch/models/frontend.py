@@ -16,7 +16,14 @@ padded sample, the variance E[x^2] - E[x]^2 (biased, clipped at 0) both to
 normalise and to update the running statistics (torch's BatchNorm1d keeps
 the unbiased variance), which live in the buffers `mean` and `var`, the
 JAX package's `batch_stats`.  The convolutions stay cuDNN (PyTorch)
-calls, as the JAX package computes them outside any Pallas kernel.
+calls, as the JAX package computes them outside any Pallas kernel.  Each
+layer zero-pads its input explicitly and convolves with padding 0 (the
+same sums): on the CPU, oneDNN's f32 conv1d input gradient with a padding
+argument is wrong at some strided shapes of 256 channels and more (the
+first output frames of some channel blocks; e.g. [2, 256, 157] at kernel
+4, stride 2, padding 1, tests/test_torch_wavconv_precision.py), which put
+the CPU's f32 frontend gradient percents off float64 (ROADMAP queue 3
+item 26).
 """
 
 from __future__ import annotations
@@ -110,7 +117,7 @@ class WavConv(nn.Module):
         super().__init__()
         c_in = 1
         for i, (k, s, p) in enumerate(self.LAYERS):
-            self.add_module(f"conv{i}", nn.Conv1d(c_in, d_model, k, s, p, bias=False))
+            self.add_module(f"conv{i}", nn.Conv1d(c_in, d_model, k, s, 0, bias=False))
             self.add_module(f"bn{i}", BatchNorm(d_model))
             c_in = d_model
 
@@ -123,6 +130,7 @@ class WavConv(nn.Module):
         # the first weight's dtype: f32 under autocast (which casts), the
         # model's dtype for inference
         x = waves[:, None, :].to(self.conv0.weight.dtype)
-        for i in range(len(self.LAYERS)):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train))
+        for i, (_, _, p) in enumerate(self.LAYERS):
+            x = getattr(self, f"conv{i}")(F.pad(x, (p, p)))
+            x = F.relu(getattr(self, f"bn{i}")(x, train))
         return x.transpose(1, 2), self.output_lengths(wave_lengths)

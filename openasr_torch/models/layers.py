@@ -299,16 +299,39 @@ class FeedForward(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer: x = norm1(x + drop(attn(x)));
-    norm2(x + drop(ffn(x)))."""
+    norm2(x + drop(ffn(x))).  With `moe_experts` > 0 the FFN is a routed
+    mixture of experts (models/moe.py), `moe_ffn`, which takes the valid
+    frames (arange(T) < kv_lengths) as its padding mask when the layer
+    has key lengths; its auxiliary goes to the loss through the module's
+    `aux_sink` (models/__init__.py:Framework.forward_with_moe_aux)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 activation: str = "relu", dropout_rate: float = 0.0):
+                 activation: str = "relu", dropout_rate: float = 0.0,
+                 moe_experts: int = 0, moe_top_k: int = 2, moe_capacity: float = 1.25,
+                 moe_router: str = "topk"):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout_rate)
-        self.ffn = FeedForward(d_model, dim_feedforward, activation, dropout_rate)
+        self.moe_ffn = self.ffn = None
+        if moe_experts > 0:
+            from openasr_torch.models.moe import MoEFeedForward
+
+            self.moe_ffn = MoEFeedForward(d_model, dim_feedforward, moe_experts, moe_top_k,
+                                          moe_capacity, activation, dropout_rate, moe_router)
+        else:
+            self.ffn = FeedForward(d_model, dim_feedforward, activation, dropout_rate)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
+
+    def _ffn(self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None,
+             rng: Optional[TrainRNG] = None) -> torch.Tensor:
+        if self.moe_ffn is None:
+            return self.ffn(x, rng)
+        pad = None
+        if kv_lengths is not None:
+            pad = (torch.arange(x.shape[1], device=x.device)[None, :]
+                   < kv_lengths.to(x.device)[:, None])
+        return self.moe_ffn(x, rng, pad)
 
     def forward(self, x: torch.Tensor,
                 kv_lengths: Optional[torch.Tensor] = None,
@@ -318,7 +341,7 @@ class TransformerEncoderLayer(nn.Module):
                 chunk_mask: Optional[ChunkMask] = None) -> torch.Tensor:
         attn = self.self_attn(x, x, kv_lengths, causal, rng, empty_rows, chunk_mask)
         x = self.norm1(x + dropout(attn, self.dropout_rate, rng))
-        return self.norm2(x + dropout(self.ffn(x, rng), self.dropout_rate, rng))
+        return self.norm2(x + dropout(self._ffn(x, kv_lengths, rng), self.dropout_rate, rng))
 
     def attend_cached(self, x: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                       key_bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -327,7 +350,7 @@ class TransformerEncoderLayer(nn.Module):
         key_bias [B, 1, 1, Tk]: dense attention (`attend_step`), norm1, the
         FFN and norm2."""
         x = self.norm1(x + self.self_attn.attend_step(x, k_all, v_all, key_bias))
-        return self.norm2(x + self.ffn(x))
+        return self.norm2(x + self._ffn(x))
 
     def chunk_step(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                    key_bias: Optional[torch.Tensor]):

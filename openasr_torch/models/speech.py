@@ -150,20 +150,30 @@ class _SpeechFramework(Framework):
         return cls.module_cls(configs)
 
 
+def _with_moe_aux(losses: dict, moe_aux) -> dict:
+    """`losses` with `moe_aux_loss` when the model has MoE layers."""
+    if moe_aux is not None:
+        losses["moe_aux_loss"] = moe_aux
+    return losses
+
+
 @register_model("conv-ctc")
 class ConvCTC(_SpeechFramework):
     module_cls = ConvCTCModule
+    moe_capable = True
 
     def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
              label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
-        """{ctc_loss, n_tokens, n_seqs}; `rng` makes it the train forward;
-        `empty_rows` is `has_empty_rows` of the batch (None: read back)."""
+        """{ctc_loss, n_tokens, n_seqs[, moe_aux_loss]}; `rng` makes it the
+        train forward; `empty_rows` is `has_empty_rows` of the batch (None:
+        read back)."""
         del label_smooth
         inputs, lengths = self.batch_inputs(batch)
-        logits, len_logits = self.module(inputs, lengths, rng, empty_rows)
+        (logits, len_logits), moe_aux = self.forward_with_moe_aux(inputs, lengths, rng,
+                                                                  empty_rows)
         tlen = target_lengths_of(batch["paddings"])
         ctc = cal_ctc_loss(logits, len_logits, batch["labels"], tlen)
-        return {"ctc_loss": ctc, **_counts(batch)}
+        return _with_moe_aux({"ctc_loss": ctc, **_counts(batch)}, moe_aux)
 
     @torch.inference_mode()
     def get_logits(self, inputs, lengths, empty_rows: Optional[bool] = None):
@@ -179,15 +189,18 @@ class ConvCTC(_SpeechFramework):
 @register_model("conv-transformer")
 class ConvTransformer(_SpeechFramework):
     module_cls = ConvTransformerModule
+    moe_capable = True
 
     def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
              label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
-        """{ce_loss, n_tokens, n_seqs}; `rng` makes it the train forward;
-        `empty_rows` is `has_empty_rows` of the batch (None: read back)."""
+        """{ce_loss, n_tokens, n_seqs[, moe_aux_loss]}; `rng` makes it the
+        train forward; `empty_rows` is `has_empty_rows` of the batch (None:
+        read back)."""
         inputs, lengths = self.batch_inputs(batch)
-        logits = self.module(inputs, lengths, batch["ids"], rng, empty_rows)
+        logits, moe_aux = self.forward_with_moe_aux(inputs, lengths, batch["ids"], rng,
+                                                    empty_rows)
         ce = cal_ce_loss(logits, batch["labels"], batch["paddings"], label_smooth)
-        return {"ce_loss": ce, **_counts(batch)}
+        return _with_moe_aux({"ce_loss": ce, **_counts(batch)}, moe_aux)
 
     def encode(self, inputs: torch.Tensor, lengths: torch.Tensor,
                empty_rows: Optional[bool] = None):
@@ -243,16 +256,16 @@ class ConvCTCTransformer(ConvTransformer):
 
     def loss(self, batch: dict, rng: Optional[TrainRNG] = None,
              label_smooth: float = 0.0, empty_rows: Optional[bool] = None) -> dict:
-        """{ctc_loss, ce_loss, n_tokens, n_seqs}.  The CTC targets exclude
-        the trailing EOS: target lengths - 1, as the JAX package (and the
-        reference) count them."""
+        """{ctc_loss, ce_loss, n_tokens, n_seqs[, moe_aux_loss]}.  The CTC
+        targets exclude the trailing EOS: target lengths - 1, as the JAX
+        package (and the reference) count them."""
         inputs, lengths = self.batch_inputs(batch)
-        ctc_logits, len_ctc, ce_logits = self.module(inputs, lengths, batch["ids"], rng,
-                                                     empty_rows)
+        (ctc_logits, len_ctc, ce_logits), moe_aux = self.forward_with_moe_aux(
+            inputs, lengths, batch["ids"], rng, empty_rows)
         tlen = target_lengths_of(batch["paddings"])
         ctc = cal_ctc_loss(ctc_logits, len_ctc, batch["labels"], tlen - 1)
         ce = cal_ce_loss(ce_logits, batch["labels"], batch["paddings"], label_smooth)
-        return {"ctc_loss": ctc, "ce_loss": ce, **_counts(batch)}
+        return _with_moe_aux({"ctc_loss": ctc, "ce_loss": ce, **_counts(batch)}, moe_aux)
 
 
 class GRUCTCModule(nn.Module):
@@ -293,6 +306,7 @@ def load_component(module: nn.Module, prefix: str, pkg: dict, name: str) -> None
 @register_model("gru_ctc")
 class GRUCTC(ConvCTC):
     module_cls = GRUCTCModule
+    moe_capable = False
 
     def __init__(self, module: nn.Module, configs: Config):
         super().__init__(module, configs)

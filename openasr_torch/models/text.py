@@ -95,6 +95,7 @@ class EmbedDecoder(ConvTransformer):
     lengths, scores)."""
 
     module_cls = EmbedDecoderModule
+    moe_capable = False
 
     def batch_inputs(self, batch: dict):
         return _phone_inputs(batch)
@@ -102,10 +103,12 @@ class EmbedDecoder(ConvTransformer):
 
 @register_model("Embed_Decoder_CTC")
 class EmbedDecoderCTC(ConvCTC):
-    """loss {ctc_loss, n_tokens, n_seqs}, `get_logits` and `greedy_decode`
-    over (phones, phone_lengths)."""
+    """loss {ctc_loss, n_tokens, n_seqs[, moe_aux_loss]}, `get_logits` and
+    `greedy_decode` over (phones, phone_lengths).  Its stack is configured
+    by the `decoder` section, and so is its MoE (`decoder.moe`)."""
 
     module_cls = EmbedDecoderCTCModule
+    moe_section = "decoder"
 
     def batch_inputs(self, batch: dict):
         return _phone_inputs(batch)

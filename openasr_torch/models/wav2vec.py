@@ -90,6 +90,7 @@ class Wav2VecCTCModule(nn.Module):
 @register_model("wav2vec_ctc")
 class Wav2VecCTC(ConvCTC):
     module_cls = Wav2VecCTCModule
+    moe_capable = False
 
     def __init__(self, module: nn.Module, configs: Config):
         super().__init__(module, configs)

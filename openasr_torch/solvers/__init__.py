@@ -42,8 +42,13 @@ share of the clip norm.  A model's `freeze_gate` (wav2vec's
 `freeze_finetune_updates`) takes the stock optimizer, as in the JAX
 solver, with the gate first in its chain.
 
-Not ported here (ROADMAP): the mesh and its parallelisms (data, tensor,
-sequence, pipeline, ZeRO-1) and MoE auxiliaries.
+The objective is `total_loss`: the family's `mix_losses` plus, for a
+model with MoE layers, its weighted load-balance auxiliary
+(`moe_aux_loss`, models/moe.py), in training; the dev pass logs it beside
+the other losses.
+
+Not ported here (ROADMAP queue 1 item 15): the mesh and its parallelisms
+(data, tensor, sequence, pipeline, ZeRO-1, expert).
 """
 
 from __future__ import annotations
@@ -178,6 +183,14 @@ class Solver:
     def mix_losses(self, losses: Dict) -> torch.Tensor:
         raise NotImplementedError
 
+    def total_loss(self, losses: Dict) -> torch.Tensor:
+        """The optimized objective: `mix_losses` plus the MoE routers'
+        weighted auxiliary, which only a model with MoE layers returns."""
+        total = self.mix_losses(losses)
+        if "moe_aux_loss" in losses:
+            total = total + losses["moe_aux_loss"]
+        return total
+
     def model_losses(self, batch: dict, rng, empty_rows: bool) -> dict:
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
@@ -192,7 +205,7 @@ class Solver:
         model's `has_empty_rows` of the host batch."""
         self.rng.reseed((self.seed << 32) + self.step * 8191 + self._niter)
         losses = self.model_losses(batch, self.rng, empty_rows)
-        self.mix_losses(losses).backward()
+        self.total_loss(losses).backward()
         return {k: v.detach() for k, v in losses.items()}
 
     def apply_update(self) -> None:
