@@ -199,6 +199,31 @@ rounding tie); and the device ms of one MoE layer at the training batch,
 forward and backward, by stage (router and combine tensor, dispatch,
 expert products, combine) beside the dense GLU FFN (`[moe layer]`).
 
+Then data parallelism (`[parallel path]`): the train CLI with
+`--distributed` under `torch.distributed.run --standalone
+--nproc-per-node 1` (NCCL, world 1) on the flagship YAML for 3 steps and
+its dev pass, its package held to the plain CLI's (1e-6 of scale); then
+two ranks over gloo on cuda:0 (worker processes `chip_smoke.py
+--parallel-worker`, set up while the one-rank runs train) against one
+rank in this process, 3 steps each from the same seeded weights, f32,
+dropout 0, each rank on its rows of the global batch of the YAML's budget
+(the loaders of `bin/train.py:build_loaders` at ndata 2), ZeRO-1 on:
+the flagship YAML (the flagship's 36000-frame batches; each rank a
+flagship step's launches), libri's GRU-CTC config (its BatchNorm
+statistics after the first step within 1e-5 of scale) and the MoE YAML
+with its 8 experts split over the two ranks.  Each pair: losses within
+1e-3; the gradient that the ranks reduced in step 1 (Adam's first
+moment, f32) within 1e-4 of each leaf's scale; parameters within 1e-3.
+GRU-CTC's f32 step-1 gradient is itself about 1e-3 off its f64 value, at
+one rank as at two, so its one-rank run also computes that gradient in
+f64: the two ranks' may be no further from it than twice one rank's plus
+1e-4, and the parameters, whose Adam updates are +-lr by each element's
+gradient sign, are held to 2 lr a step.  A collective that gloo refuses
+on CUDA tensors fails the phase.
+`python3 chip_smoke.py --parallel-cards N`, on a machine with N cards,
+runs the flagship and MoE pairs over NCCL instead, a card a rank, and
+nothing else.
+
 Last, the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
 (beam 5, SERVE_MAXLEN steps) with f32 weights, with int8 weights and with
@@ -6153,6 +6178,451 @@ def load_package_configs(path) -> dict:
     return pkg.get("model", pkg)["configs"]
 
 
+# ------------------------------------------------------------ parallel path
+
+PARALLEL_DIR = os.path.join(WORK, "parallel")
+PARALLEL_STEPS = 3
+TOL_PARALLEL = 1e-3        # two ranks against one: the flagship card check's
+# The step-1 gradient that the ranks reduced (Adam's first moment after one
+# update, f32: (1 - b1) times the clipped gradient), per leaf, of the
+# leaf's largest magnitude or a tenth of the largest of any leaf (the CPU
+# tests' rule: a gradient that is rounding noise about 0 is held to the
+# scale of the others).  Half a gradient, a rank's share without the
+# reduction, is off by about 0.5.
+TOL_PARALLEL_GRAD = 1e-4
+# GRU-CTC's f32 step-1 gradient is itself about 1e-3 off its f64 value
+# (rounding that the rank split, summing in another order, changes), so
+# its pair (`f64`) holds the
+# two ranks' gradient to the f64 one no worse than twice one rank's f32,
+# and its parameters to Adam's 2 lr a step: its first updates are +-lr by
+# each element's gradient sign, which f32 does not fix for an element whose
+# gradient is below that error.
+# BatchNorm running statistics after the first step (the global batch's,
+# from equal weights), of their scale
+TOL_PARALLEL_STATS = 1e-5
+TOL_PARALLEL_WORLD1 = 1e-6  # --distributed at world 1 against the plain CLI
+
+
+def f64_first_moment(solver, model_cfg, batch, empty_rows) -> dict:
+    """Adam's first moment after step 1, (1 - b1) times the clipped
+    gradient, of the solver's first step computed in float64: a copy of
+    the model at the same seeded weights, the batch's floats in f64, the
+    solver's loss and draws (its rng reseeded as its step reseeds it)."""
+    from openasr_torch.models import get_model_class
+
+    ref = get_model_class(model_cfg["type"]).create_model(
+        model_cfg, device=solver.device, generator=torch.Generator().manual_seed(SEED))
+    ref.module.double()
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    model, solver.model = solver.model, ref
+    try:
+        solver.rng.reseed((solver.seed << 32) + solver.step * 8191 + solver._niter)
+        solver.total_loss(solver.model_losses(batch64, solver.rng, empty_rows)).backward()
+    finally:
+        solver.model = model
+    grads = {n: p.grad for n, p in ref.module.named_parameters() if n in solver.params}
+    norm = float(torch.sqrt(sum((g * g).sum() for g in grads.values())))
+    scale = solver.grad_max_norm / norm if 0 < solver.grad_max_norm <= norm else 1.0
+    return {n: (0.1 * scale * g).cpu().numpy() for n, g in grads.items()}
+
+
+def parallel_train(job: dict, group, go=None) -> dict:
+    """Train `job`'s model PARALLEL_STEPS steps as a rank of `group` (a
+    `DataGroup`; one rank in this process, or gloo on cuda:0, or NCCL with a
+    card a rank) on its rows of the first batches of the loaders of the
+    global budget (`build_loaders(ndata=job["ndata"])`), with counters reset
+    just before and read just after (once the file `go` exists, when
+    given); -> the steps' losses (summed over the ranks), launches and
+    collectives a step, the step's wall, the step-1 gradient (Adam's first
+    moment after one update, f32) and the package (every rank gathers;
+    rank 0's returned)."""
+    import yaml
+
+    from openasr_torch.bin.train import build_loaders
+    from openasr_torch.data.tokenizer import CharTokenizer
+    from openasr_torch.models import get_model_class
+    from openasr_torch.parallel.data_parallel import full_expert_tables
+    from openasr_torch.solvers import get_solver_class
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = group.rank, group.world
+    with open(job["yaml"]) as f:
+        cfg = yaml.safe_load(f)
+    model_cfg, training = cfg["model"], cfg["training"]
+    for sec in ("encoder", "decoder"):
+        for key in ("dropout_rate", "dropout"):
+            if key in (model_cfg.get(sec) or {}):
+                model_cfg[sec][key] = 0.0
+    training.update(exp_dir=os.path.join(PARALLEL_DIR, f"exp_{job['tag']}_{world}"),
+                    print_inteval=1000, adam_mu_dtype="float32", **job["training"])
+    tokenizer = CharTokenizer(job["vocab"], add_blk=model_cfg.get("add_blk", False))
+    model_cfg["decoder"]["vocab_size"] = tokenizer.unit_num()
+    loader_cfg = dict(model_cfg, signal={**model_cfg.get("signal", {}),
+                                         **job.get("signal", {})})
+    tr, _ = build_loaders({**cfg["data"], **job["data"]}, training, loader_cfg, tokenizer,
+                          ndata=job["ndata"], rank=rank, world=world)
+    batches = []
+    for batch in tr:
+        batches.append(batch)
+        if len(batches) == PARALLEL_STEPS:
+            break
+    model = get_model_class(model_cfg["type"]).create_model(
+        model_cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    solver = get_solver_class(model_cfg["type"])(model, training, batches, [],
+                                                 device=group.device, group=group)
+    shares, stats1, starts, grad_step = [], {}, [], solver.grad_step
+    g1, g64, lrs, apply_update = {}, {}, [], solver.apply_update
+
+    def recording(batch, empty_rows):
+        if job.get("f64") and world == 1 and not g64:
+            g64.update(f64_first_moment(solver, model_cfg, batch, empty_rows))
+        torch.cuda.synchronize()
+        starts.append(time.time())
+        losses = grad_step(batch, empty_rows)
+        shares.append(solver.total_loss(solver.global_counts(losses)).detach())
+        if not stats1:
+            stats1.update((n, b.detach().cpu().numpy().copy())
+                          for n, b in model.module.named_buffers())
+        return losses
+
+    def recording_update():
+        lrs.append(solver.current_lr())
+        apply_update()
+        if len(lrs) == 1:  # a collective: every rank gathers, rank 0 keeps
+            mu = solver.dp.full_state(solver.optimizer.state_dict())["mu"]
+            if rank == 0:
+                g1.update((n, np.asarray(v, np.float32)) for n, v in mu.items())
+
+    solver.grad_step, solver.apply_update = recording, recording_update
+    t_wait = time.time()
+    while go is not None and not os.path.exists(go):
+        require(time.time() - t_wait < 300, "no go from the [parallel path]")
+        time.sleep(0.05)
+    reset_counters()
+    group.reset_counts()
+    t0 = time.time()
+    solver.iter_one_epoch()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    # each step's wall, from one step's start to the next's; the first
+    # carries a fresh process's lazy set-up (cuBLAS, NCCL communicators)
+    step_walls = np.diff(starts + [t0 + wall]).tolist()
+    n = read_counters()
+    calls, nbytes = dict(group.calls), dict(group.bytes)
+    losses = group.all_reduce(torch.stack(shares)).tolist()
+    pkg = solver.package()
+    with full_expert_tables(model.module):
+        params = {n: p.detach().float().cpu().numpy()
+                  for n, p in model.module.named_parameters() if n in solver.params}
+    return {"losses": losses, "wall": wall, "step_walls": step_walls,
+            "warm_step": float(np.mean(step_walls[1:])), "steps": solver.step,
+            "stats1": stats1, "lrs": lrs, "g1": g1 if rank == 0 else None, "g64": g64,
+            "params": params if rank == 0 else None,
+            "zero1": bool(training.get("zero1", True)) and world > 1,
+            "launches": {k: v / solver.step for k, v in n.items() if v},
+            "calls": {k: v / solver.step for k, v in calls.items()},
+            "bytes": {k: v / solver.step for k, v in nbytes.items()},
+            "experts": [name for name, kind in zip(solver.dp.names, solver.dp.kind)
+                        if kind == "expert"],
+            "backend": group.backend, "pkg": pkg["model"] if rank == 0 else None}
+
+
+def parallel_worker(job_path, rank=None, world=None, port=None) -> int:
+    """One rank of the [parallel path] (see `phase_parallel`): over gloo on
+    cuda:0 with the given coordinates, or over NCCL from torchrun's
+    environment without them (`parallel_cards`)."""
+    import pickle
+
+    from openasr_torch.parallel import init_distributed, new_group
+    from openasr_torch.parallel.mesh import destroy
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    group = (init_distributed("cuda") if rank is None else
+             new_group(int(rank), int(world), f"tcp://localhost:{port}", "gloo", "cuda:0"))
+    try:
+        res = parallel_train(job, group, go=None if rank is None else f"{job_path}.go")
+    finally:
+        destroy(group)
+    with open(f"{job_path}.{group.rank}", "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def start_ranks(job: dict) -> dict:
+    """Start `job`'s two ranks (gloo on cuda:0, two processes of this
+    script); they set up (imports, group, data, model) and wait for
+    `finish_pair`'s go."""
+    import pickle
+    import socket
+
+    job_path = os.path.join(PARALLEL_DIR, f"job_{job['tag']}.pkl")
+    with open(job_path, "wb") as f:
+        pickle.dump(job, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # half the host's threads each: two ranks that each take all of them
+    # slow each other's host work
+    env = {**os.environ, "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               job_path, str(r), "2", str(port)], cwd=ROOT, env=env)
+             for r in range(2)]
+    return {"job": job, "path": job_path, "procs": procs}
+
+
+def stop_ranks(pairs) -> None:
+    for pair in pairs:
+        for p in pair["procs"]:
+            if p.poll() is None:
+                p.kill()
+
+
+def finish_pair(pair: dict) -> tuple:
+    """(the one-rank run, trained in this process first, then the two
+    ranks' runs, trained after it, so that the timed steps do not
+    overlap)."""
+    import pickle
+
+    from openasr_torch.parallel import DataGroup
+
+    job, path = pair["job"], pair["path"]
+    one = parallel_train(job, DataGroup.single("cuda:0"))
+    open(f"{path}.go", "w").close()
+    codes = [p.wait(timeout=300) for p in pair["procs"]]
+    require(codes == [0, 0], f"[parallel path] {job['tag']}: ranks exited {codes}")
+    two = []
+    for r in range(2):
+        with open(f"{path}.{r}", "rb") as f:
+            two.append(pickle.load(f))
+    return one, two
+
+
+def scaled_tree_err(got, want) -> float:
+    """Largest |got - want| over max(1, |want|) of any leaf of two
+    component trees."""
+    got, want = dict(leaves(got)), dict(leaves(want))
+    require(set(got) == set(want), "the packages' leaves differ")
+    return max(float(np.abs(got[k] - want[k]).max()) / max(1.0, float(np.abs(want[k]).max()))
+               for k in want)
+
+
+def floor_grad_errs(got: dict, want: dict) -> dict:
+    """Per leaf of two NumPy gradient trees, |got - want| over the leaf's
+    largest |want| or a tenth of the largest of any leaf (the CPU tests'
+    rule)."""
+    require(set(got) == set(want), "the step-1 gradients' leaves differ")
+    floor = 0.1 * max(float(np.abs(v).max()) for v in want.values())
+    return {k: float(np.abs(got[k] - v).max()) / max(float(np.abs(v).max()), floor)
+            for k, v in want.items()}
+
+
+def check_pair(tag, one, two, want_per_step=None) -> dict:
+    """N ranks (`two`, rank order) against one: the same steps, losses
+    within TOL_PARALLEL, the step-1 reduced gradient within
+    TOL_PARALLEL_GRAD of one rank's (where the one-rank run computed the
+    f64 gradient, `g64`: no further from it than twice one rank's f32
+    distance plus TOL_PARALLEL_GRAD), final parameters within TOL_PARALLEL
+    (with an f64 reference: Adam's 2 lr a step); each rank's launches a
+    step (`want_per_step`)."""
+    steps = [one["steps"]] + [r["steps"] for r in two]
+    require(steps == [PARALLEL_STEPS] * len(steps), f"{tag}: steps {steps}")
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(two[0]["losses"],
+                                                               one["losses"]))
+    errs = floor_grad_errs(two[0]["g1"], one["g1"])
+    grad_leaf = max(errs, key=errs.get)
+    grad_err = errs[grad_leaf]
+    got, want = two[0]["params"], one["params"]
+    require(set(got) == set(want) == set(one["g1"]), "the parameters' leaves differ")
+    perr = {k: float(np.abs(got[k] - v).max()) / max(1.0, float(np.abs(v).max()))
+            for k, v in want.items()}
+    param_leaf = max(perr, key=perr.get)
+    param_err = perr[param_leaf]
+    param_tol, f64 = TOL_PARALLEL, ""
+    grad_ok = grad_err <= TOL_PARALLEL_GRAD
+    if one["g64"]:
+        d_one = max(floor_grad_errs(one["g1"], one["g64"]).values())
+        d_two = max(floor_grad_errs(two[0]["g1"], one["g64"]).values())
+        grad_ok = d_two <= 2.0 * d_one + TOL_PARALLEL_GRAD
+        param_tol = 2.0 * sum(one["lrs"])
+        f64 = (f"; the f64 step-1 gradient: one rank {d_one:.3g} off it, two ranks "
+               f"{d_two:.3g}")
+    print(f"[parallel path] {tag}: {len(two)} ranks ({two[0]['backend']}; ZeRO-1 "
+          f"{'on' if two[0]['zero1'] else 'off'}) vs one: losses {two[0]['losses']} vs "
+          f"{one['losses']} (err {loss_err:.3g}); step-1 gradient {grad_err:.3g} of scale "
+          f"(worst leaf {grad_leaf}){f64}; parameters {param_err:.3g} (worst leaf "
+          f"{param_leaf}; held to {param_tol:.3g}); step walls "
+          f"{[round(w, 3) for w in two[0]['step_walls']]} s ({len(two)} ranks) vs "
+          f"{[round(w, 3) for w in one['step_walls']]} s (one); a rank's launches a step "
+          f"{' / '.join(str(r['launches']) for r in two)}; collectives a step "
+          f"{two[0]['calls']}, bytes {two[0]['bytes']}")
+    require(loss_err <= TOL_PARALLEL and grad_ok and param_err <= param_tol,
+            f"{tag}: two ranks off one rank (losses {loss_err:.3g}, step-1 gradient "
+            f"{grad_err:.3g} at {grad_leaf}{f64}, parameters {param_err:.3g} at {param_leaf})")
+    if want_per_step is not None:
+        for r, res in enumerate(two):
+            require(res["launches"] == want_per_step,
+                    f"{tag}: rank {r} launches a step {res['launches']} != {want_per_step}")
+    return {"loss_err": loss_err, "param_err": param_err, "grad_err": grad_err,
+            "warm_two": two[0]["warm_step"],
+            "warm_one": one["warm_step"], "launches": two[0]["launches"], "calls": two[0]["calls"],
+            "bytes": two[0]["bytes"], "zero1": two[0]["zero1"]}
+
+
+def parallel_world1(train_json, dev_json, vocab) -> dict:
+    """(a): the train CLI with --distributed under torchrun at world 1
+    (NCCL) and the plain CLI, at once (a world of 1 sends nothing; their
+    walls overlap), on the flagship YAML for 3 steps and the dev pass."""
+    from openasr_torch.bin import train
+    from openasr_torch.utils.checkpoint import load_package
+
+    out = {}
+    cfgs = {}
+    for tag in ("distributed", "plain"):
+        exp = os.path.join(PARALLEL_DIR, f"exp_cli_{tag}")
+        os.makedirs(exp)
+        cfgs[tag] = train_config(train_json, dev_json, vocab, exp, torch.float32)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "openasr_torch.bin.train", cfgs["distributed"], "--distributed"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        train.main([cfgs["plain"], "--device", "cuda"])
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    out["cli_wall"] = time.time() - t0
+    require(proc.returncode == 0, f"torchrun --distributed failed:\n{log[-3000:]}")
+    require("rank 0 of 1 on cuda:0 (nccl)" in log, "no NCCL data group logged")
+    pkgs = {tag: load_package(os.path.join(PARALLEL_DIR, f"exp_cli_{tag}", "last.pkg"))
+            for tag in cfgs}
+    steps = [p["solver_state"]["step"] for p in pkgs.values()]
+    err = scaled_tree_err(pkgs["distributed"]["model"]["components"],
+                          pkgs["plain"]["model"]["components"])
+    print(f"[parallel path] --distributed under torchrun at world 1 (NCCL) vs the plain CLI: "
+          f"{steps} steps (+ dev), parameters {err:.3g} of scale; both in "
+          f"{out['cli_wall']:.1f} s")
+    require(steps[0] == steps[1] >= PARALLEL_STEPS and err <= TOL_PARALLEL_WORLD1,
+            f"--distributed world 1: steps {steps}, parameters {err:.3g}")
+    out["world1_err"] = err
+    return out
+
+
+def flagship_step_launches() -> dict:
+    """A flagship training step's launches at dropout 0 (plain attention
+    forwards)."""
+    per = per_step_launches({**FLAGSHIP, "encoder": {**FLAGSHIP["encoder"], "dropout_rate": 0},
+                             "decoder": {**FLAGSHIP["decoder"], "dropout_rate": 0}})
+    want = {**per["train"]}
+    want["flash_attention_fwd"] = want.pop("flash_attention_fwd_dropout")
+    return {k: float(v) for k, v in want.items()}
+
+
+def parallel_pairs(pairs) -> dict:
+    """(b) the flagship, (c) GRU-CTC and expert parallelism: each pair's two
+    ranks against the one-rank run."""
+    out = {}
+    one, two = finish_pair(pairs[0])
+    out["flagship"] = check_pair("flagship", one, two, flagship_step_launches())
+    require(out["flagship"]["zero1"], "ZeRO-1 did not run at two ranks")
+
+    one, two = finish_pair(pairs[1])
+    out["gru_ctc"] = check_pair("gru_ctc", one, two)
+    require(one["stats1"] and set(one["stats1"]) == set(two[0]["stats1"]), "no BatchNorm stats")
+    stats_err = max(float(np.abs(two[0]["stats1"][k] - v).max()) / max(1.0, float(np.abs(v).max()))
+                    for k, v in one["stats1"].items())
+    final_err = scaled_tree_err(two[0]["pkg"]["batch_stats"], one["pkg"]["batch_stats"])
+    print(f"[parallel path] gru_ctc BatchNorm running statistics, two ranks vs one: "
+          f"{stats_err:.3g} of scale after step 1, {final_err:.3g} after step {PARALLEL_STEPS}")
+    require(stats_err <= TOL_PARALLEL_STATS, f"gru_ctc batch_stats {stats_err:.3g}")
+    out["gru_ctc"]["stats_err"] = stats_err
+
+    one, two = finish_pair(pairs[2])
+    require(two[0]["experts"], "no expert table is rank-local")
+    out["moe"] = check_pair("moe (expert parallel)", one, two)
+    return out
+
+
+def phase_parallel(vocab, chars) -> dict:
+    """Data parallelism on the card (`[parallel path]`): (a) the train CLI
+    with --distributed under torchrun at world 1 (NCCL) against the plain
+    CLI; (b) the flagship at full width, dropout 0, f32, two ranks over gloo
+    on cuda:0 against one rank, 3 steps of the flagship's global batch
+    (18000 frames a rank); (c) the same for the libri GRU-CTC config (its
+    BatchNorm statistics over the global batch); (d) expert parallelism
+    (conv-ctc-transformer-moe.yaml); ZeRO-1 on at two ranks."""
+    t_phase = time.time()
+    os.makedirs(PARALLEL_DIR)
+    rng = np.random.RandomState(SEED + 40)
+    train_json, _ = write_corpus("ptrain", rng, chars, 240, (400, 512), (20, 24))
+    dev_json, _ = write_corpus("pdev", rng, chars, 4, (400, 512), (20, 24))
+    wave_json, _ = write_wave_corpus("pwave", rng, chars, 18, (120000, 200000), (5, 20))
+    out = {}
+
+    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
+    # every pair's ranks set up while (a) and the one-rank runs train
+    pairs = [start_ranks(job) for job in (
+        {"tag": "flagship", "yaml": FLAGSHIP_YAML, "vocab": vocab, "data": data, "ndata": 2,
+         "training": {"batch_frames": 18000}},
+        {"tag": "gru_ctc", "yaml": GRU_CTC_YAML, "vocab": vocab,
+         "data": {"trainset": wave_json, "devset": wave_json, "vocab_path": vocab},
+         "signal": {"feature_type": "wave"}, "ndata": 2, "training": {"batch_time": 400000},
+         "f64": True},
+        {"tag": "moe", "yaml": MOE_YAML, "vocab": vocab, "data": data, "ndata": 2,
+         "training": {"batch_frames": 18000}})]
+    try:
+        out.update(parallel_world1(train_json, dev_json, vocab))
+        out.update(parallel_pairs(pairs))
+    finally:
+        stop_ranks(pairs)
+    out["wall"] = time.time() - t_phase
+    print(f"[parallel path] the phase {out['wall']:.1f}s")
+    return out
+
+
+def parallel_cards(n: int) -> int:
+    """`chip_smoke.py --parallel-cards N`, on a machine with N cards: the
+    [parallel path]'s flagship and MoE jobs over NCCL, a card a rank (N
+    ranks under torchrun, `--parallel-worker` from its environment), 3 steps
+    of the flagship's 36000-frame global batch (36000 / N frames a rank)
+    against one rank on cuda:0, held and printed as the phase's pairs."""
+    import pickle
+
+    from openasr_torch.parallel import DataGroup
+
+    require(torch.cuda.device_count() >= n, f"{n} cards asked, "
+                                            f"{torch.cuda.device_count()} present")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    phase_build()
+    vocab, chars = write_vocab()
+    rng = np.random.RandomState(SEED + 40)
+    train_json, _ = write_corpus("ptrain", rng, chars, 240, (400, 512), (20, 24))
+    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
+    for tag, yaml_path, want in (("flagship", FLAGSHIP_YAML, flagship_step_launches()),
+                                 ("moe", MOE_YAML, None)):
+        job = {"tag": f"{tag}_cards", "yaml": yaml_path, "vocab": vocab, "data": data,
+               "ndata": n, "training": {"batch_frames": 36000 // n}}
+        job_path = os.path.join(PARALLEL_DIR, f"job_{job['tag']}.pkl")
+        with open(job_path, "wb") as f:
+            pickle.dump(job, f)
+        one = parallel_train(job, DataGroup.single("cuda:0"))
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", str(n), os.path.abspath(__file__),
+                              "--parallel-worker", job_path], cwd=ROOT, timeout=600)
+        require(res.returncode == 0, f"{tag} over {n} cards: torchrun exited {res.returncode}")
+        ranks = []
+        for r in range(n):
+            with open(f"{job_path}.{r}", "rb") as f:
+                ranks.append(pickle.load(f))
+        check_pair(f"{tag} over {n} cards", one, ranks, want)
+    print(nvidia_smi())
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -6163,6 +6633,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--serving-worker"]:
         return serving_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--parallel-cards"]:
+        try:
+            return parallel_cards(int(sys.argv[2]))
+        except PhaseError as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -6239,6 +6717,8 @@ def main() -> int:
         print(f"[time] text path done at {time.time() - t_start:.1f}s")
         moe = phase_moe(train_json, dev_json, vocab, test_json, train_feats, launches)
         print(f"[time] moe path done at {time.time() - t_start:.1f}s")
+        parallel = phase_parallel(vocab, chars)
+        print(f"[time] parallel path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
@@ -6326,6 +6806,16 @@ def main() -> int:
             f"tokens routed otherwise, margin {r['margin']:.3g})" for k, r in mc.items())
         + f"; launches a step {moe['per']['train']} (the flagship's); the phase "
           f"{moe['wall']:.1f}s")
+    pf = parallel["flagship"]
+    print(f"[parallel path] --distributed at world 1 vs plain {parallel['world1_err']:.3g}; "
+          + "; ".join(f"{k}: two ranks vs one losses {parallel[k]['loss_err']:.3g}, step-1 "
+                      f"gradient {parallel[k]['grad_err']:.3g}, parameters "
+                      f"{parallel[k]['param_err']:.3g}, warm step wall "
+                      f"{parallel[k]['warm_two']:.3f} vs {parallel[k]['warm_one']:.3f} s"
+                      for k in ("flagship", "gru_ctc", "moe"))
+          + f"; gru_ctc statistics {parallel['gru_ctc']['stats_err']:.3g}; a rank's launches a "
+            f"flagship step {pf['launches']}, collectives {pf['calls']}, bytes {pf['bytes']}; "
+            f"the phase {parallel['wall']:.1f}s")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

@@ -16,11 +16,18 @@ zips `data.acousticset`'s acoustic batches beside them), on the card by
 default, `--device cpu` on the CPU; without a card `--device cuda`
 raises.
 `training.compute_dtype: bfloat16` runs the forward in bf16 over f32
-weights.  The multi-device flags exit naming their ROADMAP item; the text
-families exit naming `bin/train_phone2char.py` and
-`bin/semi_train_phone2char.py`.
+weights.  `--distributed` trains data-parallel over the ranks that
+torchrun starts (`parallel.init_distributed`: NCCL with one card a rank,
+gloo with `--device cpu`), as the JAX CLI's `--distributed` spans hosts:
+every rank builds the batch plan of the global budget (the config's times
+the world size, divisible by it) and loads its rows, and the result is the
+one-process run's on the global batches.  `--model-parallel` and
+`--pipeline` exit naming their ROADMAP items (15b, 15c); the text families
+exit naming `bin/train_phone2char.py` and `bin/semi_train_phone2char.py`.
 
   python -m openasr_torch.bin.train egs/aishell1/configs/conv-ctc-transformer.yaml
+  python -m torch.distributed.run --nproc-per-node 2 -m openasr_torch.bin.train \
+      <config> --distributed [--device cpu]
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer
 from openasr_torch.models import get_model_class
+from openasr_torch.parallel import DataGroup, init_distributed
+from openasr_torch.parallel.mesh import destroy
 from openasr_torch.solvers import DTYPES, get_solver_class
 from openasr_torch.utils.checkpoint import load_package
 
@@ -71,12 +80,15 @@ def _norm_type(modelconfig) -> str:
     return str(modelconfig["type"]).lower().replace("-", "_")
 
 
-def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_phone=None):
+def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_phone=None,
+                  ndata=1, rank=0, world=1):
     """Train loader (batches shuffled per epoch) and dev loader (longest
     utterances first): offline features packed by cumulative frames, or
     waves packed by cumulative samples and checked against the signal's
     sample rate.  CIF_FC batches features and phones, CIF_MIX features,
-    phones and chars."""
+    phones and chars.  The budget is the config's times `ndata` (the data
+    axis), the batches divisible by it; rank `rank` of `world` loads its
+    rows of each."""
     feat_range = parse_range(dataconfig.get("feat_range")) or (1, 99999)
     label_range = parse_range(dataconfig.get("label_range")) or (1, 100)
     label_type = trainingconfig.get("label_type", "tokens")
@@ -104,20 +116,24 @@ def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_
     train_set = dataset(dataconfig["trainset"], feat_range=feat_range,
                         label_range=label_range)
     valid_set = dataset(dataconfig["devset"], reverse=True)
-    tr = DataLoader(train_set, sampler(train_set, budget, 1, shuffle=True),
-                    collate, num_workers=workers)
-    cv = DataLoader(valid_set, sampler(valid_set, budget, 1, shuffle=False),
-                    collate, num_workers=workers)
+    tr = DataLoader(train_set, sampler(train_set, budget * ndata, ndata, shuffle=True),
+                    collate, num_workers=workers, rank=rank, world=world)
+    cv = DataLoader(valid_set, sampler(valid_set, budget * ndata, ndata, shuffle=False),
+                    collate, num_workers=workers, rank=rank, world=world)
     return tr, cv
 
 
 def check_ported(args, config) -> None:
     """Exit naming the ROADMAP item for every path this port lacks."""
-    if args.model_parallel > 1 or args.pipeline > 1 or args.distributed:
+    if args.model_parallel > 1:
         raise SystemExit(
-            "--model-parallel / --pipeline / --distributed: the mesh, tensor, "
-            "sequence and pipeline parallelism and multi-host training are "
-            "ROADMAP queue 1 item 15 (multi-device)"
+            "--model-parallel: tensor and sequence parallelism (the mesh's model "
+            "axis) are ROADMAP queue 1 item 15b"
+        )
+    if args.pipeline > 1:
+        raise SystemExit(
+            "--pipeline: pipeline parallelism (GPipe, encoder.pipeline) is ROADMAP "
+            "queue 1 item 15c"
         )
     if _norm_type(config["model"]) in TEXT_TYPES:
         raise SystemExit(
@@ -152,11 +168,12 @@ def main(argv=None):
     parser.add_argument("config", help="path to YAML config")
     parser.add_argument("--continue-training", action="store_true", default=False)
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="tensor-parallel degree (not ported)")
+                        help="tensor-parallel degree (not ported: item 15b)")
     parser.add_argument("--pipeline", type=int, default=1,
-                        help="pipeline-parallel stage count (not ported)")
+                        help="pipeline-parallel stage count (not ported: item 15c)")
     parser.add_argument("--distributed", action="store_true", default=False,
-                        help="multi-host training (not ported)")
+                        help="data-parallel over torchrun's ranks (NCCL on cards, "
+                             "gloo with --device cpu)")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                         help="train on the GPU (default) or, when asked, the CPU")
     args = parser.parse_args(argv)
@@ -164,7 +181,21 @@ def main(argv=None):
     config = load_config(args.config)
     validate_config(config, required=REQUIRED)
     check_ported(args, config)
-    device = resolve_device(args.device)
+    if args.distributed:
+        group = init_distributed(args.device)
+        device = group.device
+        logging.info("Data group: rank %d of %d on %s (%s)", group.rank, group.world,
+                     device, group.backend)
+    else:
+        device = resolve_device(args.device)
+        group = DataGroup.single(device)
+    try:
+        train(args, config, device, group)
+    finally:
+        destroy(group)
+
+
+def train(args, config, device, group) -> None:
     dataconfig = config["data"]
     trainingconfig = config["training"]
     modelconfig = config["model"]
@@ -185,7 +216,8 @@ def main(argv=None):
         if "phone_size" in modelconfig or _norm_type(modelconfig) == "cif_mix":
             modelconfig["phone_size"] = tokenizer_phone.unit_num()
     tr_loader, cv_loader = build_loaders(dataconfig, trainingconfig, modelconfig,
-                                         tokenizer, tokenizer_phone)
+                                         tokenizer, tokenizer_phone, ndata=group.world,
+                                         rank=group.rank, world=group.world)
     solver_kwargs = {}
     if _norm_type(modelconfig) == "cif_mix" and dataconfig.get("acousticset"):
         # CIF_MIX's acoustic-only batches (features and phones), zipped
@@ -194,10 +226,11 @@ def main(argv=None):
                             feat_range=parse_range(dataconfig.get("feat_range")) or (1, 99999),
                             label_range=(0, 10**9), rate_in_out=(0, 10**9))
         solver_kwargs["acoustic_loader"] = DataLoader(
-            ac_set, FrameBasedSampler(ac_set, int(trainingconfig["batch_frames"]), 1,
-                                      shuffle=True),
+            ac_set, FrameBasedSampler(ac_set, int(trainingconfig["batch_frames"]) * group.world,
+                                      group.world, shuffle=True),
             FeatPhoneCollate(tokenizer_phone or tokenizer),
-            num_workers=int(dataconfig.get("fetchworker_num", 2)))
+            num_workers=int(dataconfig.get("fetchworker_num", 2)),
+            rank=group.rank, world=group.world)
 
     model = get_model_class(modelconfig["type"]).create_model(
         modelconfig, device=device, generator=torch.Generator().manual_seed(0)
@@ -220,7 +253,7 @@ def main(argv=None):
 
     solver = get_solver_class(modelconfig["type"])(
         model, trainingconfig, tr_loader, cv_loader, device=device,
-        compute_dtype=dtype, **solver_kwargs,
+        compute_dtype=dtype, group=group, **solver_kwargs,
     )
     if pkg is not None:
         solver.restore(pkg)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from openasr_torch.config import Config
+from openasr_torch.parallel.mesh import DataGroup
 
 # Config keys tolerated to differ between a checkpoint and the current model.
 VOLATILE_CONFIG_KEYS = {"dropout_rate", "spec_aug", "dither", "dropout"}
@@ -221,6 +222,30 @@ class Framework:
         init_parameters(module, generator)
         set_compute_dtype(module, dtype)
         return cls(module.eval(), configs)
+
+    # ------------------------------------------------------------ data axis
+
+    data_group = DataGroup.single()  # the data axis (openasr_torch/parallel) it trains over
+
+    def set_data_group(self, group) -> frozenset:
+        """Train over the data axis of `group`: BatchNorm statistics, the MoE
+        auxiliary and CPC's draws over the global batch, and, where the
+        world size divides a layer's num_experts, expert parallelism.
+        Returns the names of the parameters that became this rank's expert
+        tables."""
+        from openasr_torch.models.frontend import BatchNorm
+        from openasr_torch.models.moe import MoEFeedForward
+
+        self.data_group = group
+        experts = []
+        for name, m in self.module.named_modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
+            elif isinstance(m, MoEFeedForward):
+                m.group = group
+                if group.world > 1 and m.num_experts % group.world == 0:
+                    experts += [f"{name}.{t}" for t in m.shard_experts(group)]
+        return frozenset(experts)
 
     # ------------------------------------------------------------ MoE
 

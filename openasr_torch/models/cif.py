@@ -2,7 +2,8 @@
 
 Counterpart of openasr_tpu/models/cif.py.  One body (`CIFModule`): the
 encoder, the assigner's weights, the train-time quantity scaling (noise
-U(-0.45, 0.45) a row from `rng.device` in a training forward), the
+U(-0.45, 0.45) a row from `rng.host`, the rank's rows of the global
+batch's draw, in a training forward), the
 integrate-and-fire closed form (ops/cif.py) and the heads of the family:
 the CIF decoder (CIF, ctc_cif), a CTC head on the encoder (ctc_cif,
 CIF_FC, CIF_MIX), a phone head on the CIF frames (CIF_FC, CIF_MIX) and a
@@ -85,7 +86,8 @@ class CIFModule(nn.Module):
             out["ctc_logits"], out["ctc_lengths"] = _f32_head(self.ctc_fc, enc), elens
         alphas = self.assigner(enc, elens, rng)
         alphas, out["raw_num"] = scale_alphas(
-            alphas, target_lengths, generator=rng.device if rng is not None else None)
+            alphas, target_lengths,
+            noise=rng.rand_rows(target_lengths.shape) if rng is not None else None)
         cif_out = cif(enc, alphas, ids.shape[1], self.threshold)
         if self.phone_fc is not None:
             out["phone_logits"] = _f32_head(self.phone_fc, cif_out)
@@ -141,7 +143,7 @@ class CIF(_CIFFramework):
         out, moe_aux = self.forward_with_moe_aux(inputs, lengths, tlen, batch["ids"], rng=rng,
                                                  empty_rows=empty_rows)
         losses = {
-            "qua_loss": cal_qua_loss(out["raw_num"], tlen),
+            "qua_loss": cal_qua_loss(out["raw_num"], tlen, self.data_group),
             "ce_loss": cal_ce_loss(out["logits"], batch["labels"], batch["paddings"],
                                    label_smooth),
             **_counts((1.0 - batch["paddings"].float()).sum(), batch["ids"].shape[0],
@@ -215,7 +217,7 @@ class CIFFC(_CIFFramework):
         paddings = 1.0 - sequence_mask(plen, phones.shape[1]).float()
         return _with_moe_aux({
             "ctc_loss": cal_ctc_loss(out["ctc_logits"], out["ctc_lengths"], phones, plen),
-            "qua_loss": cal_qua_loss(out["raw_num"], plen),
+            "qua_loss": cal_qua_loss(out["raw_num"], plen, self.data_group),
             "ce_loss": cal_ce_loss(out["phone_logits"], phones, paddings, label_smooth),
             **_counts((1.0 - paddings).sum(), phones.shape[0], phones.device),
         }, moe_aux)

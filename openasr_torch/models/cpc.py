@@ -18,7 +18,10 @@ generator, the dev pass from a generator seeded 0 each call (the JAX
 package draws its dev anchors from a fixed key too); the bound and the
 anchor are computed on the device, so a step reads nothing back.  The
 module takes `t_samples` and `neg_idx` as arguments, as the JAX module
-does.
+does.  Under data parallelism (the model's `data_group`) the anchor and
+the negatives are the global batch's, and a row's negative may live on
+another rank: every rank gathers the global batch's predictions
+(`gather_rows`).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from openasr_torch.models import Framework, register_model
 from openasr_torch.models.encoder import GRUEncoder
 from openasr_torch.models.frontend import WavConv
 from openasr_torch.models.layers import TrainRNG, autocast_off
+from openasr_torch.parallel.mesh import DataGroup, gather_rows
 
 
 class CPCModule(nn.Module):
@@ -53,9 +57,11 @@ class CPCModule(nn.Module):
         return WavConv.output_lengths(input_lengths)
 
     def forward(self, waves, wave_lengths, t_samples: torch.Tensor, neg_idx: torch.Tensor,
-                train: bool = False):
+                train: bool = False, group: DataGroup = DataGroup.single()):
         """t_samples: [] int anchor; neg_idx: [B] int negative row of each
-        row.  -> (acc, loss) f32 scalars."""
+        row (a row of the global batch under a data `group`, whose
+        predictions every rank gathers).  -> (acc, loss) f32 scalars, this
+        rank's rows'."""
         z, len_z = self.splayer(waves, wave_lengths, train=train)
         b, t_max = z.shape[0], z.shape[1]
         k = self.n_steps
@@ -68,8 +74,9 @@ class CPCModule(nn.Module):
         preds = torch.stack([torch.softmax(m(c_t).float(), -1) for m in self.mappings], dim=1)
         # the grid in f32: autocast would run the einsum in bf16
         with autocast_off(z.device.type):
-            prob = torch.einsum("ikc,jkc->kij", encode, preds.float())
-            diag = torch.diagonal(prob, dim1=1, dim2=2)       # [K, B]
+            preds = gather_rows(group, preds.float())
+            prob = torch.einsum("ikc,jkc->kij", encode, preds)
+            diag = torch.diagonal(prob, offset=group.rank * b, dim1=1, dim2=2)   # [K, B]
             neg = prob.gather(2, neg_idx.reshape(1, b, 1).expand(k, b, 1))[..., 0]
             loss = torch.sum(1.0 - diag) + torch.sum(neg)
             n_correct = torch.sum(diag > 0.5) + torch.sum(neg < 0.5)
@@ -77,15 +84,21 @@ class CPCModule(nn.Module):
 
 
 def draw_anchor(wave_lengths: torch.Tensor, n_steps: int, b: int,
-                generator: torch.Generator):
+                generator: torch.Generator, group: DataGroup = DataGroup.single()):
     """(t_samples [] int64, neg_idx [B] int64) on the lengths' device, from
-    `generator` (a CPU generator)."""
+    `generator` (a CPU generator).  Under a data `group` they are the
+    global batch's: the anchor's bound from the shortest utterance of every
+    rank (an all_reduce(MIN)), and this rank's rows of the negatives drawn
+    for all world * B rows (indices into the global batch)."""
+    rank, world = group.rank, group.world
     u = torch.rand((), generator=generator).to(wave_lengths.device)
-    hi = torch.clamp(wave_lengths.min() // 160 - n_steps, min=2)
+    shortest = group.all_reduce(wave_lengths.min().clone(), "min")
+    hi = torch.clamp(shortest // 160 - n_steps, min=2)
     t_samples = torch.minimum(1 + torch.floor(u * (hi - 1)).long(), hi - 1)
-    offset = (torch.randint(1, b, (b,), generator=generator) if b > 1
-              else torch.ones(b, dtype=torch.int64))
-    neg_idx = (torch.arange(b) + offset) % b
+    n = b * world
+    offset = (torch.randint(1, n, (n,), generator=generator) if n > 1
+              else torch.ones(n, dtype=torch.int64))
+    neg_idx = ((torch.arange(n) + offset) % n)[rank * b:(rank + 1) * b]
     return t_samples, neg_idx.to(wave_lengths.device)
 
 
@@ -107,8 +120,9 @@ class CPCModel(Framework):
         waves, lengths = batch["waves"], batch["wave_lengths"]
         b = waves.shape[0]
         gen = rng.host if rng is not None else torch.Generator().manual_seed(0)
-        t_samples, neg_idx = draw_anchor(lengths, self.module.n_steps, b, gen)
-        acc, loss = self.module(waves, lengths, t_samples, neg_idx, train=rng is not None)
+        t_samples, neg_idx = draw_anchor(lengths, self.module.n_steps, b, gen, self.data_group)
+        acc, loss = self.module(waves, lengths, t_samples, neg_idx, train=rng is not None,
+                                group=self.data_group)
         n = torch.tensor(float(b), device=waves.device)
         return {"cpc_loss": loss, "acc": acc, "n_tokens": n, "n_seqs": n}
 

@@ -174,8 +174,8 @@ class TransformerEncoder(nn.Module):
             )
         if cfg.get("pipeline"):
             raise NotImplementedError(
-                "encoder.pipeline is not ported yet: ROADMAP queue 1 item 15 "
-                "(multi-device, GPipe)"
+                "encoder.pipeline is not ported yet: ROADMAP queue 1 item 15c "
+                "(the pipe axis, GPipe)"
             )
         sub = cfg.get("sub") or {}
         return TransformerEncoder(

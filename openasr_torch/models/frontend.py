@@ -15,7 +15,9 @@ layers, x160 in all, on raw waves.  Its `BatchNorm` is flax's
 padded sample, the variance E[x^2] - E[x]^2 (biased, clipped at 0) both to
 normalise and to update the running statistics (torch's BatchNorm1d keeps
 the unbiased variance), which live in the buffers `mean` and `var`, the
-JAX package's `batch_stats`.  The convolutions stay cuDNN (PyTorch)
+JAX package's `batch_stats`; under data parallelism (`group`, set by the
+solver) the statistics are the global batch's, over the reconciled padded
+length.  The convolutions stay cuDNN (PyTorch)
 calls, as the JAX package computes them outside any Pallas kernel.  Each
 layer zero-pads its input explicitly and convolves with padding 0 (the
 same sums): on the CPU, oneDNN's f32 conv1d input gradient with a padding
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from openasr_torch.models.layers import TrainRNG, autocast_off
 from openasr_torch.ops.fbank import FbankConfig, fbank, num_frames_of
 from openasr_torch.ops.specaug import spec_aug, spec_aug_config_from_cfg
+from openasr_torch.parallel.mesh import DataGroup, all_reduce_with_grad
 
 
 class SPLayer(nn.Module):
@@ -65,7 +68,8 @@ class SPLayer(nn.Module):
                 dither = rng.device if rng is not None and self.apply_dither else None
                 inputs, lengths = fbank(inputs, lengths, self.fbank_config, dither)
             if rng is not None and self.spec_aug is not None:
-                inputs = spec_aug(inputs.float(), lengths, self.spec_aug, generator=rng.host)
+                inputs = spec_aug(inputs.float(), lengths, self.spec_aug, generator=rng.host,
+                                  rows=(rng.rank, rng.world))
         return inputs, lengths
 
 
@@ -84,6 +88,18 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = DataGroup.single()  # statistics over this group's global batch
+
+    def _moments(self, xf: torch.Tensor):
+        """E[x] and E[x^2] per channel over the global batch and time: the
+        channel sums and the count all-reduced over the data group, with the
+        gradient flowing back through the sum, as through flax's mean over
+        a `data`-sharded batch."""
+        c = xf.shape[1]
+        sums = all_reduce_with_grad(self.group, torch.cat([
+            xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2)),
+            xf.new_full((1,), float(xf.shape[0] * xf.shape[2]))]))
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
     def reset_running_stats(self) -> None:
         with torch.no_grad():
@@ -94,8 +110,8 @@ class BatchNorm(nn.Module):
         with autocast_off(x.device.type):
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             if train:
-                mean = xf.mean(dim=(0, 2))
-                var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+                mean, ex2 = self._moments(xf)
+                var = torch.clamp(ex2 - mean * mean, min=0.0)
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                     self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)

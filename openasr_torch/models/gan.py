@@ -22,8 +22,9 @@ One training loss sums three terms, as the JAX package's one gradient:
               so D's parameters get the second-order term; the norm runs
               over (time, vocab) jointly per example, 1e-12 inside the
               square root.
-`alpha` [B, 1, 1] is drawn from the `TrainRNG`'s host generator (a
-generator seeded 0 without one); `loss_D` also takes it as an argument.
+`alpha` [B, 1, 1] is drawn by the `TrainRNG` (`rand_rows`: this rank's
+rows of one host draw for the global batch; without one, `loss_D` draws
+from a generator seeded 0); `loss_D` also takes it as an argument.
 The JAX package draws it from its `aug` key, so the draws differ (ROADMAP
 queue 3).  `gp_weight` is 1.0: the JAX package reads no
 `training.lambda_gp`.  `greedy_decode` runs G, for the dev pass's WER;
@@ -47,6 +48,7 @@ from openasr_torch.models.text import EmbedDecoderCTCModule, _phone_lengths
 from openasr_torch.ops.ctc_decode import ctc_greedy_decode, ctc_shrink_soft
 from openasr_torch.ops.losses import cal_ctc_loss
 from openasr_torch.ops.masks import sequence_mask
+from openasr_torch.parallel.mesh import rand_rows
 
 
 class Discriminator(nn.Module):
@@ -124,10 +126,12 @@ class GANPhone2Char(Framework):
     def loss_D(self, phones, phone_lengths, text, text_lengths,
                alpha: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None, gp_weight: float = 1.0,
-               empty_rows: Optional[bool] = None) -> torch.Tensor:
+               empty_rows: Optional[bool] = None, rows=(0, 1)) -> torch.Tensor:
         """D(fake) - D(real) + gp_weight * gradient penalty; G in eval mode
         without gradient.  `alpha` [B, 1, 1], else drawn from `generator`
-        (a CPU generator)."""
+        (a CPU generator).  Data-parallel rank `rows` = (rank, world): alpha
+        is this rank's rows of one draw for the global batch, and the
+        penalty's mean runs over the global batch (this rank's share)."""
         D = self.module.D
         with torch.no_grad():
             fake, len_fake = self._g_probs(phones, phone_lengths, None, empty_rows)
@@ -140,13 +144,13 @@ class GANPhone2Char(Framework):
         lengths = torch.minimum(len_fake, text_lengths.to(len_fake.dtype))
         if alpha is None:
             gen = generator if generator is not None else torch.Generator().manual_seed(0)
-            alpha = torch.rand((fake.shape[0], 1, 1), generator=gen)
+            alpha = rand_rows(gen, (fake.shape[0], 1, 1), 0, *rows)
         alpha = alpha.to(device=fake.device, dtype=fake.dtype)
         with torch.enable_grad():
             interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
             grads, = torch.autograd.grad(D(interp, lengths).sum(), interp, create_graph=True)
             norms = torch.sqrt((grads ** 2).sum(dim=(1, 2)) + 1e-12)
-            gp = ((norms - 1.0) ** 2).mean()
+            gp = ((norms - 1.0) ** 2).sum() / (norms.shape[0] * rows[1])
         return score_neg - score_pos + gp_weight * gp
 
     def loss(self, batch: dict, rng: Optional[TrainRNG] = None, label_smooth: float = 0.0,
@@ -167,9 +171,11 @@ class GANPhone2Char(Framework):
         if "unpaired_phones" in batch:
             losses["g_loss"] = self.loss_G(*fake_in, rng, empty_rows)
         if "unpaired_text" in batch:
+            if alpha is None and rng is not None:
+                alpha = rng.rand_rows((fake_in[0].shape[0], 1, 1))
             losses["d_loss"] = self.loss_D(
                 *fake_in, batch["unpaired_text"], batch["unpaired_text_lengths"], alpha,
-                rng.host if rng is not None else None, empty_rows=empty_rows)
+                empty_rows=empty_rows, rows=(rng.rank, rng.world) if rng is not None else (0, 1))
         return losses
 
     @torch.inference_mode()

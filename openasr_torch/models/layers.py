@@ -12,8 +12,9 @@ decoder pre-scales its embeddings by sqrt(d_model) too.
 Training mode is the `rng` argument (a `TrainRNG`), as `deterministic=False`
 plus the `dropout` rng are in the JAX package: with it, residual, FFN and
 embedding dropouts draw their masks from `rng.device` and the attention
-dropout its hash seed from `rng.host`; without it every layer is
-deterministic.  The modules' train()/eval() flag plays no part.
+dropout its hash seed from `rng.host` (`TrainRNG.attention_seed`);
+without it every layer is deterministic.  The modules' train()/eval()
+flag plays no part.
 """
 
 from __future__ import annotations
@@ -41,23 +42,42 @@ from openasr_torch.ops.masks import (
     combine_bias,
     padding_bias,
 )
+from openasr_torch.parallel.mesh import SHARD_SEED_MULT, partition_seed, rand_rows
 
 
 class TrainRNG:
     """The random streams of one training forward: `host`, a CPU generator
-    (attention-dropout seeds, SpecAugment draws), and `device`, a generator
-    on the compute device (dropout masks).  `reseed` restarts both, so a
-    step's randomness depends on its seed alone (the JAX solver folds the
-    step into its key the same way)."""
+    (attention-dropout seeds, and the per-row draws: SpecAugment, CIF's
+    quantity noise, the GAN's penalty alpha, CPC's anchor), and `device`, a
+    generator on the compute device (dropout masks, dither).  `reseed`
+    restarts both, so a step's randomness depends on its seed alone (the
+    JAX solver folds the step into its key the same way).
 
-    def __init__(self, seed: int, device) -> None:
+    Rank `rank` of `world` data-parallel ranks draws the per-row values for
+    the global batch and keeps its rows (`rand_rows`), so they are the
+    one-process run's; its element-wise device draws and its attention
+    dropout seed are its shard's (`partition_seed`, as the JAX kernels'),
+    rank 0's unchanged."""
+
+    def __init__(self, seed: int, device, rank: int = 0, world: int = 1) -> None:
         self.host = torch.Generator()
         self.device = torch.Generator(device=torch.device(device))
+        self.rank, self.world = rank, world
         self.reseed(seed)
 
     def reseed(self, seed: int) -> None:
         self.host.manual_seed(int(seed))
-        self.device.manual_seed(int(seed) ^ 0x5DEECE66D)
+        self.device.manual_seed(((int(seed) ^ 0x5DEECE66D) + self.rank * SHARD_SEED_MULT)
+                                & 0xFFFFFFFFFFFFFFFF)
+
+    def rand_rows(self, shape, dim: int = 0) -> torch.Tensor:
+        """Host uniforms of `shape`, this rank's rows (at `dim`) of one draw
+        for the global batch."""
+        return rand_rows(self.host, shape, dim, self.rank, self.world)
+
+    def attention_seed(self) -> int:
+        """One dropping attention call's hash seed, this rank's shard's."""
+        return partition_seed(draw_dropout_seed(self.host), self.rank)
 
 
 def any_empty(lengths, empty_rows: Optional[bool] = None) -> bool:
@@ -237,7 +257,7 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.q(inputs_q))
         k, v = self.project_kv(inputs_kv)
         rate = self.dropout_rate if rng is not None and self.dropout_rate > 0.0 else 0.0
-        seed = draw_dropout_seed(rng.host) if rate else 0
+        seed = rng.attention_seed() if rate else 0
         out, _ = flash_attention(q, k, v, kv_lengths=kv_lengths, causal=causal,
                                  dropout_rate=rate, dropout_seed=seed, chunk_mask=chunk_mask)
         if empty_rows and kv_lengths is not None:

@@ -38,6 +38,14 @@ leave it None and compute none.  The expert tables keep the flax layout
 ([E, D, F], [E, F], [E, F, D], [E, D]; GLU adds `w_gate` / `b_gate`) so the
 weight bridge and the int8 scales need no transpose.  Dropout on the hidden
 activations draws from the port's `TrainRNG`.
+
+Under data parallelism the solver sets `group` (the auxiliary's me, ce and
+valid count over the global batch: each rank adds its share) and, when the
+world size divides E, `shard_experts` (expert parallelism: rank r owns
+experts [r E/N, (r+1) E/N); one all-to-all carries each rank's dispatched
+[E, B, C, D] to the owners, which compute [E/N, N B, C, D], and the mirror
+all-to-all brings the outputs home).  Capacity and routing are per row, so
+they equal the one-process run's at the reconciled padded length.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from openasr_torch.models.layers import TrainRNG, activation_dtype, autocast_off, dropout
+from openasr_torch.parallel.mesh import DataGroup, experts_to_owners, experts_to_tokens
 
 
 def capacity(tokens: int, num_experts: int, top_k: int, factor: float) -> int:
@@ -103,12 +112,37 @@ class MoEFeedForward(nn.Module):
         self.param_inits = {**{n: "xavier_uniform_stacked" for n in tables},
                             **{n: "zeros" for n in biases}}
         self.aux_sink: Optional[list] = None
+        self.group = DataGroup.single()  # the auxiliary over this group's global batch
+        self.ep_group = None  # set by `shard_experts`: this rank's experts only
+
+    def table_names(self) -> tuple:
+        return tuple(n for n in ("w1", "b1", "w2", "b2", "w_gate", "b_gate")
+                     if n in self._parameters)
+
+    def shard_experts(self, group) -> tuple:
+        """Expert parallelism (`shard_experts` / `_moe_entries` of the JAX
+        mesh): keep experts [r E/N, (r+1) E/N) of rank r's tables, as new
+        parameters; the forward then carries the dispatched tokens to their
+        owners and back.  Returns the tables' names."""
+        k = self.num_experts // group.world
+        lo = group.rank * k
+        for name in self.table_names():
+            p = self._parameters[name]
+            self._parameters[name] = nn.Parameter(p.detach()[lo:lo + k].clone(),
+                                                  requires_grad=p.requires_grad)
+        self.ep_group = group
+        return self.table_names()
 
     def forward(self, x: torch.Tensor, rng: Optional[TrainRNG] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, T, D]; pad_mask [B, T] (true on valid tokens) or None."""
         combine = self.route(x, pad_mask)
-        out = self.expert_ffn(self.dispatch(combine, x), rng)
+        xin = self.dispatch(combine, x)
+        if self.ep_group is None:
+            out = self.expert_ffn(xin, rng)
+        else:
+            out = experts_to_tokens(
+                self.expert_ffn(experts_to_owners(xin, self.ep_group), rng), self.ep_group)
         return self.combine(out, combine).to(x.dtype)
 
     def route(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -200,9 +234,13 @@ class MoEFeedForward(nn.Module):
         router probability of e, ce the share of tokens whose first argmax
         is e."""
         e = gates.shape[-1]
-        n_valid = valid.sum().clamp(min=1.0)
-        me = (gates * valid[..., None]).sum(dim=(0, 1)) / n_valid
         top1 = one_hot(gates.argmax(dim=-1), e, gates.dtype)
-        ce = (top1 * valid[..., None]).sum(dim=(0, 1)) / n_valid
-        return e * (me * ce).sum()
+        # the global batch's ce and n_valid (no gradient); this rank's share
+        # of me's sum, so that the shares add up, value and gradient, to the
+        # one-process auxiliary
+        counts = torch.cat([(top1 * valid[..., None]).sum(dim=(0, 1)), valid.sum()[None]])
+        counts = self.group.all_reduce(counts.detach().clone())
+        n_valid = counts[-1].clamp(min=1.0)
+        me = (gates * valid[..., None]).sum(dim=(0, 1)) / n_valid
+        return e * (me * (counts[:e] / n_valid)).sum()
 

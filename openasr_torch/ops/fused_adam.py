@@ -18,6 +18,10 @@ hold a bf16 first moment beside f32 parameters; this class does, with
 the step count and `notfinite` live on the device, the lr is `lr_fn` of
 the on-device count and a rejected step is undone by selects, so a step
 reads nothing back to the host.
+
+Under data parallelism the parameters may be ZeRO-1 shards (views of the
+full parameters) and `norm_fn` the global norm over the ranks
+(openasr_torch/parallel/data_parallel.py); the arithmetic is the same.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ def host_copy(t: torch.Tensor) -> np.ndarray:
     would alias the live tensor, which the next step changes in place
     while the asynchronous writer pickles the package."""
     return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
 class FusedClipAdamState(NamedTuple):
@@ -59,8 +67,10 @@ class FusedClipAdam:
         mu_dtype: Optional[torch.dtype] = torch.bfloat16,
         nu_dtype: Optional[torch.dtype] = None,
         skip_nonfinite: bool = False,
+        norm_fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
     ):
         self.names = list(named_params)
+        self.norm_fn = norm_fn or global_norm
         self.params: List[torch.Tensor] = [named_params[n] for n in self.names]
         self.lr_fn = lr_fn
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -82,7 +92,7 @@ class FusedClipAdam:
         gf = [g.float() for g in grads]
         finite = None
         if self.max_norm > 0 or self.skip_nonfinite:
-            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gf)))
+            g_norm = self.norm_fn(gf)
             if self.skip_nonfinite:
                 finite = torch.isfinite(g_norm)
         if self.max_norm > 0:

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from openasr_torch.parallel.mesh import DataGroup, all_reduce_with_grad
+
 
 class _LastBlankFrame(torch.autograd.Function):
     """The identity on log-probs [T, B, V]; its backward rewrites the blank
@@ -92,9 +94,16 @@ def cal_ce_loss(logits: torch.Tensor, labels: torch.Tensor, paddings: torch.Tens
     return loss
 
 
-def cal_qua_loss(num_hat: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
-    """CIF's quantity loss sqrt(sum((n_hat - n)^2)) over the batch."""
-    return torch.sqrt(((num_hat.float() - num.float()) ** 2).sum())
+def cal_qua_loss(num_hat: torch.Tensor, num: torch.Tensor,
+                 group: DataGroup = DataGroup.single()) -> torch.Tensor:
+    """CIF's quantity loss sqrt(sum((n_hat - n)^2)) over the batch.  The
+    root of a sum over the batch is not a sum of the ranks' values, so it is
+    this rank's share sqrt(S) * S_r / S of the global batch's, S the sum of
+    the data `group`'s S_r (all-reduced with its gradient): the shares add
+    up, value and gradient, to the one-process loss."""
+    sq = ((num_hat.float() - num.float()) ** 2).sum()
+    total = all_reduce_with_grad(group, sq)
+    return torch.sqrt(total) * sq / total.clamp(min=1e-30)
 
 
 def cal_ce_square_loss(prob_square: torch.Tensor,

@@ -46,7 +46,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from openasr_torch.ops.fused_adam import host_copy
+from openasr_torch.ops.fused_adam import global_norm, host_copy
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -84,16 +84,11 @@ class MaskedNode(NamedTuple):
     pass
 
 
-def all_finite(tensors: List[torch.Tensor]) -> torch.Tensor:
+def all_finite(tensors: List[torch.Tensor], norm_fn=global_norm) -> torch.Tensor:
     """Whether every element of every tensor is finite, as a device bool:
     0 * x is nan exactly where x is inf or nan, and a norm over a nan is
     nan."""
-    zeros = torch._foreach_mul(tensors, 0.0)
-    return torch.isfinite(torch.stack(torch._foreach_norm(zeros)).sum())
-
-
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    return torch.isfinite(norm_fn(torch._foreach_mul(tensors, 0.0)))
 
 
 class StockOptimizer:
@@ -102,7 +97,9 @@ class StockOptimizer:
     when `skip_nonfinite`.  `mu_dtype` is Adam's first-moment dtype (None:
     the parameters').  `gate`: (component names, n) zeroes the gradients
     of the parameters under those top-level components for the first n
-    updates."""
+    updates.  `norm_fn` computes the clip's and the finiteness check's
+    global norm (default: over the given tensors; the data-parallel one
+    sums the ZeRO-1 shards' squares over the ranks)."""
 
     momentum, b1, b2, eps = 0.9, 0.9, 0.999, 1e-8
 
@@ -115,7 +112,9 @@ class StockOptimizer:
         mu_dtype: Optional[torch.dtype] = None,
         skip_nonfinite: bool = False,
         gate: Optional[Tuple[Tuple[str, ...], int]] = None,
+        norm_fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
     ):
+        self.norm_fn = norm_fn or global_norm
         if kind not in ("sgd", "adam"):
             raise ValueError(f"Unknown optimizer {kind}")
         self.kind = kind
@@ -152,7 +151,7 @@ class StockOptimizer:
         g = [x.float() for x in grads]
         accept = None
         if self.skip_nonfinite:
-            finite = all_finite(g)
+            finite = all_finite(g, self.norm_fn)
             self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).int()
             self.notfinite = torch.where(finite, self.notfinite, self.notfinite + 1).int()
             self.last_finite = finite
@@ -162,7 +161,7 @@ class StockOptimizer:
             g = [x * open_ if gated else x for x, gated in zip(g, self.gated)]
             self.gate_count = self.gate_count + (1 if accept is None else accept.int())
         if self.max_norm > 0:
-            norm = global_norm(g)
+            norm = self.norm_fn(g)
             clipped = torch._foreach_mul(torch._foreach_div(g, norm), self.max_norm)
             keep = norm < self.max_norm
             g = [torch.where(keep, a, b) for a, b in zip(g, clipped)]

@@ -8,15 +8,18 @@ unmasked features.  Widths and starts follow the same formulas, including
 the wrap of a negative frequency start and the empty time mask when the
 drawn width exceeds the utterance.
 
-The uniform draws [masks, 2, B] come from a torch.Generator; tests may
-pass them in, so both packages see the same numbers.
+The uniform draws [masks, 2, B] come from a torch.Generator (for the
+global batch under data parallelism); tests may pass them in, so both
+packages see the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from openasr_torch.parallel.mesh import rand_rows
 
 
 class SpecAugConfig(NamedTuple):
@@ -48,10 +51,13 @@ def spec_aug(
     generator: Optional[torch.Generator] = None,
     u_freq: Optional[torch.Tensor] = None,
     u_time: Optional[torch.Tensor] = None,
+    rows: Tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """Apply SpecAugment.  feats: [B, T, V] zero-padded; lengths: [B].
     `u_freq` [freq_mask_num, 2, B] and `u_time` [time_mask_num, 2, B] are
-    the uniform draws; missing ones are drawn from `generator` (CPU)."""
+    the uniform draws; missing ones are drawn from `generator` (CPU), for
+    the global batch of a data-parallel `rows` = (rank, world), of which
+    this rank keeps its B rows."""
     b, t, v = feats.shape
     dev = feats.device
     lengths = feat_lengths.to(dev)
@@ -59,7 +65,7 @@ def spec_aug(
 
     def draws(u, n):
         if u is None:
-            u = torch.rand((n, 2, b), generator=generator)
+            u = rand_rows(generator, (n, 2, b), 2, *rows)
         return u.to(dev, torch.float32)
 
     freq_means = feats.mean(dim=-1)                          # [B, T]

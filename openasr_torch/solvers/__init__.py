@@ -1,6 +1,6 @@
-"""Solvers: the training loop of one device.
+"""Solvers: the training loop, on one device or over a data-parallel group.
 
-Counterpart of openasr_tpu/solvers/__init__.py on one device: the epoch
+Counterpart of openasr_tpu/solvers/__init__.py: the epoch
 loop with per-epoch `ep-NNNN.pkg` + `last.pkg` packages, the dev pass,
 best-cv tracking, checkpoint retention, clip + Adam (ops/fused_adam.py)
 under the decay-rate schedules, two-phase gradient accumulation (the
@@ -47,8 +47,31 @@ model with MoE layers, its weighted load-balance auxiliary
 (`moe_aux_loss`, models/moe.py), in training; the dev pass logs it beside
 the other losses.
 
-Not ported here (ROADMAP queue 1 item 15): the mesh and its parallelisms
-(data, tensor, sequence, pipeline, ZeRO-1, expert).
+Data parallelism (`group`, a `DataGroup` of openasr_torch/parallel, as the
+JAX solvers take `mesh=`): each rank takes its rows of the global batch,
+padded to the cross-rank shapes (`reconcile_batch`), and N ranks compute
+what one process computes on the global batch, as the JAX solver's
+sharded step does:
+- every normalizer of a loss (the `n_*` counts) is all-reduced before the
+  loss is formed, so each rank backpropagates its numerators over the
+  global counts and the SUM of the ranks' gradients is the one-process
+  gradient; BatchNorm statistics, the MoE auxiliary and the per-row host
+  draws are the global batch's (models/);
+- after the last micro-batch of an accumulation group the gradients are
+  all-reduced in flat buckets, or with `training.zero1` (default on)
+  reduce-scattered into each rank's shard of the optimizer state and the
+  updated shards all-gathered; expert tables (expert parallelism, when the
+  world size divides num_experts) stay on their owners; the clip's norm is
+  global (parallel/data_parallel.py);
+- the preemption flag is agreed by an all_reduce(MAX) every
+  STOP_CHECK_INTERVAL batches and at each epoch's end, so a SIGTERM on one
+  rank stops every rank at the same batch;
+- every rank builds the package (gathering shards and expert tables) and
+  rank 0 alone writes it, `metrics.jsonl`, TensorBoard and the progress
+  lines; the dev pass's totals are all-reduced.
+
+The tensor, sequence and pipeline parallelisms are ROADMAP queue 1 items
+15b and 15c.
 """
 
 from __future__ import annotations
@@ -69,6 +92,8 @@ from openasr_torch.models.layers import TrainRNG
 from openasr_torch.ops.fused_adam import FusedClipAdam
 from openasr_torch.ops.optimizers import StockOptimizer
 from openasr_torch.ops.schedules import BobSchedule, get_schedule
+from openasr_torch.parallel.data_parallel import DataParallel, full_expert_tables
+from openasr_torch.parallel.mesh import DataGroup, reconcile_batch
 from openasr_torch.utils.checkpoint import AsyncCheckpointer, cleanup_ckpt
 
 logger = logging.getLogger(__name__)
@@ -91,7 +116,8 @@ class Solver:
     main_loss_norm = "n_tokens"
 
     def __init__(self, model, config, tr_loader, cv_loader, device="cuda",
-                 compute_dtype=torch.float32, seed: int = 0):
+                 compute_dtype=torch.float32, seed: int = 0,
+                 group: DataGroup = None):
         self.model = model
         self.config = config
         self.tr_loader = tr_loader
@@ -117,8 +143,21 @@ class Solver:
         self.cv_loss = []
 
         self.seed = seed
-        self.rng = TrainRNG(seed, self.device)
+        self.group = group if group is not None else DataGroup.single(self.device)
+        self.is_rank0 = self.group.rank == 0
+        self.rng = TrainRNG(seed, self.device, self.group.rank, self.group.world)
         self._niter = 0
+        self._stop_agreed = False
+        moe = model.moe_config() if hasattr(model, "moe_config") else None
+        if moe is not None and int(moe.get("num_experts", 0)) % self.group.world:
+            # correct numerics, but the tables replicate: no expert
+            # parallelism (the JAX solver's warning)
+            logger.warning(
+                "moe: num_experts=%d does not divide the data axis (%d); expert "
+                "tables will be REPLICATED on every chip (no expert parallelism). "
+                "Use a multiple of the data-axis size for sharded experts.",
+                int(moe["num_experts"]), self.group.world)
+        experts = model.set_data_group(self.group)
         frozen = tuple(getattr(model, "frozen_components", ()))
         self.params = {}
         for name, p in model.module.named_parameters():
@@ -126,6 +165,8 @@ class Solver:
                 p.requires_grad_(False)
             else:
                 self.params[name] = p
+        self.zero1 = bool(config.get("zero1", True))
+        self.dp = DataParallel(self.group, self.params, self.zero1, experts)
         self.optimizer = self._make_optimizer(config)
         os.makedirs(self.exp_dir, exist_ok=True)
         self._ckpt = AsyncCheckpointer()
@@ -157,9 +198,9 @@ class Solver:
         skip_nonfinite = bool(config.get("skip_nonfinite_grads", True))
         if opt_type == "adam" and not gate and config.get("fused_adam", True):
             return FusedClipAdam(
-                self.params, lr_fn, b1=0.9, b2=0.999, eps=1e-8,
+                self.dp.optimizer_params(), lr_fn, b1=0.9, b2=0.999, eps=1e-8,
                 max_norm=self.grad_max_norm, mu_dtype=mu_dtype, nu_dtype=nu_dtype,
-                skip_nonfinite=skip_nonfinite,
+                skip_nonfinite=skip_nonfinite, norm_fn=self.dp.norm,
             )
         if nu_dtype is not None:
             logger.warning(
@@ -170,9 +211,9 @@ class Solver:
         if opt_type == "sgd" and "adam_mu_dtype" in config:
             logger.warning("training.adam_mu_dtype is ignored with optimtype=sgd")
         return StockOptimizer(
-            self.params, lr_fn, opt_type, max_norm=self.grad_max_norm,
+            self.dp.optimizer_params(), lr_fn, opt_type, max_norm=self.grad_max_norm,
             mu_dtype=mu_dtype if opt_type == "adam" else None,
-            skip_nonfinite=skip_nonfinite, gate=gate,
+            skip_nonfinite=skip_nonfinite, gate=gate, norm_fn=self.dp.norm,
         )
 
     def current_lr(self) -> float:
@@ -205,13 +246,23 @@ class Solver:
         model's `has_empty_rows` of the host batch."""
         self.rng.reseed((self.seed << 32) + self.step * 8191 + self._niter)
         losses = self.model_losses(batch, self.rng, empty_rows)
-        self.total_loss(losses).backward()
+        self.total_loss(self.global_counts(losses)).backward()
         return {k: v.detach() for k, v in losses.items()}
+
+    def global_counts(self, losses: dict) -> dict:
+        """`losses` with every normalizer (`n_*`) summed over the ranks (one
+        all_reduce), the numerators this rank's own."""
+        if self.group.world == 1:
+            return losses
+        keys = sorted(k for k in losses if k.startswith("n_"))
+        counts = self.group.all_reduce(torch.stack([losses[k].detach().float() for k in keys]))
+        return {**losses, **dict(zip(keys, counts.unbind()))}
 
     def apply_update(self) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params.values()]
-        self.optimizer.step(grads)
+        self.optimizer.step(self.dp.reduce(grads))
+        self.dp.gather_params()
         for p in self.params.values():
             p.grad = None
         self.step += 1
@@ -237,8 +288,21 @@ class Solver:
                 tot[k] = tot[k] + losses[k] if k in tot else losses[k]
         return (tot, tot_norm, tot_seqs)
 
-    def _totals_log(self, totals, t0, niter, tot_iters, phase) -> None:
+    def _global_totals(self, totals):
+        """The totals summed over the ranks (one all_reduce)."""
         tot, tot_norm, tot_seqs = totals
+        if self.group.world == 1 or tot_norm is None:
+            return totals
+        keys = sorted(tot)
+        v = self.group.all_reduce(torch.stack(
+            [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+             for x in [tot[k] for k in keys] + [tot_norm, tot_seqs]]))
+        return dict(zip(keys, v[:-2].unbind())), v[-2], v[-1]
+
+    def _totals_log(self, totals, t0, niter, tot_iters, phase) -> None:
+        tot, tot_norm, tot_seqs = self._global_totals(totals)
+        if not self.is_rank0:
+            return
         host_norm = max(float(tot_norm), 1.0)
         host_tot = {k: float(v) for k, v in tot.items()}
         sent_per_sec = float(tot_seqs) / max(time.time() - t0, 1e-9)
@@ -265,7 +329,7 @@ class Solver:
         epoch's mean main loss."""
         if self._profiler is not None:
             self._stop_profile("epoch end")
-        tot, tot_norm, _ = totals
+        tot, tot_norm, _ = self._global_totals(totals)
         if tot_norm is None:
             return 0.0
         return float(tot[self.main_loss_key]) / max(float(tot_norm), 1e-9)
@@ -277,10 +341,11 @@ class Solver:
         tot_iters = len(loader)
         n_micro = 0
         for niter, batch in enumerate(loader, start=1):
-            if not cross_valid and self._should_stop():
+            if not cross_valid and self._should_stop(niter):
                 logger.warning("preemption: stopping epoch %d at batch %d/%d",
                                self.epoch, niter, tot_iters)
                 break
+            batch = reconcile_batch(self.group, batch)
             arrays = batch_to_device(batch, self.device)
             empty_rows = self.model.has_empty_rows(self.model.batch_inputs(batch)[1])
             if cross_valid:
@@ -302,7 +367,9 @@ class Solver:
 
     def _log_metrics(self, record: dict) -> None:
         """Append one JSON line to exp_dir/metrics.jsonl (and mirror it to
-        TensorBoard when asked)."""
+        TensorBoard when asked); rank 0 alone writes."""
+        if not self.is_rank0:
+            return
         record = {"time": time.time(), **record}
         with open(os.path.join(self.exp_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -341,7 +408,7 @@ class Solver:
         `training.profile`, opened before a step and closed before the
         first step past it (or at the epoch's end)."""
         prof = self.config.get("profile")
-        if not prof:
+        if not prof or not self.is_rank0:
             return
         start = int(prof.get("start_step", 10))
         num = int(prof.get("num_steps", 5))
@@ -383,9 +450,26 @@ class Solver:
 
         return {sig: signal.signal(sig, handler) for sig in (signal.SIGTERM, signal.SIGUSR1)}
 
-    def _should_stop(self) -> bool:
-        """The preemption flag (one process: the local one)."""
-        return self._stop_requested
+    # the agreement is a collective, so ranks check it every N batches (and
+    # at each epoch's end, niter 0), not every batch
+    STOP_CHECK_INTERVAL = 8
+
+    def _should_stop(self, niter: int = 0) -> bool:
+        """The preemption flag, agreed across the ranks: every rank reaches
+        the same batches (the same batch plan) and consults the agreement
+        on the same schedule (niter % STOP_CHECK_INTERVAL == 0), so a
+        SIGTERM on a subset of ranks stops them all at the same batch.  One
+        process: its own flag."""
+        if self.group.world == 1:
+            return self._stop_requested
+        if self._stop_agreed:
+            return True
+        if niter % self.STOP_CHECK_INTERVAL != 0:
+            return False
+        flag = torch.tensor([int(self._stop_requested)], device=self.group.comm_device)
+        if int(self.group.all_reduce(flag, "max")[0]):
+            self._stop_requested = self._stop_agreed = True
+        return self._stop_agreed
 
     def train(self) -> None:
         previous = self._install_preemption_handler()
@@ -416,8 +500,9 @@ class Solver:
             if self.is_bob:
                 self.schedule.update(cv_loss)
             minutes = (time.time() - t0) / 60.0
-            logger.info("Epoch %d done: tr %.4f cv %.4f (best %.4f) in %.1f min",
-                        self.epoch, tr_loss, cv_loss, best_cv, minutes)
+            if self.is_rank0:
+                logger.info("Epoch %d done: tr %.4f cv %.4f (best %.4f) in %.1f min",
+                            self.epoch, tr_loss, cv_loss, best_cv, minutes)
             self._log_metrics({
                 "phase": "epoch", "epoch": self.epoch, "step": self.step,
                 "tr_loss": tr_loss, "cv_loss": cv_loss, "best_cv": best_cv,
@@ -426,7 +511,7 @@ class Solver:
             self.tr_loss.append(tr_loss)
             self.cv_loss.append(cv_loss)
             self._ckpt.wait()
-            if self.num_last_ckpt_keep:
+            if self.num_last_ckpt_keep and self.is_rank0:
                 cleanup_ckpt(self.exp_dir, int(self.num_last_ckpt_keep))
         self._ckpt.wait()
 
@@ -444,21 +529,27 @@ class Solver:
     def package(self) -> dict:
         """The model in the JAX package layout, the solver state, and the
         optimizer state in the port's layout (moments keyed by parameter
-        name)."""
+        name).  Under a data group, expert tables and sharded moments are
+        gathered whole: every rank calls it."""
+        with full_expert_tables(self.model.module):
+            model = self.model.package()
         pkg = {
-            "model": self.model.package(),
+            "model": model,
             "solver_config": (self.config.to_dict() if hasattr(self.config, "to_dict")
                               else dict(self.config)),
             "solver_state": self.training_state(),
-            "optim_state": self.optimizer.state_dict(),
+            "optim_state": self.dp.full_state(self.optimizer.state_dict()),
         }
         if self.is_bob:
             pkg["scheduler_state"] = self.schedule.pack_state()
         return pkg
 
     def save(self, path: str) -> None:
-        """Snapshot the package now; the write runs in the background."""
-        self._ckpt.save(self.package(), path)
+        """Snapshot the package now (on every rank); rank 0 writes it, in
+        the background."""
+        pkg = self.package()
+        if self.is_rank0:
+            self._ckpt.save(pkg, path)
 
     def restore(self, pkg: dict) -> None:
         """Solver and optimizer state of a package (the model is restored by
@@ -475,7 +566,7 @@ class Solver:
             if not isinstance(optim, dict):
                 optim = jax_optim_state_to_port(self.model.model_type, optim,
                                                 self.model.configs)
-            self.optimizer.load_state_dict(optim)
+            self.optimizer.load_state_dict(self.dp.shard_state(optim))
         if self.is_bob and "scheduler_state" in pkg:
             self.schedule.restore_state(pkg["scheduler_state"])
 
@@ -513,7 +604,8 @@ class CTCSolver(Solver):
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
             ids, lens = self.model.greedy_decode(inputs, lengths, empty_rows)
-        logger.info("dev sample greedy ids: %s", ids[0, : int(lens[0])].tolist())
+        if self.is_rank0:
+            logger.info("dev sample greedy ids: %s", ids[0, : int(lens[0])].tolist())
 
 
 SOLVER_REGISTRY = {

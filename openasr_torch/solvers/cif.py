@@ -19,6 +19,7 @@ import itertools
 import logging
 import time
 
+from openasr_torch.parallel.mesh import reconcile_batch
 from openasr_torch.solvers import SOLVER_REGISTRY, Solver, batch_to_device
 
 logger = logging.getLogger(__name__)
@@ -56,7 +57,7 @@ class CIFMIXSolver(CIFCTCSolver):
         paired_cycle = itertools.cycle(iter(self.tr_loader))
         tot_iters = len(self.acoustic_loader)
         for niter, ac_batch in enumerate(self.acoustic_loader, start=1):
-            if self._should_stop():
+            if self._should_stop(niter):
                 logger.warning("preemption: stopping epoch %d at batch %d/%d",
                                self.epoch, niter, tot_iters)
                 break
@@ -64,6 +65,7 @@ class CIFMIXSolver(CIFCTCSolver):
             for j, batch in enumerate((ac_batch, next(paired_cycle))):
                 # each batch of the pair its own random streams
                 self._niter = 2 * niter + j
+                batch = reconcile_batch(self.group, batch)
                 empty_rows = self.model.has_empty_rows(self.model.batch_inputs(batch)[1])
                 losses = self.grad_step(batch_to_device(batch, self.device), empty_rows)
                 totals = self._totals_update(totals, losses)

@@ -22,7 +22,9 @@ import itertools
 import logging
 
 import numpy as np
+import torch
 
+from openasr_torch.parallel.mesh import all_gather_host, reconcile_batch
 from openasr_torch.solvers import SOLVER_REGISTRY, CESolver, Solver, batch_to_device
 from openasr_torch.utils.metrics import batch_distance
 
@@ -51,6 +53,7 @@ class Phone2CharCTCSolver(Solver):
         tokens."""
         dist, n_ref = 0, 0
         for batch in self.cv_loader:
+            batch = reconcile_batch(self.group, batch)
             arrays = batch_to_device(batch, self.device)
             ids, lens = self.model.greedy_decode(
                 arrays["phones"], arrays["phone_lengths"],
@@ -60,8 +63,10 @@ class Phone2CharCTCSolver(Solver):
             refs = [list(batch["labels"][i, : tlen[i]]) for i in range(len(tlen))]
             dist += batch_distance(refs, [list(ids[i, : lens[i]]) for i in range(len(lens))])
             n_ref += sum(len(r) for r in refs)
-        wer = dist / max(n_ref, 1)
-        logger.info("dev WER: %.2f%%", 100.0 * wer)
+        dist, n_ref = all_gather_host(self.group, np.array([dist, n_ref], np.int64)).sum(0)
+        wer = float(dist) / max(int(n_ref), 1)
+        if self.is_rank0:
+            logger.info("dev WER: %.2f%%", 100.0 * wer)
         return wer
 
 
@@ -87,7 +92,7 @@ class Phone2CharCTCGANSolver(Phone2CharCTCSolver):
         text_cycle = itertools.cycle(iter(self.text_loader))
         tot_iters = len(self.phone_loader)
         for niter, phone_batch in enumerate(self.phone_loader, start=1):
-            if self._should_stop():
+            if self._should_stop(niter):
                 logger.warning("preemption: stopping epoch %d at batch %d/%d",
                                self.epoch, niter, tot_iters)
                 break
@@ -97,6 +102,7 @@ class Phone2CharCTCGANSolver(Phone2CharCTCSolver):
                          unpaired_phone_lengths=phone_batch["token_lengths"],
                          unpaired_text=text["tokens"],
                          unpaired_text_lengths=text["token_lengths"])
+            batch = reconcile_batch(self.group, batch)
             empty_rows = any(self.model.has_empty_rows(batch[k])
                              for k in ("phone_lengths", "unpaired_phone_lengths"))
             self._niter = niter
@@ -106,12 +112,20 @@ class Phone2CharCTCGANSolver(Phone2CharCTCSolver):
             tot_main = tot_main + losses["ctc_loss"]
             tot_norm = tot_norm + losses["n_tokens"]
             if niter % self.print_inteval == 0:
-                logger.info("Epoch %d | Step %d | ctc %.3f g %.3f d %.3f | lr %.3e",
-                            self.epoch, self.step,
-                            float(losses["ctc_loss"]) / max(float(losses["n_tokens"]), 1.0),
-                            float(losses["g_loss"]), float(losses["d_loss"]),
-                            self.current_lr())
-        return float(tot_main) / max(float(tot_norm), 1e-9)
+                ctc, n, g, d = self._global_sum(
+                    [losses[k] for k in ("ctc_loss", "n_tokens", "g_loss", "d_loss")])
+                if self.is_rank0:
+                    logger.info("Epoch %d | Step %d | ctc %.3f g %.3f d %.3f | lr %.3e",
+                                self.epoch, self.step, ctc / max(n, 1.0), g, d,
+                                self.current_lr())
+        tot_main, tot_norm = self._global_sum([tot_main, tot_norm])
+        return tot_main / max(tot_norm, 1e-9)
+
+    def _global_sum(self, values) -> list:
+        """Host floats of `values` summed over the ranks."""
+        v = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                         for x in values])
+        return self.group.all_reduce(v).tolist()
 
 
 SOLVER_REGISTRY.update({
