@@ -221,8 +221,29 @@ f64: the two ranks' may be no further from it than twice one rank's plus
 gradient sign, are held to 2 lr a step.  A collective that gloo refuses
 on CUDA tensors fails the phase.
 `python3 chip_smoke.py --parallel-cards N`, on a machine with N cards,
-runs the flagship and MoE pairs over NCCL instead, a card a rank, and
-nothing else.
+runs the flagship and MoE pairs over NCCL instead, a card a rank, then
+the flagship on a grid of N / 2 data rows of 2 model ranks, and nothing
+else.
+
+Then tensor and sequence parallelism (`[model path]`): two ranks over
+gloo on cuda:0 on a dp1 x tp2 grid (`--parallel-worker`, set up while the
+one-rank runs train) against one rank in this process, 3 steps each from
+the same seeded weights, f32, dropout 0, both ranks on every row of the
+YAML's 18000-frame batches: the flagship YAML with
+`training.sequence_parallel` on, then off, and the MoE YAML (on).  Each
+pair as the [parallel path]'s (losses 1e-3, the step-1 gradient 1e-4 of
+each leaf's scale, parameters 1e-3), the one-rank run also computing the
+step-1 gradient in f64 (attention and LayerNorm plain in f64), which the
+two ranks may be no further from than 1.5 times one rank's distance; and
+each rank's LayerNorm backward launches split between the dx-only mode
+(row 2: the T-sharded sites, from the host's T' and U) and the partials
+mode exactly as the steps' shapes decide; off launches no dx-only one.
+The flagship's padded T is a multiple of 8, so its T' is odd and only
+the decoder's sites (U 32) run on T-shards.  Row 2 is held to its plain
+version and timed at the rows those launches had, [B U / 2, 512].  It
+prints the collectives a step on each group, in calls and bytes, and the
+warm step walls, and times the attention kernels at a rank's
+[B, T', 4, 64] (f32 and bf16).
 
 Last, the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
@@ -2128,10 +2149,54 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng, chunk_mask=No
     }
 
 
-def train_rows(shapes, errs, launches, per):
+def dx_only_reading(n, dm, dtype, rng, errs, timed) -> dict:
+    """The LayerNorm backward's dx-only mode on [n, dm] random rows held to
+    its plain version (the error joins `errs`); with `timed`, device ms of
+    the kernel, the plain version and F.layer_norm's backward, and the
+    bound."""
+    import torch.nn.functional as F
+
+    from openasr_torch.kernels.layer_norm import (
+        layer_norm_bwd,
+        layer_norm_bwd_reference,
+        layer_norm_reference,
+    )
+
+    name = DTYPE_NAME[dtype]
+    x, g, beta = ln_inputs(n, dm, dtype, rng)
+    dy = torch.from_numpy(rng.randn(n, dm).astype(np.float32)).to("cuda", dtype)
+    _, mean, rstd = layer_norm_reference(x, g, beta)
+    got = layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)[0]
+    e, scale = scaled_err(got, layer_norm_bwd_reference(x, dy, g, mean, rstd,
+                                                        dgamma_dbeta=False)[0])
+    require(e <= TOL_LN_BWD[dtype] * scale,
+            f"layer_norm_bwd dx-only [{n}, {dm}] {name}: err {e:.3g} > "
+            f"{TOL_LN_BWD[dtype]} x {scale:.3g}")
+    note_err(errs, ("layer_norm_bwd_dx", dtype), e, e / scale)
+    print(f"[model path] layer_norm_bwd dx-only [{n}, {dm}] {name}: err {e / scale:.3g} "
+          f"of max(1, |dx|) (tol {TOL_LN_BWD[dtype]})")
+    out = {"scaled_err": e / scale}
+    if not timed:
+        return out
+    es = torch.tensor([], dtype=dtype).element_size()
+    xl, gl, bl = (z.clone().requires_grad_() for z in (x, g.to(dtype), beta.to(dtype)))
+    return {**out,
+            "ms": device_ms(lambda: layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)),
+            "plain_ms": device_ms(lambda: layer_norm_bwd_reference(x, dy, g, mean, rstd,
+                                                                   dgamma_dbeta=False)),
+            "library_ms": backward_ms(lambda: F.layer_norm(xl, (dm,), gl, bl, 1e-6),
+                                      (xl, gl, bl), dy),
+            # x, dy read and dx written; mean, rstd, gamma read
+            **bound(3 * n * dm * es + 2 * n * 4 + dm * 4, 9 * n * dm, torch.float32)}
+
+
+def train_rows(shapes, errs, launches, per, tp_ln):
     """The training path's kernels at its encoder shape (largest batch),
     and the attention forward and backward also at the decoder's and the
-    cross-attention's."""
+    cross-attention's; the LayerNorm backward's dx-only mode at the rows a
+    tp2 rank launched it on in the [model path], with those launches
+    (`tp_ln`: rank 0's, sequence parallelism on), and at the encoder's
+    T-shards [B (T' // 2), 512]."""
     import torch.nn.functional as F
 
     from openasr_torch.kernels.flash_attention import (
@@ -2182,24 +2247,36 @@ def train_rows(shapes, errs, launches, per):
             **bound(3 * n * dm * es + 2 * n * 4 + 3 * dm * 4, 13 * n * dm, torch.float32),
         })
         # the same kernel's dx-only mode (the JAX package's _bwd_dx_kernel)
+        # at the rows a tp2 rank launched it on in the [model path]
+        # (`tp_ln["dx_rows"]`), held to its plain version at each and timed
+        # at the most launched; and, labelled apart, at the T-shards of the
+        # training path's largest batch's encoder, [B (T' // 2), 512]
+        dx_rows = tp_ln["dx_rows"]
+        main = max(dx_rows, key=lambda n: (dx_rows[n], n))
+        at = {n: dx_only_reading(n, dm, dtype, rng, errs, timed=n == main)
+              for n in sorted(dx_rows)}
+        enc = dx_only_reading(b * (t // 2), dm, dtype, rng, errs, timed=True)
+        timings = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         rows.append({
             "name": f"layer_norm_bwd_dx[{name}]",
             "route": "cuda",
             "source": "openasr_torch/kernels/csrc/layer_norm.cu",
             "replaces": "openasr_tpu/kernels/layer_norm.py:69",
-            "shape": [n, dm],
-            **launch_keys("layer_norm_bwd_dx"),
-            "launches_are": "the training path's (on no path of the port: the JAX package "
-                            "runs it under SPMD only)",
+            "shape": [main, dm],
+            "launched_shapes": [[n, dm, k] for n, k in sorted(dx_rows.items())],
+            "launches": tp_ln["dx"],
+            "launches_per_step": tp_ln["dx"] / PARALLEL_STEPS,
+            "launches_are": "a tp2 rank's on the [model path] (flagship, sequence parallelism "
+                            "on, f32), its T-sharded sites; launched_shapes: [rows, 512, "
+                            "launches] of each",
             **bwd_errs(errs[("layer_norm_bwd_dx", dtype)], TOL_LN_BWD[dtype]),
-            "ms": device_ms(lambda: layer_norm_bwd(x, dy, g, mean, rstd, dgamma_dbeta=False)),
-            "plain_ms": device_ms(lambda: layer_norm_bwd_reference(x, dy, g, mean, rstd,
-                                                                   dgamma_dbeta=False)),
-            "library_ms": lib_ln_ms,
+            **{k: at[main][k] for k in timings},
             "library_is": "F.layer_norm forward + backward minus forward (graph replay); "
                           "it also computes dgamma and dbeta",
-            # x, dy read and dx written; mean, rstd, gamma read
-            **bound(3 * n * dm * es + 2 * n * 4 + dm * 4, 9 * n * dm, torch.float32),
+            "at_encoder_shards": {
+                "shape": [b * (t // 2), dm], **{k: enc[k] for k in timings + ("scaled_err",)},
+                "is": "the training path's largest batch's encoder rows over 2: no [model "
+                      "path] run launches it there (the flagship's T' is odd)"},
         })
 
         # the attention backward at the step's three shapes, with dropout as
@@ -6190,24 +6267,62 @@ TOL_PARALLEL = 1e-3        # two ranks against one: the flagship card check's
 # scale of the others).  Half a gradient, a rank's share without the
 # reduction, is off by about 0.5.
 TOL_PARALLEL_GRAD = 1e-4
-# GRU-CTC's f32 step-1 gradient is itself about 1e-3 off its f64 value
-# (rounding that the rank split, summing in another order, changes), so
-# its pair (`f64`) holds the
-# two ranks' gradient to the f64 one no worse than twice one rank's f32,
-# and its parameters to Adam's 2 lr a step: its first updates are +-lr by
-# each element's gradient sign, which f32 does not fix for an element whose
-# gradient is below that error.
+# A pair with an f64 step-1 gradient (`f64`, computed by the one-rank run)
+# holds the two ranks' f32 gradient to it as well as to one rank's:
+# "sign" (GRU-CTC, whose f32 step-1 gradient is itself about 1e-3 off its
+# f64 value: rounding that the rank split, summing in another order,
+# changes) no worse than twice one rank's f32 distance plus
+# TOL_PARALLEL_GRAD, and its parameters to Adam's 2 lr a step (its first
+# updates are +-lr by each element's gradient sign, which f32 does not fix
+# for an element whose gradient is below that error); "rounding" (the
+# model axis's pairs, whose two ranks sit some 1e-5 of scale off one rank)
+# TOL_PARALLEL_GRAD against one rank and, against the f64 gradient, no
+# further than TOL_PARALLEL_F64 times one rank's distance, so that the gap
+# between them is shown to be f32 rounding (the flagship's and the MoE
+# YAML's pairs read 0.93 and 0.91 times on an H100).
+TOL_PARALLEL_F64 = 1.5
 # BatchNorm running statistics after the first step (the global batch's,
 # from equal weights), of their scale
 TOL_PARALLEL_STATS = 1e-5
 TOL_PARALLEL_WORLD1 = 1e-6  # --distributed at world 1 against the plain CLI
 
 
+def plain_f64_layers():
+    """A context in which the model layers' attention and LayerNorm run as
+    plain PyTorch in their inputs' dtype: float64 for `f64_first_moment`,
+    which neither the kernels nor their plain versions (f32 inside) take.
+    Dropout 0, no chunk mask and no empty row, as the pairs train."""
+    from unittest import mock
+
+    from openasr_torch.models import layers
+
+    def attention(q, k, v, kv_lengths=None, causal=False, dropout_rate=0.0, dropout_seed=0,
+                  chunk_mask=None):
+        require(dropout_rate == 0.0 and chunk_mask is None, "f64 attention: dropout or chunks")
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / float(np.sqrt(q.shape[-1]))
+        valid = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
+        valid = (torch.tril(valid) if causal else valid)[None, None]
+        if kv_lengths is not None:
+            keys = torch.arange(k.shape[1], device=q.device)
+            valid = valid & (keys < kv_lengths.to(q.device)[:, None])[:, None, None, :]
+            require(bool((kv_lengths > 0).all()), "f64 attention: an empty row")
+        p = torch.softmax(torch.where(valid, s, torch.full_like(s, -1e30)), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v), None
+
+    def layer_norm(x, scale, bias, eps=1e-6):
+        mu = x.mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) - mu * mu + eps)
+        return (x - mu) * rstd * scale + bias, mu[..., 0], rstd[..., 0]
+
+    return mock.patch.multiple(layers, flash_attention=attention, fused_layer_norm=layer_norm)
+
+
 def f64_first_moment(solver, model_cfg, batch, empty_rows) -> dict:
     """Adam's first moment after step 1, (1 - b1) times the clipped
     gradient, of the solver's first step computed in float64: a copy of
     the model at the same seeded weights, the batch's floats in f64, the
-    solver's loss and draws (its rng reseeded as its step reseeds it)."""
+    solver's loss and draws (its rng reseeded as its step reseeds it), the
+    attention and LayerNorm plain in f64 (`plain_f64_layers`)."""
     from openasr_torch.models import get_model_class
 
     ref = get_model_class(model_cfg["type"]).create_model(
@@ -6217,7 +6332,8 @@ def f64_first_moment(solver, model_cfg, batch, empty_rows) -> dict:
     model, solver.model = solver.model, ref
     try:
         solver.rng.reseed((solver.seed << 32) + solver.step * 8191 + solver._niter)
-        solver.total_loss(solver.model_losses(batch64, solver.rng, empty_rows)).backward()
+        with plain_f64_layers():
+            solver.total_loss(solver.model_losses(batch64, solver.rng, empty_rows)).backward()
     finally:
         solver.model = model
     grads = {n: p.grad for n, p in ref.module.named_parameters() if n in solver.params}
@@ -6226,16 +6342,19 @@ def f64_first_moment(solver, model_cfg, batch, empty_rows) -> dict:
     return {n: (0.1 * scale * g).cpu().numpy() for n, g in grads.items()}
 
 
-def parallel_train(job: dict, group, go=None) -> dict:
-    """Train `job`'s model PARALLEL_STEPS steps as a rank of `group` (a
-    `DataGroup`; one rank in this process, or gloo on cuda:0, or NCCL with a
-    card a rank) on its rows of the first batches of the loaders of the
-    global budget (`build_loaders(ndata=job["ndata"])`), with counters reset
-    just before and read just after (once the file `go` exists, when
-    given); -> the steps' losses (summed over the ranks), launches and
-    collectives a step, the step's wall, the step-1 gradient (Adam's first
-    moment after one update, f32) and the package (every rank gathers;
-    rank 0's returned)."""
+def parallel_train(job: dict, grid, go=None) -> dict:
+    """Train `job`'s model PARALLEL_STEPS steps as a rank of `grid` (a
+    `Grid`: one rank in this process, or gloo on cuda:0, or NCCL with a
+    card a rank) on its data row's rows of the first batches
+    of the loaders of the global budget (`build_loaders(ndata=job["ndata"])`),
+    with counters reset just before and read just after (once the file
+    `go` exists, when given); -> the steps' losses (summed over the data
+    group), launches and collectives a step (`calls`, `bytes` on the data
+    group, `model_calls`, `model_bytes` on the model group), the step's
+    wall, the step-1 gradient (Adam's first moment after one update, f32),
+    the LayerNorms a step ran on T-shards (`sharded_ln`, from the host's
+    shapes: {a rank's rows [B T / M]: LayerNorms} a step) and the package
+    (every rank gathers; rank 0's returned)."""
     import yaml
 
     from openasr_torch.bin.train import build_loaders
@@ -6246,6 +6365,7 @@ def parallel_train(job: dict, group, go=None) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    group = grid.data
     rank, world = group.rank, group.world
     with open(job["yaml"]) as f:
         cfg = yaml.safe_load(f)
@@ -6254,7 +6374,7 @@ def parallel_train(job: dict, group, go=None) -> dict:
         for key in ("dropout_rate", "dropout"):
             if key in (model_cfg.get(sec) or {}):
                 model_cfg[sec][key] = 0.0
-    training.update(exp_dir=os.path.join(PARALLEL_DIR, f"exp_{job['tag']}_{world}"),
+    training.update(exp_dir=os.path.join(PARALLEL_DIR, f"exp_{job['tag']}_{grid.world}"),
                     print_inteval=1000, adam_mu_dtype="float32", **job["training"])
     tokenizer = CharTokenizer(job["vocab"], add_blk=model_cfg.get("add_blk", False))
     model_cfg["decoder"]["vocab_size"] = tokenizer.unit_num()
@@ -6270,12 +6390,25 @@ def parallel_train(job: dict, group, go=None) -> dict:
     model = get_model_class(model_cfg["type"]).create_model(
         model_cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     solver = get_solver_class(model_cfg["type"])(model, training, batches, [],
-                                                 device=group.device, group=group)
+                                                 device=group.device, group=grid)
     shares, stats1, starts, grad_step = [], {}, [], solver.grad_step
+    sharded_ln = []
+    ln_in = {part: count_layer_norms(getattr(model.module, part))
+             for part in ("encoder", "decoder") if hasattr(model.module, part)}
     g1, g64, lrs, apply_update = {}, {}, [], solver.apply_update
 
     def recording(batch, empty_rows):
-        if job.get("f64") and world == 1 and not g64:
+        if model.tp is not None:
+            b, t = model.batch_inputs(batch)[0].shape[:2]
+            t = int(model.module.encoder_lengths(np.asarray([t]))[0])
+            u = batch["ids"].shape[1] if "ids" in batch else 1
+            sites = {}
+            for part, n in (("encoder", t), ("decoder", u)):
+                if ln_in.get(part) and model.tp.shards_time(n):
+                    rows = b * n // model.tp.size
+                    sites[rows] = sites.get(rows, 0) + ln_in[part]
+            sharded_ln.append(sites)
+        if job.get("f64") and grid.world == 1 and not g64:
             g64.update(f64_first_moment(solver, model_cfg, batch, empty_rows))
         torch.cuda.synchronize()
         starts.append(time.time())
@@ -6290,8 +6423,13 @@ def parallel_train(job: dict, group, go=None) -> dict:
         lrs.append(solver.current_lr())
         apply_update()
         if len(lrs) == 1:  # a collective: every rank gathers, rank 0 keeps
+            # (its collectives are the check's, not the step's)
+            counts = [(c, dict(c)) for g in grid.groups().values() for c in (g.calls, g.bytes)]
             mu = solver.dp.full_state(solver.optimizer.state_dict())["mu"]
-            if rank == 0:
+            for c, before in counts:
+                c.clear()
+                c.update(before)
+            if grid.rank == 0:
                 g1.update((n, np.asarray(v, np.float32)) for n, v in mu.items())
 
     solver.grad_step, solver.apply_update = recording, recording_update
@@ -6300,7 +6438,7 @@ def parallel_train(job: dict, group, go=None) -> dict:
         require(time.time() - t_wait < 300, "no go from the [parallel path]")
         time.sleep(0.05)
     reset_counters()
-    group.reset_counts()
+    grid.reset_counts()
     t0 = time.time()
     solver.iter_one_epoch()
     torch.cuda.synchronize()
@@ -6310,22 +6448,28 @@ def parallel_train(job: dict, group, go=None) -> dict:
     step_walls = np.diff(starts + [t0 + wall]).tolist()
     n = read_counters()
     calls, nbytes = dict(group.calls), dict(group.bytes)
+    mcalls, mbytes = dict(grid.model.calls), dict(grid.model.bytes)
     losses = group.all_reduce(torch.stack(shares)).tolist()
     pkg = solver.package()
-    with full_expert_tables(model.module):
+    with full_expert_tables(model.module), model.full_tables():
         params = {n: p.detach().float().cpu().numpy()
                   for n, p in model.module.named_parameters() if n in solver.params}
+    first = grid.rank == 0
     return {"losses": losses, "wall": wall, "step_walls": step_walls,
             "warm_step": float(np.mean(step_walls[1:])), "steps": solver.step,
-            "stats1": stats1, "lrs": lrs, "g1": g1 if rank == 0 else None, "g64": g64,
-            "params": params if rank == 0 else None,
+            "stats1": stats1, "lrs": lrs, "g1": g1 if first else None, "g64": g64,
+            "f64": job.get("f64"),
+            "params": params if first else None,
             "zero1": bool(training.get("zero1", True)) and world > 1,
             "launches": {k: v / solver.step for k, v in n.items() if v},
+            "launch_totals": n, "sharded_ln": sharded_ln,
             "calls": {k: v / solver.step for k, v in calls.items()},
             "bytes": {k: v / solver.step for k, v in nbytes.items()},
+            "model_calls": {k: v / solver.step for k, v in mcalls.items()},
+            "model_bytes": {k: v / solver.step for k, v in mbytes.items()},
             "experts": [name for name, kind in zip(solver.dp.names, solver.dp.kind)
                         if kind == "expert"],
-            "backend": group.backend, "pkg": pkg["model"] if rank == 0 else None}
+            "backend": grid.backend, "pkg": pkg["model"] if first else None}
 
 
 def parallel_worker(job_path, rank=None, world=None, port=None) -> int:
@@ -6339,8 +6483,10 @@ def parallel_worker(job_path, rank=None, world=None, port=None) -> int:
 
     with open(job_path, "rb") as f:
         job = pickle.load(f)
-    group = (init_distributed("cuda") if rank is None else
-             new_group(int(rank), int(world), f"tcp://localhost:{port}", "gloo", "cuda:0"))
+    model = job.get("model", 1)
+    group = (init_distributed("cuda", model=model) if rank is None else
+             new_group(int(rank), int(world), f"tcp://localhost:{port}", "gloo", "cuda:0",
+                       model))
     try:
         res = parallel_train(job, group, go=None if rank is None else f"{job_path}.go")
     finally:
@@ -6385,10 +6531,10 @@ def finish_pair(pair: dict) -> tuple:
     overlap)."""
     import pickle
 
-    from openasr_torch.parallel import DataGroup
+    from openasr_torch.parallel import Grid
 
     job, path = pair["job"], pair["path"]
-    one = parallel_train(job, DataGroup.single("cuda:0"))
+    one = parallel_train(job, Grid.single("cuda:0"))
     open(f"{path}.go", "w").close()
     codes = [p.wait(timeout=300) for p in pair["procs"]]
     require(codes == [0, 0], f"[parallel path] {job['tag']}: ranks exited {codes}")
@@ -6418,14 +6564,16 @@ def floor_grad_errs(got: dict, want: dict) -> dict:
             for k, v in want.items()}
 
 
-def check_pair(tag, one, two, want_per_step=None) -> dict:
+def check_pair(tag, one, two, want_per_step=None, phase="parallel path") -> dict:
     """N ranks (`two`, rank order) against one: the same steps, losses
     within TOL_PARALLEL, the step-1 reduced gradient within
     TOL_PARALLEL_GRAD of one rank's (where the one-rank run computed the
     f64 gradient, `g64`: no further from it than twice one rank's f32
     distance plus TOL_PARALLEL_GRAD), final parameters within TOL_PARALLEL
     (with an f64 reference: Adam's 2 lr a step); each rank's launches a
-    step (`want_per_step`)."""
+    step (`want_per_step`).  With the f64 gradient (`g64`, the rule
+    `one["f64"]`: TOL_PARALLEL_F64's comment) the two ranks are also held
+    to it."""
     steps = [one["steps"]] + [r["steps"] for r in two]
     require(steps == [PARALLEL_STEPS] * len(steps), f"{tag}: steps {steps}")
     loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(two[0]["losses"],
@@ -6441,14 +6589,20 @@ def check_pair(tag, one, two, want_per_step=None) -> dict:
     param_err = perr[param_leaf]
     param_tol, f64 = TOL_PARALLEL, ""
     grad_ok = grad_err <= TOL_PARALLEL_GRAD
+    d_one = d_two = None
     if one["g64"]:
-        d_one = max(floor_grad_errs(one["g1"], one["g64"]).values())
-        d_two = max(floor_grad_errs(two[0]["g1"], one["g64"]).values())
-        grad_ok = d_two <= 2.0 * d_one + TOL_PARALLEL_GRAD
-        param_tol = 2.0 * sum(one["lrs"])
-        f64 = (f"; the f64 step-1 gradient: one rank {d_one:.3g} off it, two ranks "
-               f"{d_two:.3g}")
-    print(f"[parallel path] {tag}: {len(two)} ranks ({two[0]['backend']}; ZeRO-1 "
+        e_one = floor_grad_errs(one["g1"], one["g64"])
+        e_two = floor_grad_errs(two[0]["g1"], one["g64"])
+        d_one, d_two = max(e_one.values()), max(e_two.values())
+        if one["f64"] == "sign":
+            grad_ok = d_two <= 2.0 * d_one + TOL_PARALLEL_GRAD
+            param_tol = 2.0 * sum(one["lrs"])
+        else:
+            grad_ok = grad_ok and d_two <= TOL_PARALLEL_F64 * d_one
+        f64 = (f"; the f64 step-1 gradient: one rank {d_one:.3g} off it (worst leaf "
+               f"{max(e_one, key=e_one.get)}), two ranks {d_two:.3g} (worst leaf "
+               f"{max(e_two, key=e_two.get)})")
+    print(f"[{phase}] {tag}: {len(two)} ranks ({two[0]['backend']}; ZeRO-1 "
           f"{'on' if two[0]['zero1'] else 'off'}) vs one: losses {two[0]['losses']} vs "
           f"{one['losses']} (err {loss_err:.3g}); step-1 gradient {grad_err:.3g} of scale "
           f"(worst leaf {grad_leaf}){f64}; parameters {param_err:.3g} (worst leaf "
@@ -6456,7 +6610,9 @@ def check_pair(tag, one, two, want_per_step=None) -> dict:
           f"{[round(w, 3) for w in two[0]['step_walls']]} s ({len(two)} ranks) vs "
           f"{[round(w, 3) for w in one['step_walls']]} s (one); a rank's launches a step "
           f"{' / '.join(str(r['launches']) for r in two)}; collectives a step "
-          f"{two[0]['calls']}, bytes {two[0]['bytes']}")
+          f"{two[0]['calls']}, bytes {two[0]['bytes']}"
+          + (f"; on the model group {two[0]['model_calls']}, bytes {two[0]['model_bytes']}"
+             if two[0].get("model_calls") else ""))
     require(loss_err <= TOL_PARALLEL and grad_ok and param_err <= param_tol,
             f"{tag}: two ranks off one rank (losses {loss_err:.3g}, step-1 gradient "
             f"{grad_err:.3g} at {grad_leaf}{f64}, parameters {param_err:.3g} at {param_leaf})")
@@ -6465,6 +6621,7 @@ def check_pair(tag, one, two, want_per_step=None) -> dict:
             require(res["launches"] == want_per_step,
                     f"{tag}: rank {r} launches a step {res['launches']} != {want_per_step}")
     return {"loss_err": loss_err, "param_err": param_err, "grad_err": grad_err,
+            "f64_one": d_one, "f64_two": d_two, "model_calls": two[0].get("model_calls"), "model_bytes": two[0].get("model_bytes"),
             "warm_two": two[0]["warm_step"],
             "warm_one": one["warm_step"], "launches": two[0]["launches"], "calls": two[0]["calls"],
             "bytes": two[0]["bytes"], "zero1": two[0]["zero1"]}
@@ -6570,7 +6727,7 @@ def phase_parallel(vocab, chars) -> dict:
         {"tag": "gru_ctc", "yaml": GRU_CTC_YAML, "vocab": vocab,
          "data": {"trainset": wave_json, "devset": wave_json, "vocab_path": vocab},
          "signal": {"feature_type": "wave"}, "ndata": 2, "training": {"batch_time": 400000},
-         "f64": True},
+         "f64": "sign"},
         {"tag": "moe", "yaml": MOE_YAML, "vocab": vocab, "data": data, "ndata": 2,
          "training": {"batch_frames": 18000}})]
     try:
@@ -6583,6 +6740,103 @@ def phase_parallel(vocab, chars) -> dict:
     return out
 
 
+# ------------------------------------------------------------ model path
+
+TP_SHAPE_HEADS = 4         # a tp2 rank's heads at the flagship's 8
+
+
+def model_job(tag, yaml_path, vocab, data, sequence_parallel) -> dict:
+    return {"tag": tag, "yaml": yaml_path, "vocab": vocab, "data": data, "ndata": 1,
+            "model": 2, "training": {"batch_frames": 18000,
+                                     "sequence_parallel": sequence_parallel},
+            "f64": "rounding"}
+
+
+def check_layer_norm_split(tag, two) -> dict:
+    """Each rank's LayerNorm backward launches: the dx-only mode exactly at
+    the sites that ran on T-shards (`sharded_ln`, from the host's shapes),
+    the partials mode at the others; -> rank 0's counts and `dx_rows`, its
+    dx-only launches by their row count (a rank's B T / 2 or B U / 2)."""
+    out = {}
+    for r, res in enumerate(two):
+        n = res["launch_totals"]
+        want_dx = sum(sum(s.values()) for s in res["sharded_ln"])
+        total = n["layer_norm_fwd"]
+        require(n["layer_norm_bwd_dx"] == want_dx and n["layer_norm_bwd"] == total - want_dx,
+                f"[model path] {tag}: rank {r} LayerNorm backwards {n['layer_norm_bwd']} + "
+                f"dx-only {n['layer_norm_bwd_dx']}, want {total - want_dx} + {want_dx}")
+        dx_rows = {}
+        for sites in res["sharded_ln"]:
+            for rows, k in sites.items():
+                dx_rows[rows] = dx_rows.get(rows, 0) + k
+        out[r] = {"dx": n["layer_norm_bwd_dx"], "partials": n["layer_norm_bwd"],
+                  "sharded_a_step": [sum(s.values()) for s in res["sharded_ln"]],
+                  "dx_rows": dx_rows}
+    print(f"[model path] {tag}: a rank's LayerNorm backwards over {PARALLEL_STEPS} steps, "
+          f"dx-only (row 2) / partials (row 3): "
+          + "; ".join(f"rank {r} {v['dx']} / {v['partials']} (sharded sites a step "
+                      f"{v['sharded_a_step']}; dx-only launches by rows [n, 512]: "
+                      f"{v['dx_rows']})" for r, v in out.items()))
+    return out[0]
+
+
+def tp_attention_times(shapes, errs) -> dict:
+    """The attention kernels at a tp2 rank's encoder shape [B, T', 4, 64]
+    (the flagship's largest batch, half its heads), dropout 0.1 as the
+    training path runs them: the forward held to its plain version, device
+    ms of the kernels, the plain versions and SDPA, and the bounds."""
+    rng = np.random.RandomState(SEED + 70)
+    b, t = shapes["b"], shapes["t"]
+    lens = np.asarray(shapes["enc_lens"])
+    out = {}
+    for dtype in DTYPES:
+        fwd = attention_fwd_row(b, TP_SHAPE_HEADS, 64, t, t, False, lens, dtype, rng, errs,
+                                DROPOUT)
+        bwd = attention_bwd_times(b, TP_SHAPE_HEADS, 64, t, t, False, lens, dtype, rng,
+                                  cold=False)
+        out[DTYPE_NAME[dtype]] = {
+            "fwd": {k: fwd[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bwd": {k: bwd[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+        print(f"[model path] attention at a tp2 rank's [{b}, {t}, {TP_SHAPE_HEADS}, 64] "
+              f"{DTYPE_NAME[dtype]}: forward (row 4) " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in out[DTYPE_NAME[dtype]]["fwd"].items())
+              + " ms; backward (rows 5+6) " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in out[DTYPE_NAME[dtype]]["bwd"].items()) + " ms")
+    return out
+
+
+def phase_model(vocab, chars, shapes, errs) -> dict:
+    """Tensor and sequence parallelism on the card (`[model path]`): the
+    flagship YAML with sequence parallelism on and off, and the MoE YAML,
+    each on a dp1 x tp2 grid of two gloo ranks on cuda:0 against one rank;
+    then the attention kernels at a rank's shape."""
+    t_phase = time.time()
+    rng = np.random.RandomState(SEED + 41)
+    train_json, _ = write_corpus("mtrain", rng, chars, 160, (400, 512), (20, 24))
+    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
+    jobs = [model_job("tp_flagship_sp", FLAGSHIP_YAML, vocab, data, True),
+            model_job("tp_flagship", FLAGSHIP_YAML, vocab, data, False),
+            model_job("tp_moe", MOE_YAML, vocab, data, True)]
+    pairs = [start_ranks(job) for job in jobs]
+    out = {}
+    try:
+        for pair in pairs:
+            tag = pair["job"]["tag"]
+            one, two = finish_pair(pair)
+            out[tag] = check_pair(tag, one, two, phase="model path")
+            out[tag]["ln"] = check_layer_norm_split(tag, two)
+            out[tag]["launches_two"] = [r["launches"] for r in two]
+    finally:
+        stop_ranks(pairs)
+    require(out["tp_flagship"]["ln"]["dx"] == 0, "sequence parallelism off ran a dx-only one")
+    require(out["tp_flagship_sp"]["ln"]["dx"] > 0, "no T-sharded site ran a dx-only LayerNorm "
+                                                  "backward")
+    out["attention"] = tp_attention_times(shapes, errs)
+    out["wall"] = time.time() - t_phase
+    print(f"[model path] the phase {out['wall']:.1f}s")
+    return out
+
+
 def parallel_cards(n: int) -> int:
     """`chip_smoke.py --parallel-cards N`, on a machine with N cards: the
     [parallel path]'s flagship and MoE jobs over NCCL, a card a rank (N
@@ -6591,7 +6845,7 @@ def parallel_cards(n: int) -> int:
     against one rank on cuda:0, held and printed as the phase's pairs."""
     import pickle
 
-    from openasr_torch.parallel import DataGroup
+    from openasr_torch.parallel import Grid
 
     require(torch.cuda.device_count() >= n, f"{n} cards asked, "
                                             f"{torch.cuda.device_count()} present")
@@ -6602,14 +6856,17 @@ def parallel_cards(n: int) -> int:
     rng = np.random.RandomState(SEED + 40)
     train_json, _ = write_corpus("ptrain", rng, chars, 240, (400, 512), (20, 24))
     data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
-    for tag, yaml_path, want in (("flagship", FLAGSHIP_YAML, flagship_step_launches()),
-                                 ("moe", MOE_YAML, None)):
-        job = {"tag": f"{tag}_cards", "yaml": yaml_path, "vocab": vocab, "data": data,
-               "ndata": n, "training": {"batch_frames": 36000 // n}}
+    for tag, yaml_path, want, model in (
+            ("flagship", FLAGSHIP_YAML, flagship_step_launches(), 1),
+            ("moe", MOE_YAML, None, 1),
+            (f"flagship dp{n // 2} x tp2", FLAGSHIP_YAML, None, 2)):
+        job = {"tag": f"{tag}_cards".replace(" ", ""), "yaml": yaml_path, "vocab": vocab,
+               "data": data, "ndata": n // model, "model": model,
+               "training": {"batch_frames": 36000 * model // n}}
         job_path = os.path.join(PARALLEL_DIR, f"job_{job['tag']}.pkl")
         with open(job_path, "wb") as f:
             pickle.dump(job, f)
-        one = parallel_train(job, DataGroup.single("cuda:0"))
+        one = parallel_train(job, Grid.single("cuda:0"))
         res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                               "--nproc-per-node", str(n), os.path.abspath(__file__),
                               "--parallel-worker", job_path], cwd=ROOT, timeout=600)
@@ -6719,7 +6976,10 @@ def main() -> int:
         print(f"[time] moe path done at {time.time() - t_start:.1f}s")
         parallel = phase_parallel(vocab, chars)
         print(f"[time] parallel path done at {time.time() - t_start:.1f}s")
-        rows = (fwd_rows(test_feats, errs, launches) + train_rows(shapes, errs, launches, per)
+        tp = phase_model(vocab, chars, shapes, errs)
+        print(f"[time] model path done at {time.time() - t_start:.1f}s")
+        rows = (fwd_rows(test_feats, errs, launches)
+                + train_rows(shapes, errs, launches, per, tp["tp_flagship_sp"]["ln"])
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
                 + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches)
@@ -6816,6 +7076,15 @@ def main() -> int:
           + f"; gru_ctc statistics {parallel['gru_ctc']['stats_err']:.3g}; a rank's launches a "
             f"flagship step {pf['launches']}, collectives {pf['calls']}, bytes {pf['bytes']}; "
             f"the phase {parallel['wall']:.1f}s")
+    print("[model path] dp1 x tp2 (gloo, cuda:0): " + "; ".join(
+        f"{k}: two ranks vs one losses {tp[k]['loss_err']:.3g}, step-1 gradient "
+        f"{tp[k]['grad_err']:.3g} (to the f64 one: one rank {tp[k]['f64_one']:.3g}, two "
+        f"{tp[k]['f64_two']:.3g}), parameters {tp[k]['param_err']:.3g}, warm step wall "
+        f"{tp[k]['warm_two']:.3f} vs {tp[k]['warm_one']:.3f} s, LayerNorm backwards dx-only / "
+        f"partials {tp[k]['ln']['dx']} / {tp[k]['ln']['partials']}, a step's collectives data "
+        f"{tp[k]['calls']} model {tp[k]['model_calls']}"
+        for k in ("tp_flagship_sp", "tp_flagship", "tp_moe"))
+        + f"; the phase {tp['wall']:.1f}s")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

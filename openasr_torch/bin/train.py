@@ -20,14 +20,21 @@ weights.  `--distributed` trains data-parallel over the ranks that
 torchrun starts (`parallel.init_distributed`: NCCL with one card a rank,
 gloo with `--device cpu`), as the JAX CLI's `--distributed` spans hosts:
 every rank builds the batch plan of the global budget (the config's times
-the world size, divisible by it) and loads its rows, and the result is the
-one-process run's on the global batches.  `--model-parallel` and
-`--pipeline` exit naming their ROADMAP items (15b, 15c); the text families
-exit naming `bin/train_phone2char.py` and `bin/semi_train_phone2char.py`.
+the data size, divisible by it) and loads its rows, and the result is the
+one-process run's on the global batches.  `--model-parallel M` (with
+`--distributed`) lays the ranks out as a grid of world / M data rows of M
+model ranks (rank = d * M + m, as `make_mesh`): tensor parallelism over
+each model group, with sequence parallelism unless
+`training.sequence_parallel: false`, every rank of a model group loading
+its data row's rows (parallel/tensor_parallel.py).  The JAX CLI runs its
+model axis over one process's devices; here a rank is a card, so M > 1
+needs torchrun.  `--pipeline` exits naming its ROADMAP item (15c); the
+text families exit naming `bin/train_phone2char.py` and
+`bin/semi_train_phone2char.py`.
 
   python -m openasr_torch.bin.train egs/aishell1/configs/conv-ctc-transformer.yaml
   python -m torch.distributed.run --nproc-per-node 2 -m openasr_torch.bin.train \
-      <config> --distributed [--device cpu]
+      <config> --distributed [--model-parallel 2] [--device cpu]
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from openasr_torch.data.manifest import ArkDataset, SpeechDataset
 from openasr_torch.data.sampler import FrameBasedSampler, TimeBasedSampler
 from openasr_torch.data.tokenizer import CharTokenizer
 from openasr_torch.models import get_model_class
-from openasr_torch.parallel import DataGroup, init_distributed
+from openasr_torch.parallel import Grid, init_distributed
 from openasr_torch.parallel.mesh import destroy
 from openasr_torch.solvers import DTYPES, get_solver_class
 from openasr_torch.utils.checkpoint import load_package
@@ -124,11 +131,14 @@ def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_
 
 
 def check_ported(args, config) -> None:
-    """Exit naming the ROADMAP item for every path this port lacks."""
-    if args.model_parallel > 1:
+    """Exit naming the ROADMAP item for every path this port lacks, and
+    for a model axis without torchrun's ranks."""
+    if args.model_parallel > 1 and not args.distributed:
         raise SystemExit(
-            "--model-parallel: tensor and sequence parallelism (the mesh's model "
-            "axis) are ROADMAP queue 1 item 15b"
+            f"--model-parallel {args.model_parallel} needs --distributed: the port runs "
+            "a rank a card, so launch with python -m torch.distributed.run "
+            "--nproc-per-node N -m openasr_torch.bin.train <config> --distributed "
+            f"--model-parallel {args.model_parallel} (N a multiple of it)"
         )
     if args.pipeline > 1:
         raise SystemExit(
@@ -168,7 +178,8 @@ def main(argv=None):
     parser.add_argument("config", help="path to YAML config")
     parser.add_argument("--continue-training", action="store_true", default=False)
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="tensor-parallel degree (not ported: item 15b)")
+                        help="tensor-parallel degree: ranks a model group (with "
+                             "--distributed)")
     parser.add_argument("--pipeline", type=int, default=1,
                         help="pipeline-parallel stage count (not ported: item 15c)")
     parser.add_argument("--distributed", action="store_true", default=False,
@@ -182,20 +193,21 @@ def main(argv=None):
     validate_config(config, required=REQUIRED)
     check_ported(args, config)
     if args.distributed:
-        group = init_distributed(args.device)
+        group = init_distributed(args.device, model=args.model_parallel)
         device = group.device
-        logging.info("Data group: rank %d of %d on %s (%s)", group.rank, group.world,
-                     device, group.backend)
+        logging.info("Grid: rank %d of %d on %s (%s), data %d of %d, model %d of %d",
+                     group.rank, group.world, device, group.backend, group.data.rank,
+                     group.data.world, group.model.rank, group.model.world)
     else:
         device = resolve_device(args.device)
-        group = DataGroup.single(device)
+        group = Grid.single(device)
     try:
         train(args, config, device, group)
     finally:
         destroy(group)
 
 
-def train(args, config, device, group) -> None:
+def train(args, config, device, grid) -> None:
     dataconfig = config["data"]
     trainingconfig = config["training"]
     modelconfig = config["model"]
@@ -215,6 +227,7 @@ def train(args, config, device, group) -> None:
         tokenizer_phone = CharTokenizer(dataconfig["vocab_phone"], add_blk=True)
         if "phone_size" in modelconfig or _norm_type(modelconfig) == "cif_mix":
             modelconfig["phone_size"] = tokenizer_phone.unit_num()
+    group = grid.data
     tr_loader, cv_loader = build_loaders(dataconfig, trainingconfig, modelconfig,
                                          tokenizer, tokenizer_phone, ndata=group.world,
                                          rank=group.rank, world=group.world)
@@ -253,7 +266,7 @@ def train(args, config, device, group) -> None:
 
     solver = get_solver_class(modelconfig["type"])(
         model, trainingconfig, tr_loader, cv_loader, device=device,
-        compute_dtype=dtype, group=group, **solver_kwargs,
+        compute_dtype=dtype, group=grid, **solver_kwargs,
     )
     if pkg is not None:
         solver.restore(pkg)

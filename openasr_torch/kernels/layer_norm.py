@@ -13,6 +13,11 @@ there is no other route.  `fused_layer_norm` is differentiable through the
 forward operator's autograd formula, which saves x, gamma, mean and rstd
 and calls the backward operator (dx, dgamma and dbeta from one library
 call: the row kernel and its column sum).
+
+The LayerNorm of a sequence-parallel site (models/layers.py:
+`layer_norm_rows`) takes the same forward operator and the backward
+operator's dx-only mode (the JAX package's `_bwd_dx_kernel`, its SPMD
+path), with dgamma and dbeta as column sums outside the kernel.
 """
 
 from __future__ import annotations

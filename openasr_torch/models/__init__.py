@@ -226,6 +226,32 @@ class Framework:
     # ------------------------------------------------------------ data axis
 
     data_group = DataGroup.single()  # the data axis (openasr_torch/parallel) it trains over
+    tp = None  # the model axis's TensorParallel (parallel/tensor_parallel.py), when above 1
+    tp_specs: dict = {}
+
+    def set_model_group(self, group, sequence_parallel: bool = True) -> dict:
+        """Train over the model axis of `group` (tensor parallelism, with
+        sequence parallelism when `sequence_parallel`): the rule table's
+        parameters cut to this rank's shards.  Returns their specs by name
+        (none at a model size of 1)."""
+        if group.world == 1:
+            return {}
+        from openasr_torch.parallel.tensor_parallel import TensorParallel, shard_module
+
+        self.tp = TensorParallel(group, sequence_parallel)
+        self.tp_specs = shard_module(self.module, self.tp)
+        return self.tp_specs
+
+    def full_tables(self):
+        """A context within which every model-sharded parameter is whole
+        (gathered over the model group; a collective)."""
+        import contextlib
+
+        if self.tp is None:
+            return contextlib.nullcontext()
+        from openasr_torch.parallel.tensor_parallel import full_tables
+
+        return full_tables(self.module, self.tp_specs, self.tp.group)
 
     def set_data_group(self, group) -> frozenset:
         """Train over the data axis of `group`: BatchNorm statistics, the MoE

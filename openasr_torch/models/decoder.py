@@ -10,6 +10,15 @@ encoder layers with causal self-attention over the valid positions, and
 output_affine(concat(CIF frames, h)); its decode `step` is a full forward
 of the padded prefix, read at one position.  Given a `TrainRNG` a
 forward is the train-mode one.
+
+Under tensor parallelism (`tp`, set by `shard_module`) the embeddings are
+vocab-parallel (`layers.Embedding`), the layers run as the encoder's do
+(T-shards where `time_shards` allows), the Transformer decoder enters its
+memory once for every cross-attention (`copy_to_model`) and its tied
+logits come from this rank's vocabulary rows, gathered whole
+(`gather_vocab`) before the f32 `out_bias`.  The CIF decoder's
+`input_affine` and `output_affine` stay replicated, as in `_tp_entries`.
+The decode steps run on one process (`tp` None).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 from torch import nn
 
 from openasr_torch.models.layers import (
+    Embedding,
     TrainRNG,
     TransformerDecoderLayer,
     TransformerEncoderLayer,
@@ -28,8 +38,10 @@ from openasr_torch.models.layers import (
     any_empty,
     dropout,
     positional_encoding,
+    run_layers,
 )
 from openasr_torch.ops.masks import NEG_INF
+from openasr_torch.parallel.tensor_parallel import copy_to_model, gather_vocab
 
 
 class TransformerDecoder(nn.Module):
@@ -47,7 +59,7 @@ class TransformerDecoder(nn.Module):
         self.vocab_size = vocab_size
         self.dropout_rate = dropout_rate
         self.d_model = d_model
-        self.emb = nn.Embedding(vocab_size, d_model)
+        self.emb = Embedding(vocab_size, d_model)
         self.out_bias = nn.Parameter(torch.zeros(vocab_size))
         for i in range(num_layers):
             self.add_module(
@@ -62,10 +74,16 @@ class TransformerDecoder(nn.Module):
         x = x.to(activation_dtype(x)) * math.sqrt(self.d_model)
         return positional_encoding(x, offset=offset)
 
+    tp = None
+
     def _output(self, h: torch.Tensor) -> torch.Tensor:
         """f32 logits: the tied product in the compute dtype, then the f32
         `out_bias`."""
-        return (h @ self.emb.weight.t()).float() + self.out_bias
+        if self.tp is None:
+            return (h @ self.emb.weight.t()).float() + self.out_bias
+        g = self.tp.group
+        part = (copy_to_model(h, g) @ self.emb.weight.t()).float()
+        return gather_vocab(part, g, self.vocab_size, self.emb.vocab_start()) + self.out_bias
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor,
                 ids: torch.Tensor, rng: Optional[TrainRNG] = None,
@@ -76,9 +94,10 @@ class TransformerDecoder(nn.Module):
         (None: read it back)."""
         x = dropout(self._embed(ids), self.dropout_rate, rng)
         empty_rows = any_empty(memory_lengths, empty_rows)
-        for layer in self.layers:
-            x = layer(x, memory, memory_lengths, tgt_causal=True, rng=rng,
-                      empty_rows=empty_rows)
+        if self.tp is not None:
+            memory = copy_to_model(memory, self.tp.group)
+        x = run_layers(self.layers, x, memory, memory_lengths, tgt_causal=True, rng=rng,
+                       empty_rows=empty_rows)
         return self._output(x)
 
     # ------------------------------------------------------- decode path
@@ -131,7 +150,7 @@ class CIFDecoder(nn.Module):
         self.vocab_size = vocab_size
         self.dropout_rate = dropout_rate
         self.d_model = d_model
-        self.emb = nn.Embedding(vocab_size, d_model)
+        self.emb = Embedding(vocab_size, d_model)
         self.emb.kernel_init = "xavier_normal"
         self.input_affine = nn.Linear(encoder_dim + d_model, d_model)
         self.output_affine = nn.Linear(encoder_dim + d_model, vocab_size)
@@ -156,8 +175,8 @@ class CIFDecoder(nn.Module):
         encoded = encoded.to(dt)
         h = self.input_affine(torch.cat([encoded, x], dim=-1))
         empty_rows = any_empty(lengths, empty_rows)
-        for layer in self.layers:
-            h = layer(h, kv_lengths=lengths, causal=True, rng=rng, empty_rows=empty_rows)
+        h = run_layers(self.layers, h, kv_lengths=lengths, causal=True, rng=rng,
+                       empty_rows=empty_rows)
         return torch.cat([encoded, h.to(dt)], dim=-1)
 
     def forward(self, encoded: torch.Tensor, ids: torch.Tensor, id_lengths: torch.Tensor,

@@ -16,7 +16,9 @@ executor (openasr_torch/streaming.py) computes the same encoder states.
 layer i a mixture of experts (models/moe.py) where i % every == every - 1;
 `num_experts: 0` runs dense.  MoE refuses streaming and the pipeline with
 the JAX encoder's errors; the pipeline (stacked layers) is a later slice
-of the port.
+of the port.  Under tensor parallelism (`tp`, set by `shard_module`) the
+layers and the final LayerNorm run on this rank's T-shard where the
+sequence-parallel rule allows (`run_layers`), and the output is whole.
 
 `GRUEncoder` is the JAX package's: a unidirectional multi-layer GRU over
 the full padded sequence (no packing), dropout between layers.  Each layer
@@ -44,6 +46,7 @@ from openasr_torch.models.layers import (
     any_empty,
     dropout,
     positional_encoding,
+    run_layers,
 )
 from openasr_torch.models.subsample import (
     Conv1dSubsample,
@@ -120,10 +123,9 @@ class TransformerEncoder(nn.Module):
             x = self.affine(x)
         x = dropout(positional_encoding(x), self.dropout_rate, rng)
         empty_rows = any_empty(lengths, empty_rows)
-        for layer in self.layers:
-            x = layer(x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows,
-                      chunk_mask=self.chunk_mask)
-        return self.final_norm(x), lengths
+        x = run_layers(self.layers, x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows,
+                       chunk_mask=self.chunk_mask, final_norm=self.final_norm)
+        return x, lengths
 
     def output_lengths(self, lengths):
         """Encoder frames of `lengths` input frames (torch or NumPy)."""

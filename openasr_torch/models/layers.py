@@ -15,6 +15,20 @@ embedding dropouts draw their masks from `rng.device` and the attention
 dropout its hash seed from `rng.host` (`TrainRNG.attention_seed`);
 without it every layer is deterministic.  The modules' train()/eval()
 flag plays no part.
+
+Tensor parallelism (parallel/tensor_parallel.py): a module's `tp` is None
+on one rank, else the model group's `TensorParallel`, set by
+`shard_module` with the parameters cut to this rank's shards.  The
+attention then holds H / M local heads (the flash kernels run on
+[B, T, H / M, Dh]) and the FFN F / M columns; each gathers its input
+(`tp.enter`) and reduces its row-parallel product (`tp.leave`).  A layer
+called with `sharded` (its stack's `time_shards`) holds T / M rows of
+the residual stream: its residual adds, dropouts and LayerNorms run on
+them (the LayerNorm's backward in the kernel's dx-only mode, its scale's
+and bias's gradients partial over the model group), the JAX package's
+`shard_time` sites.  Element-wise dropout draws its mask at the global
+shape from a generator that the model group shares and keeps this
+rank's rows or columns, so that it does not depend on M.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ from openasr_torch.kernels.flash_attention import (
     draw_dropout_seed,
     flash_attention,
 )
-from openasr_torch.kernels.layer_norm import fused_layer_norm
+from openasr_torch.kernels.layer_norm import fused_layer_norm, layer_norm_bwd
 from openasr_torch.ops.masks import (
     ChunkMask,
     causal_bias,
@@ -42,7 +56,13 @@ from openasr_torch.ops.masks import (
     combine_bias,
     padding_bias,
 )
-from openasr_torch.parallel.mesh import SHARD_SEED_MULT, partition_seed, rand_rows
+from openasr_torch.parallel.mesh import SHARD_SEED_MULT, partition_seed, rand_rows, shard_id
+from openasr_torch.parallel.tensor_parallel import (
+    reduce_from_model,
+    time_shards,
+    to_shards,
+    to_whole,
+)
 
 
 class TrainRNG:
@@ -53,16 +73,20 @@ class TrainRNG:
     restarts both, so a step's randomness depends on its seed alone (the
     JAX solver folds the step into its key the same way).
 
-    Rank `rank` of `world` data-parallel ranks draws the per-row values for
-    the global batch and keeps its rows (`rand_rows`), so they are the
-    one-process run's; its element-wise device draws and its attention
-    dropout seed are its shard's (`partition_seed`, as the JAX kernels'),
-    rank 0's unchanged."""
+    Rank `rank` of `world` data-parallel ranks (the grid's data index and
+    size) draws the per-row values for the global batch and keeps its rows
+    (`rand_rows`), so they are the one-process run's; its element-wise
+    device draws are its data shard's (the same on every rank of its model
+    group), its attention dropout seed its (data, model) shard's
+    (`partition_seed(seed, shard_id(rank, model_rank, model_world))`, as
+    the JAX kernels'), rank 0's unchanged."""
 
-    def __init__(self, seed: int, device, rank: int = 0, world: int = 1) -> None:
+    def __init__(self, seed: int, device, rank: int = 0, world: int = 1,
+                 model_rank: int = 0, model_world: int = 1) -> None:
         self.host = torch.Generator()
         self.device = torch.Generator(device=torch.device(device))
         self.rank, self.world = rank, world
+        self.model_rank, self.model_world = model_rank, model_world
         self.reseed(seed)
 
     def reseed(self, seed: int) -> None:
@@ -77,7 +101,32 @@ class TrainRNG:
 
     def attention_seed(self) -> int:
         """One dropping attention call's hash seed, this rank's shard's."""
-        return partition_seed(draw_dropout_seed(self.host), self.rank)
+        return partition_seed(draw_dropout_seed(self.host),
+                              shard_id(self.rank, self.model_rank, self.model_world))
+
+
+def run_layers(layers, x: torch.Tensor, *args, final_norm=None, **kwargs) -> torch.Tensor:
+    """x through a stack of encoder or decoder layers (then `final_norm`),
+    each called as layer(x, *args, **kwargs).  Under tensor parallelism
+    (the layers' `tp`) the stack holds this rank's T-shard of x where
+    `time_shards` allows, and returns the whole output."""
+    tp = layers[0].tp if layers else None
+    if tp is None:
+        for layer in layers:
+            x = layer(x, *args, **kwargs)
+        return x if final_norm is None else final_norm(x)
+    sharded = time_shards(x, tp)
+    x = to_shards(x, tp, sharded)
+    for layer in layers:
+        x = layer(x, *args, sharded=sharded, **kwargs)
+    if final_norm is not None:
+        x = final_norm(x, sharded)
+    return to_whole(x, tp, sharded)
+
+
+def _time_shard(tp, sharded: bool) -> Optional[tuple]:
+    """`dropout`'s shard of a T-sharded residual stream (dim 1), or None."""
+    return (1, tp.group.rank, tp.size) if sharded else None
 
 
 def any_empty(lengths, empty_rows: Optional[bool] = None) -> bool:
@@ -88,12 +137,23 @@ def any_empty(lengths, empty_rows: Optional[bool] = None) -> bool:
     return bool((lengths <= 0).any())
 
 
-def dropout(x: torch.Tensor, rate: float, rng: Optional[TrainRNG]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: Optional[TrainRNG],
+            shard: Optional[tuple] = None) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate and scale the kept
-    values by 1 / (1 - rate); the identity without `rng` or at rate 0."""
+    values by 1 / (1 - rate); the identity without `rng` or at rate 0.
+    `shard` = (dim, rank, size): x is shard `rank` of `size` equal ones
+    along `dim` of the tensor whose mask is drawn."""
     if rng is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= rate
+    if shard is None:
+        keep = torch.rand(x.shape, generator=rng.device, device=x.device)
+    else:
+        dim, rank, size = shard
+        whole = list(x.shape)
+        k = whole[dim]
+        whole[dim] = k * size
+        keep = torch.rand(whole, generator=rng.device, device=x.device).narrow(dim, rank * k, k)
+    keep = keep >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -114,11 +174,46 @@ def autocast_off(device_type: str):
     return contextlib.nullcontext()
 
 
+class _LayerNormRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        y, mean, rstd = torch.ops.openasr.layer_norm_fwd(x, scale, bias, float(eps))
+        ctx.save_for_backward(x, scale, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mean, rstd = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx, _, _ = layer_norm_bwd(x, dy, scale, mean, rstd, dgamma_dbeta=False)
+        d = x.shape[-1]
+        dyf = dy.float().reshape(-1, d)
+        xhat = (x.float().reshape(-1, d) - mean.reshape(-1, 1)) * rstd.reshape(-1, 1)
+        return dx, (dyf * xhat).sum(0), dyf.sum(0), None
+
+
+def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """`fused_layer_norm`'s y on rows that are one shard of a
+    sequence-parallel site: the forward operator, and a backward in the
+    backward operator's dx-only mode (the JAX package's `_bwd_dx_kernel`,
+    its SPMD path) with dgamma and dbeta as f32 column sums of dy * xhat
+    and dy over these rows alone, outside the kernel, as the JAX package
+    computes them (openasr_tpu/kernels/layer_norm.py:196-199); the caller
+    sums them over the model group."""
+    return _LayerNormRows.apply(x, scale, bias, eps)
+
+
 class LayerNorm(nn.Module):
     """f32 statistics with var = E[x^2] - E[x]^2, eps 1e-6, output in the
     input's dtype (not nn.LayerNorm: eps 1e-5, two-pass variance).
     `weight`/`bias` stay f32 whatever the model's compute dtype.  Every row
-    count goes through `fused_layer_norm` (the kernel on the card)."""
+    count goes through `fused_layer_norm` (the kernel on the card); with
+    `sharded` (this rank's T-shard of a sequence-parallel site) through
+    `layer_norm_rows`, whose scale and bias gradients are partial over the
+    model group."""
+
+    tp = None
 
     def __init__(self, d: int, epsilon: float = 1e-6):
         super().__init__()
@@ -126,9 +221,33 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        if sharded:
+            return layer_norm_rows(x, self.tp.partial(self.weight), self.tp.partial(self.bias),
+                                   self.epsilon)
         y, _, _ = fused_layer_norm(x, self.weight, self.bias, self.epsilon)
         return y
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding, vocab-parallel under tensor parallelism: this rank's
+    rows [lo, lo + k) of the table (lo = rank * ceil(V / M)), a masked
+    lookup and an all-reduce over the model group."""
+
+    tp = None
+
+    def vocab_start(self) -> int:
+        return 0 if self.tp is None else self.tp.group.rank * -(-self.num_embeddings
+                                                                // self.tp.size)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return super().forward(ids)
+        lo, k = self.vocab_start(), self.weight.shape[0]
+        local = ids - lo
+        inside = (local >= 0) & (local < k)
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), self.weight)
+        return reduce_from_model(rows * inside[..., None].to(rows.dtype), self.tp.group)
 
 
 @lru_cache(maxsize=8)
@@ -223,7 +342,15 @@ class MultiHeadAttention(nn.Module):
     JAX dense path's value at every length: the JAX package attends densely
     on the CPU, and on a TPU below its 384-frame flash crossover, while its
     TPU flash route gives O = 0 from 384 up; the port keeps no TPU length
-    routing."""
+    routing.
+
+    Under tensor parallelism (`tp`) the call holds this rank's heads; it
+    gathers `inputs_q` (`tp.enter`, T-shards where `sharded`), attends,
+    and returns the `out` product reduced to T-shards or to the whole
+    activation.  `inputs_kv`, where it is not `inputs_q` (the decoder's
+    memory), is whole and entered by the caller (`copy_to_model`)."""
+
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -238,8 +365,8 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(d_model, d_model)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, T, H*D] -> [B, T, H, D] (a view)."""
-        return x.view(*x.shape[:-1], self.nhead, self.head_dim)
+        """[B, T, H*D] -> [B, T, H, D] (a view; H this rank's heads)."""
+        return x.view(*x.shape[:-1], x.shape[-1] // self.head_dim, self.head_dim)
 
     def _merge(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(x.reshape(*x.shape[:-2], -1))
@@ -253,7 +380,13 @@ class MultiHeadAttention(nn.Module):
         rng: Optional[TrainRNG] = None,
         empty_rows: bool = False,
         chunk_mask: Optional[ChunkMask] = None,
+        sharded: bool = False,
     ) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            same = inputs_kv is inputs_q
+            inputs_q = tp.enter(inputs_q, sharded)
+            inputs_kv = inputs_q if same else inputs_kv
         q = self._heads(self.q(inputs_q))
         k, v = self.project_kv(inputs_kv)
         rate = self.dropout_rate if rng is not None and self.dropout_rate > 0.0 else 0.0
@@ -262,7 +395,10 @@ class MultiHeadAttention(nn.Module):
                                  dropout_rate=rate, dropout_seed=seed, chunk_mask=chunk_mask)
         if empty_rows and kv_lengths is not None:
             out = _empty_rows_dense(out, q, k, v, kv_lengths, causal, rate, seed, chunk_mask)
-        return self._merge(out)
+        if tp is None:
+            return self._merge(out)
+        y = F.linear(out.reshape(*out.shape[:-2], -1), self.out.weight)
+        return tp.leave(y, self.out.bias, sharded)
 
     def project_kv(self, inputs_kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """K/V [B, T, H, D] (the cross-attention cache for decoding)."""
@@ -292,7 +428,11 @@ class MultiHeadAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """Position-wise FFN with relu / gelu (exact) / glu (glu doubles
-    linear1's width and gates with a sigmoid)."""
+    linear1's width and gates with a sigmoid).  Under tensor parallelism
+    (`tp`) this rank holds F / M columns (of each GLU half) and reduces
+    `linear2`'s partial product as the attention reduces `out`."""
+
+    tp = None
 
     def __init__(self, d_model: int, dim_feedforward: int, activation: str = "relu",
                  dropout_rate: float = 0.0):
@@ -305,7 +445,11 @@ class FeedForward(nn.Module):
         self.linear1 = nn.Linear(d_model, width)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
 
-    def forward(self, x: torch.Tensor, rng: Optional[TrainRNG] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[TrainRNG] = None,
+                sharded: bool = False) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            x = tp.enter(x, sharded)
         h = self.linear1(x)
         if self.activation == "relu":
             h = F.relu(h)
@@ -314,7 +458,10 @@ class FeedForward(nn.Module):
         else:
             a, b = h.chunk(2, dim=-1)
             h = a * torch.sigmoid(b)
-        return self.linear2(dropout(h, self.dropout_rate, rng))
+        if tp is None:
+            return self.linear2(dropout(h, self.dropout_rate, rng))
+        h = dropout(h, self.dropout_rate, rng, (h.dim() - 1, tp.group.rank, tp.size))
+        return tp.leave(F.linear(h, self.linear2.weight), self.linear2.bias, sharded)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -323,7 +470,10 @@ class TransformerEncoderLayer(nn.Module):
     mixture of experts (models/moe.py), `moe_ffn`, which takes the valid
     frames (arange(T) < kv_lengths) as its padding mask when the layer
     has key lengths; its auxiliary goes to the loss through the module's
-    `aux_sink` (models/__init__.py:Framework.forward_with_moe_aux)."""
+    `aux_sink` (models/__init__.py:Framework.forward_with_moe_aux).
+    `sharded`: x is this rank's T-shard (see the module docstring)."""
+
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  activation: str = "relu", dropout_rate: float = 0.0,
@@ -344,24 +494,28 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model)
 
     def _ffn(self, x: torch.Tensor, kv_lengths: Optional[torch.Tensor] = None,
-             rng: Optional[TrainRNG] = None) -> torch.Tensor:
+             rng: Optional[TrainRNG] = None, sharded: bool = False) -> torch.Tensor:
         if self.moe_ffn is None:
-            return self.ffn(x, rng)
+            return self.ffn(x, rng, sharded)
         pad = None
         if kv_lengths is not None:
-            pad = (torch.arange(x.shape[1], device=x.device)[None, :]
+            t = x.shape[1] * (self.tp.size if sharded else 1)
+            pad = (torch.arange(t, device=x.device)[None, :]
                    < kv_lengths.to(x.device)[:, None])
-        return self.moe_ffn(x, rng, pad)
+        return self.moe_ffn(x, rng, pad, sharded)
 
     def forward(self, x: torch.Tensor,
                 kv_lengths: Optional[torch.Tensor] = None,
                 causal: bool = False,
                 rng: Optional[TrainRNG] = None,
                 empty_rows: bool = False,
-                chunk_mask: Optional[ChunkMask] = None) -> torch.Tensor:
-        attn = self.self_attn(x, x, kv_lengths, causal, rng, empty_rows, chunk_mask)
-        x = self.norm1(x + dropout(attn, self.dropout_rate, rng))
-        return self.norm2(x + dropout(self._ffn(x, kv_lengths, rng), self.dropout_rate, rng))
+                chunk_mask: Optional[ChunkMask] = None,
+                sharded: bool = False) -> torch.Tensor:
+        shard = _time_shard(self.tp, sharded)
+        attn = self.self_attn(x, x, kv_lengths, causal, rng, empty_rows, chunk_mask, sharded)
+        x = self.norm1(x + dropout(attn, self.dropout_rate, rng, shard), sharded)
+        ff = self._ffn(x, kv_lengths, rng, sharded)
+        return self.norm2(x + dropout(ff, self.dropout_rate, rng, shard), sharded)
 
     def attend_cached(self, x: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                       key_bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -387,7 +541,12 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder layer with self + cross attention, plus a KV-cached
-    `step` for one-token-at-a-time decoding."""
+    `step` for one-token-at-a-time decoding.  Under tensor parallelism the
+    memory is whole and entered by the decoder (`copy_to_model`), and
+    `sharded` puts the residual stream on T-shards as in the encoder
+    layer."""
+
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  activation: str = "relu", dropout_rate: float = 0.0):
@@ -405,15 +564,16 @@ class TransformerDecoderLayer(nn.Module):
                 memory_lengths: Optional[torch.Tensor] = None,
                 tgt_causal: bool = True,
                 rng: Optional[TrainRNG] = None,
-                empty_rows: bool = False) -> torch.Tensor:
+                empty_rows: bool = False, sharded: bool = False) -> torch.Tensor:
         """`empty_rows`: some memory length may be <= 0."""
         rate = self.dropout_rate
-        sa = self.self_attn(tgt, tgt, causal=tgt_causal, rng=rng)
-        x = self.norm1(tgt + dropout(sa, rate, rng))
+        shard = _time_shard(self.tp, sharded)
+        sa = self.self_attn(tgt, tgt, causal=tgt_causal, rng=rng, sharded=sharded)
+        x = self.norm1(tgt + dropout(sa, rate, rng, shard), sharded)
         ca = self.cross_attn(x, memory, kv_lengths=memory_lengths, rng=rng,
-                             empty_rows=empty_rows)
-        x = self.norm2(x + dropout(ca, rate, rng))
-        return self.norm3(x + dropout(self.ffn(x, rng), rate, rng))
+                             empty_rows=empty_rows, sharded=sharded)
+        x = self.norm2(x + dropout(ca, rate, rng, shard), sharded)
+        return self.norm3(x + dropout(self.ffn(x, rng, sharded), rate, rng, shard), sharded)
 
     def init_cache(self, batch: int, max_len: int, memory: torch.Tensor) -> dict:
         """Growing self-attn K/V (zeros) plus precomputed cross-attn K/V."""

@@ -46,6 +46,16 @@ experts [r E/N, (r+1) E/N); one all-to-all carries each rank's dispatched
 [E, B, C, D] to the owners, which compute [E/N, N B, C, D], and the mirror
 all-to-all brings the outputs home).  Capacity and routing are per row, so
 they equal the one-process run's at the reconciled padded length.
+
+Under tensor parallelism (`tp`, set by `shard_module`) the expert tables
+hold F / M of their inner width (`_moe_entries`), on top of the experts
+over data.  The layer gathers its whole input (`tp.enter`), every rank of
+the model group routes it alike (the router replicated), the expert
+outputs, partial over F, are all-reduced over the model group before the
+combine, and a sequence-parallel site keeps its T-shard of the combined
+output (`split_time`).  The router's input gradient is kept on model rank 0
+alone (`first_rank_grad`): every rank computes the same whole one, and the
+input's backward sums the ranks' gradients.
 """
 
 from __future__ import annotations
@@ -58,6 +68,11 @@ from torch import nn
 
 from openasr_torch.models.layers import TrainRNG, activation_dtype, autocast_off, dropout
 from openasr_torch.parallel.mesh import DataGroup, experts_to_owners, experts_to_tokens
+from openasr_torch.parallel.tensor_parallel import (
+    first_rank_grad,
+    reduce_from_model,
+    split_time,
+)
 
 
 def capacity(tokens: int, num_experts: int, top_k: int, factor: float) -> int:
@@ -79,6 +94,8 @@ def top_indices(values: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class MoEFeedForward(nn.Module):
+    tp = None
+
     SUPPORTED_ACTIVATIONS = ("relu", "gelu", "glu")
     SUPPORTED_ROUTERS = ("topk", "expert_choice")
 
@@ -134,16 +151,23 @@ class MoEFeedForward(nn.Module):
         return self.table_names()
 
     def forward(self, x: torch.Tensor, rng: Optional[TrainRNG] = None,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, T, D]; pad_mask [B, T] (true on valid tokens) or None."""
-        combine = self.route(x, pad_mask)
+                pad_mask: Optional[torch.Tensor] = None, sharded: bool = False) -> torch.Tensor:
+        """x [B, T, D] (this rank's T-shard where `sharded`); pad_mask
+        [B, T] (true on valid tokens) or None."""
+        tp = self.tp
+        if tp is not None:
+            x = tp.enter(x, sharded)
+            combine = self.route(first_rank_grad(x, tp.group), pad_mask)
+        else:
+            combine = self.route(x, pad_mask)
         xin = self.dispatch(combine, x)
         if self.ep_group is None:
             out = self.expert_ffn(xin, rng)
         else:
             out = experts_to_tokens(
                 self.expert_ffn(experts_to_owners(xin, self.ep_group), rng), self.ep_group)
-        return self.combine(out, combine).to(x.dtype)
+        y = self.combine(out, combine).to(x.dtype)
+        return split_time(y, tp.group) if sharded else y
 
     def route(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The router (f32, autocast off) and its combine tensor
@@ -184,8 +208,13 @@ class MoEFeedForward(nn.Module):
                 g = (torch.einsum("ebcd,edf->ebcf", xin, self.w_gate.to(dt))
                      + self.b_gate.to(dt)[:, None, None])
                 h = h * torch.sigmoid(g)
-            h = dropout(h, self.dropout_rate, rng)
-            return torch.einsum("ebcf,efd->ebcd", h, self.w2.to(dt)) + self.b2.to(dt)[:, None, None]
+            tp = self.tp
+            h = dropout(h, self.dropout_rate, rng,
+                        None if tp is None else (3, tp.group.rank, tp.size))
+            y = torch.einsum("ebcf,efd->ebcd", h, self.w2.to(dt))
+            if tp is not None:
+                y = reduce_from_model(y, tp.group)
+            return y + self.b2.to(dt)[:, None, None]
 
     @staticmethod
     def combine(out: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ from openasr_torch.config import Config
 from openasr_torch.models import register_model
 from openasr_torch.models.decoder import transformer_decoder_from_config
 from openasr_torch.models.encoder import TransformerEncoder
-from openasr_torch.models.layers import TrainRNG
+from openasr_torch.models.layers import Embedding, TrainRNG
 from openasr_torch.models.speech import ConvCTC, ConvTransformer, _f32_head
 
 
@@ -43,8 +43,8 @@ def _phone_lengths(lengths):
 class EmbedDecoderModule(nn.Module):
     def __init__(self, configs: Config):
         super().__init__()
-        self.emb = nn.Embedding(int(configs.encoder["vocab_size"]),
-                                int(configs.encoder["d_model"]))
+        self.emb = Embedding(int(configs.encoder["vocab_size"]),
+                             int(configs.encoder["d_model"]))
         self.decoder = transformer_decoder_from_config(configs.decoder)
 
     encoder_lengths = staticmethod(_phone_lengths)
@@ -69,7 +69,7 @@ class EmbedDecoderCTCModule(nn.Module):
         enc_cfg = Config(configs.decoder)
         if not enc_cfg.get("input_dim"):
             enc_cfg["input_dim"] = d_emb
-        self.emb = nn.Embedding(int(configs.encoder["vocab_size"]), d_emb)
+        self.emb = Embedding(int(configs.encoder["vocab_size"]), d_emb)
         self.encoder_block = TransformerEncoder.from_config(enc_cfg)
         self.ctc_fc = nn.Linear(int(enc_cfg["d_model"]), int(configs.decoder["vocab_size"]),
                                 bias=False)

@@ -34,6 +34,7 @@ from openasr_torch.models.layers import (
     any_empty,
     dropout,
     positional_encoding,
+    run_layers,
 )
 from openasr_torch.models.speech import ConvCTC, _f32_head, load_component
 
@@ -58,9 +59,9 @@ class Wav2VecEncoder(nn.Module):
         feats, lengths = self.frontend(waves, wave_lengths, train=rng is not None)
         x = dropout(positional_encoding(self.proj(feats)), self.dropout_rate, rng)
         empty_rows = any_empty(lengths, empty_rows)
-        for layer in self.layers:
-            x = layer(x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows)
-        return self.final_norm(x), lengths
+        x = run_layers(self.layers, x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows,
+                       final_norm=self.final_norm)
+        return x, lengths
 
 
 class Wav2VecCTCModule(nn.Module):

@@ -20,10 +20,25 @@ parameter is one of three kinds:
               parallelism): its gradient is complete on its owner, so it
               leaves the reduction and ZeRO-1.
 
+Under tensor parallelism (a grid's `model` group of size above 1) two
+more kinds sit beside those three:
+
+  model-sharded  a leaf of the rule table (parallel/tensor_parallel.py):
+                 this rank holds its shard, whose gradient is complete
+                 for the shard; it is reduced over the data group alone,
+                 and ZeRO-1 shards the local shard along `zero1_dim` of the
+                 local shape, never the dimension the model axis took
+                 (`zero1_sharding` extends the TP spec so);
+  model-partial  contributions to a replicated leaf's gradient from this
+                 rank's T-shard (a LayerNorm's scale and bias, a
+                 row-parallel bias at a sequence-parallel site): the
+                 solver sums them over the model group once a step
+                 (`PartialGrads.reduce_into`) before the data reduction.
+
 The global norm of the clip counts each shard and expert table once over
 the ranks and each replicated leaf once.  The package keeps full moments
-(`full_state` gathers the shards; `shard_state` cuts them back), so a
-package continues at any world size and in the JAX package.
+(`full_state` gathers the shards over both axes; `shard_state` cuts them
+back), so a package continues at any grid and in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +49,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from openasr_torch.parallel.mesh import DataGroup, zero1_dim
+from openasr_torch.parallel.mesh import Grid, zero1_dim
+from openasr_torch.parallel.tensor_parallel import Spec, full_array, shard_array
 
 BUCKET_ELEMENTS = 1 << 25
 
@@ -44,23 +60,27 @@ def _flat(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 
 class DataParallel:
-    def __init__(self, group: DataGroup, named_params: Dict[str, torch.nn.Parameter],
-                 zero1: bool = True, expert: frozenset = frozenset()):
-        self.group = group
+    def __init__(self, grid: Grid, named_params: Dict[str, torch.nn.Parameter],
+                 zero1: bool = True, expert: frozenset = frozenset(),
+                 tp_specs: Optional[Dict[str, Spec]] = None):
+        self.group, self.model = grid.data, grid.model
+        self.tp_specs = dict(tp_specs or {})
         self.names = list(named_params)
         self.params = [named_params[n] for n in self.names]
-        world = group.world
+        world = self.group.world
         self.dims: List[Optional[int]] = []
         for n, p in zip(self.names, self.params):
+            taken = self.tp_specs[n].dim if n in self.tp_specs else None
             if n in expert:
                 self.dims.append(0)
             elif zero1 and world > 1:
-                self.dims.append(zero1_dim(tuple(p.shape), world))
+                self.dims.append(zero1_dim(tuple(p.shape), world, taken))
             else:
                 self.dims.append(None)
         self.kind = ["expert" if n in expert else ("zero1" if d is not None else "replicated")
                      for n, d in zip(self.names, self.dims)]
         self.sharded = [k != "replicated" for k in self.kind]
+        self.msharded = [n in self.tp_specs for n in self.names]
 
     def _shard(self, t: torch.Tensor, i: int) -> torch.Tensor:
         d = self.dims[i]
@@ -117,6 +137,8 @@ class DataParallel:
         the shards' and expert tables' squares summed over ranks, the
         replicated leaves' once."""
         norms = torch.stack(torch._foreach_norm(tensors))
+        if self.model.world > 1 and any(self.msharded):
+            return self._grid_norm(norms)
         if self.group.world == 1 or not any(self.sharded):
             return torch.linalg.vector_norm(norms)
         mask = torch.tensor(self.sharded, device=norms.device)
@@ -124,6 +146,22 @@ class DataParallel:
         parts = torch.stack([torch.where(mask, sq, 0.0).sum(), torch.where(mask, 0.0, sq).sum()])
         shared = self.group.all_reduce(parts[:1].clone())
         return torch.sqrt(shared[0] + parts[1])
+
+    def _grid_norm(self, norms: torch.Tensor) -> torch.Tensor:
+        """The global norm on a (data, model) grid: the squares of leaves
+        sharded over data summed over the data group, those sharded over
+        model over the model group, those sharded over both over both,
+        and the replicated ones once."""
+        d = torch.tensor(self.sharded, device=norms.device)
+        m = torch.tensor(self.msharded, device=norms.device)
+        sq = norms * norms
+
+        def part(mask):
+            return torch.where(mask, sq, 0.0).sum()
+
+        over_data = self.group.all_reduce(torch.stack([part(d & ~m), part(d & m)]))
+        over_model = self.model.all_reduce((part(~d & m) + over_data[1]).reshape(1))
+        return torch.sqrt(part(~d & ~m) + over_data[0] + over_model[0])
 
     @torch.no_grad()
     def gather_params(self) -> None:
@@ -146,8 +184,21 @@ class DataParallel:
 
     def full_state(self, state: dict) -> dict:
         """An optimizer `state_dict` with every sharded moment (ZeRO-1
-        shards, expert tables' moments) all-gathered to the full leaf, in
-        the one-process layout.  A collective: every rank calls it."""
+        shards, expert tables' moments, model shards) all-gathered to the
+        full leaf, in the one-process layout.  A collective: every rank
+        calls it."""
+        state = self._full_over_data(state)
+        if self.model.world == 1 or not self.tp_specs:
+            return state
+        state = dict(state)
+        for key, moments in list(state.items()):
+            if not (isinstance(moments, dict) and set(moments) == set(self.names)):
+                continue
+            state[key] = {n: (full_array(np.asarray(v, np.float32), self.tp_specs[n], self.model)
+                              if n in self.tp_specs else v) for n, v in moments.items()}
+        return state
+
+    def _full_over_data(self, state: dict) -> dict:
         if self.group.world == 1 or not any(self.sharded):
             return state
         state = dict(state)
@@ -174,6 +225,14 @@ class DataParallel:
 
     def shard_state(self, state: dict) -> dict:
         """A full optimizer `state_dict` cut to this rank's shards."""
+        if self.model.world > 1 and self.tp_specs:
+            state = dict(state)
+            m = self.model
+            for key, moments in list(state.items()):
+                if isinstance(moments, dict) and set(moments) == set(self.names):
+                    state[key] = {n: (shard_array(v, self.tp_specs[n], m.rank, m.world)
+                                      if n in self.tp_specs else v)
+                                  for n, v in moments.items()}
         if self.group.world == 1 or not any(self.sharded):
             return state
         state = dict(state)

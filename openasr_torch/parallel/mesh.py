@@ -1,26 +1,41 @@
-"""The data axis: one process group of ranks, one card a rank.
+"""The grid of ranks: a (data, model) layout of processes, one card a rank.
 
-Counterpart of the data axis of openasr_tpu/parallel/mesh.py.  The JAX
-package shards the global batch over its mesh's `data` axis and lets XLA
-insert the collectives; here each rank is a process that holds its rows
-of the global batch and a `DataGroup` that carries its collectives, so
-that N ranks compute what one process computes on the global batch:
+Counterpart of openasr_tpu/parallel/mesh.py's (data, model) mesh.  The JAX
+package shards the global batch over its mesh's `data` axis and the
+layers over its `model` axis and lets XLA insert the collectives; here
+each rank is a process and a `Grid` carries its collectives, so that N
+ranks compute what one process computes on the global batch:
 
+- `Grid`: rank = d * model + m (`make_mesh`'s layout: each model group is
+  `model` consecutive ranks).  `grid.data` is a `DataGroup` over the ranks
+  that share this rank's model index m (the gradients, loss normalizers,
+  BatchNorm statistics and every other collective of the data axis),
+  `grid.model` one over the ranks that share its data index d (tensor and
+  sequence parallelism, parallel/tensor_parallel.py), `grid.everyone` the
+  world (the preemption agreement).  A model size of 1 makes `data` the
+  world and `model` a group of one; a world of 1 is the same code with no
+  collective.
 - `init_distributed` reads torchrun's environment (`RANK`, `WORLD_SIZE`,
-  `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`), as `jax.distributed.
-  initialize()` reads its coordinator: NCCL on cards (`cuda:LOCAL_RANK`,
-  one card a rank), gloo on the CPU.  `new_group` takes the coordinates
-  explicitly (gloo also runs several ranks on one card).
+  `LOCAL_RANK`, `LOCAL_WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`), as
+  `jax.distributed.initialize()` reads its coordinator: NCCL on cards
+  (`cuda:LOCAL_RANK`, one card a rank), gloo on the CPU.  `new_group`
+  takes the coordinates explicitly (gloo also runs several ranks on one
+  card).
 - `validate_layout` keeps the JAX package's checks of a (data, model)
-  process layout, with its messages.
+  process layout, with its messages; a JAX host is a process with many
+  devices, here a rank is one card, so a "host" is a torchrun node
+  (`LOCAL_WORLD_SIZE` ranks): a model group may not span nodes.
 - `all_gather_host` gathers a small host array from every rank;
   `reconcile_batch` pads every rank's batch to the cross-rank maximum of
   each non-batch dimension (one all_reduce(MAX)), so that the padded
   length that the MoE capacity and the BatchNorm statistics read is the
   global batch's; it asserts equal local batch sizes.
-- `partition_seed` is the dropout seed of a data shard, the rule of
+- `partition_seed` is the dropout seed of a shard, the rule of
   openasr_tpu/kernels/partition.py: seed + shard_id * 0x85EBCA6B mod 2^32
-  (rank 0's seed unchanged).
+  (shard 0's seed unchanged); `shard_id(d, m, M)` folds the axes of the
+  attention kernel's shardable factors b (data) and h (model) in sorted
+  order, d * 0x9E3779B9 + m mod 2^32 (d at a model size of 1, where the
+  heads are not sharded).
 - `rand_rows` draws per-row host randomness for the global batch and keeps
   this rank's rows, so that rank r's rows get the one-process run's draws.
 - `zero1_dim` is ZeRO-1's shard rule (`zero1_sharding`): the largest
@@ -46,6 +61,7 @@ import torch.distributed as dist
 
 SHARD_SEED_MULT = 0x85EBCA6B
 _MASK32 = 0xFFFFFFFF
+SHARD_AXIS_MULT = 0x9E3779B9
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
@@ -121,7 +137,8 @@ def validate_layout(procs: np.ndarray) -> None:
     a model-parallel group (one mesh row) may not span processes, the data
     axis must divide evenly by the process count, and each process's rows
     must be contiguous.  procs: [data, model] process index of each
-    device; one card a rank makes it [world, 1] = arange(world)."""
+    device; in the port a torchrun node's (`node_layout`), as a rank is
+    one card."""
     nproc = len(set(procs.flat))
     if nproc <= 1:
         return
@@ -147,24 +164,81 @@ def validate_layout(procs: np.ndarray) -> None:
         )
 
 
+class Grid:
+    """The (data, model) grid of ranks: this rank's `data` group (the ranks
+    of its model index), its `model` group (the ranks of its data index)
+    and `everyone`.  `rank`, `world`, `device` and `backend` are the
+    process's own."""
+
+    def __init__(self, data: DataGroup, model: DataGroup, everyone: DataGroup):
+        self.data, self.model, self.everyone = data, model, everyone
+        self.rank, self.world = everyone.rank, everyone.world
+        self.device, self.backend = everyone.device, everyone.backend
+
+    def groups(self) -> Dict[str, DataGroup]:
+        """The distinct groups by axis name (`everyone` only where it is
+        not the data group)."""
+        out = {"data": self.data, "model": self.model}
+        if self.everyone is not self.data:
+            out["everyone"] = self.everyone
+        return out
+
+    def reset_counts(self) -> None:
+        for g in self.groups().values():
+            g.reset_counts()
+
+    @classmethod
+    def single(cls, device="cpu") -> "Grid":
+        one = DataGroup.single(device)
+        return cls(one, DataGroup.single(device), one)
+
+
+def node_layout(world: int, model: int, local_world: Optional[int] = None) -> np.ndarray:
+    """[data, model] node index of each rank (rank = d * model + m; node =
+    rank // local_world, torchrun's LOCAL_WORLD_SIZE ranks a node, all of
+    them on one node by default): the process layout that
+    `validate_layout` checks, a node standing for a JAX host."""
+    if model < 1 or world % model:
+        raise ValueError(f"world size {world} not divisible by --model-parallel {model}")
+    local_world = world if local_world is None else int(local_world)
+    return (np.arange(world) // local_world).reshape(world // model, model)
+
+
 def new_group(rank: int, world: int, init_method: str, backend: str,
-              device) -> DataGroup:
+              device, model: int = 1, local_world: Optional[int] = None) -> Grid:
     """Join the process group at `init_method` (tcp://host:port) as `rank`
-    of `world` over `backend`, the rank on `device`."""
+    of `world` over `backend`, the rank on `device`, on a grid of
+    world / model data rows of `model` ranks.  Every rank creates every
+    sub-group, in the same order (torch's `new_group` rule): the data
+    groups {m, m + M, ...} for m < M, then the model groups {d M, ...,
+    d M + M - 1} for each d."""
     device = torch.device(device)
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError("the NCCL backend needs a card: pass a cuda device")
         torch.cuda.set_device(device)
-    validate_layout(np.arange(world)[:, None])
+    validate_layout(node_layout(world, model, local_world))
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-    return DataGroup(rank, world, device, group=dist.group.WORLD, backend=backend)
+    everyone = DataGroup(rank, world, device, group=dist.group.WORLD, backend=backend)
+    if model == 1:
+        return Grid(everyone, DataGroup(0, 1, device, backend=backend), everyone)
+    rows = world // model
+    d, m = divmod(rank, model)
+
+    def sub(ranks):
+        ranks = list(ranks)
+        return dist.new_group(ranks, backend=backend) if len(ranks) > 1 else None
+
+    data = [sub(range(j, world, model)) for j in range(model)][m]
+    mod = [sub(range(i * model, (i + 1) * model)) for i in range(rows)][d]
+    return Grid(DataGroup(d, rows, device, group=data, backend=backend),
+                DataGroup(m, model, device, group=mod, backend=backend), everyone)
 
 
-def init_distributed(device_type: str = "cuda", env=None) -> DataGroup:
-    """The rank's group from torchrun's environment: `cuda:LOCAL_RANK` over
-    NCCL, or the CPU over gloo with `device_type` "cpu".  Raises naming the
-    variables that are missing."""
+def init_distributed(device_type: str = "cuda", env=None, model: int = 1) -> Grid:
+    """The rank's grid from torchrun's environment, `model` ranks a model
+    group: `cuda:LOCAL_RANK` over NCCL, or the CPU over gloo with
+    `device_type` "cpu".  Raises naming the variables that are missing."""
     env = os.environ if env is None else env
     missing = [k for k in ENV if k not in env]
     if missing:
@@ -174,9 +248,10 @@ def init_distributed(device_type: str = "cuda", env=None) -> DataGroup:
             "--nproc-per-node N -m openasr_torch.bin.train <config> --distributed"
         )
     rank, world, local = int(env["RANK"]), int(env["WORLD_SIZE"]), int(env["LOCAL_RANK"])
+    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
     init = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
     if device_type == "cpu":
-        return new_group(rank, world, init, "gloo", "cpu")
+        return new_group(rank, world, init, "gloo", "cpu", model, local_world)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False; pass "
@@ -188,10 +263,10 @@ def init_distributed(device_type: str = "cuda", env=None) -> DataGroup:
             f"LOCAL_RANK {local} but this host has {cards} card(s): NCCL runs one "
             "rank a card (--nproc-per-node at most the card count)"
         )
-    return new_group(rank, world, init, "nccl", f"cuda:{local}")
+    return new_group(rank, world, init, "nccl", f"cuda:{local}", model, local_world)
 
 
-def destroy(group: DataGroup) -> None:
+def destroy(group) -> None:
     if group.world > 1 and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -246,10 +321,21 @@ def reconcile_batch(group: DataGroup, batch: dict) -> dict:
 # ------------------------------------------------------------ randomness
 
 def partition_seed(seed: int, shard_id: int) -> int:
-    """The dropout seed of data shard `shard_id`: the seed of
-    openasr_tpu/kernels/partition.py for a kernel sharded over `data`
-    alone, seed + shard_id * 0x85EBCA6B mod 2^32."""
+    """The dropout seed of shard `shard_id` (`shard_id(d, m)`): the seed of
+    openasr_tpu/kernels/partition.py, seed + shard_id * 0x85EBCA6B mod
+    2^32."""
     return (int(seed) + int(shard_id) * SHARD_SEED_MULT) & _MASK32
+
+
+def shard_id(data_index: int, model_index: int = 0, model_size: int = 1) -> int:
+    """The attention kernel's shard id at grid position (d, m): the axes of
+    its shardable factors b (data) and h (model, where the model axis
+    shards the heads: a model size above 1), folded in sorted order,
+    d * 0x9E3779B9 + m mod 2^32, and d alone at a model size of 1
+    (partition.py's `lower_fn`)."""
+    if model_size == 1:
+        return int(data_index) & _MASK32
+    return (int(data_index) * SHARD_AXIS_MULT + int(model_index)) & _MASK32
 
 
 def rand_rows(generator: torch.Generator, shape: Sequence[int], dim: int = 0,
@@ -266,15 +352,17 @@ def rand_rows(generator: torch.Generator, shape: Sequence[int], dim: int = 0,
 
 # ------------------------------------------------------------ ZeRO-1
 
-def zero1_dim(shape: Sequence[int], world: int) -> Optional[int]:
+def zero1_dim(shape: Sequence[int], world: int, taken: Optional[int] = None) -> Optional[int]:
     """The dimension ZeRO-1 shards (`zero1_sharding`): the largest one
-    that `world` divides (the first of equal ones); None for a scalar, a
-    world of 1, or no such dimension."""
+    that `world` divides (the first of equal ones), other than `taken`
+    (the dimension that the model axis shards, which `zero1_sharding`
+    leaves to it); None for a scalar, a world of 1, or no such
+    dimension."""
     if world <= 1 or not shape:
         return None
     best, best_size = None, 0
     for i, d in enumerate(shape):
-        if d % world == 0 and d > best_size:
+        if i != taken and d % world == 0 and d > best_size:
             best, best_size = i, d
     return best
 

@@ -1,4 +1,4 @@
-"""Solvers: the training loop, on one device or over a data-parallel group.
+"""Solvers: the training loop, on one device or over a grid of ranks.
 
 Counterpart of openasr_tpu/solvers/__init__.py: the epoch
 loop with per-epoch `ep-NNNN.pkg` + `last.pkg` packages, the dev pass,
@@ -70,8 +70,18 @@ sharded step does:
   rank 0 alone writes it, `metrics.jsonl`, TensorBoard and the progress
   lines; the dev pass's totals are all-reduced.
 
-The tensor, sequence and pipeline parallelisms are ROADMAP queue 1 items
-15b and 15c.
+Tensor and sequence parallelism (`group` a `Grid` with a model group of M
+> 1 ranks, as the JAX solvers take a (data, model) `mesh=`): every
+collective above runs over the grid's data group (the ranks of this
+rank's model index), the preemption agreement over every rank.  The
+model's layers hold this rank's shards (`Framework.set_model_group`,
+parallel/tensor_parallel.py), with `training.sequence_parallel` (default
+on) putting the residual stream on T-shards where T divides by M.  Every
+rank of a model group loads the same rows and backpropagates the whole
+loss (not divided by M); before the data reduction the partial gradients
+of the T-sharded sites are summed over the model group, and the package
+gathers the shards over both axes.  The pipeline is ROADMAP queue 1
+item 15c.
 """
 
 from __future__ import annotations
@@ -93,7 +103,7 @@ from openasr_torch.ops.fused_adam import FusedClipAdam
 from openasr_torch.ops.optimizers import StockOptimizer
 from openasr_torch.ops.schedules import BobSchedule, get_schedule
 from openasr_torch.parallel.data_parallel import DataParallel, full_expert_tables
-from openasr_torch.parallel.mesh import DataGroup, reconcile_batch
+from openasr_torch.parallel.mesh import Grid, reconcile_batch
 from openasr_torch.utils.checkpoint import AsyncCheckpointer, cleanup_ckpt
 
 logger = logging.getLogger(__name__)
@@ -117,7 +127,7 @@ class Solver:
 
     def __init__(self, model, config, tr_loader, cv_loader, device="cuda",
                  compute_dtype=torch.float32, seed: int = 0,
-                 group: DataGroup = None):
+                 group=None):
         self.model = model
         self.config = config
         self.tr_loader = tr_loader
@@ -143,9 +153,12 @@ class Solver:
         self.cv_loss = []
 
         self.seed = seed
-        self.group = group if group is not None else DataGroup.single(self.device)
-        self.is_rank0 = self.group.rank == 0
-        self.rng = TrainRNG(seed, self.device, self.group.rank, self.group.world)
+        # `group`: the Grid of ranks (one rank when None)
+        self.grid = group if group is not None else Grid.single(self.device)
+        self.group = self.grid.data
+        self.is_rank0 = self.grid.rank == 0
+        self.rng = TrainRNG(seed, self.device, self.group.rank, self.group.world,
+                            self.grid.model.rank, self.grid.model.world)
         self._niter = 0
         self._stop_agreed = False
         moe = model.moe_config() if hasattr(model, "moe_config") else None
@@ -157,6 +170,8 @@ class Solver:
                 "tables will be REPLICATED on every chip (no expert parallelism). "
                 "Use a multiple of the data-axis size for sharded experts.",
                 int(moe["num_experts"]), self.group.world)
+        self.tp_specs = model.set_model_group(self.grid.model,
+                                              bool(config.get("sequence_parallel", True)))
         experts = model.set_data_group(self.group)
         frozen = tuple(getattr(model, "frozen_components", ()))
         self.params = {}
@@ -166,7 +181,7 @@ class Solver:
             else:
                 self.params[name] = p
         self.zero1 = bool(config.get("zero1", True))
-        self.dp = DataParallel(self.group, self.params, self.zero1, experts)
+        self.dp = DataParallel(self.grid, self.params, self.zero1, experts, self.tp_specs)
         self.optimizer = self._make_optimizer(config)
         os.makedirs(self.exp_dir, exist_ok=True)
         self._ckpt = AsyncCheckpointer()
@@ -259,8 +274,10 @@ class Solver:
         return {**losses, **dict(zip(keys, counts.unbind()))}
 
     def apply_update(self) -> None:
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params.values()]
+        params = list(self.params.values())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if self.model.tp is not None:
+            grads = self.model.tp.sink.reduce_into(params, grads, self.grid.model)
         self.optimizer.step(self.dp.reduce(grads))
         self.dp.gather_params()
         for p in self.params.values():
@@ -460,14 +477,15 @@ class Solver:
         on the same schedule (niter % STOP_CHECK_INTERVAL == 0), so a
         SIGTERM on a subset of ranks stops them all at the same batch.  One
         process: its own flag."""
-        if self.group.world == 1:
+        everyone = self.grid.everyone
+        if everyone.world == 1:
             return self._stop_requested
         if self._stop_agreed:
             return True
         if niter % self.STOP_CHECK_INTERVAL != 0:
             return False
-        flag = torch.tensor([int(self._stop_requested)], device=self.group.comm_device)
-        if int(self.group.all_reduce(flag, "max")[0]):
+        flag = torch.tensor([int(self._stop_requested)], device=everyone.comm_device)
+        if int(everyone.all_reduce(flag, "max")[0]):
             self._stop_requested = self._stop_agreed = True
         return self._stop_agreed
 
@@ -529,9 +547,9 @@ class Solver:
     def package(self) -> dict:
         """The model in the JAX package layout, the solver state, and the
         optimizer state in the port's layout (moments keyed by parameter
-        name).  Under a data group, expert tables and sharded moments are
-        gathered whole: every rank calls it."""
-        with full_expert_tables(self.model.module):
+        name).  On a grid, expert tables, model shards and sharded moments
+        are gathered whole: every rank calls it."""
+        with full_expert_tables(self.model.module), self.model.full_tables():
             model = self.model.package()
         pkg = {
             "model": model,

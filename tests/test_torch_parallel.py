@@ -45,7 +45,13 @@ import torch
 
 from openasr_torch.convert import jax_optim_state_to_port
 from openasr_torch.data.collate import gen_causal_targets
-from openasr_torch.parallel import DataGroup, all_gather_host, init_distributed, partition_seed
+from openasr_torch.parallel import (
+    DataGroup,
+    Grid,
+    all_gather_host,
+    init_distributed,
+    partition_seed,
+)
 from openasr_torch.parallel.mesh import rand_rows, validate_layout, zero1_dim
 from openasr_torch.utils.checkpoint import load_package
 from openasr_tpu.config import Config
@@ -148,21 +154,32 @@ def jax_twin(model_type, cfg, pkg):
 
 
 def jax_train(model_type, cfg, pkg, training, batches, tmp):
-    """The JAX solver's jitted step on one device over the global batches:
-    {losses, aux (the MoE auxiliaries), g1 (the first moment after step 1,
-    in the port's names), params, stats (the final batch_stats)}."""
+    """The JAX solver's jitted step on one device over the global batches
+    (at `accumulate_grad_batch` above 1, its accumulation protocol, as its
+    epoch loop runs it: a micro-batch a batch, the summed gradients applied
+    every that many and at the last): {losses (a batch each), aux (the MoE
+    auxiliaries), g1 (the first moment after step 1, in the port's names),
+    params, stats (the final batch_stats)}."""
     model = jax_twin(model_type, cfg, pkg)
     mesh = make_mesh(jax.devices("cpu")[:1])
     solver = jax_solver_class(model_type)(model, Config(dict(training, exp_dir=str(tmp))),
                                           [], [], mesh=mesh)
     params, opt = model.params, solver.opt_state
+    every = int(training.get("accumulate_grad_batch", 1))
+    cur = solver._accum_begin() if every > 1 else None
     losses, aux, g1 = [], [], None
     for i, b in enumerate(batches):
-        params, opt, loss, parts = solver._train_step(
-            params, opt, shard_batch(array_fields(b), mesh), jax.random.PRNGKey(i))
+        arrays, key = shard_batch(array_fields(b), mesh), jax.random.PRNGKey(i)
+        applied = (i + 1) % every == 0 or i == len(batches) - 1
+        if cur is None:
+            params, opt, loss, parts = solver._train_step(params, opt, arrays, key)
+        else:
+            loss, parts = solver._accum_micro(cur, params, arrays, key)
+            params = solver._accum_maybe_apply(cur, params, applied)
+            opt = solver.opt_state
         losses.append(float(loss))
         aux.append(float(parts.get("moe_aux_loss", 0.0)))
-        if i == 0:
+        if applied and g1 is None:
             path = os.path.join(str(tmp), "state.pkg")
             with open(path, "wb") as f:
                 pickle.dump({"optim_state": jax.tree_util.tree_map(np.asarray, opt)}, f)
@@ -243,7 +260,7 @@ def flagship(tmp_path_factory):
                     "loaders": {"tr": FLAGSHIP_BATCHES}}
             want = jax_train("conv-ctc-transformer", cfg, pkg, training, FLAGSHIP_BATCHES,
                              tmp_path_factory.mktemp(f"{opt}_jax"))
-            runs[opt] = spec, want, train(DataGroup.single("cpu"), dict(spec, training=dict(
+            runs[opt] = spec, want, train(Grid.single("cpu"), dict(spec, training=dict(
                 spec["training"], zero1=False)))
         return runs[opt]
     return get
@@ -298,9 +315,9 @@ def test_spec_aug_draws_are_the_one_process_runs(pool2, tmp_path):
     spec = {"model_type": "conv-ctc-transformer", "model_cfg": cfg,
             "pkg": port_package("conv-ctc-transformer", cfg),
             "training": dict(TRAINING, exp_dir=str(tmp_path)), "loaders": {"tr": FLAGSHIP_BATCHES}}
-    one = train(DataGroup.single("cpu"), spec)
+    one = train(Grid.single("cpu"), spec)
     outs = pool2.run("train", spec)
-    plain = train(DataGroup.single("cpu"), dict(spec, model_cfg=flagship_config()))
+    plain = train(Grid.single("cpu"), dict(spec, model_cfg=flagship_config()))
     assert abs(plain["losses"][0] - one["losses"][0]) > 1e-3  # the masks bite
     for out in outs:
         losses_close(out["losses"], one["losses"])
@@ -480,7 +497,7 @@ def test_packages_continue_across_world_sizes(pool2, tmp_path, first, then):
             "loaders": {"tr": FLAGSHIP_BATCHES[:2]}}
 
     def run(world, spec):
-        return (train(DataGroup.single("cpu"), spec) if world == 1
+        return (train(Grid.single("cpu"), spec) if world == 1
                 else pool2.run("train", spec)[0])
 
     pkg = run(first, spec)["pkg"]

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from openasr_torch.data.collate import gen_causal_targets
-from openasr_torch.parallel import DataGroup
+from openasr_torch.parallel import Grid
 
 from test_torch_cif import cif_config
 from test_torch_cpc import CPC_CFG
@@ -122,7 +122,7 @@ def run_family(pool, tmp_path, model_type, cfg, batches, training=None, want=Non
             "loaders": {"tr": batches, **loaders}}
     if draws is not None:
         spec["draws"] = draws
-    one = train(DataGroup.single("cpu"), spec)
+    one = train(Grid.single("cpu"), spec)
     outs = pool.run("train", spec)
     if want is None:
         (tmp_path / "jax").mkdir()

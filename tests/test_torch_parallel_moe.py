@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import yaml
 
-from openasr_torch.parallel import DataGroup
+from openasr_torch.parallel import Grid
 from openasr_torch.parallel.mesh import zero1_dim
 
 from test_torch_parallel import (
@@ -55,7 +55,7 @@ def test_expert_parallel_training_matches_jax(pool2, tmp_path, router):
     (tmp_path / "jax").mkdir()
     want = jax_train("conv-ctc-transformer", cfg, pkg, training, FLAGSHIP_BATCHES,
                      tmp_path / "jax")
-    one = train(DataGroup.single("cpu"), spec)
+    one = train(Grid.single("cpu"), spec)
     outs = pool2.run("train", spec)
     check_against_jax(outs, want, one)
     if router == "topk":

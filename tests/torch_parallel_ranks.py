@@ -1,12 +1,15 @@
-"""Data-parallel ranks of the port for the CPU tests: a pool of gloo worker
-processes, started once per test module, and the scenarios they run.
+"""Ranks of the port for the CPU tests: a pool of gloo worker processes,
+started once per test module, and the scenarios they run.
 
-`RankPool(world)` starts `world` Python processes running this file; each
-joins a gloo process group (`openasr_torch.parallel.new_group`, a free
-port) and then serves scenarios sent over a local socket: `pool.run(name,
-*args)` calls the scenario `name(group, *args)` on every rank and returns
-the ranks' results, or raises with the failing rank's traceback.  Every
-call has a timeout, so a hung rank fails its test instead of the run.
+`RankPool(world, model=1)` starts `world` Python processes running this
+file; each joins a gloo process group on a grid of world / model data rows
+of `model` ranks (`openasr_torch.parallel.new_group`, a free port) and
+then serves scenarios sent over a local socket: `pool.run(name, *args)`
+calls the scenario `name(grid, *args)` on every rank and returns the
+ranks' results (in rank order, rank = d * model + m), or raises with the
+failing rank's traceback.  Every call has a timeout, so a hung rank fails
+its test instead of the run.  The ranks of a model group load the same
+rows: a scenario cuts its rows by the grid's data index.
 
 The scenarios import the port only (never jax), so a worker starts in a
 couple of seconds.  A global batch is cut into the ranks' contiguous rows
@@ -15,7 +18,7 @@ as each rank's collate pads its own slice, so that a rank that did not
 reconcile its shapes with the others computes otherwise than the
 one-process run.
 
-  python tests/torch_parallel_ranks.py <host> <port> <rank> <world> <gloo port>
+  python tests/torch_parallel_ranks.py <host> <port> <rank> <world> <gloo port> [<model>]
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ def free_port() -> int:
 
 
 class RankPool:
-    def __init__(self, world: int, timeout: float = 120.0):
-        self.world, self.timeout = world, timeout
+    def __init__(self, world: int, timeout: float = 120.0, model: int = 1):
+        self.world, self.timeout, self.model = world, timeout, model
         self.listener = Listener(("localhost", 0), authkey=AUTHKEY)
         self.listener._listener._socket.settimeout(timeout)
         host, port = self.listener.address
@@ -54,7 +57,7 @@ class RankPool:
         env = {**os.environ, "OMP_NUM_THREADS": "1"}
         self.procs = [
             subprocess.Popen([sys.executable, os.path.abspath(__file__), host, str(port),
-                              str(r), str(world), str(gloo)], env=env, cwd=ROOT)
+                              str(r), str(world), str(gloo), str(model)], env=env, cwd=ROOT)
             for r in range(world)
         ]
         self.conns = {}
@@ -137,7 +140,7 @@ def _model(spec, device="cpu"):
     return model
 
 
-def train(group, spec: dict) -> dict:
+def train(grid, spec: dict) -> dict:
     """Train the spec's model over `spec["loaders"]` (name -> list of global
     batches; "tr" the train loader, others solver keywords such as the
     GAN's `phone_loader`) through the solver's epoch loop; with
@@ -148,19 +151,22 @@ def train(group, spec: dict) -> dict:
     Returns the steps' total losses and MoE auxiliaries (summed over the
     ranks), the full first moment after the first update (SGD's trace, the
     clipped gradient; Adam's mu, (1 - b1) times it), the collectives of the
-    second step (calls and bytes), the optimizer's shard shapes, and the
-    final package."""
+    second step (calls and bytes, on the data group; `model_calls` and
+    `model_bytes` on the model group), the optimizer's shard shapes, the
+    replicated parameters and the final package.  `grid` is the `Grid` of
+    ranks."""
     import torch
 
     from openasr_torch.solvers import get_solver_class
 
     torch.manual_seed(0)
+    group = grid.data
     model = _model(spec, group.device)
     loaders = {k: [rows(b, group.rank, group.world) for b in v]
                for k, v in spec["loaders"].items()}
     tr = loaders.pop("tr")
     solver = get_solver_class(spec["model_type"])(
-        model, dict(spec["training"]), tr, [], device=group.device, group=group, **loaders)
+        model, dict(spec["training"]), tr, [], device=group.device, group=grid, **loaders)
     if spec.get("restore") is not None:
         solver.restore(spec["restore"])
     draws = [torch.tensor(d) for d in spec.get("draws") or []]
@@ -176,17 +182,20 @@ def train(group, spec: dict) -> dict:
     shares, aux, calls, state = [], [], [], {}
     grad_step, apply_update = solver.grad_step, solver.apply_update
 
+    counters = {"calls": (group, "calls"), "bytes": (group, "bytes"),
+                "model_calls": (grid.model, "calls"), "model_bytes": (grid.model, "bytes")}
+
     def counted(fn, *args):
-        before = {k: dict(getattr(group, k)) for k in ("calls", "bytes")}
+        before = {k: dict(getattr(g, a)) for k, (g, a) in counters.items()}
         out = fn(*args)
-        for k in ("calls", "bytes"):
-            for name, v in getattr(group, k).items():
+        for k, (g, a) in counters.items():
+            for name, v in getattr(g, a).items():
                 if v != before[k].get(name, 0):
                     calls[-1][k][name] = calls[-1][k].get(name, 0) + v - before[k].get(name, 0)
         return out
 
     def recording_grad_step(batch, empty_rows):
-        calls.append({"calls": {}, "bytes": {}})
+        calls.append({k: {} for k in counters})
         losses = counted(grad_step, batch, empty_rows)
         shares.append(solver.total_loss(solver.global_counts(losses)).detach())
         aux.append(losses.get("moe_aux_loss", torch.zeros(())).detach())
@@ -203,47 +212,51 @@ def train(group, spec: dict) -> dict:
     assert not draws, f"{len(draws)} of the draws given were not drawn"
     losses = group.all_reduce(torch.stack(shares + aux)).tolist() if shares else []
     pkg = solver.package()
+    replicated = {n: p.detach().numpy().copy() for n, p in solver.params.items()
+                  if n not in solver.tp_specs}
     return {
         "losses": losses[:len(shares)], "aux": losses[len(shares):], "g1": state.get("g1"),
-        "calls": calls[1]["calls"] if len(calls) > 1 else {},
-        "bytes": calls[1]["bytes"] if len(calls) > 1 else {},
-        "step": solver.step, "pkg": pkg,
+        **{k: calls[1][k] if len(calls) > 1 else {} for k in counters},
+        "step": solver.step, "pkg": pkg, "replicated": replicated,
         "shards": {n: tuple(p.shape) for n, p in zip(solver.optimizer.names,
                                                       solver.optimizer.params)},
     }
 
 
-def reconcile(group, batches: list) -> list:
+def reconcile(grid, batches: list) -> list:
     """This rank's rows of each global batch, reconciled."""
     from openasr_torch.parallel import reconcile_batch
 
+    group = grid.data
     return [reconcile_batch(group, rows(b, group.rank, group.world)) for b in batches]
 
 
-def preempt(group, spec: dict, signal_at: int) -> dict:
+def preempt(grid, spec: dict, signal_at: int) -> dict:
     """Rank 0 alone gets SIGTERM while loading batch `signal_at`; train()
     stops every rank and writes last.pkg.  Returns the step and epoch each
     rank stopped at."""
     from openasr_torch.solvers import get_solver_class
 
+    group = grid.data
     model = _model(spec, group.device)
     local = [rows(b, group.rank, group.world) for b in spec["loaders"]["tr"]]
 
     class Loader(list):
         def __iter__(self):
             for i, b in enumerate(list.__iter__(self), start=1):
-                if group.rank == 0 and i == signal_at:
+                if grid.rank == 0 and i == signal_at:
                     signal.raise_signal(signal.SIGTERM)
                 yield b
 
     solver = get_solver_class(spec["model_type"])(
-        model, dict(spec["training"]), Loader(local), [], device=group.device, group=group)
+        model, dict(spec["training"]), Loader(local), [], device=group.device, group=grid)
     solver.train()
     return {"step": solver.step, "epoch": solver.epoch, "stopped": solver._stop_requested}
 
 
 def worker_main(argv) -> None:
     host, port, rank, world, gloo = argv[1], int(argv[2]), int(argv[3]), int(argv[4]), argv[5]
+    model = int(argv[6]) if len(argv) > 6 else 1
     sys.path[:0] = [ROOT, HERE]
     import torch
 
@@ -253,7 +266,7 @@ def worker_main(argv) -> None:
 
     conn = Client((host, port), authkey=AUTHKEY)
     conn.send(rank)
-    group = new_group(rank, world, f"tcp://localhost:{gloo}", "gloo", "cpu")
+    group = new_group(rank, world, f"tcp://localhost:{gloo}", "gloo", "cpu", model)
     scenarios = sys.modules[__name__]
     try:
         while True:
