@@ -6353,14 +6353,18 @@ def parallel_train(job: dict, grid, go=None) -> dict:
     group, `model_calls`, `model_bytes` on the model group), the step's
     wall, the step-1 gradient (Adam's first moment after one update, f32),
     the LayerNorms a step ran on T-shards (`sharded_ln`, from the host's
-    shapes: {a rank's rows [B T / M]: LayerNorms} a step) and the package
-    (every rank gathers; rank 0's returned)."""
+    shapes: {a rank's rows [B T / M]: LayerNorms} a step), on a grid with a
+    pipe axis the pipe group's collectives a step (`pipe_calls`,
+    `pipe_bytes`) and each step's batch, encoder length and microbatch
+    count (`microbatches`), and the package (every rank gathers; rank 0's
+    returned)."""
     import yaml
 
     from openasr_torch.bin.train import build_loaders
     from openasr_torch.data.tokenizer import CharTokenizer
     from openasr_torch.models import get_model_class
     from openasr_torch.parallel.data_parallel import full_expert_tables
+    from openasr_torch.parallel.pipeline import microbatch_count
     from openasr_torch.solvers import get_solver_class
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6392,7 +6396,7 @@ def parallel_train(job: dict, grid, go=None) -> dict:
     solver = get_solver_class(model_cfg["type"])(model, training, batches, [],
                                                  device=group.device, group=grid)
     shares, stats1, starts, grad_step = [], {}, [], solver.grad_step
-    sharded_ln = []
+    sharded_ln, microbatches = [], []
     ln_in = {part: count_layer_norms(getattr(model.module, part))
              for part in ("encoder", "decoder") if hasattr(model.module, part)}
     g1, g64, lrs, apply_update = {}, {}, [], solver.apply_update
@@ -6413,6 +6417,10 @@ def parallel_train(job: dict, grid, go=None) -> dict:
         torch.cuda.synchronize()
         starts.append(time.time())
         losses = grad_step(batch, empty_rows)
+        if solver._pipe_ctx is not None:
+            b, t = model.batch_inputs(batch)[0].shape[:2]
+            microbatches.append({"b": int(b), "t": int(model.module.encoder_lengths(
+                np.asarray([t]))[0]), "m": microbatch_count(b, solver._pipe_ctx[1])})
         shares.append(solver.total_loss(solver.global_counts(losses)).detach())
         if not stats1:
             stats1.update((n, b.detach().cpu().numpy().copy())
@@ -6449,11 +6457,13 @@ def parallel_train(job: dict, grid, go=None) -> dict:
     n = read_counters()
     calls, nbytes = dict(group.calls), dict(group.bytes)
     mcalls, mbytes = dict(grid.model.calls), dict(grid.model.bytes)
+    pcalls, pbytes = dict(grid.pipe.calls), dict(grid.pipe.bytes)
     losses = group.all_reduce(torch.stack(shares)).tolist()
     pkg = solver.package()
-    with full_expert_tables(model.module), model.full_tables():
+    with full_expert_tables(model.module), model.full_tables(), model.full_stacks():
         params = {n: p.detach().float().cpu().numpy()
-                  for n, p in model.module.named_parameters() if n in solver.params}
+                  for n, p in model.module.named_parameters()
+                  if n in solver.params or (model.pipe_group is not None and ".stack." in n)}
     first = grid.rank == 0
     return {"losses": losses, "wall": wall, "step_walls": step_walls,
             "warm_step": float(np.mean(step_walls[1:])), "steps": solver.step,
@@ -6467,6 +6477,9 @@ def parallel_train(job: dict, grid, go=None) -> dict:
             "bytes": {k: v / solver.step for k, v in nbytes.items()},
             "model_calls": {k: v / solver.step for k, v in mcalls.items()},
             "model_bytes": {k: v / solver.step for k, v in mbytes.items()},
+            "pipe_calls": {k: v / solver.step for k, v in pcalls.items()},
+            "pipe_bytes": {k: v / solver.step for k, v in pbytes.items()},
+            "microbatches": microbatches,
             "experts": [name for name, kind in zip(solver.dp.names, solver.dp.kind)
                         if kind == "expert"],
             "backend": grid.backend, "pkg": pkg["model"] if first else None}
@@ -6484,9 +6497,10 @@ def parallel_worker(job_path, rank=None, world=None, port=None) -> int:
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     model = job.get("model", 1)
-    group = (init_distributed("cuda", model=model) if rank is None else
+    pipe = job.get("pipe", 1)
+    group = (init_distributed("cuda", model=model, pipe=pipe) if rank is None else
              new_group(int(rank), int(world), f"tcp://localhost:{port}", "gloo", "cuda:0",
-                       model))
+                       model, pipe=pipe))
     try:
         res = parallel_train(job, group, go=None if rank is None else f"{job_path}.go")
     finally:
@@ -6503,6 +6517,7 @@ def start_ranks(job: dict) -> dict:
     import pickle
     import socket
 
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
     job_path = os.path.join(PARALLEL_DIR, f"job_{job['tag']}.pkl")
     with open(job_path, "wb") as f:
         pickle.dump(job, f)
@@ -6837,6 +6852,297 @@ def phase_model(vocab, chars, shapes, errs) -> dict:
     return out
 
 
+# ------------------------------------------------------------ pipe path
+
+PIPE_DIR = os.path.join(WORK, "pipe")
+PIPE_STAGES = 2
+PIPE_MICROBATCH = 4
+# remat on against off: the same kernels recompute the same activations
+# from the same inputs and replayed generators, so the step is the plain
+# step's up to what differs between two runs of the plain step itself (the
+# CUDA CTC loss's backward accumulates with atomics): remat's gradients no
+# further from the plain step's than twice a second plain run's, plus
+# TOL_REMAT of max(1, |g|); the losses equal
+TOL_REMAT = 1e-7
+REMAT_UTTS = 41
+
+
+def pipe_yaml(**encoder) -> str:
+    """The flagship YAML with encoder.pipeline: true (and `encoder`), the
+    run's own copy."""
+    import yaml
+
+    with open(FLAGSHIP_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["encoder"].update(pipeline=True, **encoder)
+    path = os.path.join(PIPE_DIR, "flagship_pipeline.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def pipe_step_launches(m: int) -> dict:
+    """A pp2 rank's launches in a flagship step (dropout 0) whose batch ran
+    m microbatches: its stage's 3 encoder layers m times (2 LayerNorms and
+    one attention each), the replicated rest (the encoder's final LayerNorm,
+    the decoder) once; each forward's backward too."""
+    one = flagship_step_launches()
+    layers = FLAGSHIP["encoder"]["num_layers"]
+    held = layers // PIPE_STAGES
+    return {k: v + (2 if k.startswith("layer_norm") else 1) * (held * m - layers)
+            for k, v in one.items()}
+
+
+def check_pipe_launches(two) -> dict:
+    """Each rank's launches over the steps equal `pipe_step_launches` of
+    each step's microbatch count, exactly; -> rank 0's a step."""
+    for r, res in enumerate(two):
+        want = {}
+        for step in res["microbatches"]:
+            for k, v in pipe_step_launches(step["m"]).items():
+                want[k] = want.get(k, 0) + v
+        got = {k: v for k, v in res["launch_totals"].items() if v}
+        require(got == {k: int(v) for k, v in want.items() if v},
+                f"[pipe path] rank {r} launches {got} != {want}")
+    return two[0]["launches"]
+
+
+def remat_batch(feats, n, rng) -> dict:
+    """n training utterances, padded as the collate pads them, with random
+    targets of 20-24 tokens."""
+    from openasr_torch.data.collate import gen_causal_targets
+
+    utts = sorted(feats)[:n]
+    x, lengths = padded_features(feats, utts)
+    toks = [list(rng.randint(3, 4232, size=rng.randint(20, 25))) for _ in utts]
+    ids, labels, paddings = gen_causal_targets(toks, add_eos=True)
+    return {"feats": x, "feat_lengths": lengths, "ids": ids.astype(np.int64),
+            "labels": labels, "paddings": paddings}
+
+
+def check_remat(feats) -> dict:
+    """One f32 training step of the flagship (dropout 0.1) with
+    `encoder.remat` and `decoder.remat` on, against the same step with them
+    off, run twice: the same seeded weights, batch and generators; the
+    losses equal, remat's gradients as close to the plain step's as a
+    second plain run's (`TOL_REMAT`), and the peak device memory of each."""
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.layers import TrainRNG
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = remat_batch(feats, REMAT_UTTS, np.random.RandomState(SEED + 80))
+    out = {}
+    for remat in (False, "again", True):
+        cfg = {**FLAGSHIP, "encoder": {**FLAGSHIP["encoder"], "remat": remat is True},
+               "decoder": {**FLAGSHIP["decoder"], "remat": remat is True}}
+        model = get_model_class("conv-ctc-transformer").create_model(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+        tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rng = TrainRNG(SEED, "cuda")
+        losses = model.loss(tb, rng, label_smooth=0.1,
+                            empty_rows=model.has_empty_rows(batch["feat_lengths"]))
+        total = losses["ce_loss"] / losses["n_tokens"] + losses["ctc_loss"] / losses["n_seqs"]
+        total.backward()
+        torch.cuda.synchronize()
+        out[remat] = {"loss": float(total.detach()), "peak_bytes":
+                      torch.cuda.max_memory_allocated() - base,
+                      "grads": {n: p.grad.detach().clone()
+                                for n, p in model.module.named_parameters()}}
+        del model, tb, losses, total
+    off, on = out[False], out[True]
+    loss_err = abs(on["loss"] - off["loss"]) / max(1.0, abs(off["loss"]))
+
+    def worst(run):
+        errs = {n: max_err(run["grads"][n], g) / max(1.0, float(g.abs().max()))
+                for n, g in off["grads"].items()}
+        return max(errs.values()), max(errs, key=errs.get)
+
+    grad_err, grad_leaf = worst(on)
+    again_err, again_leaf = worst(out["again"])
+    print(f"[pipe path] remat: one f32 flagship step, dropout 0.1, {REMAT_UTTS} utterances "
+          f"(T {batch['feats'].shape[1]}): loss {on['loss']:.6f} with remat vs "
+          f"{off['loss']:.6f} without (err {loss_err:.3g}); gradients {grad_err:.3g} of "
+          f"max(1, |g|) off the plain step's (worst leaf {grad_leaf}), a second plain run "
+          f"{again_err:.3g} off it (worst leaf {again_leaf}; remat held to twice that + "
+          f"{TOL_REMAT}); torch.cuda.max_memory_allocated over the step "
+          f"{on['peak_bytes'] / 2**20:.1f} MiB with remat, {off['peak_bytes'] / 2**20:.1f} "
+          f"MiB without")
+    require(loss_err == 0.0 and grad_err <= 2 * again_err + TOL_REMAT,
+            f"remat changed the step: loss {loss_err:.3g}, gradients {grad_err:.3g} "
+            f"(a second plain run {again_err:.3g})")
+    return {"loss_err": loss_err, "grad_err": grad_err, "again_err": again_err,
+            "peak_mib": {"remat": on["peak_bytes"] / 2**20, "plain": off["peak_bytes"] / 2**20}}
+
+
+def pipe_decode(model_pkg, vocab, test_json) -> dict:
+    """Decode the test utterances through bin/infer.py with the pp2 run's
+    stacked package and with the same package after
+    `bin/stack_encoder_pkg.py --unstack` (whose configs then take
+    encoder.pipeline: false, as a user's YAML would: the tool, like the
+    JAX one, converts the weights only): the hypotheses equal."""
+    from openasr_torch.bin import infer, stack_encoder_pkg
+    from openasr_torch.utils.checkpoint import load_package, save_package
+
+    stacked = os.path.join(PIPE_DIR, "pp2.pkg")
+    save_package({"model": model_pkg, "optim_state": None}, stacked)
+    unstacked = os.path.join(PIPE_DIR, "pp2_unstacked.pkg")
+    stack_encoder_pkg.main([stacked, unstacked, "--unstack"])
+    pkg = load_package(unstacked)
+    pkg["model"]["configs"]["encoder"]["pipeline"] = False
+    save_package(pkg, unstacked)
+    hyps, walls = {}, {}
+    for tag, path in (("stacked", stacked), ("unstacked", unstacked)):
+        hyp = os.path.join(PIPE_DIR, f"hyp_{tag}.txt")
+        t0 = time.time()
+        infer.main(["--model_type", "conv-ctc-transformer", "--model_pkg", path,
+                    "--vocab_path", vocab, "--json_file", test_json, "--output", hyp,
+                    "--add_blk", "--nbest", "5", "--maxlen", "40", "--batch_frames", "36000",
+                    "--offline", "--device", "cuda"])
+        walls[tag] = time.time() - t0
+        with open(hyp, encoding="utf-8") as f:
+            hyps[tag] = [line for line in f if line.strip()]
+    n = len(json.load(open(test_json)))
+    print(f"[pipe path] decode of {n} utterances with the pp2 run's stacked package "
+          f"({walls['stacked']:.2f}s) and unstacked ({walls['unstacked']:.2f}s): "
+          f"{sum(a == b for a, b in zip(hyps['stacked'], hyps['unstacked']))} of "
+          f"{len(hyps['stacked'])} hypotheses equal")
+    require(len(hyps["stacked"]) == n and hyps["stacked"] == hyps["unstacked"],
+            "the stacked and unstacked packages decode otherwise")
+    return walls
+
+
+def pipe_rows(step, launches, errs) -> list:
+    """Rows 1, 3, 4 and 5+6 at a stage's microbatch shape of the pp2 run's
+    batch of the most microbatches ([B / m T', 512]; [B / m, T', 8, 64], f32),
+    each held to its plain version, with device ms of the kernel, the plain
+    version and the library call, the bound, and rank 0's launches over
+    the run."""
+    import torch.nn.functional as F
+
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+    )
+    from openasr_torch.kernels.layer_norm import (
+        fused_layer_norm,
+        layer_norm_bwd,
+        layer_norm_bwd_reference,
+        layer_norm_reference,
+    )
+
+    dtype, dm, h, d = torch.float32, 512, 8, 64
+    mb, t = step["b"] // step["m"], step["t"]
+    rng = np.random.RandomState(SEED + 81)
+    note = (f"a pp2 stage's microbatch of the [pipe path]'s batch of the most microbatches "
+            f"(B {step['b']}, m {step['m']}); launches: rank 0's over its {PARALLEL_STEPS} "
+            "steps")
+    rows = []
+    n = mb * t
+    x, g, beta = ln_inputs(n, dm, dtype, rng)
+    dy = torch.from_numpy(rng.randn(n, dm).astype(np.float32)).cuda()
+    y, mean, rstd = fused_layer_norm(x, g, beta)
+    e_fwd = max_err(y, layer_norm_reference(x, g, beta)[0])
+    got = layer_norm_bwd(x, dy, g, mean, rstd)
+    want = layer_norm_bwd_reference(x, dy, g, mean, rstd)
+    e_bwd = max(scaled_err(a, b)[0] / scaled_err(a, b)[1] for a, b in zip(got, want))
+    require(e_fwd <= TOL_LN[dtype] and e_bwd <= TOL_LN_BWD[dtype],
+            f"[pipe path] LayerNorm at [{n}, {dm}]: forward {e_fwd:.3g}, backward {e_bwd:.3g}")
+    xl, gl, bl = (z.clone().requires_grad_() for z in (x, g, beta))
+    for name, replaces, err, kernel, plain, library, nbytes, ops, key in (
+        ("layer_norm_fwd_pipe[float32]", "openasr_tpu/kernels/layer_norm.py:56", e_fwd,
+         lambda: fused_layer_norm(x, g, beta), lambda: layer_norm_reference(x, g, beta),
+         lambda: F.layer_norm(x, (dm,), g, beta, 1e-6),
+         2 * n * dm * 4 + 2 * n * 4 + 2 * dm * 4, 8 * n * dm, "layer_norm_fwd"),
+        ("layer_norm_bwd_pipe[float32]", "openasr_tpu/kernels/layer_norm.py:85", e_bwd,
+         lambda: layer_norm_bwd(x, dy, g, mean, rstd),
+         lambda: layer_norm_bwd_reference(x, dy, g, mean, rstd), None,
+         3 * n * dm * 4 + 2 * n * 4 + 3 * dm * 4, 13 * n * dm, "layer_norm_bwd"),
+    ):
+        rows.append({
+            "name": name, "route": "cuda", "source": "openasr_torch/kernels/csrc/layer_norm.cu",
+            "replaces": replaces, "shape": [n, dm], "launches": launches[key],
+            "launches_are": note, "max_abs_err": err,
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": (device_ms(library) if library is not None else
+                           backward_ms(lambda: F.layer_norm(xl, (dm,), gl, bl, 1e-6),
+                                       (xl, gl, bl), dy)),
+            **bound(nbytes, ops, torch.float32)})
+    lens = np.full(mb, t, np.int32)
+    fwd = attention_fwd_row(mb, h, d, t, t, False, lens, dtype, rng, errs, 0.0)
+    rows.append({"name": "flash_attention_fwd_pipe[float32]", **fwd,
+                 "launches": launches["flash_attention_fwd"], "launches_are": note,
+                 "max_abs_err": errs[("flash_attention_fwd", dtype)]})
+    bwd = attention_bwd_times(mb, h, d, t, t, False, lens, dtype, rng, cold=False)
+    args = bwd["kernel_args"][:6] + bwd["kernel_args"][7:]
+    e_att = max(scaled_err(a, b)[0] / scaled_err(a, b)[1]
+                for a, b in zip(flash_attention_bwd(*args), flash_attention_bwd_reference(*args)))
+    require(e_att <= TOL_FLASH_BWD[dtype], f"[pipe path] attention backward {e_att:.3g}")
+    rows.append({
+        "name": "flash_attention_bwd_pipe[float32]", "route": "cuda",
+        "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "openasr_tpu/kernels/flash_attention.py:567-596 (custom VJP: delta :468, "
+                    "dK/dV :238, dQ :327)",
+        "shape": bwd["shape"], "launches": launches["flash_attention_bwd_dkv"],
+        "launches_are": note + " (dK/dV launches; dQ and the statistics alike)",
+        "max_abs_err": e_att, "dropout_rate": DROPOUT,
+        **{k: bwd[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+    for r in rows:
+        print(f"[pipe path] {r['name']} {r['shape']}: err {r['max_abs_err']:.3g}, device ms "
+              f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+              f"launches {r['launches']}")
+    return rows
+
+
+def phase_pipe(vocab, chars, test_json, train_feats, errs) -> dict:
+    """Pipeline parallelism on the card (`[pipe path]`): the flagship YAML
+    with encoder.pipeline: true, f32, dropout 0, at pp2 (two gloo ranks on
+    cuda:0, layers 0-2 and 3-5, `pipeline_microbatch` 4) against one rank
+    running the same stacked layers in order, 3 steps, with the one rank's
+    f64 step-1 gradient; each rank's launches held exactly to its layers
+    times each step's microbatches plus the replicated parts; remat on
+    against off; the pp2 package decoded stacked and unstacked; rows 1,
+    3-6 at a stage's microbatch shape."""
+    t_phase = time.time()
+    os.makedirs(PIPE_DIR)
+    rng = np.random.RandomState(SEED + 42)
+    train_json, _ = write_corpus("pptrain", rng, chars, 160, (400, 512), (20, 24))
+    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
+    job = {"tag": "pp2_flagship", "yaml": pipe_yaml(), "vocab": vocab, "data": data,
+           "ndata": 1, "pipe": PIPE_STAGES, "f64": "rounding",
+           "training": {"batch_frames": 18000, "pipeline_microbatch": PIPE_MICROBATCH}}
+    pair = start_ranks(job)
+    try:
+        one, two = finish_pair(pair)
+    finally:
+        stop_ranks([pair])
+    out = check_pair("pp2 flagship", one, two, phase="pipe path")
+    out["launches"] = check_pipe_launches(two)
+    steps = two[0]["microbatches"]
+    require([s["m"] for s in steps] == [s["m"] for s in two[1]["microbatches"]],
+            "the stages ran other microbatch counts")
+    bubbles = [(PIPE_STAGES - 1) / (s["m"] + PIPE_STAGES - 1) for s in steps]
+    print(f"[pipe path] pp2 batches (B, T', m): {[(s['b'], s['t'], s['m']) for s in steps]}; "
+          f"bubble shares (S - 1) / (m + S - 1) {[round(b, 3) for b in bubbles]}; a rank's "
+          f"launches a step {' / '.join(str(r['launches']) for r in two)} (one rank "
+          f"{one['launches']}); the pipe group a step: calls {two[0]['pipe_calls']}, bytes "
+          f"{two[0]['pipe_bytes']}; warm step wall {two[0]['warm_step']:.3f} s at two ranks "
+          f"vs {one['warm_step']:.3f} s at one")
+    out.update(microbatches=steps, bubbles=bubbles, pipe_calls=two[0]["pipe_calls"],
+               pipe_bytes=two[0]["pipe_bytes"], one_launches=one["launches"])
+    out["remat"] = check_remat(train_feats)
+    out["decode"] = pipe_decode(two[0]["pkg"], vocab, test_json)
+    most = max(steps, key=lambda s: (s["m"], s["b"], s["t"]))
+    out["rows"] = pipe_rows(most, two[0]["launch_totals"], errs)
+    out["wall"] = time.time() - t_phase
+    print(f"[pipe path] the phase {out['wall']:.1f}s")
+    return out
+
+
 def parallel_cards(n: int) -> int:
     """`chip_smoke.py --parallel-cards N`, on a machine with N cards: the
     [parallel path]'s flagship and MoE jobs over NCCL, a card a rank (N
@@ -6978,12 +7284,14 @@ def main() -> int:
         print(f"[time] parallel path done at {time.time() - t_start:.1f}s")
         tp = phase_model(vocab, chars, shapes, errs)
         print(f"[time] model path done at {time.time() - t_start:.1f}s")
+        pp = phase_pipe(vocab, chars, test_json, train_feats, errs)
+        print(f"[time] pipe path done at {time.time() - t_start:.1f}s")
         rows = (fwd_rows(test_feats, errs, launches)
                 + train_rows(shapes, errs, launches, per, tp["tp_flagship_sp"]["ln"])
                 + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
                 + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
                 + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches)
-                + text_rows(text, errs, launches))
+                + text_rows(text, errs, launches) + pp["rows"])
         print(f"[time] kernel rows done at {time.time() - t_start:.1f}s")
         # last: its workers' timed turns share the machine with nothing else
         serve = phase_serving(serve_job(
@@ -7085,6 +7393,17 @@ def main() -> int:
         f"{tp[k]['calls']} model {tp[k]['model_calls']}"
         for k in ("tp_flagship_sp", "tp_flagship", "tp_moe"))
         + f"; the phase {tp['wall']:.1f}s")
+    print(f"[pipe path] pp2 x dp1 (gloo, cuda:0) vs one rank: losses {pp['loss_err']:.3g}, "
+          f"step-1 gradient {pp['grad_err']:.3g} (to the f64 one: one rank {pp['f64_one']:.3g}, "
+          f"two {pp['f64_two']:.3g}), parameters {pp['param_err']:.3g}, warm step wall "
+          f"{pp['warm_two']:.3f} vs {pp['warm_one']:.3f} s; microbatches "
+          f"{[s['m'] for s in pp['microbatches']]}, bubble shares "
+          f"{[round(b, 3) for b in pp['bubbles']]}; a rank's launches a step {pp['launches']}; "
+          f"the pipe group a step {pp['pipe_calls']}, bytes {pp['pipe_bytes']}; remat "
+          f"loss {pp['remat']['loss_err']:.3g}, gradients {pp['remat']['grad_err']:.3g} (a "
+          f"second plain run {pp['remat']['again_err']:.3g}), peak "
+          f"MiB {pp['remat']['peak_mib']['remat']:.1f} vs {pp['remat']['peak_mib']['plain']:.1f}"
+          f"; the phase {pp['wall']:.1f}s")
     print(f"[ctc loss] flagship batch forward + backward: {ctc_cost['ms']['rewrite']:.4f} ms "
           f"with the last-blank rewrite, {ctc_cost['ms']['parent']:.4f} ms without; the short "
           f"rows: card vs CPU {ctc_cost['short']['err']:.3g}, the rewrite's shares "

@@ -26,15 +26,19 @@ one-process run's on the global batches.  `--model-parallel M` (with
 model ranks (rank = d * M + m, as `make_mesh`): tensor parallelism over
 each model group, with sequence parallelism unless
 `training.sequence_parallel: false`, every rank of a model group loading
-its data row's rows (parallel/tensor_parallel.py).  The JAX CLI runs its
-model axis over one process's devices; here a rank is a card, so M > 1
-needs torchrun.  `--pipeline` exits naming its ROADMAP item (15c); the
-text families exit naming `bin/train_phone2char.py` and
-`bin/semi_train_phone2char.py`.
+its data row's rows (parallel/tensor_parallel.py).  `--pipeline S` (with
+`--distributed` and `encoder.pipeline: true`, the stacked layer layout)
+adds the pipe axis, outermost: S stages of world / S ranks (rank = p D M +
+d M + m), each holding L / S of the encoder's layers, GPipe over
+`training.pipeline_microbatch` microbatches (parallel/pipeline.py), every
+rank of a pipe group loading its data row's rows.  The JAX CLI runs its
+model and pipe axes over one process's devices; here a rank is a card, so
+M > 1 or S > 1 needs torchrun.  The text families exit naming
+`bin/train_phone2char.py` and `bin/semi_train_phone2char.py`.
 
   python -m openasr_torch.bin.train egs/aishell1/configs/conv-ctc-transformer.yaml
   python -m torch.distributed.run --nproc-per-node 2 -m openasr_torch.bin.train \
-      <config> --distributed [--model-parallel 2] [--device cpu]
+      <config> --distributed [--model-parallel 2 | --pipeline 2] [--device cpu]
 """
 
 from __future__ import annotations
@@ -131,19 +135,21 @@ def build_loaders(dataconfig, trainingconfig, modelconfig, tokenizer, tokenizer_
 
 
 def check_ported(args, config) -> None:
-    """Exit naming the ROADMAP item for every path this port lacks, and
-    for a model axis without torchrun's ranks."""
-    if args.model_parallel > 1 and not args.distributed:
+    """Exit for a model or pipe axis without torchrun's ranks, a pipe axis
+    without the stacked layout, and the families other CLIs train."""
+    for flag, size in (("--model-parallel", args.model_parallel), ("--pipeline", args.pipeline)):
+        if size > 1 and not args.distributed:
+            raise SystemExit(
+                f"{flag} {size} needs --distributed: the port runs a rank a card, so "
+                "launch with python -m torch.distributed.run --nproc-per-node N -m "
+                f"openasr_torch.bin.train <config> --distributed {flag} {size} (N a "
+                "multiple of it)"
+            )
+    if args.pipeline > 1 and not (config["model"].get("encoder") or {}).get("pipeline", False):
         raise SystemExit(
-            f"--model-parallel {args.model_parallel} needs --distributed: the port runs "
-            "a rank a card, so launch with python -m torch.distributed.run "
-            "--nproc-per-node N -m openasr_torch.bin.train <config> --distributed "
-            f"--model-parallel {args.model_parallel} (N a multiple of it)"
-        )
-    if args.pipeline > 1:
-        raise SystemExit(
-            "--pipeline: pipeline parallelism (GPipe, encoder.pipeline) is ROADMAP "
-            "queue 1 item 15c"
+            "--pipeline requires the stacked layer layout: set "
+            "encoder.pipeline: true in the model config (and convert "
+            "existing checkpoints with tools/stack_encoder_pkg.py)"
         )
     if _norm_type(config["model"]) in TEXT_TYPES:
         raise SystemExit(
@@ -181,7 +187,9 @@ def main(argv=None):
                         help="tensor-parallel degree: ranks a model group (with "
                              "--distributed)")
     parser.add_argument("--pipeline", type=int, default=1,
-                        help="pipeline-parallel stage count (not ported: item 15c)")
+                        help="pipeline-parallel stage count (the pipe axis, with "
+                             "--distributed); requires encoder.pipeline: true "
+                             "(stacked layer layout) in the model config")
     parser.add_argument("--distributed", action="store_true", default=False,
                         help="data-parallel over torchrun's ranks (NCCL on cards, "
                              "gloo with --device cpu)")
@@ -193,11 +201,12 @@ def main(argv=None):
     validate_config(config, required=REQUIRED)
     check_ported(args, config)
     if args.distributed:
-        group = init_distributed(args.device, model=args.model_parallel)
+        group = init_distributed(args.device, model=args.model_parallel, pipe=args.pipeline)
         device = group.device
-        logging.info("Grid: rank %d of %d on %s (%s), data %d of %d, model %d of %d",
-                     group.rank, group.world, device, group.backend, group.data.rank,
-                     group.data.world, group.model.rank, group.model.world)
+        logging.info("Grid: rank %d of %d on %s (%s), data %d of %d, model %d of %d, "
+                     "pipe %d of %d", group.rank, group.world, device, group.backend,
+                     group.data.rank, group.data.world, group.model.rank, group.model.world,
+                     group.pipe.rank, group.pipe.world)
     else:
         device = resolve_device(args.device)
         group = Grid.single(device)

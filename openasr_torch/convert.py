@@ -44,6 +44,14 @@ section's, which configures the stack) and `ctc_fc`; gan_phone2char's
 folded `affine`, as ConvV2's; `score_fc`), G's heads from
 `G.decoder`.
 
+A stacked encoder (`encoder.pipeline`, models/encoder.py:
+PipelinedEncoderStack) keeps its layers in the package as
+`<component>/stack/stacked_layers`, one layer tree whose leaves carry a
+leading [L] (openasr_tpu/parallel/pipeline.py's layout); the port's
+module holds them as `stack.layer{i}`, so the bridge unstacks them into
+per-layer trees on the way in and stacks a `stack` node's `layer{i}`
+children on the way out (`parallel/pipeline.py:stack_layer_params`).
+
 Both directions are exact (pure transposes and reshapes).
 
 The optimizer states bridge the same way (`jax_optim_state_to_port`,
@@ -64,6 +72,7 @@ import numpy as np
 import torch
 
 from openasr_torch.ops.fused_adam import FusedClipAdamState, host_copy
+from openasr_torch.parallel.pipeline import stack_layer_params, unstack_layer_params
 from openasr_torch.ops.optimizers import (
     ApplyIfFiniteState,
     EmptyState,
@@ -118,6 +127,7 @@ def _components_of(model_type: str, configs=None):
 
 
 _BATCH_NORM = re.compile(r"bn\d+")
+STACKED = "stacked_layers"
 _GRU = re.compile(r"gru\d+")
 _GRU_GATES = {"weight_ih": ("ir", "iz", "in"), "weight_hh": ("hr", "hz", "hn"),
               "bias_ih": ("ir", "iz", "in")}
@@ -205,6 +215,11 @@ def _walk_to_torch(tree, path, state: dict) -> None:
     """The flax subtree at `path` into `state` (torch names and layouts)."""
     if isinstance(tree, MaskedNode):  # optax.masked: no state for a frozen leaf
         return
+    if isinstance(tree, dict) and path and path[-1] == STACKED:
+        n = len(np.asarray(next(_leaves(tree))))
+        for name, layer in unstack_layer_params(tree, n).items():
+            _walk_to_torch(layer, path[:-1] + (name,), state)
+        return
     if isinstance(tree, dict) and path and _GRU.fullmatch(path[-1]) and "ir" in tree:
         for leaf, arr in _gru_to_torch(tree).items():
             state[".".join(path + (leaf,))] = torch.tensor(arr)
@@ -215,6 +230,25 @@ def _walk_to_torch(tree, path, state: dict) -> None:
         return
     leaf, arr = _leaf_to_torch(path, np.asarray(tree, dtype=np.float32))
     state[".".join(path[:-1] + (leaf,))] = torch.tensor(arr)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _restack(tree):
+    """Every `stack` node's `layer{i}` children -> its `stacked_layers`."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _restack(v) for k, v in tree.items()}
+    if isinstance(out.get("stack"), dict) and STACKED not in out["stack"]:
+        stacked, _ = stack_layer_params(out["stack"])
+        out["stack"] = {STACKED: stacked}
+    return out
 
 
 def subtree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
@@ -281,7 +315,7 @@ def state_dict_to_jax_components(model_type: str, state_dict, configs) -> dict:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
-    return components
+    return _restack(components)
 
 
 # ------------------------------------------------------- optimizer states

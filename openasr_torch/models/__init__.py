@@ -253,6 +253,41 @@ class Framework:
 
         return full_tables(self.module, self.tp_specs, self.tp.group)
 
+    def set_pipe_group(self, group) -> frozenset:
+        """Train over the pipe axis of `group` (GPipe): every stacked
+        encoder (`encoder.pipeline`) keeps only this rank's stage of its
+        layers.  Returns the names of the stage's parameters (none at a
+        pipe size of 1)."""
+        if group.world == 1:
+            return frozenset()
+        from openasr_torch.models.encoder import PipelinedEncoderStack
+
+        stacks = {n: m for n, m in self.module.named_modules()
+                  if isinstance(m, PipelinedEncoderStack)}
+        if not stacks:
+            raise ValueError(
+                f"a pipe group of {group.world} stages needs the stacked layer layout: set "
+                "encoder.pipeline: true in the model config")
+        for stack in stacks.values():
+            stack.set_stage(group.rank, group.world)
+        self.pipe_group = group
+        return frozenset(f"{n}.{p}" for n, m in stacks.items()
+                         for p, _ in m.named_parameters())
+
+    pipe_group = None  # the pipe axis's DataGroup, when above 1
+
+    def full_stacks(self):
+        """A context within which every stacked encoder holds all its
+        layers (every stage's gathered over the pipe group, after the model
+        group's `full_tables`; a collective)."""
+        import contextlib
+
+        if self.pipe_group is None:
+            return contextlib.nullcontext()
+        from openasr_torch.parallel.pipeline import full_stacks
+
+        return full_stacks(self.module, self.pipe_group)
+
     def set_data_group(self, group) -> frozenset:
         """Train over the data axis of `group`: BatchNorm statistics, the MoE
         auxiliary and CPC's draws over the global batch, and, where the

@@ -18,7 +18,9 @@ memory once for every cross-attention (`copy_to_model`) and its tied
 logits come from this rank's vocabulary rows, gathered whole
 (`gather_vocab`) before the f32 `out_bias`.  The CIF decoder's
 `input_affine` and `output_affine` stay replicated, as in `_tp_entries`.
-The decode steps run on one process (`tp` None).
+The decode steps run on one process (`tp` None).  `decoder.remat`
+recomputes each Transformer decoder layer's activations in the backward
+(`layers.rematerialized`, the JAX package's `nn.remat`).
 """
 
 from __future__ import annotations
@@ -54,10 +56,12 @@ class TransformerDecoder(nn.Module):
         dim_feedforward: int,
         activation: str = "relu",
         dropout_rate: float = 0.1,
+        remat: bool = False,
     ):
         super().__init__()
         self.vocab_size = vocab_size
         self.dropout_rate = dropout_rate
+        self.remat = remat
         self.d_model = d_model
         self.emb = Embedding(vocab_size, d_model)
         self.out_bias = nn.Parameter(torch.zeros(vocab_size))
@@ -97,7 +101,7 @@ class TransformerDecoder(nn.Module):
         if self.tp is not None:
             memory = copy_to_model(memory, self.tp.group)
         x = run_layers(self.layers, x, memory, memory_lengths, tgt_causal=True, rng=rng,
-                       empty_rows=empty_rows)
+                       empty_rows=empty_rows, remat=self.remat)
         return self._output(x)
 
     # ------------------------------------------------------- decode path
@@ -131,6 +135,7 @@ def transformer_decoder_from_config(cfg) -> TransformerDecoder:
         dim_feedforward=int(cfg["dim_feedforward"]),
         activation=cfg.get("activation", "relu"),
         dropout_rate=float(cfg.get("dropout_rate", 0.1)),
+        remat=bool(cfg.get("remat", False)),
     )
 
 

@@ -15,10 +15,21 @@ executor (openasr_torch/streaming.py) computes the same encoder states.
 `encoder.moe: {num_experts, top_k, capacity_factor, every, router}` makes
 layer i a mixture of experts (models/moe.py) where i % every == every - 1;
 `num_experts: 0` runs dense.  MoE refuses streaming and the pipeline with
-the JAX encoder's errors; the pipeline (stacked layers) is a later slice
-of the port.  Under tensor parallelism (`tp`, set by `shard_module`) the
-layers and the final LayerNorm run on this rank's T-shard where the
-sequence-parallel rule allows (`run_layers`), and the output is whole.
+the JAX encoder's errors.  Under tensor parallelism (`tp`, set by
+`shard_module`) the layers and the final LayerNorm run on this rank's
+T-shard where the sequence-parallel rule allows (`run_layers`), and the
+output is whole.  `encoder.remat` recomputes each layer's activations in
+the backward (`layers.rematerialized`, the JAX package's `nn.remat`).
+
+`encoder.pipeline: true` holds the layers in `PipelinedEncoderStack`
+(`stack`), the JAX package's stacked layout: a package keeps them as
+`encoder/stack/stacked_layers`, one layer tree with a leading [L] on every
+leaf (convert.py), and the module as `stack.layer{i}`.  Under a pipeline
+context (parallel/pipeline.py, a solver on a grid with a pipe axis) the
+stack holds only its stage's layers (`set_stage`) and runs them through
+`gpipe_apply`; without one (decode, the CPU, one card) it runs the same
+layers one by one, as the per-layer encoder does, so a package trained
+pipelined decodes anywhere.
 
 `GRUEncoder` is the JAX package's: a unidirectional multi-layer GRU over
 the full padded sequence (no packing), dropout between layers.  Each layer
@@ -48,6 +59,12 @@ from openasr_torch.models.layers import (
     positional_encoding,
     run_layers,
 )
+from openasr_torch.parallel.pipeline import (
+    gpipe_apply,
+    microbatch_count,
+    pipeline_context,
+    stage_layers,
+)
 from openasr_torch.models.subsample import (
     Conv1dSubsample,
     Conv2dSubsample,
@@ -56,6 +73,64 @@ from openasr_torch.models.subsample import (
 from openasr_torch.ops.masks import ChunkMask
 
 SUB_TYPES = ("ConvV1", "ConvV2", "Stack", None)
+
+
+class PipelinedEncoderStack(nn.Module):
+    """The stacked-layout layer stack (`encoder.pipeline`): `layer{i}` for
+    the global indices i it holds, all L of them, or after `set_stage`
+    its stage's [p L / S, (p + 1) L / S).  Under a pipeline context the
+    forward is `gpipe_apply` over the context's pipe group with the JAX
+    stack's microbatch count (`microbatch_count`: the largest m <= the
+    requested one that divides the batch); without one the layers run in
+    order (`run_layers`), which a stage's part of the stack cannot do."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, num_layers: int,
+                 activation: str = "relu", dropout_rate: float = 0.1, remat: bool = False):
+        super().__init__()
+        self.num_layers, self.dropout_rate, self.remat = num_layers, dropout_rate, remat
+        self.layer_args = (d_model, nhead, dim_feedforward, activation, dropout_rate)
+        self.held = range(num_layers)
+        for i in self.held:
+            self.add_module(f"layer{i}", self.new_layer())
+
+    def new_layer(self) -> TransformerEncoderLayer:
+        return TransformerEncoderLayer(*self.layer_args)
+
+    @property
+    def layers(self) -> list:
+        return [getattr(self, f"layer{i}") for i in self.held]
+
+    def set_stage(self, rank: int, size: int) -> None:
+        """Keep only stage `rank` of `size`'s layers."""
+        keep = stage_layers(self.num_layers, rank, size)
+        for i in self.held:
+            if i not in keep:
+                delattr(self, f"layer{i}")
+        self.held = keep
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, rng: Optional[TrainRNG],
+                empty_rows: bool, final_norm: LayerNorm) -> torch.Tensor:
+        ctx = pipeline_context()
+        if ctx is None:
+            if len(self.held) != self.num_layers:
+                raise RuntimeError(
+                    f"this stack holds layers [{self.held.start}, {self.held.stop}) of "
+                    f"{self.num_layers}: run it under its pipeline context")
+            return run_layers(self.layers, x, kv_lengths=lengths, rng=rng,
+                              empty_rows=empty_rows, final_norm=final_norm, remat=self.remat)
+        group, requested = ctx
+        if len(self.held) * group.world != self.num_layers:
+            raise RuntimeError(f"a pipe group of {group.world} stages, but this stack holds "
+                               f"{len(self.held)} of {self.num_layers} layers")
+        m = microbatch_count(x.shape[0], requested)
+
+        def layer_apply(layer, h, aux, layer_rng):
+            return layer(h, kv_lengths=aux["lengths"], rng=layer_rng, empty_rows=empty_rows)
+
+        x = gpipe_apply(layer_apply, self.layers, x, {"lengths": lengths}, group, m,
+                        remat=self.remat, rng=rng if self.dropout_rate > 0 else None,
+                        first=self.held.start)
+        return final_norm(x)
 
 
 class TransformerEncoder(nn.Module):
@@ -80,9 +155,12 @@ class TransformerEncoder(nn.Module):
         moe_capacity: float = 1.25,
         moe_every: int = 2,
         moe_router: str = "topk",
+        remat: bool = False,
+        pipeline: bool = False,
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.remat = remat
         # the chunk-attention mask in encoder frames (chunk 0: none)
         self.chunk_mask = (ChunkMask(streaming_chunk, streaming_left, streaming_phase)
                            if streaming_chunk > 0 else None)
@@ -100,7 +178,11 @@ class TransformerEncoder(nn.Module):
         # a float that follows the module's dtype (LayerNorm weights stay
         # f32), whatever the input layer
         self.register_buffer("dtype_probe", torch.zeros(()), persistent=False)
-        for i in range(num_layers):
+        self.stack = None
+        if pipeline:
+            self.stack = PipelinedEncoderStack(d_model, nhead, dim_feedforward, num_layers,
+                                               activation, dropout_rate, remat)
+        for i in range(0 if pipeline else num_layers):
             moe_here = moe_experts > 0 and i % moe_every == moe_every - 1
             self.add_module(
                 f"layer{i}",
@@ -108,8 +190,13 @@ class TransformerEncoder(nn.Module):
                                         dropout_rate, moe_experts if moe_here else 0,
                                         moe_top_k, moe_capacity, moe_router),
             )
-        self.layers = [getattr(self, f"layer{i}") for i in range(num_layers)]
+        self._layers = [getattr(self, f"layer{i}") for i in range(0 if pipeline else num_layers)]
         self.final_norm = LayerNorm(d_model)
+
+    @property
+    def layers(self) -> list:
+        """The layers this module holds, in order (a stage's, under a pipe)."""
+        return self._layers if self.stack is None else self.stack.layers
 
     def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor,
                 rng: Optional[TrainRNG] = None, empty_rows: Optional[bool] = None):
@@ -123,8 +210,11 @@ class TransformerEncoder(nn.Module):
             x = self.affine(x)
         x = dropout(positional_encoding(x), self.dropout_rate, rng)
         empty_rows = any_empty(lengths, empty_rows)
+        if self.stack is not None:
+            return self.stack(x, lengths, rng, empty_rows, self.final_norm), lengths
         x = run_layers(self.layers, x, kv_lengths=lengths, rng=rng, empty_rows=empty_rows,
-                       chunk_mask=self.chunk_mask, final_norm=self.final_norm)
+                       chunk_mask=self.chunk_mask, final_norm=self.final_norm,
+                       remat=self.remat)
         return x, lengths
 
     def output_lengths(self, lengths):
@@ -156,7 +246,7 @@ class TransformerEncoder(nn.Module):
                 )
         moe_experts = int(moe.get("num_experts", 0))
         # the JAX encoder's own errors where MoE meets the pipeline or
-        # streaming, before the refusal of what the port lacks
+        # streaming
         if moe_experts > 0 and cfg.get("pipeline"):
             raise NotImplementedError(
                 "encoder.moe does not compose with encoder.pipeline: the "
@@ -173,11 +263,6 @@ class TransformerEncoder(nn.Module):
                 "encoder.streaming does not compose with "
                 "encoder.pipeline: the GPipe stack threads only "
                 "kv_lengths through its stages"
-            )
-        if cfg.get("pipeline"):
-            raise NotImplementedError(
-                "encoder.pipeline is not ported yet: ROADMAP queue 1 item 15c "
-                "(the pipe axis, GPipe)"
             )
         sub = cfg.get("sub") or {}
         return TransformerEncoder(
@@ -200,6 +285,8 @@ class TransformerEncoder(nn.Module):
             moe_capacity=float(moe.get("capacity_factor", 1.25)),
             moe_every=int(moe.get("every", 2)),
             moe_router=str(moe.get("router", "topk")),
+            remat=bool(cfg.get("remat", False)),
+            pipeline=bool(cfg.get("pipeline", False)),
         )
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from openasr_torch.kernels.flash_attention import (
     attention_dropout_mask,
@@ -104,21 +105,66 @@ class TrainRNG:
         return partition_seed(draw_dropout_seed(self.host),
                               shard_id(self.rank, self.model_rank, self.model_world))
 
+    def fork(self) -> "TrainRNG":
+        """A new pair of generators at this one's shard coordinates (to be
+        reseeded)."""
+        return TrainRNG(0, self.device.device, self.rank, self.world, self.model_rank,
+                        self.model_world)
 
-def run_layers(layers, x: torch.Tensor, *args, final_norm=None, **kwargs) -> torch.Tensor:
+
+def rematerialized(fn, rng: Optional[TrainRNG], /, *args, **kwargs):
+    """fn(*args, **kwargs) under `torch.utils.checkpoint`: its activations
+    are recomputed in the backward.  `preserve_rng_state` restores only
+    torch's default generators, so the recompute replays `rng`'s (the
+    host's and the device's states at the call), and the forward's masks
+    and attention seeds come back; the generators are left as the forward
+    left them."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    if rng is None:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+    at_call = (rng.host.get_state(), rng.device.get_state())
+    runs = []
+
+    def replay(*a, **k):
+        if not runs:
+            runs.append(1)
+            return fn(*a, **k)
+        now = (rng.host.get_state(), rng.device.get_state())
+        rng.host.set_state(at_call[0])
+        rng.device.set_state(at_call[1])
+        try:
+            return fn(*a, **k)
+        finally:
+            rng.host.set_state(now[0])
+            rng.device.set_state(now[1])
+
+    return checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
+def run_layers(layers, x: torch.Tensor, *args, final_norm=None, remat: bool = False,
+               **kwargs) -> torch.Tensor:
     """x through a stack of encoder or decoder layers (then `final_norm`),
-    each called as layer(x, *args, **kwargs).  Under tensor parallelism
-    (the layers' `tp`) the stack holds this rank's T-shard of x where
-    `time_shards` allows, and returns the whole output."""
+    each called as layer(x, *args, **kwargs), with `remat` each under
+    `rematerialized` (the JAX package's per-layer `nn.remat`).  Under
+    tensor parallelism (the layers' `tp`) the stack holds this rank's
+    T-shard of x where `time_shards` allows, and returns the whole
+    output."""
     tp = layers[0].tp if layers else None
+
+    def call(layer, x, **extra):
+        if remat:
+            return rematerialized(layer, kwargs.get("rng"), x, *args, **kwargs, **extra)
+        return layer(x, *args, **kwargs, **extra)
+
     if tp is None:
         for layer in layers:
-            x = layer(x, *args, **kwargs)
+            x = call(layer, x)
         return x if final_norm is None else final_norm(x)
     sharded = time_shards(x, tp)
     x = to_shards(x, tp, sharded)
     for layer in layers:
-        x = layer(x, *args, sharded=sharded, **kwargs)
+        x = call(layer, x, sharded=sharded)
     if final_norm is not None:
         x = final_norm(x, sharded)
     return to_whole(x, tp, sharded)

@@ -35,15 +35,25 @@ more kinds sit beside those three:
                  solver sums them over the model group once a step
                  (`PartialGrads.reduce_into`) before the data reduction.
 
+On a grid with a pipe axis (GPipe, parallel/pipeline.py) one more:
+
+  pipe-sharded  a layer of this rank's stage of a stacked encoder: only
+                this stage holds it; its gradient is reduced over the data
+                group of this rank's (p, m) like any other leaf, and its
+                moments belong to this stage.
+
 The global norm of the clip counts each shard and expert table once over
-the ranks and each replicated leaf once.  The package keeps full moments
-(`full_state` gathers the shards over both axes; `shard_state` cuts them
-back), so a package continues at any grid and in the JAX package.
+the ranks, each stage's layers once over the pipe group and each
+replicated leaf once.  The package keeps full moments (`full_state`
+gathers the shards over the data and model axes and the stages' moments
+over the pipe axis; `shard_state` cuts them back), so a package continues
+at any grid and in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import re
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -62,8 +72,9 @@ def _flat(tensors: List[torch.Tensor]) -> torch.Tensor:
 class DataParallel:
     def __init__(self, grid: Grid, named_params: Dict[str, torch.nn.Parameter],
                  zero1: bool = True, expert: frozenset = frozenset(),
-                 tp_specs: Optional[Dict[str, Spec]] = None):
-        self.group, self.model = grid.data, grid.model
+                 tp_specs: Optional[Dict[str, Spec]] = None,
+                 stage: frozenset = frozenset()):
+        self.group, self.model, self.pipe = grid.data, grid.model, grid.pipe
         self.tp_specs = dict(tp_specs or {})
         self.names = list(named_params)
         self.params = [named_params[n] for n in self.names]
@@ -81,6 +92,8 @@ class DataParallel:
                      for n, d in zip(self.names, self.dims)]
         self.sharded = [k != "replicated" for k in self.kind]
         self.msharded = [n in self.tp_specs for n in self.names]
+        self.psharded = [n in stage for n in self.names]
+        self.stage_names = [n for n in self.names if n in stage]
 
     def _shard(self, t: torch.Tensor, i: int) -> torch.Tensor:
         d = self.dims[i]
@@ -137,7 +150,8 @@ class DataParallel:
         the shards' and expert tables' squares summed over ranks, the
         replicated leaves' once."""
         norms = torch.stack(torch._foreach_norm(tensors))
-        if self.model.world > 1 and any(self.msharded):
+        if ((self.model.world > 1 and any(self.msharded))
+                or (self.pipe.world > 1 and any(self.psharded))):
             return self._grid_norm(norms)
         if self.group.world == 1 or not any(self.sharded):
             return torch.linalg.vector_norm(norms)
@@ -148,20 +162,26 @@ class DataParallel:
         return torch.sqrt(shared[0] + parts[1])
 
     def _grid_norm(self, norms: torch.Tensor) -> torch.Tensor:
-        """The global norm on a (data, model) grid: the squares of leaves
-        sharded over data summed over the data group, those sharded over
-        model over the model group, those sharded over both over both,
-        and the replicated ones once."""
+        """The global norm on a (pipe, data, model) grid: the squares of
+        leaves sharded over data summed over the data group, those sharded
+        over model over the model group, those sharded over both over both,
+        those of this stage's layers then over the pipe group, and the
+        replicated ones once."""
         d = torch.tensor(self.sharded, device=norms.device)
         m = torch.tensor(self.msharded, device=norms.device)
+        p = torch.tensor(self.psharded, device=norms.device)
         sq = norms * norms
 
         def part(mask):
             return torch.where(mask, sq, 0.0).sum()
 
-        over_data = self.group.all_reduce(torch.stack([part(d & ~m), part(d & m)]))
-        over_model = self.model.all_reduce((part(~d & m) + over_data[1]).reshape(1))
-        return torch.sqrt(part(~d & ~m) + over_data[0] + over_model[0])
+        over_data = self.group.all_reduce(torch.stack(
+            [part(d & ~m & ~p), part(d & m & ~p), part(d & ~m & p), part(d & m & p)]))
+        over_model = self.model.all_reduce(torch.stack(
+            [part(~d & m & ~p) + over_data[1], part(~d & m & p) + over_data[3]]))
+        over_pipe = self.pipe.all_reduce(
+            (part(~d & ~m & p) + over_data[2] + over_model[1]).reshape(1))
+        return torch.sqrt(part(~d & ~m & ~p) + over_data[0] + over_model[0] + over_pipe[0])
 
     @torch.no_grad()
     def gather_params(self) -> None:
@@ -188,14 +208,40 @@ class DataParallel:
         full leaf, in the one-process layout.  A collective: every rank
         calls it."""
         state = self._full_over_data(state)
-        if self.model.world == 1 or not self.tp_specs:
+        if self.model.world > 1 and self.tp_specs:
+            state = dict(state)
+            for key, moments in list(state.items()):
+                if not (isinstance(moments, dict) and set(moments) == set(self.names)):
+                    continue
+                state[key] = {n: (full_array(np.asarray(v, np.float32), self.tp_specs[n],
+                                             self.model)
+                                  if n in self.tp_specs else v) for n, v in moments.items()}
+        return self._full_over_pipe(state)
+
+    def _full_over_pipe(self, state: dict) -> dict:
+        """Every stage's moments of its layers, all-gathered over the pipe
+        group and named by their global layer index."""
+        group = self.pipe
+        if group.world == 1 or not self.stage_names:
             return state
         state = dict(state)
+        per = len({_STAGE_LAYER.search(n).group(2) for n in self.stage_names})
         for key, moments in list(state.items()):
             if not (isinstance(moments, dict) and set(moments) == set(self.names)):
                 continue
-            state[key] = {n: (full_array(np.asarray(v, np.float32), self.tp_specs[n], self.model)
-                              if n in self.tp_specs else v) for n, v in moments.items()}
+            local = [np.asarray(moments[n], np.float32) for n in self.stage_names]
+            flat = torch.from_numpy(np.concatenate([v.reshape(-1) for v in local])).to(
+                group.comm_device)
+            full = torch.empty(group.world * flat.numel(), dtype=flat.dtype, device=flat.device)
+            full = group.all_gather(full, flat).view(group.world, -1).cpu().numpy()
+            moments = dict(moments)
+            for r in range(group.world):
+                off = 0
+                for n, v in zip(self.stage_names, local):
+                    moments[_shift_layer(n, (r - group.rank) * per)] = (
+                        full[r, off:off + v.size].reshape(v.shape))
+                    off += v.size
+            state[key] = moments
         return state
 
     def _full_over_data(self, state: dict) -> dict:
@@ -224,7 +270,12 @@ class DataParallel:
         return state
 
     def shard_state(self, state: dict) -> dict:
-        """A full optimizer `state_dict` cut to this rank's shards."""
+        """A full optimizer `state_dict` cut to this rank's shards (and to
+        its stage's layers)."""
+        if self.pipe.world > 1:
+            state = {k: ({n: m[n] for n in self.names}
+                         if isinstance(m, dict) and set(self.names) <= set(m) else m)
+                     for k, m in state.items()}
         if self.model.world > 1 and self.tp_specs:
             state = dict(state)
             m = self.model
@@ -245,6 +296,15 @@ class DataParallel:
                     moments[n] = self._shard(torch.from_numpy(np.asarray(moments[n])), i).numpy()
             state[key] = moments
         return state
+
+
+_STAGE_LAYER = re.compile(r"(^|\.)stack\.layer(\d+)\.")
+
+
+def _shift_layer(name: str, shift: int) -> str:
+    """A stacked encoder's parameter `name` of layer i -> of layer i + shift."""
+    return _STAGE_LAYER.sub(lambda m: f"{m.group(1)}stack.layer{int(m.group(2)) + shift}.",
+                            name, count=1)
 
 
 @contextlib.contextmanager

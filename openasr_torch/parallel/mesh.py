@@ -1,30 +1,35 @@
-"""The grid of ranks: a (data, model) layout of processes, one card a rank.
+"""The grid of ranks: a (pipe, data, model) layout of processes, one card a
+rank.
 
-Counterpart of openasr_tpu/parallel/mesh.py's (data, model) mesh.  The JAX
-package shards the global batch over its mesh's `data` axis and the
-layers over its `model` axis and lets XLA insert the collectives; here
-each rank is a process and a `Grid` carries its collectives, so that N
-ranks compute what one process computes on the global batch:
+Counterpart of openasr_tpu/parallel/mesh.py's (pipe, data, model) mesh.  The
+JAX package shards the global batch over its mesh's `data` axis, the layers
+over its `model` axis and the stacked encoder layers over its `pipe` axis
+and lets XLA insert the collectives; here each rank is a process and a
+`Grid` carries its collectives, so that N ranks compute what one process
+computes on the global batch:
 
-- `Grid`: rank = d * model + m (`make_mesh`'s layout: each model group is
-  `model` consecutive ranks).  `grid.data` is a `DataGroup` over the ranks
-  that share this rank's model index m (the gradients, loss normalizers,
-  BatchNorm statistics and every other collective of the data axis),
-  `grid.model` one over the ranks that share its data index d (tensor and
-  sequence parallelism, parallel/tensor_parallel.py), `grid.everyone` the
-  world (the preemption agreement).  A model size of 1 makes `data` the
-  world and `model` a group of one; a world of 1 is the same code with no
-  collective.
+- `Grid`: rank = p * data * model + d * model + m (`make_mesh`'s layout,
+  the pipe axis outermost: each model group is `model` consecutive ranks,
+  each pipe stage data * model consecutive ones).  `grid.data` is a
+  `DataGroup` over the ranks that share this rank's (p, m) (the gradients,
+  loss normalizers, BatchNorm statistics and every other collective of the
+  data axis), `grid.model` one over the ranks that share its (p, d) (tensor
+  and sequence parallelism, parallel/tensor_parallel.py), `grid.pipe` one
+  over the ranks that share its (d, m) (the GPipe stages,
+  parallel/pipeline.py), `grid.everyone` the world (the preemption
+  agreement).  Sizes of 1 make `data` the world and the other groups
+  groups of one; a world of 1 is the same code with no collective.
 - `init_distributed` reads torchrun's environment (`RANK`, `WORLD_SIZE`,
   `LOCAL_RANK`, `LOCAL_WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`), as
   `jax.distributed.initialize()` reads its coordinator: NCCL on cards
   (`cuda:LOCAL_RANK`, one card a rank), gloo on the CPU.  `new_group`
   takes the coordinates explicitly (gloo also runs several ranks on one
   card).
-- `validate_layout` keeps the JAX package's checks of a (data, model)
-  process layout, with its messages; a JAX host is a process with many
-  devices, here a rank is one card, so a "host" is a torchrun node
-  (`LOCAL_WORLD_SIZE` ranks): a model group may not span nodes.
+- `validate_layout` keeps the JAX package's checks of a process layout,
+  with its messages; a JAX host is a process with many devices, here a
+  rank is one card, so a "host" is a torchrun node (`LOCAL_WORLD_SIZE`
+  ranks): a model group may not span nodes, and a layout with a pipe axis
+  lives on one node (JAX pipe meshes are single-host).
 - `all_gather_host` gathers a small host array from every rank;
   `reconcile_batch` pads every rank's batch to the cross-rank maximum of
   each non-batch dimension (one all_reduce(MAX)), so that the padded
@@ -132,13 +137,22 @@ class DataGroup:
 
 
 def validate_layout(procs: np.ndarray) -> None:
-    """Reject (data, model) process layouts that the batch plan cannot
-    serve, with the JAX package's messages (`_validate_multihost_layout`):
-    a model-parallel group (one mesh row) may not span processes, the data
-    axis must divide evenly by the process count, and each process's rows
-    must be contiguous.  procs: [data, model] process index of each
-    device; in the port a torchrun node's (`node_layout`), as a rank is
-    one card."""
+    """Reject process layouts that the batch plan cannot serve, with the
+    JAX package's messages: a (pipe, data, model) layout with a pipe axis
+    above 1 may not span processes (`make_mesh`), and of a (data, model)
+    one (`_validate_multihost_layout`) a model-parallel group (one mesh
+    row) may not span processes, the data axis must divide evenly by the
+    process count, and each process's rows must be contiguous.  procs: the
+    [data, model] or [pipe, data, model] process index of each device; in
+    the port a torchrun node's (`node_layout`), as a rank is one card."""
+    if procs.ndim == 3:
+        if procs.shape[0] > 1 and len(set(procs.flat)) > 1:
+            raise ValueError(
+                "pipeline-parallel meshes are single-host for now: the "
+                "GPipe executor's ppermute ring has no multi-host batch "
+                f"plan; got process layout {procs.tolist()}"
+            )
+        procs = procs[0]
     nproc = len(set(procs.flat))
     if nproc <= 1:
         return
@@ -165,20 +179,23 @@ def validate_layout(procs: np.ndarray) -> None:
 
 
 class Grid:
-    """The (data, model) grid of ranks: this rank's `data` group (the ranks
-    of its model index), its `model` group (the ranks of its data index)
-    and `everyone`.  `rank`, `world`, `device` and `backend` are the
-    process's own."""
+    """The (pipe, data, model) grid of ranks: this rank's `data` group (the
+    ranks of its (p, m)), its `model` group (the ranks of its (p, d)), its
+    `pipe` group (the ranks of its (d, m)) and `everyone`.  `rank`,
+    `world`, `device` and `backend` are the process's own."""
 
-    def __init__(self, data: DataGroup, model: DataGroup, everyone: DataGroup):
+    def __init__(self, data: DataGroup, model: DataGroup, everyone: DataGroup,
+                 pipe: Optional[DataGroup] = None):
         self.data, self.model, self.everyone = data, model, everyone
+        self.pipe = pipe if pipe is not None else DataGroup(0, 1, everyone.device,
+                                                            backend=everyone.backend)
         self.rank, self.world = everyone.rank, everyone.world
         self.device, self.backend = everyone.device, everyone.backend
 
     def groups(self) -> Dict[str, DataGroup]:
         """The distinct groups by axis name (`everyone` only where it is
         not the data group)."""
-        out = {"data": self.data, "model": self.model}
+        out = {"data": self.data, "model": self.model, "pipe": self.pipe}
         if self.everyone is not self.data:
             out["everyone"] = self.everyone
         return out
@@ -193,52 +210,71 @@ class Grid:
         return cls(one, DataGroup.single(device), one)
 
 
-def node_layout(world: int, model: int, local_world: Optional[int] = None) -> np.ndarray:
-    """[data, model] node index of each rank (rank = d * model + m; node =
+def node_layout(world: int, model: int, local_world: Optional[int] = None,
+                pipe: int = 1) -> np.ndarray:
+    """The node index of each rank (rank = p * D * M + d * M + m; node =
     rank // local_world, torchrun's LOCAL_WORLD_SIZE ranks a node, all of
-    them on one node by default): the process layout that
-    `validate_layout` checks, a node standing for a JAX host."""
-    if model < 1 or world % model:
-        raise ValueError(f"world size {world} not divisible by --model-parallel {model}")
+    them on one node by default), [data, model], or [pipe, data, model]
+    with a pipe axis above 1: the process layout that `validate_layout`
+    checks, a node standing for a JAX host."""
+    if model < 1 or pipe < 1 or world % (model * pipe):
+        axes = (f"--model-parallel {model}" if pipe == 1
+                else f"--model-parallel {model} x --pipeline {pipe}")
+        raise ValueError(f"world size {world} not divisible by {axes}")
     local_world = world if local_world is None else int(local_world)
-    return (np.arange(world) // local_world).reshape(world // model, model)
+    nodes = np.arange(world) // local_world
+    if pipe > 1:
+        return nodes.reshape(pipe, world // (model * pipe), model)
+    return nodes.reshape(world // model, model)
 
 
 def new_group(rank: int, world: int, init_method: str, backend: str,
-              device, model: int = 1, local_world: Optional[int] = None) -> Grid:
+              device, model: int = 1, local_world: Optional[int] = None,
+              pipe: int = 1) -> Grid:
     """Join the process group at `init_method` (tcp://host:port) as `rank`
-    of `world` over `backend`, the rank on `device`, on a grid of
-    world / model data rows of `model` ranks.  Every rank creates every
-    sub-group, in the same order (torch's `new_group` rule): the data
-    groups {m, m + M, ...} for m < M, then the model groups {d M, ...,
-    d M + M - 1} for each d."""
+    of `world` over `backend`, the rank on `device`, on a grid of `pipe`
+    stages of world / (model * pipe) data rows of `model` ranks.  Every
+    rank creates every sub-group, in the same order (torch's `new_group`
+    rule): the data groups of each (p, m), then the model groups of each
+    (p, d), then the pipe groups of each (d, m)."""
     device = torch.device(device)
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError("the NCCL backend needs a card: pass a cuda device")
         torch.cuda.set_device(device)
-    validate_layout(node_layout(world, model, local_world))
+    validate_layout(node_layout(world, model, local_world, pipe))
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
     everyone = DataGroup(rank, world, device, group=dist.group.WORLD, backend=backend)
-    if model == 1:
+    if model == 1 and pipe == 1:
         return Grid(everyone, DataGroup(0, 1, device, backend=backend), everyone)
-    rows = world // model
-    d, m = divmod(rank, model)
+    rows = world // (model * pipe)
+    p, rest = divmod(rank, rows * model)
+    d, m = divmod(rest, model)
 
     def sub(ranks):
         ranks = list(ranks)
         return dist.new_group(ranks, backend=backend) if len(ranks) > 1 else None
 
-    data = [sub(range(j, world, model)) for j in range(model)][m]
-    mod = [sub(range(i * model, (i + 1) * model)) for i in range(rows)][d]
+    def at(pp, dd, mm):
+        return pp * rows * model + dd * model + mm
+
+    data = {(pp, mm): sub(at(pp, dd, mm) for dd in range(rows))
+            for pp in range(pipe) for mm in range(model)}[p, m]
+    mod = {(pp, dd): sub(at(pp, dd, mm) for mm in range(model))
+           for pp in range(pipe) for dd in range(rows)}[p, d]
+    stage = {(dd, mm): sub(at(pp, dd, mm) for pp in range(pipe))
+             for dd in range(rows) for mm in range(model)}[d, m]
     return Grid(DataGroup(d, rows, device, group=data, backend=backend),
-                DataGroup(m, model, device, group=mod, backend=backend), everyone)
+                DataGroup(m, model, device, group=mod, backend=backend), everyone,
+                DataGroup(p, pipe, device, group=stage, backend=backend))
 
 
-def init_distributed(device_type: str = "cuda", env=None, model: int = 1) -> Grid:
+def init_distributed(device_type: str = "cuda", env=None, model: int = 1,
+                     pipe: int = 1) -> Grid:
     """The rank's grid from torchrun's environment, `model` ranks a model
-    group: `cuda:LOCAL_RANK` over NCCL, or the CPU over gloo with
-    `device_type` "cpu".  Raises naming the variables that are missing."""
+    group and `pipe` pipeline stages: `cuda:LOCAL_RANK` over NCCL, or the
+    CPU over gloo with `device_type` "cpu".  Raises naming the variables
+    that are missing."""
     env = os.environ if env is None else env
     missing = [k for k in ENV if k not in env]
     if missing:
@@ -251,7 +287,7 @@ def init_distributed(device_type: str = "cuda", env=None, model: int = 1) -> Gri
     local_world = int(env.get("LOCAL_WORLD_SIZE", world))
     init = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
     if device_type == "cpu":
-        return new_group(rank, world, init, "gloo", "cpu", model, local_world)
+        return new_group(rank, world, init, "gloo", "cpu", model, local_world, pipe)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False; pass "
@@ -263,7 +299,7 @@ def init_distributed(device_type: str = "cuda", env=None, model: int = 1) -> Gri
             f"LOCAL_RANK {local} but this host has {cards} card(s): NCCL runs one "
             "rank a card (--nproc-per-node at most the card count)"
         )
-    return new_group(rank, world, init, "nccl", f"cuda:{local}", model, local_world)
+    return new_group(rank, world, init, "nccl", f"cuda:{local}", model, local_world, pipe)
 
 
 def destroy(group) -> None:

@@ -80,8 +80,20 @@ on) putting the residual stream on T-shards where T divides by M.  Every
 rank of a model group loads the same rows and backpropagates the whole
 loss (not divided by M); before the data reduction the partial gradients
 of the T-sharded sites are summed over the model group, and the package
-gathers the shards over both axes.  The pipeline is ROADMAP queue 1
-item 15c.
+gathers the shards over both axes.
+
+Pipeline parallelism (`group` a `Grid` with a pipe group of S > 1 stages,
+as the JAX solvers take a (pipe, data, model) `mesh=`): a model with a
+stacked encoder (`encoder.pipeline`) keeps only this rank's stage of its
+layers (`Framework.set_pipe_group`) and every forward runs under the
+pipeline context (`pipeline_scope`: the pipe group and
+`training.pipeline_microbatch`, 4 S by default), through `gpipe_apply`
+(parallel/pipeline.py).  The ranks of a pipe group load the same rows
+(the loader's rank is the data index), compute the same loss, and each
+updates its stage's layers and the replicated rest; the gradients and
+ZeRO-1 run over the data group of this rank's (p, m), the clip's norm
+sums the stages' layers over the pipe group, and the package gathers
+every stage's layers and moments into the whole stack.
 """
 
 from __future__ import annotations
@@ -104,6 +116,7 @@ from openasr_torch.ops.optimizers import StockOptimizer
 from openasr_torch.ops.schedules import BobSchedule, get_schedule
 from openasr_torch.parallel.data_parallel import DataParallel, full_expert_tables
 from openasr_torch.parallel.mesh import Grid, reconcile_batch
+from openasr_torch.parallel.pipeline import pipeline_scope
 from openasr_torch.utils.checkpoint import AsyncCheckpointer, cleanup_ckpt
 
 logger = logging.getLogger(__name__)
@@ -170,6 +183,10 @@ class Solver:
                 "tables will be REPLICATED on every chip (no expert parallelism). "
                 "Use a multiple of the data-axis size for sharded experts.",
                 int(moe["num_experts"]), self.group.world)
+        stage = model.set_pipe_group(self.grid.pipe)
+        pipe = self.grid.pipe.world
+        self._pipe_ctx = ((self.grid.pipe, int(config.get("pipeline_microbatch", 4 * pipe)))
+                          if pipe > 1 else None)
         self.tp_specs = model.set_model_group(self.grid.model,
                                               bool(config.get("sequence_parallel", True)))
         experts = model.set_data_group(self.group)
@@ -181,7 +198,8 @@ class Solver:
             else:
                 self.params[name] = p
         self.zero1 = bool(config.get("zero1", True))
-        self.dp = DataParallel(self.grid, self.params, self.zero1, experts, self.tp_specs)
+        self.dp = DataParallel(self.grid, self.params, self.zero1, experts, self.tp_specs,
+                               stage)
         self.optimizer = self._make_optimizer(config)
         os.makedirs(self.exp_dir, exist_ok=True)
         self._ckpt = AsyncCheckpointer()
@@ -249,7 +267,8 @@ class Solver:
 
     def model_losses(self, batch: dict, rng, empty_rows: bool) -> dict:
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16):
+                            enabled=self.compute_dtype == torch.bfloat16), \
+                pipeline_scope(self._pipe_ctx):
             return self.model.loss(batch, rng, label_smooth=self.label_smooth,
                                    empty_rows=empty_rows)
 
@@ -547,9 +566,10 @@ class Solver:
     def package(self) -> dict:
         """The model in the JAX package layout, the solver state, and the
         optimizer state in the port's layout (moments keyed by parameter
-        name).  On a grid, expert tables, model shards and sharded moments
-        are gathered whole: every rank calls it."""
-        with full_expert_tables(self.model.module), self.model.full_tables():
+        name).  On a grid, expert tables, model shards, the stages' layers
+        and sharded moments are gathered whole: every rank calls it."""
+        with full_expert_tables(self.model.module), self.model.full_tables(), \
+                self.model.full_stacks():
             model = self.model.package()
         pkg = {
             "model": model,
@@ -620,7 +640,8 @@ class CTCSolver(Solver):
         """Log the greedy ids of the batch's first utterance."""
         inputs, lengths = self.model.batch_inputs(arrays)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16):
+                            enabled=self.compute_dtype == torch.bfloat16), \
+                pipeline_scope(self._pipe_ctx):
             ids, lens = self.model.greedy_decode(inputs, lengths, empty_rows)
         if self.is_rank0:
             logger.info("dev sample greedy ids: %s", ids[0, : int(lens[0])].tolist())

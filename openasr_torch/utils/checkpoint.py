@@ -1,7 +1,8 @@
 """Checkpoint packages: pickled nested dicts of NumPy arrays + configs.
 
 Counterpart of openasr_tpu/utils/checkpoint.py (save / load, the
-asynchronous writer, the `ep-NNNN.pkg` listing, retention and averaging);
+asynchronous writer, the `ep-NNNN.pkg` listing, retention, averaging and
+`average_last_ckpts`);
 the file format is the same, so packages move between the two packages in
 both directions (the weight and optimizer-state layouts are translated by
 openasr_torch/convert.py).
@@ -240,3 +241,15 @@ def average_packages(paths: List[str]) -> dict:
     if "model" in pkgs[0]:
         return dict(pkgs[0], model=model)
     return model
+
+
+def average_last_ckpts(exp_dir: str, num: int, out_path: str) -> str:
+    """Average the newest `num` epoch checkpoints of `exp_dir` into
+    `out_path` (`average_packages`)."""
+    if num < 1:
+        raise ValueError(
+            f"average_last_ckpts: num must be >= 1, got {num} "
+            "(num=0 would silently average EVERY checkpoint)"
+        )
+    save_package(average_packages(epoch_checkpoints(exp_dir)[-num:]), out_path)
+    return out_path

@@ -31,7 +31,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "data.collate", "streaming", "bin.stream_infer", "kernels.ops", "quant",
                  "serving", "bin.export_decode", "models.frontend", "models.encoder",
                  "models.speech", "models.cpc", "models.wav2vec", "solvers.cpc",
-                 "bin.train_cpc", "data.tokenizer"):
+                 "bin.train_cpc", "data.tokenizer", "parallel.pipeline",
+                 "bin.stack_encoder_pkg", "bin.avg_last_ckpts"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -214,14 +214,14 @@ def test_conv_transformer_type_and_bfloat16_decode():
     pytest.param("type", {"type": "embed_decoder", "encoder": {"vocab_size": 11}}, None,
                  id="type-embed_decoder-item 13"),
     pytest.param("encoder", {"moe": {"num_experts": 2}}, None, id="encoder-patch1-item 14"),
-    pytest.param("encoder", {"pipeline": True}, "item 15c", id="encoder-patch2-item 15"),
+    pytest.param("encoder", {"pipeline": True}, None, id="encoder-patch2-item 15"),
     pytest.param("type", {"type": "gan_phone2char", "encoder": {"vocab_size": 11},
                           "D": {"encoder": {"d_input": 20, "d_model": 16}}}, None,
                  id="type-gan_phone2char-item 13"),
 ])
 def test_unported_configs_name_their_roadmap_item(section, patch, match):
-    """The pipeline exits naming its ROADMAP item; the text families of
-    item 13 and MoE (item 14), refused before, build (match None)."""
+    """The text families of item 13, MoE (item 14) and the stacked encoder
+    of the pipeline (item 15c), refused before, build (match None)."""
     cfg = small_config()
     if section == "signal":
         cfg["signal"] = dict(patch)

@@ -313,7 +313,8 @@ def test_dropout_seed_rule_matches_the_jax_kernel_on_a_grid():
 def test_layout_checks_and_the_cli_exits(tmp_path):
     """The grid's layout checks keep the JAX messages (a torchrun node for
     a JAX host); `--model-parallel` without `--distributed` names torchrun;
-    the pipe axis still exits naming item 15c."""
+    `--pipeline` without `encoder.pipeline` exits with the JAX CLI's
+    message."""
     from openasr_torch.bin import train as port_train
 
     validate_layout(node_layout(8, 2, 4))
@@ -328,8 +329,9 @@ def test_layout_checks_and_the_cli_exits(tmp_path):
     cfg.write_text(open("egs/aishell1/configs/conv-ctc-transformer-test.yaml").read())
     with pytest.raises(SystemExit, match="needs --distributed.*torch.distributed.run"):
         port_train.main([str(cfg), "--model-parallel", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 15c"):
-        port_train.main([str(cfg), "--pipeline", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--pipeline requires the stacked layer layout: set "
+                                         "encoder.pipeline: true"):
+        port_train.main([str(cfg), "--pipeline", "2", "--distributed", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("first,then", [("dp2_tp2", "one"), ("dp2_tp2", "dp1_tp2"),

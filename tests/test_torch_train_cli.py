@@ -183,14 +183,15 @@ def test_device_cuda_without_a_card_raises(corpus, tmp_path):
 @pytest.mark.parametrize("flag,error,match", [
     pytest.param(["--model-parallel", "2"], SystemExit,
                  "--model-parallel 2 needs --distributed.*torch.distributed.run", id="flag0"),
-    pytest.param(["--pipeline", "2"], SystemExit, "ROADMAP queue 1 item 15c", id="flag1"),
+    pytest.param(["--pipeline", "2"], SystemExit,
+                 "--pipeline 2 needs --distributed.*torch.distributed.run", id="flag1"),
     pytest.param(["--distributed"], RuntimeError,
                  "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT not set", id="flag2"),
 ])
 def test_unported_flags_exit_naming_the_roadmap(corpus, tmp_path, monkeypatch, flag, error,
                                                  match):
-    """--pipeline exits naming its ROADMAP item; --model-parallel without
-    --distributed exits naming torchrun (a rank is a card); --distributed,
+    """--pipeline and --model-parallel without --distributed exit naming
+    torchrun (a rank is a card); --distributed,
     which trains, raises naming torchrun's missing variables when run
     without torchrun (as jax.distributed.initialize() raises without a
     coordinator)."""

@@ -1,15 +1,17 @@
 """Ranks of the port for the CPU tests: a pool of gloo worker processes,
 started once per test module, and the scenarios they run.
 
-`RankPool(world, model=1)` starts `world` Python processes running this
-file; each joins a gloo process group on a grid of world / model data rows
-of `model` ranks (`openasr_torch.parallel.new_group`, a free port) and
-then serves scenarios sent over a local socket: `pool.run(name, *args)`
-calls the scenario `name(grid, *args)` on every rank and returns the
-ranks' results (in rank order, rank = d * model + m), or raises with the
+`RankPool(world, model=1, pipe=1)` starts `world` Python processes running
+this file; each joins a gloo process group on a grid of `pipe` stages of
+world / (model * pipe) data rows of `model` ranks
+(`openasr_torch.parallel.new_group`, a free port) and then serves
+scenarios sent over a local socket: `pool.run(name, *args)` calls the
+scenario `name(grid, *args)` on every rank and returns the ranks' results
+(in rank order, rank = p * D * model + d * model + m), or raises with the
 failing rank's traceback.  Every call has a timeout, so a hung rank fails
-its test instead of the run.  The ranks of a model group load the same
-rows: a scenario cuts its rows by the grid's data index.
+its test instead of the run.  The ranks of a model group, and those of a
+pipe group, load the same rows: a scenario cuts its rows by the grid's
+data index.
 
 The scenarios import the port only (never jax), so a worker starts in a
 couple of seconds.  A global batch is cut into the ranks' contiguous rows
@@ -18,7 +20,7 @@ as each rank's collate pads its own slice, so that a rank that did not
 reconcile its shapes with the others computes otherwise than the
 one-process run.
 
-  python tests/torch_parallel_ranks.py <host> <port> <rank> <world> <gloo port> [<model>]
+  python tests/torch_parallel_ranks.py <host> <port> <rank> <world> <gloo port> [<model> [<pipe>]]
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ def free_port() -> int:
 
 
 class RankPool:
-    def __init__(self, world: int, timeout: float = 120.0, model: int = 1):
-        self.world, self.timeout, self.model = world, timeout, model
+    def __init__(self, world: int, timeout: float = 120.0, model: int = 1, pipe: int = 1):
+        self.world, self.timeout, self.model, self.pipe = world, timeout, model, pipe
         self.listener = Listener(("localhost", 0), authkey=AUTHKEY)
         self.listener._listener._socket.settimeout(timeout)
         host, port = self.listener.address
@@ -57,7 +59,8 @@ class RankPool:
         env = {**os.environ, "OMP_NUM_THREADS": "1"}
         self.procs = [
             subprocess.Popen([sys.executable, os.path.abspath(__file__), host, str(port),
-                              str(r), str(world), str(gloo), str(model)], env=env, cwd=ROOT)
+                              str(r), str(world), str(gloo), str(model), str(pipe)],
+                             env=env, cwd=ROOT)
             for r in range(world)
         ]
         self.conns = {}
@@ -152,7 +155,8 @@ def train(grid, spec: dict) -> dict:
     ranks), the full first moment after the first update (SGD's trace, the
     clipped gradient; Adam's mu, (1 - b1) times it), the collectives of the
     second step (calls and bytes, on the data group; `model_calls` and
-    `model_bytes` on the model group), the optimizer's shard shapes, the
+    `model_bytes` on the model group, `pipe_calls` and `pipe_bytes` on the
+    pipe group), the optimizer's shard shapes, the
     replicated parameters and the final package.  `grid` is the `Grid` of
     ranks."""
     import torch
@@ -183,7 +187,8 @@ def train(grid, spec: dict) -> dict:
     grad_step, apply_update = solver.grad_step, solver.apply_update
 
     counters = {"calls": (group, "calls"), "bytes": (group, "bytes"),
-                "model_calls": (grid.model, "calls"), "model_bytes": (grid.model, "bytes")}
+                "model_calls": (grid.model, "calls"), "model_bytes": (grid.model, "bytes"),
+                "pipe_calls": (grid.pipe, "calls"), "pipe_bytes": (grid.pipe, "bytes")}
 
     def counted(fn, *args):
         before = {k: dict(getattr(g, a)) for k, (g, a) in counters.items()}
@@ -254,9 +259,52 @@ def preempt(grid, spec: dict, signal_at: int) -> dict:
     return {"step": solver.step, "epoch": solver.epoch, "stopped": solver._stop_requested}
 
 
+def coords(grid) -> dict:
+    """This rank's (pipe, data, model) indices and its groups' sizes."""
+    return {"pdm": (grid.pipe.rank, grid.data.rank, grid.model.rank),
+            "sizes": {k: g.world for k, g in grid.groups().items() if k != "everyone"}}
+
+
+def gpipe(grid, spec: dict) -> dict:
+    """`gpipe_apply` of this stage's layers of `spec["layers"]` (per-layer
+    JAX trees of a relu TransformerEncoderLayer of `spec["dims"]` (d_model,
+    heads, FFN width), dropout 0) on this data row's rows of `spec["x"]`
+    (key lengths `spec["lengths"]`, `spec["m"]` microbatches), then the
+    backward of sum(out * spec["cot"]): -> this rank's output rows, the
+    input's gradient, its stage's layers' gradients summed over the data
+    group (keyed `layer{i}.<torch name>`, i global) and the pipe group's
+    collectives."""
+    import torch
+
+    from openasr_torch.convert import subtree_to_state_dict
+    from openasr_torch.models.layers import TransformerEncoderLayer
+    from openasr_torch.parallel.pipeline import gpipe_apply, stage_layers
+
+    pipe, data = grid.pipe, grid.data
+    held = stage_layers(len(spec["layers"]), pipe.rank, pipe.world)
+    layers = []
+    for i in held:
+        layer = TransformerEncoderLayer(*spec["dims"], "relu", 0.0)
+        layer.load_state_dict(subtree_to_state_dict(spec["layers"][i]))
+        layers.append(layer)
+    b = spec["x"].shape[0] // data.world
+    mine = slice(data.rank * b, (data.rank + 1) * b)
+    x = torch.tensor(spec["x"][mine], requires_grad=True)
+    pipe.reset_counts()
+    out = gpipe_apply(lambda layer, h, aux, rng: layer(h, kv_lengths=aux["lengths"]), layers,
+                      x, {"lengths": torch.tensor(spec["lengths"][mine])}, pipe, spec["m"],
+                      remat=spec.get("remat", False), first=held.start)
+    (out * torch.tensor(spec["cot"][mine])).sum().backward()
+    grads = {f"layer{i}.{n}": data.all_reduce(p.grad.clone()).numpy()
+             for i, layer in zip(held, layers) for n, p in layer.named_parameters()}
+    return {"out": out.detach().numpy(), "dx": x.grad.numpy(), "grads": grads,
+            "calls": dict(pipe.calls), "bytes": dict(pipe.bytes)}
+
+
 def worker_main(argv) -> None:
     host, port, rank, world, gloo = argv[1], int(argv[2]), int(argv[3]), int(argv[4]), argv[5]
     model = int(argv[6]) if len(argv) > 6 else 1
+    pipe = int(argv[7]) if len(argv) > 7 else 1
     sys.path[:0] = [ROOT, HERE]
     import torch
 
@@ -266,7 +314,7 @@ def worker_main(argv) -> None:
 
     conn = Client((host, port), authkey=AUTHKEY)
     conn.send(rank)
-    group = new_group(rank, world, f"tcp://localhost:{gloo}", "gloo", "cpu", model)
+    group = new_group(rank, world, f"tcp://localhost:{gloo}", "gloo", "cpu", model, pipe=pipe)
     scenarios = sys.modules[__name__]
     try:
         while True:
