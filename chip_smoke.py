@@ -245,7 +245,7 @@ prints the collectives a step on each group, in calls and bytes, and the
 warm step walls, and times the attention kernels at a rank's
 [B, T', 4, 64] (f32 and bf16).
 
-Last, the serving path (`[serving path]`): `openasr_torch.serving`
+Then the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
 (beam 5, SERVE_MAXLEN steps) with f32 weights, with int8 weights and with
 the [lm path]'s Transformer LM fused, and the [moe path]'s f32 package's
@@ -262,6 +262,22 @@ TOL_STREAM; int8 against f32 weights within 0.05, the 1-best equal off
 ties), requires the exported call's kernel launches to equal the live
 call's, and prints its export and load seconds, artifact bytes, graph
 nodes and warm wall ms a batch or tick, exported against live.
+
+Last, the tools path (`[tools path]`): `openasr_torch.bin.bench_flash` at
+(B, T) (8, 256) and (16, 2048), bf16, forward and forward + backward, the
+kernel chains held to SDPA's (2e-2) before their device us and ratios
+print; `openasr_torch.bin.profile_step --model online --trace --ops` at
+bench.py's shape (B 64, T 512, d512 x 6 + 6) in bf16: the matmul and
+convolution inventory, then the class split of a step's device time and
+the idle share from utils/trace.py (the shares and idle summing to 1, the
+attention, LayerNorm and fbank classes non-zero, every port kernel of the
+step named in the trace); the `[profile]` window's trace read by the old
+raw count and by utils/trace.py, which must agree; `openasr_torch.bin.
+plot_attention` on the flagship decode package, on the card against the
+CPU (maps within 1e-3, as `.npz`); and `openasr_torch.bin.
+convert_reference_pkg` on a seeded reference-layout (eastonYi/OpenASR)
+checkpoint at the flagship's widths, its package's encoder output and CTC
+logits on the card against the CPU (1e-3, f32).
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after.  The f32 decoder logits, one f32 training step's
@@ -291,6 +307,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -439,6 +456,9 @@ def note_err(errs, key, abs_err, scaled) -> None:
     errs[key] = (max(a, abs_err), max(r, scaled))
 
 
+SLOW_CALL_MS = 1.0
+
+
 def captured(fn, calls: int):
     """A CUDA graph of `calls` calls of `fn`, warmed up and replayed once."""
     side = torch.cuda.Stream()
@@ -460,7 +480,19 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     """Device time of one call: `calls` calls captured in one CUDA graph,
     replayed `reps` times between CUDA events, so no host work is timed.
     The inputs stay resident in the 50 MB L2 between calls (warm L2), as
-    far as they fit."""
+    far as they fit.  A call that takes over SLOW_CALL_MS (the plain
+    versions and library calls at wav2vec's T' 2802 take 3-80 ms) is
+    captured alone and replayed 3-`reps` times, about 50 ms in all: its
+    time dwarfs a launch's, and 200 calls of it took seconds a row."""
+    fn()
+    probe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    probe[0].record()
+    fn()
+    probe[1].record()
+    torch.cuda.synchronize()
+    one = probe[0].elapsed_time(probe[1])
+    if one > SLOW_CALL_MS:
+        calls, reps = 1, max(3, min(reps, math.ceil(50.0 / one)))
     graph = captured(fn, calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2887,25 +2919,37 @@ def phase_preemption(vocab, chars, rng):
             and 0 <= part <= per_epoch, f"ended at {ends[-1]}")
 
 
-def profile_report(logdir) -> list:
-    """The port's kernels with device time in a Chrome trace of the
-    profiler window: (name, calls, device us)."""
-    names = ("layer_norm_fwd", "layer_norm_bwd", "column_sum", "flash_attention_fwd",
-             "flash_attention_bwd_stats", "flash_attention_bwd_dkv",
-             "flash_attention_bwd_dq", "fbank")
+# the port's kernels by the names their device-lane spans hold
+PORT_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "column_sum", "flash_attention_fwd",
+                "flash_attention_bwd_stats", "flash_attention_bwd_dkv",
+                "flash_attention_bwd_dq", "fbank")
+
+
+def profile_trace(logdir) -> str:
     traces = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
     require(len(traces) == 1, f"profile traces {traces}")
-    with open(os.path.join(logdir, traces[0])) as f:
-        events = json.load(f)["traceEvents"]
+    return os.path.join(logdir, traces[0])
+
+
+def port_kernels(names: dict) -> list:
+    """(name, calls, device us) of each port kernel in utils/trace.py's
+    `by_name` reading of a lane."""
     found = {}
-    for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        for n in names:
-            if n in e.get("name", ""):
+    for name, r in names.items():
+        for n in PORT_KERNELS:
+            if n in name:
                 calls, us = found.get(n, (0, 0.0))
-                found[n] = (calls + 1, us + float(e.get("dur", 0.0)))
+                found[n] = (calls + r["calls"], us + r["us"])
     return [(n, c, us) for n, (c, us) in sorted(found.items())]
+
+
+def profile_report(logdir) -> list:
+    """The port's kernels with device time in a Chrome trace of the
+    profiler window: (name, calls, device us), read by utils/trace.py."""
+    from openasr_torch.utils import trace
+
+    events = trace.read_trace(profile_trace(logdir))
+    return port_kernels(trace.by_name(trace.device_lane(events, "cuda")))
 
 
 def phase_jax_package():
@@ -7188,6 +7232,219 @@ def parallel_cards(n: int) -> int:
 
 # ------------------------------------------------------------------ main
 
+# --------------------------------------------------------------- tools path
+
+TOOLS_FLASH_SHAPES = [(8, 256), (16, 2048)]
+# plot_attention and the converted package, card against CPU, f32
+TOL_TOOLS = 1e-3
+
+
+def raw_kernel_counts(path) -> list:
+    """The `[profile]` reading before utils/trace.py: every `kernel` event
+    of the trace whose name holds a port kernel's, counted as it stands."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    found = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for n in PORT_KERNELS:
+            if n in e.get("name", ""):
+                calls, us = found.get(n, (0, 0.0))
+                found[n] = (calls + 1, us + float(e.get("dur", 0.0)))
+    return [(n, c, us) for n, (c, us) in sorted(found.items())]
+
+
+def reference_checkpoint(model_cfg, rng) -> dict:
+    """A reference (eastonYi/OpenASR) package of conv-ctc-transformer at
+    `model_cfg`'s widths, in its layout (`{name}_config` / `{name}_state`,
+    torch's Linear, Conv2d and packed MultiheadAttention weights), drawn
+    from `rng` at a trained model's scale (1 / sqrt(fan in))."""
+    enc_cfg, dec_cfg = dict(model_cfg["encoder"]), dict(model_cfg["decoder"])
+    d, v = int(enc_cfg["d_model"]), int(dec_cfg["vocab_size"])
+    ff = int(enc_cfg["dim_feedforward"])
+    wide = 2 * ff if enc_cfg["activation"] == "glu" else ff
+
+    def t(*shape, mean=0.0):
+        std = 0.02 if len(shape) == 1 else 1.0 / float(np.sqrt(np.prod(shape[1:])))
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
+        return torch.from_numpy(x)
+
+    def layer(sd, p, attns, norms):
+        for a in attns:
+            sd.update({f"{p}.{a}.in_proj_weight": t(3 * d, d), f"{p}.{a}.in_proj_bias": t(3 * d),
+                       f"{p}.{a}.out_proj.weight": t(d, d), f"{p}.{a}.out_proj.bias": t(d)})
+        sd.update({f"{p}.linear1.weight": t(wide, d), f"{p}.linear1.bias": t(wide),
+                   f"{p}.linear2.weight": t(d, ff), f"{p}.linear2.bias": t(d)})
+        for n in norms:
+            sd.update({f"{p}.{n}.weight": t(d, mean=1.0), f"{p}.{n}.bias": t(d)})
+
+    layers = int(enc_cfg["sub"]["layer_num"])
+    enc = {"sub.affine.weight": t(d, 32 * (int(enc_cfg["input_dim"]) - 2 * layers)),
+           "sub.affine.bias": t(d), "transformer_encoder.norm.weight": t(d, mean=1.0),
+           "transformer_encoder.norm.bias": t(d)}
+    for i in range(layers):
+        enc.update({f"sub.conv.subsample/conv{i}.weight": t(32, 1 if i == 0 else 32, 3, 3),
+                    f"sub.conv.subsample/conv{i}.bias": t(32)})
+    for i in range(int(enc_cfg["num_layers"])):
+        layer(enc, f"transformer_encoder.layers.{i}", ("self_attn",), ("norm1", "norm2"))
+    dec = {"emb.weight": t(v, d), "output_affine.bias": t(v)}
+    for i in range(int(dec_cfg["num_layers"])):
+        layer(dec, f"transformer_block.layers.{i}", ("self_attn", "multihead_attn"),
+              ("norm1", "norm2", "norm3"))
+    return {"splayer_config": dict(model_cfg["signal"]), "encoder_config": enc_cfg,
+            "encoder_state": enc, "decoder_config": dec_cfg, "decoder_state": dec,
+            "ctc_fc_state": {"weight": t(v, d)}}
+
+
+def tools_bench_flash() -> list:
+    from openasr_torch.bin import bench_flash
+
+    try:
+        return bench_flash.run(TOOLS_FLASH_SHAPES, torch.device("cuda"))
+    except RuntimeError as e:
+        raise PhaseError(f"bench_flash: {e}") from e
+
+
+def tools_profile_step() -> dict:
+    """profile_step --model online --trace --ops at bench.py's shape, bf16."""
+    from openasr_torch.bin import profile_step
+
+    out = profile_step.main(["--model", "online", "--trace", "--ops"])
+    split = out["trace"]["split"]
+    total = sum(c["share"] for c in split["classes"].values()) + split["idle_share"]
+    require(abs(total - 1.0) <= 1e-6, f"class shares and idle sum to {total}")
+    zero = [c for c in ("attention", "layer_norm", "fbank") if split["classes"][c]["ms"] <= 0]
+    require(not zero, f"profile_step: no device time in {zero}")
+    named = {n for n, _, _ in port_kernels(out["trace"]["kernels"])}
+    require(named == set(PORT_KERNELS),
+            f"profile_step's trace lacks {sorted(set(PORT_KERNELS) - named)}")
+    return out
+
+
+def tools_profile_readers(logdir) -> None:
+    """The `[profile]` window's trace: the raw count against utils/trace.py."""
+    path = profile_trace(logdir)
+    raw, reader = raw_kernel_counts(path), profile_report(logdir)
+    print("[tools path] the [profile] trace, raw count: " + "; ".join(
+        f"{n} {c} {us:.1f} us" for n, c, us in raw))
+    print("[tools path] the [profile] trace, utils/trace.py: " + "; ".join(
+        f"{n} {c} {us:.1f} us" for n, c, us in reader))
+    same = (len(raw) == len(reader) and all(
+        a[:2] == b[:2] and abs(a[2] - b[2]) <= 1e-6 * max(1.0, a[2])
+        for a, b in zip(raw, reader)))
+    require(same, "the two readings of the [profile] trace differ")
+
+
+def tools_plot_attention(pkg, vocab, test_json) -> dict:
+    """plot_attention on the card and on the CPU (.npz: matplotlib blocked)."""
+    import io
+
+    from openasr_torch.bin import plot_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maps = {}
+    blocked = sys.modules.get("matplotlib", False)
+    sys.modules["matplotlib"] = None
+    try:
+        for device in ("cuda", "cpu"):
+            out = os.path.join(WORK, f"attention_{device}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                plot_attention.main([
+                    "--model_type", "conv-ctc-transformer", "--model_pkg", pkg,
+                    "--vocab_path", vocab, "--json_file", test_json, "--output_dir", out,
+                    "--utts", "2", "--offline", "--add_blk", "--device", device])
+            maps[device] = {n: np.load(os.path.join(out, n))["attn"]
+                            for n in sorted(os.listdir(out))}
+    finally:
+        if blocked is False:
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = blocked
+    card, cpu = maps["cuda"], maps["cpu"]
+    require(card.keys() == cpu.keys() and len(card) == 18,
+            f"attention maps {sorted(card)} on the card, {sorted(cpu)} on the CPU")
+    require(all(np.isfinite(a).all() for a in card.values()), "non-finite attention maps")
+    err = max(float(np.abs(card[n] - cpu[n]).max()) for n in card)
+    require(err <= TOL_TOOLS, f"plot_attention maps card vs CPU {err:.3g} > {TOL_TOOLS}")
+    return {"maps": len(card), "err": err}
+
+
+def tools_convert_reference(feats) -> dict:
+    """A seeded reference checkpoint at the flagship's widths through
+    convert_reference_pkg, the package on the card against the CPU."""
+    import io
+
+    from openasr_torch.bin import convert_reference_pkg
+    from openasr_torch.models import get_model_class
+    from openasr_torch.utils.checkpoint import load_package
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = reference_checkpoint(FLAGSHIP, np.random.default_rng(SEED))
+    ref_pt, out = os.path.join(WORK, "reference.pt"), os.path.join(WORK, "converted.pkg")
+    torch.save({"model": ref}, ref_pt)  # a solver checkpoint
+    del ref
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        convert_reference_pkg.main([ref_pt, out, "--model_type", "conv-ctc-transformer"])
+    pkg = load_package(out)
+    batch = padded_batch(feats, sorted(feats)[:2], np.random.RandomState(SEED))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = get_model_class("conv-ctc-transformer").create_model(pkg["configs"],
+                                                                      device=device)
+        model.restore(pkg)
+        x, lens, ids = (torch.from_numpy(batch[k]).to(device)
+                        for k in ("feats", "feat_lengths", "ids"))
+        with torch.inference_mode():
+            enc, elens = model.module.encode(x, lens)
+            ctc, _, _ = model.module(x, lens, ids)
+        outs[device] = [t.float().cpu() for t in (enc, elens, ctc)]
+    (enc_g, el_g, ctc_g), (enc_c, el_c, ctc_c) = outs["cuda"], outs["cpu"]
+    require(torch.equal(el_g, el_c), "converted model: encoder lengths differ")
+    require(bool(torch.isfinite(ctc_g).all()), "converted model: non-finite CTC logits")
+    valid = (torch.arange(enc_g.shape[1])[None, :] < el_c[:, None])[..., None]
+    e_enc = max_err(enc_g * valid, enc_c * valid)
+    e_ctc = max_err(ctc_g * valid, ctc_c * valid)
+    require(e_enc <= TOL_TOOLS and e_ctc <= TOL_TOOLS,
+            f"converted model card vs CPU: encoder {e_enc:.3g}, CTC logits {e_ctc:.3g}")
+    return {"log": log.getvalue().strip(), "enc_err": e_enc, "ctc_err": e_ctc}
+
+
+def phase_tools(pkg, vocab, test_json, test_feats) -> dict:
+    """The tools on the card: bench_flash, profile_step, the two trace
+    readings, plot_attention and convert_reference_pkg."""
+    t0 = time.time()
+    flash = tools_bench_flash()
+    profile = tools_profile_step()
+    tools_profile_readers(os.path.join(WORK, "exp_train_bfloat16", "profile"))
+    maps = tools_plot_attention(pkg, vocab, test_json)
+    converted = tools_convert_reference(test_feats)
+    return {"flash": flash, "profile": profile, "maps": maps, "converted": converted,
+            "wall": time.time() - t0}
+
+
+def print_tools(tools) -> None:
+    """The `[tools path]` summary line."""
+    split, ops = tools["profile"]["trace"]["split"], tools["profile"]["ops"]
+    print("[tools path] bench_flash (B, T): " + "; ".join(
+        f"({r['b']}, {r['t']}) fwd {r['flash_fwd']:.1f} vs SDPA {r['sdpa_fwd']:.1f} us "
+        f"({r['sdpa_fwd'] / r['flash_fwd']:.2f}x), f+b {r['flash_fb']:.1f} vs "
+        f"{r['sdpa_fb']:.1f} us ({r['sdpa_fb'] / r['flash_fb']:.2f}x), chain errors "
+        f"{r['err_fwd']:.3g} / {r['err_grad']:.3g}" for r in tools["flash"])
+        + f"; profile_step online bf16: step wall {tools['profile']['trace']['wall_ms']:.3f} ms "
+          f"without the profiler, window {split['span_ms']:.3f} ms a step with it, "
+          + ", ".join(f"{c} {r['ms']:.3f} ms ({100 * r['share']:.1f}%)"
+                      for c, r in split["classes"].items())
+        + f", idle {100 * split['idle_share']:.1f}%; {ops['f32_count']} f32-operand "
+          f"matmul/conv calls, {ops['gflop']:.1f} GFLOP a step; plot_attention "
+          f"{tools['maps']['maps']} maps card vs CPU {tools['maps']['err']:.3g}; converted "
+          f"reference checkpoint ({tools['converted']['log']}) card vs CPU encoder "
+          f"{tools['converted']['enc_err']:.3g}, CTC logits {tools['converted']['ctc_err']:.3g}"
+          f"; the phase {tools['wall']:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -7293,11 +7550,13 @@ def main() -> int:
                 + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches)
                 + text_rows(text, errs, launches) + pp["rows"])
         print(f"[time] kernel rows done at {time.time() - t_start:.1f}s")
-        # last: its workers' timed turns share the machine with nothing else
+        # its workers' timed turns share the machine with nothing else
         serve = phase_serving(serve_job(
             pkg, ctc_pkg, lm["runs"]["transformer_lm float32"]["pkg"], stream["pkg"],
             moe["runs"]["float32"]["pkg"], vocab, test_feats, wtest))
         print(f"[time] serving path done at {time.time() - t_start:.1f}s")
+        tools = phase_tools(pkg, vocab, test_json, test_feats)
+        print(f"[time] tools path done at {time.time() - t_start:.1f}s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7411,6 +7670,7 @@ def main() -> int:
     print(f"[recipe gate] CER {gate['cer']} after {gate['steps']} steps "
           f"({GATE_EPOCHS} epochs, train rows x{GATE_REPEAT}); train {gate['train_s']:.2f}s, "
           f"decode {gate['decode_s']:.2f}s wall; launches a step {gate['per_step']}")
+    print_tools(tools)
     card = nvidia_smi()
     print("[serving path] " + "; ".join(
         f"{k}: export {r['export_s']:.1f}s, load {r['load_s']:.1f}s, {r['bytes'] / 1e6:.2f} MB, "

@@ -32,7 +32,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "serving", "bin.export_decode", "models.frontend", "models.encoder",
                  "models.speech", "models.cpc", "models.wav2vec", "solvers.cpc",
                  "bin.train_cpc", "data.tokenizer", "parallel.pipeline",
-                 "bin.stack_encoder_pkg", "bin.avg_last_ckpts"):
+                 "bin.stack_encoder_pkg", "bin.avg_last_ckpts", "utils.timer", "utils.trace",
+                 "bin.profile_step", "bin.bench_flash", "bin.plot_attention",
+                 "bin.convert_reference_pkg", "bin.gen_wav_flist", "bin.gen_libri_json"):
         assert f"openasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
