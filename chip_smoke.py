@@ -81,8 +81,9 @@ decoder's causal shapes beside SDPA's, their calls a step taken from the
 built module and held to the run's launches.
 
 Then the LM path (`[lm path]`): the Transformer LM at the JAX package's
-create_model defaults with the flagship's d_model (d512 x 6 post-LN
-layers, 8 heads, relu FFN 2048, dropout 0.1; egs/ has no LM config) and
+create_model defaults with the flagship's d_model and its depth cut to 2
+(d512 x 2 post-LN layers, 8 heads, relu FFN 2048, dropout 0.1; egs/ has
+no LM config) and
 the 2-layer LSTM LM at d512, both at vocabulary 4233, trained through
 `openasr_torch.bin.train_lm` on 256 seeded lines of 20-60 characters (3
 steps of 32 lines and a dev pass of 5 batches; the Transformer LM in f32
@@ -149,10 +150,18 @@ forward).  egs/libri/configs/cpc_pretrain.yaml through `bin/train_cpc.py
 its package (`load_splayer`), 3 steps each on 34 and 17 wavs of 1.25-15
 s: no kernel launch (cuDNN convolutions and GRUs), the splayer unchanged,
 the finetuned package decoded greedily and with the host prefix beam, and
-the CPC and CTC losses on the card against the CPU (1e-4 of scale).  The
-kernel line adds the attention forward (4w) and backward (5+6w) at the
-wav2vec run's largest batch (T' up to 3000) beside SDPA with the same key
-mask, after holding them to their plain versions there.
+the CPC and CTC losses on the card against the CPU (1e-4 of scale).  Then
+GRU-CTC's step-1 gradient at the [parallel path]'s first batch and seeded
+weights (ROADMAP queue 3 item 39), in f32 and in float64 (the CTC loss
+too), on the card and on the CPU (a process of its own, run while the
+kernels build): each leaf's f32 distance from its device's float64, their
+largest by module, and each op's own (its f32 backward fed the float64
+run's input and output cotangent), the card's float64 held to the CPU's
+(1e-6 of each leaf's scale) and the card's f32 distance to at most twice
+the CPU's.  The kernel line adds the attention forward (4w) and backward
+(5+6w) at the wav2vec run's largest batch (T' up to 3000) beside SDPA with
+the same key mask, after holding them to their plain versions there, and
+the backward's three kernels alone there (5sw, 5w, 6w).
 
 Then the text families (`[text path]`), from the repo's vocabularies
 (egs/IPA2char/data/callhome.IPA, 72 phones; vocab.char, 3671 characters)
@@ -202,21 +211,24 @@ expert products, combine) beside the dense GLU FFN (`[moe layer]`).
 Then data parallelism (`[parallel path]`): the train CLI with
 `--distributed` under `torch.distributed.run --standalone
 --nproc-per-node 1` (NCCL, world 1) on the flagship YAML for 3 steps and
-its dev pass, its package held to the plain CLI's (1e-6 of scale); then
-two ranks over gloo on cuda:0 (worker processes `chip_smoke.py
---parallel-worker`, set up while the one-rank runs train) against one
-rank in this process, 3 steps each from the same seeded weights, f32,
-dropout 0, each rank on its rows of the global batch of the YAML's budget
-(the loaders of `bin/train.py:build_loaders` at ndata 2), ZeRO-1 on:
-the flagship YAML (the flagship's 36000-frame batches; each rank a
-flagship step's launches), libri's GRU-CTC config (its BatchNorm
-statistics after the first step within 1e-5 of scale) and the MoE YAML
-with its 8 experts split over the two ranks.  Each pair: losses within
-1e-3; the gradient that the ranks reduced in step 1 (Adam's first
-moment, f32) within 1e-4 of each leaf's scale; parameters within 1e-3.
-GRU-CTC's f32 step-1 gradient is itself about 1e-3 off its f64 value, at
-one rank as at two, so its one-rank run also computes that gradient in
-f64: the two ranks' may be no further from it than twice one rank's plus
+its dev pass (started with the [text path]: its start-up is host work),
+its package held to the plain CLI's (1e-6 of scale); then two ranks over
+gloo on cuda:0 (two worker processes `chip_smoke.py --parallel-worker`,
+started with the [text path], which train the phase's jobs in turn, each
+set up while the one-rank run trains) against one rank in this process,
+3 steps each from the same seeded weights, f32, dropout 0, each rank on
+its rows of the global batch of the YAML's budget (the loaders of
+`bin/train.py:build_loaders` at ndata 2), ZeRO-1 on: the flagship YAML
+(the flagship's 36000-frame batches; each rank a flagship step's
+launches) and the MoE YAML with its 8 experts split over the two ranks,
+both at GRID_LAYERS encoder and decoder layers, and libri's GRU-CTC
+config (its BatchNorm statistics after the first step within 1e-5 of
+scale).  Each pair: losses within 1e-3; the gradient that the ranks
+reduced in step 1 (Adam's first moment, f32) within 1e-4 of each leaf's
+scale; parameters within 1e-3.  GRU-CTC's f32 step-1 gradient is itself
+some 5e-3 off its f64 value (its f32 CTC loss: the [wave check]), at one
+rank as at two, so its one-rank run also computes that gradient in f64:
+the two ranks' may be no further from it than twice one rank's plus
 1e-4, and the parameters, whose Adam updates are +-lr by each element's
 gradient sign, are held to 2 lr a step.  A collective that gloo refuses
 on CUDA tensors fails the phase.
@@ -225,25 +237,25 @@ runs the flagship and MoE pairs over NCCL instead, a card a rank, then
 the flagship on a grid of N / 2 data rows of 2 model ranks, and nothing
 else.
 
-Then tensor and sequence parallelism (`[model path]`): two ranks over
-gloo on cuda:0 on a dp1 x tp2 grid (`--parallel-worker`, set up while the
-one-rank runs train) against one rank in this process, 3 steps each from
-the same seeded weights, f32, dropout 0, both ranks on every row of the
-YAML's 18000-frame batches: the flagship YAML with
-`training.sequence_parallel` on, then off, and the MoE YAML (on).  Each
-pair as the [parallel path]'s (losses 1e-3, the step-1 gradient 1e-4 of
-each leaf's scale, parameters 1e-3), the one-rank run also computing the
-step-1 gradient in f64 (attention and LayerNorm plain in f64), which the
-two ranks may be no further from than 1.5 times one rank's distance; and
-each rank's LayerNorm backward launches split between the dx-only mode
-(row 2: the T-sharded sites, from the host's T' and U) and the partials
-mode exactly as the steps' shapes decide; off launches no dx-only one.
-The flagship's padded T is a multiple of 8, so its T' is odd and only
-the decoder's sites (U 32) run on T-shards.  Row 2 is held to its plain
-version and timed at the rows those launches had, [B U / 2, 512].  It
-prints the collectives a step on each group, in calls and bytes, and the
-warm step walls, and times the attention kernels at a rank's
-[B, T', 4, 64] (f32 and bf16).
+Then tensor and sequence parallelism (`[model path]`): two ranks over gloo
+on cuda:0 on a dp1 x tp2 grid (`--parallel-worker`, started with the
+[parallel path]) against one rank in this process, 3 steps each from the
+same seeded weights, f32, dropout 0, both ranks on every row of the YAML's
+18000-frame batches: the flagship YAML with `training.sequence_parallel`
+on, then off, and the MoE YAML (on), at GRID_LAYERS encoder and decoder
+layers.  Each pair as the [parallel path]'s (losses 1e-3, the step-1
+gradient 1e-4 of each leaf's scale, parameters 1e-3), the one-rank run
+also computing the step-1 gradient in f64 (attention and LayerNorm plain
+in f64), which the two ranks may be no further from than 1.5 times one
+rank's distance; and each rank's LayerNorm backward launches split between
+the dx-only mode (row 2: the T-sharded sites, from the host's T' and U)
+and the partials mode exactly as the steps' shapes decide; off launches no
+dx-only one.  The flagship's padded T is a multiple of 8, so its T' is odd
+and only the decoder's sites (U 32) run on T-shards.  Row 2 is held to its
+plain version and timed at the rows those launches had, [B U / 2, 512].
+It prints the collectives a step on each group, in calls and bytes, and
+the warm step walls, and times the attention kernels at a rank's [B, T',
+4, 64] (f32 and bf16).
 
 Then the serving path (`[serving path]`): `openasr_torch.serving`
 exports, for cuda at full width, the flagship package's attention beam
@@ -255,18 +267,21 @@ with the LM and a hotword file (over each decode utterance's first 32
 frames); the streaming tick of the streaming package and of the online
 streaming model (B 8); and the streaming prefix beam of 10 with the LM
 and the hotwords.  Each kind runs in a worker process of its own
-(`chip_smoke.py --serving-worker KIND`), all started together; each
-serves its artifact from a fresh loader and holds it to the live decode
-on the card (n-best equal, scores within 1e-5; every tick within
+(`chip_smoke.py --serving-worker KIND`), all started together after the
+[moe path] at the lowest priority: each exports on the host while the
+later paths run, waits until the kernel rows and the [tools path] are
+done, then serves its artifact from a fresh loader and holds it to the
+live decode on the card (n-best equal, scores within 1e-5; every tick within
 TOL_STREAM; int8 against f32 weights within 0.05, the 1-best equal off
 ties), requires the exported call's kernel launches to equal the live
 call's, and prints its export and load seconds, artifact bytes, graph
 nodes and warm wall ms a batch or tick, exported against live.
 
-Last, the tools path (`[tools path]`): `openasr_torch.bin.bench_flash` at
-(B, T) (8, 256) and (16, 2048), bf16, forward and forward + backward, the
-kernel chains held to SDPA's (2e-2) before their device us and ratios
-print; `openasr_torch.bin.profile_step --model online --trace --ops` at
+The tools path (`[tools path]`), before the serving workers' go onto the
+card: `openasr_torch.bin.bench_flash` at (B, T) (8, 256) and (16, 2048),
+bf16, forward and forward + backward, the kernel chains held to SDPA's
+(2e-2) before their device us and ratios print;
+`openasr_torch.bin.profile_step --model online --trace --ops` at
 bench.py's shape (B 64, T 512, d512 x 6 + 6) in bf16: the matmul and
 convolution inventory, then the class split of a step's device time and
 the idle share from utils/trace.py (the shares and idle summing to 1, the
@@ -291,15 +306,17 @@ CPU's F.ctc_loss alone is a share of 0.25-0.78 off, the card's gradient
 is held to the CPU's (1e-4), with the share the rewrite adds on each
 device printed.
 
-It prints the card's name and power limit, a `{"kernels": [...]}` line
-with each kernel's error, launches, times and bound (the attention
-backward at each of the training step's three shapes: encoder
-self-attention, decoder causal self-attention and cross-attention, and a
-`[time]` line with their total a step; the backward's kernels also with a
-cold L2, `cold_ms`, and cold minus warm with its range over interleaved
-rounds), and last
-`{"ok": true, "device": {...}}`.  Without a CUDA card it exits non-zero
-and prints no result; every phase that fails ends the run the same way.
+It prints a `[time] phases` line, each phase's seconds and the total
+against the run's TIME_LIMIT_S (1200 s), the card's name and power limit,
+a `{"kernels": [...]}` line with each kernel's error, launches, times and
+bound (the attention backward at each of the training step's three shapes:
+encoder self-attention, decoder causal self-attention and cross-attention,
+and a `[time]` line with their total a step; the backward's kernels also
+with a cold L2, `cold_ms`, and cold minus warm with its range over
+interleaved rounds), and last `{"ok": true, "device": {...}}`.  Without a
+CUDA card it exits non-zero and prints no result; every phase that fails
+ends the run the same way.
+
 Scratch files go to `build/chip_smoke/` under the checkout.
 """
 
@@ -325,6 +342,7 @@ ONLINE_YAML = os.path.join(ROOT, "egs", "aishell1", "configs",
 TEST_YAML = os.path.join(ROOT, "egs", "aishell1", "configs", "conv-ctc-transformer-test.yaml")
 CTC_YAML = os.path.join(ROOT, "egs", "hkust", "configs", "ctc.yaml")
 SEED = 1234
+TIME_LIMIT_S = 1200        # the run's limit, the kernels' build included
 CTC_BEAM = 10
 # device beam against the native host beam: on peaky log-probs the same
 # n-best lists, scores summed in f32 in the same order; on the random-weight
@@ -536,6 +554,29 @@ def cold_l2_ms(fn, calls: int = 20, rounds: int = 10) -> dict:
         extra.append(both_ms - flush_ms - warm_ms)
     return {"cold_ms": float(np.median(cold)), "cold_extra_ms": float(np.median(extra)),
             "cold_extra_range_ms": [min(extra), max(extra)]}
+
+
+class PhaseClock:
+    """Each phase's seconds: `done(phase)` prints `[time] <phase> done at
+    <seconds since the start>s` (or `what` in its place) and books the
+    seconds since the last call to the phase; `line()` is the `[time]
+    phases` line, the total against the TIME_LIMIT_S the run must keep
+    within."""
+
+    def __init__(self):
+        self.start = self.last = time.time()
+        self.seconds = {}
+
+    def done(self, phase, what=None) -> None:
+        now = time.time()
+        self.seconds[phase] = now - self.last
+        self.last = now
+        print(f"[time] {what or phase + ' done'} at {now - self.start:.1f}s")
+
+    def line(self) -> str:
+        total = time.time() - self.start
+        return ("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in self.seconds.items())
+                + f"; total {total:.1f} of {TIME_LIMIT_S} ({100 * total / TIME_LIMIT_S:.1f}%)")
 
 
 def nvidia_smi() -> str:
@@ -2222,6 +2263,81 @@ def dx_only_reading(n, dm, dtype, rng, errs, timed) -> dict:
             **bound(3 * n * dm * es + 2 * n * 4 + dm * 4, 9 * n * dm, torch.float32)}
 
 
+BWD_NOTES = {
+    "ms_is": "warm L2: the inputs stay resident between calls as far as they fit",
+    "cold_is": "cold L2: each call after a 128 MB read that evicts the 50 MB L2, "
+               "the reads' own time subtracted; cold_extra: cold minus warm, "
+               "median and range over 10 interleaved rounds (cold_l2_ms)",
+    "plain_is": "the whole plain backward (dq, dk, dv together), dropout 0.1",
+    "library_is": "F.scaled_dot_product_attention (dropout_p 0.1; a bool key "
+                  "mask, or is_causal for the decoder) forward + backward minus "
+                  "forward (graph replay), dq dk dv together",
+}
+
+
+def split_bwd_rows(at, suffix, dtype, errs, launches_of, notes, cold=True) -> list:
+    """Rows 5s, 5 and 6 at one shape of `attention_bwd_times` (`at`): the
+    statistics pass, dK/dV and dQ, each alone, with its launches
+    (`launches_of(kernel)`), its error over every checked case and its
+    device ms (`cold`: also with a cold L2) beside its bound; dK/dV's and
+    dQ's plain and library times are those of the whole backward, the
+    statistics' those of its own plain version (no one-call library
+    counterpart)."""
+    from openasr_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_bwd_stats,
+        flash_bwd_stats_reference,
+    )
+
+    name = DTYPE_NAME[dtype]
+    kernel_args, pairs, d = at["kernel_args"], at["pairs"], at["shape"][4]
+    qo_bytes, kv_bytes, stat_bytes = at["qo_bytes"], at["kv_bytes"], at["stat_bytes"]
+    q_, k_, v_, _, _, dout_, _, kv_, causal_, sms_, rate_, seed_, _ = kernel_args
+
+    def stats_of(*_args):
+        return flash_bwd_stats(q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)
+
+    rows = []
+    for kernel, fn, replaces, nbytes, products in (
+        ("flash_bwd_stats", stats_of,
+         "openasr_tpu/kernels/flash_attention.py:468 (delta, with each row's max "
+         "and 1 / l)",
+         # q, dO read; K, V over valid keys; m, 1 / l, delta written
+         2 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes, 2),                 # S dP
+        ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
+         "openasr_tpu/kernels/flash_attention.py:238",
+         # q, dO, the three statistics read; K, V over valid keys; dK, dV written
+         2 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
+        ("flash_attention_bwd_dq", flash_attention_bwd_dq,
+         "openasr_tpu/kernels/flash_attention.py:327",
+         # q, dO, the three statistics read; K, V over valid keys; dQ written
+         3 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes, 3),                 # S dP dQ
+    ):
+        alone = kernel == "flash_bwd_stats"
+        rows.append({
+            "name": f"{kernel}{suffix}[{name}]",
+            "route": "cuda",
+            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": replaces,
+            "shape": at["shape"],
+            **launches_of(kernel),
+            **(stats_row_errs(errs[(kernel, dtype)]) if alone
+               else bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype])),
+            "ms": device_ms(lambda: fn(*kernel_args)),
+            **(cold_l2_ms(lambda: fn(*kernel_args)) if cold else {}),
+            **notes,
+            "plain_ms": (device_ms(lambda: flash_bwd_stats_reference(
+                q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)) if alone
+                else at["plain_ms"]),
+            "plain_is": "flash_bwd_stats_reference" if alone else notes["plain_is"],
+            "library_ms": None if alone else at["library_ms"],
+            "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
+            **bound(nbytes, products * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
+        })
+    return rows
+
+
 def train_rows(shapes, errs, launches, per, tp_ln):
     """The training path's kernels at its encoder shape (largest batch),
     and the attention forward and backward also at the decoder's and the
@@ -2231,12 +2347,6 @@ def train_rows(shapes, errs, launches, per, tp_ln):
     T-shards [B (T' // 2), 512]."""
     import torch.nn.functional as F
 
-    from openasr_torch.kernels.flash_attention import (
-        flash_attention_bwd_dkv,
-        flash_attention_bwd_dq,
-        flash_bwd_stats,
-        flash_bwd_stats_reference,
-    )
     from openasr_torch.kernels.layer_norm import (
         layer_norm_bwd,
         layer_norm_bwd_reference,
@@ -2313,16 +2423,6 @@ def train_rows(shapes, errs, launches, per, tp_ln):
 
         # the attention backward at the step's three shapes, with dropout as
         # the training path runs it; the encoder's rows keep their older names
-        bwd_notes = {
-            "ms_is": "warm L2: the inputs stay resident between calls as far as they fit",
-            "cold_is": "cold L2: each call after a 128 MB read that evicts the 50 MB L2, "
-                       "the reads' own time subtracted; cold_extra: cold minus warm, "
-                       "median and range over 10 interleaved rounds (cold_l2_ms)",
-            "plain_is": "the whole plain backward (dq, dk, dv together), dropout 0.1",
-            "library_is": "F.scaled_dot_product_attention (dropout_p 0.1; a bool key "
-                          "mask, or is_causal for the decoder) forward + backward minus "
-                          "forward (graph replay), dq dk dv together",
-        }
         errs_bwd = tuple(max(a, c) for a, c in zip(errs[("flash_attention_bwd_dkv", dtype)],
                                                     errs[("flash_attention_bwd_dq", dtype)]))
         bwd_shapes = attention_shapes(shapes)
@@ -2352,60 +2452,13 @@ def train_rows(shapes, errs, launches, per, tp_ln):
                 **{key: at[key] for key in ("ms", "cold_ms", "cold_extra_ms",
                                             "cold_extra_range_ms", "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")},
-                **bwd_notes,
+                **BWD_NOTES,
                 "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
             })
             if where != "encoder":
                 continue
-            # each kernel alone at the encoder shape, for its launches and
-            # error; its plain and library times are those of the whole
-            # backward above
-            kernel_args, pairs = at["kernel_args"], at["pairs"]
-            qo_bytes, kv_bytes, stat_bytes = at["qo_bytes"], at["kv_bytes"], at["stat_bytes"]
-            q_, k_, v_, _, _, dout_, _, kv_, causal_, sms_, rate_, seed_, _ = kernel_args
-
-            def stats_of(*_args):
-                return flash_bwd_stats(q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)
-
-            for kernel, fn, replaces, nbytes, products in (
-                ("flash_bwd_stats", stats_of,
-                 "openasr_tpu/kernels/flash_attention.py:468 (delta, with each row's max "
-                 "and 1 / l)",
-                 # q, dO read; K, V over valid keys; m, 1 / l, delta written
-                 2 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes, 2),                 # S dP
-                ("flash_attention_bwd_dkv", flash_attention_bwd_dkv,
-                 "openasr_tpu/kernels/flash_attention.py:238",
-                 # q, dO, the three statistics read; K, V over valid keys; dK, dV written
-                 2 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes + 2 * qo_bytes, 4),  # S dP dV dK
-                ("flash_attention_bwd_dq", flash_attention_bwd_dq,
-                 "openasr_tpu/kernels/flash_attention.py:327",
-                 # q, dO, the three statistics read; K, V over valid keys; dQ written
-                 3 * qo_bytes + 2 * kv_bytes + 3 * stat_bytes, 3),                 # S dP dQ
-            ):
-                alone = kernel == "flash_bwd_stats"
-                rows.append({
-                    "name": f"{kernel}[{name}]",
-                    "route": "cuda",
-                    "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
-                    "replaces": replaces,
-                    "shape": at["shape"],
-                    **launch_keys(kernel),
-                    **(stats_row_errs(errs[(kernel, dtype)]) if alone
-                       else bwd_errs(errs[(kernel, dtype)], TOL_FLASH_BWD[dtype])),
-                    "ms": device_ms(lambda: fn(*kernel_args)),
-                    **cold_l2_ms(lambda: fn(*kernel_args)),
-                    **bwd_notes,
-                    # the statistics have a plain version of their own and no
-                    # one-call library counterpart
-                    "plain_ms": (device_ms(lambda: flash_bwd_stats_reference(
-                        q_, k_, v_, dout_, kv_, causal_, sms_, rate_, seed_)) if alone
-                        else at["plain_ms"]),
-                    "plain_is": ("flash_bwd_stats_reference" if alone
-                                 else bwd_notes["plain_is"]),
-                    "library_ms": None if alone else at["library_ms"],
-                    "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
-                    **bound(nbytes, products * 2 * pairs * d, dtype, MMA_PEAK_FLOPS),
-                })
+            # each kernel alone at the encoder shape
+            rows += split_bwd_rows(at, "", dtype, errs, launch_keys, BWD_NOTES)
         print(f"[time] attention backward a training step {name}, computed: each shape's "
               f"device ms a call times its calls a step ({' + '.join(map(str, calls))}, the "
               f"measured dK/dV launches a step; largest batch): kernels {step_ms:.4f} ms, "
@@ -3497,15 +3550,20 @@ def cif_rows(cif, errs, launches):
 
 # egs/ has no LM config: the Transformer LM is the JAX package's
 # TransformerLMModel.create_model defaults (openasr_tpu/models/lm.py:254-274:
-# 8 heads, 6 layers, FFN 4 x d_model, relu, dropout 0.1) at the flagship's
-# d_model 512, the LSTM LM LSTMLMModel.create_model's default depth of 2
-# layers at d_model 512; both at the smoke test's vocabulary of 4233 (4230
+# 8 heads, FFN 4 x d_model, relu, dropout 0.1) at the flagship's d_model
+# 512, its depth cut from the default 6 layers to LM_LAYERS (the fused
+# beams' LM step, here, in the [streaming path] and in the serving
+# exports, grows with it; the run keeps within its time limit), the LSTM
+# LM LSTMLMModel.create_model's default depth of 2 layers at d_model 512;
+# both at the smoke test's vocabulary of 4233 (4230
 # characters and 3 specials: the CIF path's, and with the blank the
 # flagship's and conv-ctc's size).  Training takes the flagship YAML's
 # optimizer, clip, label smoothing and schedule.
+LM_LAYERS = 2
 LM_MODELS = {
-    "transformer_lm": {"type": "transformer_lm", "d_model": 512, "nhead": 8, "num_layers": 6,
-                       "dim_feedforward": 2048, "activation": "relu", "dropout_rate": 0.1},
+    "transformer_lm": {"type": "transformer_lm", "d_model": 512, "nhead": 8,
+                       "num_layers": LM_LAYERS, "dim_feedforward": 2048, "activation": "relu",
+                       "dropout_rate": 0.1},
     "lstm_lm": {"type": "lstm_lm", "d_model": 512, "n_layers": 2},
 }
 LM_BATCH = 32
@@ -3809,10 +3867,11 @@ def load_model_cfg(yaml_path, vocab_size) -> dict:
     return cfg
 
 
-def timed(fn) -> tuple:
-    """fn() after a warm call: (its result, its wall ms, the card
-    synchronised before and after)."""
-    fn()
+def timed(fn, warm=True) -> tuple:
+    """fn() after a warm call (`warm`; else the caller warmed it): (its
+    result, its wall ms, the card synchronised before and after)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.time()
     out = fn()
@@ -3822,10 +3881,11 @@ def timed(fn) -> tuple:
 
 def fused_beams(pkgs, flagship_pkg, ctc_pkg, test_feats, cif) -> dict:
     """Each fused beam called directly, f32: warm wall ms a batch (the 8
-    test utterances) fused and unfused; at --lm_weight 0 its output equal
-    to the unfused one's; and on the 2 shortest utterances its n-best
-    scores on the card against the CPU's with the same packages (within
-    TOL_FUSED_SCORES; the share of equal token lists reported)."""
+    test utterances) fused and unfused; at --lm_weight 0 (the fused beam's
+    warm-up) its output equal to the unfused one's; and on the shortest
+    utterance its n-best scores on the card against the CPU's with the
+    same packages (within TOL_FUSED_SCORES; whether the token lists are
+    equal reported)."""
     from openasr_torch.config import Config
     from openasr_torch.models import get_model_class
     from openasr_torch.models.lm import make_lm_step_spec
@@ -3873,13 +3933,14 @@ def fused_beams(pkgs, flagship_pkg, ctc_pkg, test_feats, cif) -> dict:
         utts = sorted(feats)
         x, lens = (torch.from_numpy(a).cuda() for a in padded_features(feats, utts))
         plain, plain_ms = timed(lambda: run(model, None, 0.0, x, lens, beam, maxlen))
-        fused, fused_ms = timed(lambda: run(model, lms["cuda"], LM_WEIGHT, x, lens, beam, maxlen))
         zero = run(model, lms["cuda"], 0.0, x, lens, beam, maxlen)
+        fused, fused_ms = timed(lambda: run(model, lms["cuda"], LM_WEIGHT, x, lens, beam, maxlen),
+                                warm=False)
         require(all(torch.equal(a, b) for a, b in zip(zero, plain)),
                 f"{name} beam: --lm_weight 0 differs from the unfused beam")
         require(bool(torch.isfinite(fused[2][fused[2] > -1e29]).all()),
                 f"{name} beam: non-finite fused scores")
-        short = sorted(utts, key=lambda u: feats[u].shape[0])[:2]
+        short = sorted(utts, key=lambda u: feats[u].shape[0])[:1]
         scores, toks = {}, {}
         for device in ("cuda", "cpu"):
             m = model if device == "cuda" else model_of(pkg_path, model_type, "cpu")
@@ -3896,9 +3957,9 @@ def fused_beams(pkgs, flagship_pkg, ctc_pkg, test_feats, cif) -> dict:
                      "same_nbest": same, "b": len(utts), "beam": beam}
         print(f"[lm path] {name} beam, f32, beam {beam}, Transformer LM weight {LM_WEIGHT}: "
               f"{fused_ms:.1f} ms a batch of {len(utts)} fused, {plain_ms:.1f} ms unfused "
-              f"(warm wall); --lm_weight 0 equal to unfused; card vs CPU on 2 utterances: "
-              f"n-best scores within {diff:.3g} (tol {TOL_FUSED_SCORES}), n-best token lists "
-              f"equal {same}/2")
+              f"(warm wall); --lm_weight 0 equal to unfused; card vs CPU on {len(short)} "
+              f"utterance(s): n-best scores within {diff:.3g} (tol {TOL_FUSED_SCORES}), n-best "
+              f"token lists equal {same}/{len(short)}")
         require(diff <= TOL_FUSED_SCORES, f"{name} beam: fused scores card vs CPU {diff:.3g}")
     out["device ctc"]["cache_gather"] = lm_cache_gather_ms(lms["cuda"], test_feats)
     return out
@@ -3919,7 +3980,7 @@ def lm_cache_gather_ms(lm, test_feats) -> dict:
                      for lc in cache["layers"] for x in lc.values())
     ms = device_ms(lambda: _gather_rows(cache, rows))
     print(f"[lm path] the device CTC beam's LM cache gather by parent, "
-          f"[{b * CTC_BEAM}, {t + 2}, 8, 64] x 12 f32: {ms:.4f} ms a frame (device), "
+          f"[{b * CTC_BEAM}, {t + 2}, 8, 64] x {2 * LM_LAYERS} f32: {ms:.4f} ms a frame (device), "
           f"{nbytes / 1e9:.3f} GB moved, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
           f"{ms * t:.1f} ms over the batch's {t} frames")
     return {"ms": ms, "frames": t, "bytes": nbytes,
@@ -4617,6 +4678,10 @@ WAVE_STEPS = 3             # optimizer steps of each wave-path training run
 FIRST_STEP_AT_3 = (0.1 / (1 - 0.9 ** 3)) / (0.001 / (1 - 0.999 ** 3)) ** 0.5
 TOL_WAVE_CPU = 1e-3        # wav2vec f32 logits and gradients, card vs CPU
 TOL_WAVE_LOSS = 1e-4       # CPC and GRU-CTC losses, card vs CPU, of their scale
+TOL_WAVE_F64 = 1e-6        # GRU-CTC's float64 gradient, card vs CPU, of each leaf's scale
+# GRU-CTC's f32 gradient: the card's distance from float64 at most twice
+# the CPU's (ROADMAP queue 3 item 39)
+TOL_WAVE_F32_RATIO = 2.0
 
 
 def conv_frames(n: int) -> int:
@@ -4847,6 +4912,136 @@ def check_cpc_gru_against_cpu(cpc_pkg, gru_pkg, waves) -> dict:
     return out
 
 
+def gru_ctc_job(vocab, wave_json) -> dict:
+    """The [parallel path]'s GRU-CTC job: libri's gru_ctc_finetune.yaml at
+    full width on its wave corpus, two ranks' budget, the f64 "sign"
+    rule."""
+    return {"tag": "gru_ctc", "yaml": GRU_CTC_YAML, "vocab": vocab,
+            "data": {"trainset": wave_json, "devset": wave_json, "vocab_path": vocab},
+            "signal": {"feature_type": "wave"}, "ndata": 2, "training": {"batch_time": 400000},
+            "f64": "sign"}
+
+
+GRU_CTC_MODULES = (("splayer convolutions", "splayer.conv"), ("BatchNorms", "splayer.bn"),
+                   ("GRU", "encoder.gru"), ("fc", "fc."))
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+
+
+def gru_ctc_precision(job, device) -> dict:
+    """GRU-CTC's step-1 gradient on `device` in f32 against float64 (the
+    CTC loss in float64 too), TF32 off: the [parallel path]'s one-rank
+    first batch and seeded weights, dropout 0, a training forward (the
+    batch's statistics).  -> each leaf's distance of the f32 gradient from
+    the float64 one (`floor_grad_errs`), their largest by module, and each
+    op's own: the op in f32 fed the float64 run's input and output
+    cotangent, its input and weight gradients against the float64 run's
+    (`rel_err`).  The ops: the splayer's five convolutions and BatchNorms,
+    the two GRU layers, the fc head and the CTC loss (its logits'
+    gradient)."""
+    import copy
+
+    from openasr_torch.models import get_model_class
+    from openasr_torch.models.layers import TrainRNG
+    from openasr_torch.models.speech import target_lengths_of
+    from openasr_torch.ops.losses import cal_ctc_loss
+    from openasr_torch.solvers import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, model_cfg, training = job_config(job)
+    batch = job_batches(job, data, model_cfg, training)[0]
+    grads, losses, seen = {}, {}, {}
+
+    def recorder(name):
+        def hook(mod, args, out):
+            if args[0].requires_grad:
+                args[0].retain_grad()
+            out.retain_grad()
+            seen[name] = (mod, args[0], out, args[1:])
+        return hook
+
+    for dtype in (torch.float32, torch.float64):
+        model = get_model_class(model_cfg["type"]).create_model(
+            model_cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+        model.module.to(dtype)
+        tb = batch_to_device(batch, torch.device(device))
+        tb["waves"] = tb["waves"].to(dtype)
+        hooks = ([m.register_forward_hook(recorder(n)) for n, m in model.module.named_modules()
+                  if n.startswith(("splayer.conv", "splayer.bn", "encoder.gru", "fc"))]
+                 if dtype == torch.float64 else [])
+        out = model.loss(tb, TrainRNG(0, device))
+        (out["ctc_loss"] / out["n_seqs"]).backward()
+        for h in hooks:
+            h.remove()
+        losses[dtype] = float(out["ctc_loss"])
+        grads[dtype] = {n: p.grad.double().cpu().numpy()
+                        for n, p in model.module.named_parameters()}
+    leaf = floor_grad_errs(grads[torch.float32], grads[torch.float64])
+    modules = {name: max(v for k, v in leaf.items() if k.startswith(prefix))
+               for name, prefix in GRU_CTC_MODULES}
+    ops = {}
+    for name, (mod, x, y, rest) in seen.items():
+        m32 = copy.deepcopy(mod).float()
+        for p in m32.parameters():
+            p.grad = None
+        x32 = x.detach().float().requires_grad_(x.requires_grad)
+        m32(x32, *rest).backward(y.grad.float())
+        ops[name] = {**({"input": rel_err(x32.grad, x.grad)} if x.requires_grad else {}),
+                     **{k: rel_err(p.grad, mod.get_parameter(k).grad)
+                        for k, p in m32.named_parameters()}}
+    logits = seen["fc"][2]
+    lg = logits.detach().float().requires_grad_()
+    n_seqs = float(tb["ids"].shape[0])
+    (cal_ctc_loss(lg, tb["wave_lengths"] // 160, tb["labels"], target_lengths_of(tb["paddings"]))
+     / n_seqs).backward()
+    ops["ctc loss"] = {"logits": rel_err(lg.grad, logits.grad)}
+    modules["CTC loss (op)"] = ops["ctc loss"]["logits"]
+    worst_op = max(((o, k) for o, e in ops.items() for k in e), key=lambda ok: ops[ok[0]][ok[1]])
+    return {"leaf": leaf, "worst_leaf": max(leaf, key=leaf.get), "modules": modules, "ops": ops,
+            "worst_op": worst_op, "losses": losses, "grads64": grads[torch.float64],
+            "shape": list(batch["waves"].shape)}
+
+
+def check_gru_ctc_precision(cpu) -> dict:
+    """Queue 3 item 39 on the card: `gru_ctc_precision` on the card beside
+    the CPU's (`cpu`, computed while the kernels built), printed leaf by
+    leaf, by module and op by op; the card's float64 gradient held to the
+    CPU's (TOL_WAVE_F64 of each leaf's scale), and the card's f32 no
+    farther from float64 than the CPU's f32, within TOL_WAVE_F32_RATIO."""
+    card = gru_ctc_precision(cpu["job"], "cuda")
+    f64 = floor_grad_errs(card["grads64"], cpu["grads64"])
+    f64_leaf = max(f64, key=f64.get)
+    print(f"[wave check] gru_ctc step-1 gradient (the [parallel path]'s first batch "
+          f"{card['shape']}, loss f32 {card['losses'][torch.float32]:.4f} vs float64 "
+          f"{card['losses'][torch.float64]:.4f} on the card): float64 card vs CPU "
+          f"{f64[f64_leaf]:.3g} ({f64_leaf}; tol {TOL_WAVE_F64})")
+    for where, r in (("card", card), ("CPU", cpu)):
+        print(f"[wave check] gru_ctc f32 vs float64 on the {where}: worst leaf "
+              f"{r['leaf'][r['worst_leaf']]:.3g} ({r['worst_leaf']}); by module " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in r["modules"].items())
+              + f"; worst op {r['worst_op'][0]} ({r['worst_op'][1]} "
+                f"{r['ops'][r['worst_op'][0]][r['worst_op'][1]]:.3g})")
+        print(f"[wave check] gru_ctc leaves on the {where}: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in r["leaf"].items()))
+        print(f"[wave check] gru_ctc ops on the {where} (each op's f32 backward fed the float64 "
+              f"run's input and output cotangent): " + "; ".join(
+                  f"{o} " + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+                  for o, e in r["ops"].items()))
+    ratio = card["leaf"][card["worst_leaf"]] / cpu["leaf"][cpu["worst_leaf"]]
+    print(f"[wave check] gru_ctc: the card's f32 sits {ratio:.3g} x the CPU's f32 distance from "
+          f"float64 (tol {TOL_WAVE_F32_RATIO})")
+    require(f64[f64_leaf] <= TOL_WAVE_F64, "gru_ctc float64 gradients: card and CPU disagree")
+    require(ratio <= TOL_WAVE_F32_RATIO, "gru_ctc f32 gradient: the card rounds worse than the CPU")
+    return {"card": {k: card[k] for k in ("worst_leaf", "modules", "worst_op")},
+            "card_err": card["leaf"][card["worst_leaf"]],
+            "cpu_err": cpu["leaf"][cpu["worst_leaf"]], "f64_err": f64[f64_leaf], "ratio": ratio}
+
+
 def wave_train_shape(train_json) -> dict:
     """The wav2vec training path's largest batch by attention work (B T'^2):
     B, T' (WavConv frames of the padded samples) and the frame counts."""
@@ -4864,7 +5059,7 @@ def wave_train_shape(train_json) -> dict:
     return best
 
 
-def phase_wave(vocab, chars, launches) -> dict:
+def phase_wave(vocab, chars, launches, gru_cpu) -> dict:
     """The raw-wave families on the card (`[wave path]`, see the module
     docstring); counters reset just before each run and read just after."""
     import yaml
@@ -4975,8 +5170,10 @@ def phase_wave(vocab, chars, launches) -> dict:
                                "--batch_frames", "800000", "--output", hyp] + extra,
             len(cpc_waves), {}, launches)
     losses = check_cpc_gru_against_cpu(cpc["pkg"], gru["pkg"], cpc_waves)
+    precision = check_gru_ctc_precision(gru_ctc_cpu_result(gru_cpu))
     return {"runs": runs, "cpc": cpc, "gru": gru, "decodes": decodes, "check": check,
-            "losses": losses, "train_json": train_json, "per": per, "gate_ratio": ratio}
+            "losses": losses, "precision": precision, "train_json": train_json, "per": per,
+            "gate_ratio": ratio}
 
 
 def largest_move(after, before, below=None) -> float:
@@ -4997,9 +5194,9 @@ def wave_rows(wave, errs, launches):
     """Rows 4w and 5+6w: the attention forward (dropout 0.1) and the whole
     backward at the wav2vec training run's largest batch [B, T' up to
     3000, 8, 64] with its key lengths, each held to its plain version
-    there and timed beside SDPA with the same key-length mask; the
-    LayerNorm forward and backward at its rows; their launches from the
-    run."""
+    there and timed beside SDPA with the same key-length mask; rows 5sw,
+    5w and 6w, the backward's three kernels alone there (`split_bwd_rows`,
+    warm L2); their launches from the run."""
     from openasr_torch.kernels.flash_attention import (
         flash_attention_bwd,
         flash_attention_bwd_reference,
@@ -5052,6 +5249,10 @@ def wave_rows(wave, errs, launches):
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
                           "mask) forward + backward minus forward (graph replay)",
         })
+        rows += split_bwd_rows(
+            at, "_wav2vec", dtype, errs,
+            lambda k: {"launches": tr["total"][k], "launches_per_micro_batch": tr["per_step"][k]},
+            {k: v for k, v in BWD_NOTES.items() if k != "cold_is"}, cold=False)
         del at
         torch.cuda.empty_cache()
     return rows
@@ -5816,6 +6017,7 @@ def phase_moe(train_json, dev_json, vocab, test_json, train_feats, launches) -> 
 # card with them.
 
 SERVE_DIR = os.path.join(WORK, "serving")
+SERVE_CARD = os.path.join(SERVE_DIR, "card")
 SERVE_KINDS = ("beam", "beam int8", "beam lm", "ctc_beam", "streaming", "streaming online",
                "stream_beam", "beam moe int8")
 SERVE_BEAM = 5
@@ -5869,15 +6071,31 @@ def serve_job(pkg, ctc_pkg, lm_pkg, stream_pkg, moe_pkg, vocab, test_feats, wtes
     return job
 
 
-def phase_serving(job) -> dict:
-    """Start one worker a kind, wait for all, print their reports; every
-    worker must exit 0."""
+def start_serving(job) -> dict:
+    """Start one worker a kind (`serving_worker`), at the lowest priority:
+    each exports its program on the host while this process drives the
+    later paths, then waits for `finish_serving` to let it onto the card."""
     procs = {}
     for kind in SERVE_KINDS:
         log = open(os.path.join(SERVE_DIR, f"{kind.replace(' ', '_')}.log"), "w")
         procs[kind] = (subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--serving-worker", kind],
-            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log)
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, preexec_fn=lambda: os.nice(19)),
+            log)
+    return procs
+
+
+def stop_serving(procs) -> None:
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        log.close()
+
+
+def finish_serving(procs) -> dict:
+    """Let the workers onto the card (SERVE_CARD), wait for all, print
+    their reports; every worker must exit 0."""
+    open(SERVE_CARD, "w").close()
     results, failed = {}, []
     t0 = time.time()
     for kind, (proc, log) in procs.items():
@@ -5896,7 +6114,7 @@ def phase_serving(job) -> dict:
             continue
         with open(path) as f:
             results[kind] = json.load(f)
-    print(f"[time] serving workers done in {time.time() - t0:.1f}s")
+    print(f"[time] serving workers done in {time.time() - t0:.1f}s after their go onto the card")
     require(not failed, f"serving workers failed: {failed}")
     return results
 
@@ -5994,9 +6212,17 @@ def exact_nbest(name, got, want) -> float:
 
 
 def serve_export(kind, export_fn, loader_cls, path) -> tuple:
+    """Export (host work), wait for the go onto the card (SERVE_CARD: the
+    main process's timed kernel rows are done), then load on the card."""
     t0 = time.time()
     export_fn(path)
     export_s = time.time() - t0
+    t_wait = time.time()
+    while not os.path.exists(SERVE_CARD):
+        require(time.time() - t_wait < 1200, f"{kind}: no go onto the card")
+        time.sleep(0.2)
+    with contextlib.suppress(PermissionError):
+        os.setpriority(os.PRIO_PROCESS, 0, 0)
     t0 = time.time()
     loader = loader_cls(path, device="cuda")
     load_s = time.time() - t0
@@ -6303,6 +6529,12 @@ def load_package_configs(path) -> dict:
 
 PARALLEL_DIR = os.path.join(WORK, "parallel")
 PARALLEL_STEPS = 3
+# The [parallel path]'s flagship and MoE pairs and the [model path]'s
+# pairs run at GRID_LAYERS encoder and decoder layers (the YAMLs' 6 cut;
+# the widths as they are): two ranks hold to one at any depth, and the run
+# keeps within its time limit.  The MoE YAML keeps its experts in layer 1.
+GRID_LAYERS = 2
+GRID_SECTIONS = {"encoder": {"num_layers": GRID_LAYERS}, "decoder": {"num_layers": GRID_LAYERS}}
 TOL_PARALLEL = 1e-3        # two ranks against one: the flagship card check's
 # The step-1 gradient that the ranks reduced (Adam's first moment after one
 # update, f32: (1 - b1) times the clipped gradient), per leaf, of the
@@ -6311,12 +6543,18 @@ TOL_PARALLEL = 1e-3        # two ranks against one: the flagship card check's
 # scale of the others).  Half a gradient, a rank's share without the
 # reduction, is off by about 0.5.
 TOL_PARALLEL_GRAD = 1e-4
-# A pair with an f64 step-1 gradient (`f64`, computed by the one-rank run)
-# holds the two ranks' f32 gradient to it as well as to one rank's:
-# "sign" (GRU-CTC, whose f32 step-1 gradient is itself about 1e-3 off its
-# f64 value: rounding that the rank split, summing in another order,
-# changes) no worse than twice one rank's f32 distance plus
-# TOL_PARALLEL_GRAD, and its parameters to Adam's 2 lr a step (its first
+# A pair with an f64 step-1 gradient (`f64`, computed by the one-rank run,
+# its CTC loss in float64 too) holds the two ranks' f32 gradient to it as
+# well as to one rank's: "sign" (GRU-CTC, whose f32 step-1 gradient sits
+# some 5e-3 of scale off float64, which the rank split, summing in another
+# order, moves by some 1e-3: the f32 CTC loss over its batch's 1435
+# frames, about 1e4 nats a sequence, puts the logits' gradient 7.5e-3 off
+# float64, on an H100 as on the CPU, while every other op's f32 backward
+# stays within 8e-5 of float64 (the [wave check], ROADMAP queue 3 item
+# 39); the JAX package's CTC rounds in f32 alike, its f32 gradient as far
+# from float64 as the port's, tests/test_torch_gru_ctc_precision.py) no
+# worse than twice one rank's f32 distance plus TOL_PARALLEL_GRAD, and its
+# parameters to Adam's 2 lr a step (its first
 # updates are +-lr by each element's gradient sign, which f32 does not fix
 # for an element whose gradient is below that error); "rounding" (the
 # model axis's pairs, whose two ranks sit some 1e-5 of scale off one rank)
@@ -6386,6 +6624,49 @@ def f64_first_moment(solver, model_cfg, batch, empty_rows) -> dict:
     return {n: (0.1 * scale * g).cpu().numpy() for n, g in grads.items()}
 
 
+def job_config(job: dict) -> tuple:
+    """A [parallel path] job's data, model and training sections: its
+    YAML's, dropout 0, the job's changes to model sections (`sections`),
+    f32 Adam moments, the job's training changes, the vocabulary's
+    size."""
+    import yaml
+
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    with open(job["yaml"]) as f:
+        cfg = yaml.safe_load(f)
+    model_cfg, training = cfg["model"], cfg["training"]
+    for sec in ("encoder", "decoder"):
+        for key in ("dropout_rate", "dropout"):
+            if key in (model_cfg.get(sec) or {}):
+                model_cfg[sec][key] = 0.0
+    for sec, change in job.get("sections", {}).items():
+        model_cfg[sec].update(change)
+    training.update(print_inteval=1000, adam_mu_dtype="float32", **job["training"])
+    tokenizer = CharTokenizer(job["vocab"], add_blk=model_cfg.get("add_blk", False))
+    model_cfg["decoder"]["vocab_size"] = tokenizer.unit_num()
+    return {**cfg["data"], **job["data"]}, model_cfg, training
+
+
+def job_batches(job, data, model_cfg, training, rank=0, world=1) -> list:
+    """The first PARALLEL_STEPS batches of rank `rank`'s rows of a job's
+    loader at the global budget (`build_loaders(ndata=job["ndata"])`)."""
+    from openasr_torch.bin.train import build_loaders
+    from openasr_torch.data.tokenizer import CharTokenizer
+
+    tokenizer = CharTokenizer(job["vocab"], add_blk=model_cfg.get("add_blk", False))
+    loader_cfg = dict(model_cfg, signal={**model_cfg.get("signal", {}),
+                                         **job.get("signal", {})})
+    tr, _ = build_loaders(data, training, loader_cfg, tokenizer,
+                          ndata=job["ndata"], rank=rank, world=world)
+    batches = []
+    for batch in tr:
+        batches.append(batch)
+        if len(batches) == PARALLEL_STEPS:
+            break
+    return batches
+
+
 def parallel_train(job: dict, grid, go=None) -> dict:
     """Train `job`'s model PARALLEL_STEPS steps as a rank of `grid` (a
     `Grid`: one rank in this process, or gloo on cuda:0, or NCCL with a
@@ -6402,10 +6683,6 @@ def parallel_train(job: dict, grid, go=None) -> dict:
     `pipe_bytes`) and each step's batch, encoder length and microbatch
     count (`microbatches`), and the package (every rank gathers; rank 0's
     returned)."""
-    import yaml
-
-    from openasr_torch.bin.train import build_loaders
-    from openasr_torch.data.tokenizer import CharTokenizer
     from openasr_torch.models import get_model_class
     from openasr_torch.parallel.data_parallel import full_expert_tables
     from openasr_torch.parallel.pipeline import microbatch_count
@@ -6415,26 +6692,9 @@ def parallel_train(job: dict, grid, go=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     group = grid.data
     rank, world = group.rank, group.world
-    with open(job["yaml"]) as f:
-        cfg = yaml.safe_load(f)
-    model_cfg, training = cfg["model"], cfg["training"]
-    for sec in ("encoder", "decoder"):
-        for key in ("dropout_rate", "dropout"):
-            if key in (model_cfg.get(sec) or {}):
-                model_cfg[sec][key] = 0.0
-    training.update(exp_dir=os.path.join(PARALLEL_DIR, f"exp_{job['tag']}_{grid.world}"),
-                    print_inteval=1000, adam_mu_dtype="float32", **job["training"])
-    tokenizer = CharTokenizer(job["vocab"], add_blk=model_cfg.get("add_blk", False))
-    model_cfg["decoder"]["vocab_size"] = tokenizer.unit_num()
-    loader_cfg = dict(model_cfg, signal={**model_cfg.get("signal", {}),
-                                         **job.get("signal", {})})
-    tr, _ = build_loaders({**cfg["data"], **job["data"]}, training, loader_cfg, tokenizer,
-                          ndata=job["ndata"], rank=rank, world=world)
-    batches = []
-    for batch in tr:
-        batches.append(batch)
-        if len(batches) == PARALLEL_STEPS:
-            break
+    data, model_cfg, training = job_config(job)
+    training.update(exp_dir=os.path.join(PARALLEL_DIR, f"exp_{job['tag']}_{grid.world}"))
+    batches = job_batches(job, data, model_cfg, training, rank, world)
     model = get_model_class(model_cfg["type"]).create_model(
         model_cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
     solver = get_solver_class(model_cfg["type"])(model, training, batches, [],
@@ -6487,7 +6747,7 @@ def parallel_train(job: dict, grid, go=None) -> dict:
     solver.grad_step, solver.apply_update = recording, recording_update
     t_wait = time.time()
     while go is not None and not os.path.exists(go):
-        require(time.time() - t_wait < 300, "no go from the [parallel path]")
+        require(time.time() - t_wait < 600, "no go from the [parallel path]")
         time.sleep(0.05)
     reset_counters()
     grid.reset_counts()
@@ -6532,39 +6792,45 @@ def parallel_train(job: dict, grid, go=None) -> dict:
 def parallel_worker(job_path, rank=None, world=None, port=None) -> int:
     """One rank of the [parallel path] (see `phase_parallel`): over gloo on
     cuda:0 with the given coordinates, or over NCCL from torchrun's
-    environment without them (`parallel_cards`)."""
+    environment without them (`parallel_cards`); it trains the file's jobs
+    in turn on one group (they share its grid), job i's result in
+    `<job_path>.<i>.<rank>`."""
     import pickle
 
     from openasr_torch.parallel import init_distributed, new_group
     from openasr_torch.parallel.mesh import destroy
 
     with open(job_path, "rb") as f:
-        job = pickle.load(f)
-    model = job.get("model", 1)
-    pipe = job.get("pipe", 1)
+        jobs = pickle.load(f)
+    model = jobs[0].get("model", 1)
+    pipe = jobs[0].get("pipe", 1)
     group = (init_distributed("cuda", model=model, pipe=pipe) if rank is None else
              new_group(int(rank), int(world), f"tcp://localhost:{port}", "gloo", "cuda:0",
                        model, pipe=pipe))
     try:
-        res = parallel_train(job, group, go=None if rank is None else f"{job_path}.go")
+        for i, job in enumerate(jobs):
+            res = parallel_train(job, group, go=None if rank is None else f"{job_path}.{i}.go")
+            out = f"{job_path}.{i}.{group.rank}"
+            with open(out + ".tmp", "wb") as f:
+                pickle.dump(res, f)
+            os.replace(out + ".tmp", out)
     finally:
         destroy(group)
-    with open(f"{job_path}.{group.rank}", "wb") as f:
-        pickle.dump(res, f)
     return 0
 
 
-def start_ranks(job: dict) -> dict:
-    """Start `job`'s two ranks (gloo on cuda:0, two processes of this
-    script); they set up (imports, group, data, model) and wait for
-    `finish_pair`'s go."""
+def start_ranks(jobs: list) -> dict:
+    """Start two ranks (gloo on cuda:0, two processes of this script) for
+    `jobs`, which share a grid: they set up (imports, group), then for each
+    job in turn set up its data and model and wait for `finish_pair`'s
+    go."""
     import pickle
     import socket
 
     os.makedirs(PARALLEL_DIR, exist_ok=True)
-    job_path = os.path.join(PARALLEL_DIR, f"job_{job['tag']}.pkl")
+    job_path = os.path.join(PARALLEL_DIR, f"jobs_{jobs[0]['tag']}.pkl")
     with open(job_path, "wb") as f:
-        pickle.dump(job, f)
+        pickle.dump(jobs, f)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -6574,32 +6840,39 @@ def start_ranks(job: dict) -> dict:
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
                                job_path, str(r), "2", str(port)], cwd=ROOT, env=env)
              for r in range(2)]
-    return {"job": job, "path": job_path, "procs": procs}
+    return {"jobs": jobs, "path": job_path, "procs": procs}
 
 
-def stop_ranks(pairs) -> None:
-    for pair in pairs:
-        for p in pair["procs"]:
-            if p.poll() is None:
-                p.kill()
+def stop_ranks(ranks) -> None:
+    for p in ranks["procs"]:
+        if p.poll() is None:
+            p.kill()
 
 
-def finish_pair(pair: dict) -> tuple:
-    """(the one-rank run, trained in this process first, then the two
-    ranks' runs, trained after it, so that the timed steps do not
-    overlap)."""
+def finish_pair(ranks: dict, i: int) -> tuple:
+    """Job i of `start_ranks`'s: (the one-rank run, trained in this process
+    first, then the two ranks' runs, trained after it, so that the timed
+    steps do not overlap)."""
     import pickle
 
     from openasr_torch.parallel import Grid
 
-    job, path = pair["job"], pair["path"]
+    job, path, procs = ranks["jobs"][i], ranks["path"], ranks["procs"]
     one = parallel_train(job, Grid.single("cuda:0"))
-    open(f"{path}.go", "w").close()
-    codes = [p.wait(timeout=300) for p in pair["procs"]]
-    require(codes == [0, 0], f"[parallel path] {job['tag']}: ranks exited {codes}")
+    open(f"{path}.{i}.go", "w").close()
+    outs = [f"{path}.{i}.{r}" for r in range(2)]
+    t0 = time.time()
+    while not all(os.path.exists(o) for o in outs):
+        codes = [p.poll() for p in procs]
+        require(None in codes and all(c in (None, 0) for c in codes)
+                and time.time() - t0 < 300, f"[parallel path] {job['tag']}: ranks {codes}")
+        time.sleep(0.05)
+    if i == len(ranks["jobs"]) - 1:
+        codes = [p.wait(timeout=300) for p in procs]
+        require(codes == [0, 0], f"[parallel path] {job['tag']}: ranks exited {codes}")
     two = []
-    for r in range(2):
-        with open(f"{path}.{r}", "rb") as f:
+    for out in outs:
+        with open(out, "rb") as f:
             two.append(pickle.load(f))
     return one, two
 
@@ -6686,31 +6959,45 @@ def check_pair(tag, one, two, want_per_step=None, phase="parallel path") -> dict
             "bytes": two[0]["bytes"], "zero1": two[0]["zero1"]}
 
 
-def parallel_world1(train_json, dev_json, vocab) -> dict:
+def start_world1(corpora, vocab) -> dict:
     """(a): the train CLI with --distributed under torchrun at world 1
-    (NCCL) and the plain CLI, at once (a world of 1 sends nothing; their
-    walls overlap), on the flagship YAML for 3 steps and the dev pass."""
-    from openasr_torch.bin import train
-    from openasr_torch.utils.checkpoint import load_package
-
-    out = {}
+    (NCCL) on the flagship YAML for 3 steps and the dev pass, started
+    ahead of the phase (its start-up is host work); the phase runs the
+    plain CLI and `finish_world1` compares the two."""
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
     cfgs = {}
     for tag in ("distributed", "plain"):
         exp = os.path.join(PARALLEL_DIR, f"exp_cli_{tag}")
         os.makedirs(exp)
-        cfgs[tag] = train_config(train_json, dev_json, vocab, exp, torch.float32)
-    t0 = time.time()
+        cfgs[tag] = train_config(corpora["train"], corpora["dev"], vocab, exp, torch.float32)
+    log = open(os.path.join(PARALLEL_DIR, "torchrun.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
          "-m", "openasr_torch.bin.train", cfgs["distributed"], "--distributed"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "t0": time.time(), "cfgs": cfgs}
+
+
+def stop_world1(world1) -> None:
+    if world1["proc"].poll() is None:
+        world1["proc"].kill()
+    world1["log"].close()
+
+
+def finish_world1(world1) -> dict:
+    from openasr_torch.utils.checkpoint import load_package
+
+    out = {}
+    proc, cfgs = world1["proc"], world1["cfgs"]
     try:
-        train.main([cfgs["plain"], "--device", "cuda"])
-        log, _ = proc.communicate(timeout=300)
+        proc.wait(timeout=300)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-    out["cli_wall"] = time.time() - t0
+        stop_world1(world1)
+    log_path = os.path.join(PARALLEL_DIR, "torchrun.log")
+    # torchrun's run: from its start to its log's last write
+    out["cli_wall"] = os.path.getmtime(log_path) - world1["t0"]
+    with open(log_path) as f:
+        log = f.read()
     require(proc.returncode == 0, f"torchrun --distributed failed:\n{log[-3000:]}")
     require("rank 0 of 1 on cuda:0 (nccl)" in log, "no NCCL data group logged")
     pkgs = {tag: load_package(os.path.join(PARALLEL_DIR, f"exp_cli_{tag}", "last.pkg"))
@@ -6719,33 +7006,36 @@ def parallel_world1(train_json, dev_json, vocab) -> dict:
     err = scaled_tree_err(pkgs["distributed"]["model"]["components"],
                           pkgs["plain"]["model"]["components"])
     print(f"[parallel path] --distributed under torchrun at world 1 (NCCL) vs the plain CLI: "
-          f"{steps} steps (+ dev), parameters {err:.3g} of scale; both in "
-          f"{out['cli_wall']:.1f} s")
+          f"{steps} steps (+ dev), parameters {err:.3g} of scale; torchrun's run "
+          f"{out['cli_wall']:.1f} s (started with the [text path]), the plain CLI's "
+          f"{world1['plain_wall']:.1f} s")
     require(steps[0] == steps[1] >= PARALLEL_STEPS and err <= TOL_PARALLEL_WORLD1,
             f"--distributed world 1: steps {steps}, parameters {err:.3g}")
     out["world1_err"] = err
     return out
 
 
-def flagship_step_launches() -> dict:
+def flagship_step_launches(layers=None) -> dict:
     """A flagship training step's launches at dropout 0 (plain attention
-    forwards)."""
-    per = per_step_launches({**FLAGSHIP, "encoder": {**FLAGSHIP["encoder"], "dropout_rate": 0},
-                             "decoder": {**FLAGSHIP["decoder"], "dropout_rate": 0}})
+    forwards), at `layers` encoder and decoder layers (default the YAML's)."""
+    depth = {} if layers is None else {"num_layers": layers}
+    per = per_step_launches({**FLAGSHIP,
+                             "encoder": {**FLAGSHIP["encoder"], "dropout_rate": 0, **depth},
+                             "decoder": {**FLAGSHIP["decoder"], "dropout_rate": 0, **depth}})
     want = {**per["train"]}
     want["flash_attention_fwd"] = want.pop("flash_attention_fwd_dropout")
     return {k: float(v) for k, v in want.items()}
 
 
-def parallel_pairs(pairs) -> dict:
-    """(b) the flagship, (c) GRU-CTC and expert parallelism: each pair's two
+def parallel_pairs(ranks) -> dict:
+    """(b) the flagship, (c) GRU-CTC and expert parallelism: each job's two
     ranks against the one-rank run."""
     out = {}
-    one, two = finish_pair(pairs[0])
-    out["flagship"] = check_pair("flagship", one, two, flagship_step_launches())
+    one, two = finish_pair(ranks, 0)
+    out["flagship"] = check_pair("flagship", one, two, flagship_step_launches(GRID_LAYERS))
     require(out["flagship"]["zero1"], "ZeRO-1 did not run at two ranks")
 
-    one, two = finish_pair(pairs[1])
+    one, two = finish_pair(ranks, 1)
     out["gru_ctc"] = check_pair("gru_ctc", one, two)
     require(one["stats1"] and set(one["stats1"]) == set(two[0]["stats1"]), "no BatchNorm stats")
     stats_err = max(float(np.abs(two[0]["stats1"][k] - v).max()) / max(1.0, float(np.abs(v).max()))
@@ -6756,44 +7046,90 @@ def parallel_pairs(pairs) -> dict:
     require(stats_err <= TOL_PARALLEL_STATS, f"gru_ctc batch_stats {stats_err:.3g}")
     out["gru_ctc"]["stats_err"] = stats_err
 
-    one, two = finish_pair(pairs[2])
+    one, two = finish_pair(ranks, 2)
     require(two[0]["experts"], "no expert table is rank-local")
     out["moe"] = check_pair("moe (expert parallel)", one, two)
     return out
 
 
-def phase_parallel(vocab, chars) -> dict:
-    """Data parallelism on the card (`[parallel path]`): (a) the train CLI
-    with --distributed under torchrun at world 1 (NCCL) against the plain
-    CLI; (b) the flagship at full width, dropout 0, f32, two ranks over gloo
-    on cuda:0 against one rank, 3 steps of the flagship's global batch
-    (18000 frames a rank); (c) the same for the libri GRU-CTC config (its
-    BatchNorm statistics over the global batch); (d) expert parallelism
-    (conv-ctc-transformer-moe.yaml); ZeRO-1 on at two ranks."""
-    t_phase = time.time()
-    os.makedirs(PARALLEL_DIR)
+def parallel_corpora(chars) -> dict:
+    """The [parallel path]'s corpora, written at the start (the [wave
+    check]'s CPU run reads the wave corpus while the kernels build)."""
     rng = np.random.RandomState(SEED + 40)
     train_json, _ = write_corpus("ptrain", rng, chars, 240, (400, 512), (20, 24))
     dev_json, _ = write_corpus("pdev", rng, chars, 4, (400, 512), (20, 24))
     wave_json, _ = write_wave_corpus("pwave", rng, chars, 18, (120000, 200000), (5, 20))
-    out = {}
+    return {"train": train_json, "dev": dev_json, "wave": wave_json}
 
-    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
-    # every pair's ranks set up while (a) and the one-rank runs train
-    pairs = [start_ranks(job) for job in (
-        {"tag": "flagship", "yaml": FLAGSHIP_YAML, "vocab": vocab, "data": data, "ndata": 2,
-         "training": {"batch_frames": 18000}},
-        {"tag": "gru_ctc", "yaml": GRU_CTC_YAML, "vocab": vocab,
-         "data": {"trainset": wave_json, "devset": wave_json, "vocab_path": vocab},
-         "signal": {"feature_type": "wave"}, "ndata": 2, "training": {"batch_time": 400000},
-         "f64": "sign"},
-        {"tag": "moe", "yaml": MOE_YAML, "vocab": vocab, "data": data, "ndata": 2,
-         "training": {"batch_frames": 18000}})]
-    try:
-        out.update(parallel_world1(train_json, dev_json, vocab))
-        out.update(parallel_pairs(pairs))
-    finally:
-        stop_ranks(pairs)
+
+GRU_CTC_CPU = os.path.join(WORK, "gru_ctc_cpu.pkl")
+
+
+def start_gru_ctc_cpu(job) -> dict:
+    """The CPU's share of the [wave check], `gru_ctc_precision(job, "cpu")`,
+    in a process of this script at the lowest priority on half the host's
+    threads, while this one builds the kernels and drives the card; ->
+    {"proc", "job"}."""
+    import pickle
+
+    with open(GRU_CTC_CPU, "wb") as f:
+        pickle.dump(job, f)
+    env = {**os.environ, "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gru-ctc-cpu"],
+                            cwd=ROOT, env=env, preexec_fn=lambda: os.nice(19))
+    return {"proc": proc, "job": job}
+
+
+def gru_ctc_cpu_worker() -> int:
+    import pickle
+
+    with open(GRU_CTC_CPU, "rb") as f:
+        job = pickle.load(f)
+    res = gru_ctc_precision(job, "cpu")
+    with open(GRU_CTC_CPU + ".out", "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def gru_ctc_cpu_result(started) -> dict:
+    import pickle
+
+    rc = started["proc"].wait(timeout=600)
+    require(rc == 0, f"the [wave check]'s CPU process exited {rc}")
+    with open(GRU_CTC_CPU + ".out", "rb") as f:
+        return {**pickle.load(f), "job": started["job"]}
+
+
+def parallel_jobs(vocab, corpora) -> list:
+    """(b)-(d)'s jobs: the flagship and the MoE YAML at GRID_LAYERS layers,
+    libri's GRU-CTC, at two ranks' budget."""
+    data = {"trainset": corpora["train"], "devset": corpora["train"], "vocab_path": vocab}
+    return [{"tag": "flagship", "yaml": FLAGSHIP_YAML, "vocab": vocab, "data": data, "ndata": 2,
+             "training": {"batch_frames": 18000}, "sections": GRID_SECTIONS},
+            gru_ctc_job(vocab, corpora["wave"]),
+            {"tag": "moe", "yaml": MOE_YAML, "vocab": vocab, "data": data, "ndata": 2,
+             "training": {"batch_frames": 18000}, "sections": GRID_SECTIONS}]
+
+
+def phase_parallel(ranks, world1) -> dict:
+    """Data parallelism on the card (`[parallel path]`): (a) the train CLI
+    with --distributed under torchrun at world 1 (NCCL, `start_world1`)
+    against the plain CLI; (b) the flagship at full width and GRID_LAYERS
+    layers, dropout 0, f32, two ranks over gloo on cuda:0 against one rank,
+    3 steps of the flagship's global batch (18000 frames a rank); (c) the
+    same for the libri GRU-CTC config (its BatchNorm statistics over the
+    global batch); (d) expert parallelism (conv-ctc-transformer-moe.yaml at
+    GRID_LAYERS layers); ZeRO-1 on at two ranks.  The ranks
+    (`start_ranks(parallel_jobs(...))`) were started a phase ahead and
+    have set up meanwhile."""
+    from openasr_torch.bin import train
+
+    t_phase = time.time()
+    out = {}
+    train.main([world1["cfgs"]["plain"], "--device", "cuda"])
+    world1["plain_wall"] = time.time() - t_phase
+    pairs = parallel_pairs(ranks)
+    out.update(finish_world1(world1), **pairs)
     out["wall"] = time.time() - t_phase
     print(f"[parallel path] the phase {out['wall']:.1f}s")
     return out
@@ -6808,7 +7144,7 @@ def model_job(tag, yaml_path, vocab, data, sequence_parallel) -> dict:
     return {"tag": tag, "yaml": yaml_path, "vocab": vocab, "data": data, "ndata": 1,
             "model": 2, "training": {"batch_frames": 18000,
                                      "sequence_parallel": sequence_parallel},
-            "f64": "rounding"}
+            "f64": "rounding", "sections": GRID_SECTIONS}
 
 
 def check_layer_norm_split(tag, two) -> dict:
@@ -6864,29 +7200,30 @@ def tp_attention_times(shapes, errs) -> dict:
     return out
 
 
-def phase_model(vocab, chars, shapes, errs) -> dict:
-    """Tensor and sequence parallelism on the card (`[model path]`): the
-    flagship YAML with sequence parallelism on and off, and the MoE YAML,
-    each on a dp1 x tp2 grid of two gloo ranks on cuda:0 against one rank;
-    then the attention kernels at a rank's shape."""
-    t_phase = time.time()
+def model_jobs(vocab, chars) -> list:
     rng = np.random.RandomState(SEED + 41)
     train_json, _ = write_corpus("mtrain", rng, chars, 160, (400, 512), (20, 24))
     data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
-    jobs = [model_job("tp_flagship_sp", FLAGSHIP_YAML, vocab, data, True),
+    return [model_job("tp_flagship_sp", FLAGSHIP_YAML, vocab, data, True),
             model_job("tp_flagship", FLAGSHIP_YAML, vocab, data, False),
             model_job("tp_moe", MOE_YAML, vocab, data, True)]
-    pairs = [start_ranks(job) for job in jobs]
+
+
+def phase_model(ranks, shapes, errs) -> dict:
+    """Tensor and sequence parallelism on the card (`[model path]`): the
+    flagship YAML with sequence parallelism on and off, and the MoE YAML,
+    each on a dp1 x tp2 grid of two gloo ranks on cuda:0 (`start_ranks(
+    model_jobs(...))`, started a phase ahead) against one rank; then the
+    attention kernels at a rank's shape."""
+    t_phase = time.time()
+    jobs = ranks["jobs"]
     out = {}
-    try:
-        for pair in pairs:
-            tag = pair["job"]["tag"]
-            one, two = finish_pair(pair)
-            out[tag] = check_pair(tag, one, two, phase="model path")
-            out[tag]["ln"] = check_layer_norm_split(tag, two)
-            out[tag]["launches_two"] = [r["launches"] for r in two]
-    finally:
-        stop_ranks(pairs)
+    for i, job in enumerate(jobs):
+        tag = job["tag"]
+        one, two = finish_pair(ranks, i)
+        out[tag] = check_pair(tag, one, two, phase="model path")
+        out[tag]["ln"] = check_layer_norm_split(tag, two)
+        out[tag]["launches_two"] = [r["launches"] for r in two]
     require(out["tp_flagship"]["ln"]["dx"] == 0, "sequence parallelism off ran a dx-only one")
     require(out["tp_flagship_sp"]["ln"]["dx"] > 0, "no T-sharded site ran a dx-only LayerNorm "
                                                   "backward")
@@ -7142,7 +7479,17 @@ def pipe_rows(step, launches, errs) -> list:
     return rows
 
 
-def phase_pipe(vocab, chars, test_json, train_feats, errs) -> dict:
+def pipe_jobs(vocab, chars) -> list:
+    os.makedirs(PIPE_DIR)
+    rng = np.random.RandomState(SEED + 42)
+    train_json, _ = write_corpus("pptrain", rng, chars, 160, (400, 512), (20, 24))
+    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
+    return [{"tag": "pp2_flagship", "yaml": pipe_yaml(), "vocab": vocab, "data": data,
+             "ndata": 1, "pipe": PIPE_STAGES, "f64": "rounding",
+             "training": {"batch_frames": 18000, "pipeline_microbatch": PIPE_MICROBATCH}}]
+
+
+def phase_pipe(ranks, vocab, test_json, train_feats, errs) -> dict:
     """Pipeline parallelism on the card (`[pipe path]`): the flagship YAML
     with encoder.pipeline: true, f32, dropout 0, at pp2 (two gloo ranks on
     cuda:0, layers 0-2 and 3-5, `pipeline_microbatch` 4) against one rank
@@ -7152,18 +7499,7 @@ def phase_pipe(vocab, chars, test_json, train_feats, errs) -> dict:
     against off; the pp2 package decoded stacked and unstacked; rows 1,
     3-6 at a stage's microbatch shape."""
     t_phase = time.time()
-    os.makedirs(PIPE_DIR)
-    rng = np.random.RandomState(SEED + 42)
-    train_json, _ = write_corpus("pptrain", rng, chars, 160, (400, 512), (20, 24))
-    data = {"trainset": train_json, "devset": train_json, "vocab_path": vocab}
-    job = {"tag": "pp2_flagship", "yaml": pipe_yaml(), "vocab": vocab, "data": data,
-           "ndata": 1, "pipe": PIPE_STAGES, "f64": "rounding",
-           "training": {"batch_frames": 18000, "pipeline_microbatch": PIPE_MICROBATCH}}
-    pair = start_ranks(job)
-    try:
-        one, two = finish_pair(pair)
-    finally:
-        stop_ranks([pair])
+    one, two = finish_pair(ranks, 0)
     out = check_pair("pp2 flagship", one, two, phase="pipe path")
     out["launches"] = check_pipe_launches(two)
     steps = two[0]["microbatches"]
@@ -7215,7 +7551,7 @@ def parallel_cards(n: int) -> int:
                "training": {"batch_frames": 36000 * model // n}}
         job_path = os.path.join(PARALLEL_DIR, f"job_{job['tag']}.pkl")
         with open(job_path, "wb") as f:
-            pickle.dump(job, f)
+            pickle.dump([job], f)
         one = parallel_train(job, Grid.single("cuda:0"))
         res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                               "--nproc-per-node", str(n), os.path.abspath(__file__),
@@ -7223,7 +7559,7 @@ def parallel_cards(n: int) -> int:
         require(res.returncode == 0, f"{tag} over {n} cards: torchrun exited {res.returncode}")
         ranks = []
         for r in range(n):
-            with open(f"{job_path}.{r}", "rb") as f:
+            with open(f"{job_path}.0.{r}", "rb") as f:
                 ranks.append(pickle.load(f))
         check_pair(f"{tag} over {n} cards", one, ranks, want)
     print(nvidia_smi())
@@ -7453,6 +7789,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--serving-worker"]:
         return serving_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--gru-ctc-cpu"]:
+        return gru_ctc_cpu_worker()
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(*sys.argv[2:6])
     if sys.argv[1:2] == ["--parallel-cards"]:
@@ -7466,9 +7804,10 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     errs, launches = {}, {}
-    t_start = time.time()
+    clock = PhaseClock()
+    gru_cpu = serving = world1 = None
+    grids = []
     try:
-        phase_build()
         rng = np.random.RandomState(SEED)
         vocab, chars = write_vocab()
         test_json, test_feats = write_corpus("test", rng, chars, 8, (600, 1200), (12, 12))
@@ -7479,89 +7818,122 @@ def main() -> int:
         wtrain_json, wtrain = write_wave_corpus("wtrain", rng, chars, 128, (64000, 83200),
                                                 (20, 24))
         wdev_json, _ = write_wave_corpus("wdev", rng, chars, 16, (64000, 83200), (20, 24))
+        pcorpora = parallel_corpora(chars)
+        clock.done("corpora", "corpora written")
+        gru_cpu = start_gru_ctc_cpu(gru_ctc_job(vocab, pcorpora["wave"]))
+        phase_build()
+        clock.done("build", "kernels built")
         shapes = train_shapes(train_json)
         wbatch = online_train_batch(wtrain_json, wtrain)
         print(f"[shapes] training path's largest batch: B {shapes['b']}, T' {shapes['t']}, "
               f"U {shapes['u']}; online: B {len(wbatch['utts'])}")
-        print(f"[time] corpora written at {time.time() - t_start:.1f}s")
         phase_layer_norm(errs)
         phase_layer_norm_bwd(errs, shapes["b"] * shapes["t"])
         phase_flash(errs)
         phase_flash_bwd(errs, shapes)
         phase_fbank(errs, wbatch, wtest)
-        print(f"[time] kernel checks done at {time.time() - t_start:.1f}s")
+        clock.done("kernel checks")
         phase_train_head_dim_16(vocab, chars, rng, launches)
 
         pkg = os.path.join(WORK, "flagship.pkg")
         save_flagship_package(pkg)
         phase_decode(pkg, vocab, test_json, launches)
         check_logits_against_cpu(pkg, test_feats)
-        print(f"[time] decode path done at {time.time() - t_start:.1f}s")
+        clock.done("decode path")
         ctc_pkg = os.path.join(WORK, "ctc.pkg")
         save_ctc_package(ctc_pkg)
         phase_ctc_decode(ctc_pkg, vocab, chars, test_json, launches)
         beams = check_ctc_beams(ctc_pkg, test_feats)
-        print(f"[time] ctc decode path done at {time.time() - t_start:.1f}s")
+        clock.done("ctc decode path")
         per = phase_train(train_json, dev_json, vocab, launches)
         check_grads_against_cpu(pkg, train_feats)
         ctc_cost = check_ctc_loss_cost(shapes)
-        print(f"[time] training path done at {time.time() - t_start:.1f}s")
+        clock.done("training path")
         online_pkg = os.path.join(WORK, "flagship_online.pkg")
         save_flagship_package(online_pkg, model_cfg=online_model())
         phase_decode(online_pkg, vocab, wtest_json, launches, online=True)
         check_features_against_cpu(wtest)
-        print(f"[time] online decode path done at {time.time() - t_start:.1f}s")
+        clock.done("online decode path")
         phase_train(wtrain_json, wdev_json, vocab, launches, online=True)
-        print(f"[time] online training path done at {time.time() - t_start:.1f}s")
+        clock.done("online training path")
         gate = phase_recipe_gate()
         check_saturated_attention()
-        print(f"[time] recipe gate done at {time.time() - t_start:.1f}s")
+        clock.done("recipe gate")
         phase_stock_optimizers(vocab, chars, rng)
         phase_preemption(vocab, chars, rng)
         phase_jax_package()
-        print(f"[time] stock optimizers, preemption and jax package done at "
-              f"{time.time() - t_start:.1f}s")
+        clock.done("stock optimizers, preemption and jax package")
         cif = phase_cif(rng, launches)
-        print(f"[time] cif path done at {time.time() - t_start:.1f}s")
+        clock.done("cif path")
         lm = phase_lm(rng, launches, pkg, ctc_pkg, vocab, test_json, test_feats, cif)
-        print(f"[time] lm path done at {time.time() - t_start:.1f}s")
+        clock.done("lm path")
         stream = phase_streaming_train(vocab, chars, rng, launches)
         stream["decode"] = phase_streaming_decode(
             stream["pkg"], vocab, test_json, test_feats, lm["runs"]["transformer_lm float32"]["pkg"],
             launches)
         stream["online"] = phase_streaming_online(wtest_json, wtest, launches)
-        print(f"[time] streaming path done at {time.time() - t_start:.1f}s")
-        wave = phase_wave(vocab, chars, launches)
-        print(f"[time] wave path done at {time.time() - t_start:.1f}s")
+        clock.done("streaming path")
+        wave = phase_wave(vocab, chars, launches, gru_cpu)
+        clock.done("wave path")
+        # each grid phase's processes start a phase ahead: their start-up
+        # (imports, the group, data, model) is host work
+        world1 = start_world1(pcorpora, vocab)
+        grids.append(start_ranks(parallel_jobs(vocab, pcorpora)))
         text = phase_text(launches)
-        print(f"[time] text path done at {time.time() - t_start:.1f}s")
+        clock.done("text path")
         moe = phase_moe(train_json, dev_json, vocab, test_json, train_feats, launches)
-        print(f"[time] moe path done at {time.time() - t_start:.1f}s")
-        parallel = phase_parallel(vocab, chars)
-        print(f"[time] parallel path done at {time.time() - t_start:.1f}s")
-        tp = phase_model(vocab, chars, shapes, errs)
-        print(f"[time] model path done at {time.time() - t_start:.1f}s")
-        pp = phase_pipe(vocab, chars, test_json, train_feats, errs)
-        print(f"[time] pipe path done at {time.time() - t_start:.1f}s")
-        rows = (fwd_rows(test_feats, errs, launches)
-                + train_rows(shapes, errs, launches, per, tp["tp_flagship_sp"]["ln"])
-                + head_dim_rows(shapes, errs, launches) + fbank_rows(wbatch, wtest, errs, launches)
-                + cif_rows(cif, errs, launches) + lm_rows(lm, errs, launches)
-                + streaming_rows(stream, errs, launches) + wave_rows(wave, errs, launches)
-                + text_rows(text, errs, launches) + pp["rows"])
-        print(f"[time] kernel rows done at {time.time() - t_start:.1f}s")
-        # its workers' timed turns share the machine with nothing else
-        serve = phase_serving(serve_job(
+        clock.done("moe path")
+        # the serving workers export on the host from here on, below this
+        # process's priority, and go onto the card once the timed rows are
+        # done: their timed turns share the machine with nothing else
+        serving = start_serving(serve_job(
             pkg, ctc_pkg, lm["runs"]["transformer_lm float32"]["pkg"], stream["pkg"],
             moe["runs"]["float32"]["pkg"], vocab, test_feats, wtest))
-        print(f"[time] serving path done at {time.time() - t_start:.1f}s")
+        grids.append(start_ranks(model_jobs(vocab, chars)))
+        parallel = phase_parallel(grids[0], world1)
+        clock.done("parallel path")
+        grids.append(start_ranks(pipe_jobs(vocab, chars)))
+        tp = phase_model(grids[1], shapes, errs)
+        clock.done("model path")
+        pp = phase_pipe(grids[2], vocab, test_json, train_feats, errs)
+        clock.done("pipe path")
+        torch.cuda.empty_cache()
+        rows, row_s = [], {}
+        for group, make in (
+                ("fwd", lambda: fwd_rows(test_feats, errs, launches)),
+                ("train", lambda: train_rows(shapes, errs, launches, per,
+                                             tp["tp_flagship_sp"]["ln"])),
+                ("head dim", lambda: head_dim_rows(shapes, errs, launches)),
+                ("fbank", lambda: fbank_rows(wbatch, wtest, errs, launches)),
+                ("cif", lambda: cif_rows(cif, errs, launches)),
+                ("lm", lambda: lm_rows(lm, errs, launches)),
+                ("streaming", lambda: streaming_rows(stream, errs, launches)),
+                ("wave", lambda: wave_rows(wave, errs, launches)),
+                ("text", lambda: text_rows(text, errs, launches)), ("pipe", lambda: pp["rows"])):
+            t_group = time.time()
+            rows += make()
+            row_s[group] = time.time() - t_group
+        print("[time] kernel rows by group (s): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in row_s.items()))
+        clock.done("kernel rows")
         tools = phase_tools(pkg, vocab, test_json, test_feats)
-        print(f"[time] tools path done at {time.time() - t_start:.1f}s")
+        clock.done("tools path")
+        serve = finish_serving(serving)
+        clock.done("serving path")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    finally:
+    finally:  # every process this run started
+        if serving is not None:
+            stop_serving(serving)
+        if world1 is not None:
+            stop_world1(world1)
+        for ranks in grids:
+            stop_ranks(ranks)
+        if gru_cpu is not None and gru_cpu["proc"].poll() is None:
+            gru_cpu["proc"].kill()
         shutil.rmtree(WORK, ignore_errors=True)
+    clock.done("cleanup", "work directory removed")
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         cold = (f" (cold L2 {r['cold_ms']:.4f}, cold - warm {r['cold_extra_ms']:+.4f} in "
@@ -7570,7 +7942,7 @@ def main() -> int:
         print(f"[time] {r['name']} {r['shape']}: device ms kernel {r['ms']:.4f}{cold}, "
               f"plain {r['plain_ms']:.4f}, library {lib}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}); launches {r['launches']}")
-    print(f"[time] total {time.time() - t_start:.1f}s")
+    print(f"[time] total {time.time() - clock.start:.1f}s")
     print(f"[time] ctc beams a batch of 8 (339 frames, vocab 4233, beam {CTC_BEAM}): " + "; ".join(
         f"{k} log-probs: device {r['device_ms']:.2f} ms (enqueued in {r['enqueue_ms']:.2f}), "
         f"host {r['host_ms']:.2f} ms"
@@ -7676,6 +8048,7 @@ def main() -> int:
         f"{k}: export {r['export_s']:.1f}s, load {r['load_s']:.1f}s, {r['bytes'] / 1e6:.2f} MB, "
         f"{r['nodes']} nodes, warm wall ms exported {r['ms']['exported']:.3f} vs live "
         f"{r['ms']['live']:.3f}" for k, r in serve.items()) + f" ({card})")
+    print(clock.line())
     print(card)
     print(json.dumps({"kernels": rows}))
     # the run drives one card (cuda:0)

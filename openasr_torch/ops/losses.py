@@ -4,7 +4,8 @@ quantity and square losses.
 Counterparts of `cal_ctc_loss` (openasr_tpu/ops/ctc.py:274), `cal_ce_loss`
 (openasr_tpu/ops/losses.py:40), `cal_qua_loss` and `cal_ce_square_loss`
 (openasr_tpu/ops/losses.py:64-76).  Each returns a sum over the batch, in
-f32 whatever the logits' dtype; the solvers normalize them (CE by tokens,
+f32 whatever the logits' dtype (the CTC loss of float64 logits, a float64
+reference model's, in float64); the solvers normalize them (CE by tokens,
 CTC and quantity by sequences).
 
 The JAX package's CTC is its own XLA forward-backward; here it is
@@ -57,9 +58,13 @@ def cal_ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
                  targets: torch.Tensor, target_lengths: torch.Tensor) -> torch.Tensor:
     """Summed CTC loss, blank = V-1.  logits [B, T, V]; logit_lengths [B];
     targets [B, U] (padding past target_lengths is ignored);
-    target_lengths [B]."""
+    target_lengths [B].  f32 for f32 and bf16 logits: its log-space
+    recursion then rounds the logits' gradient to some 1e-2 of float64 at
+    a thousand frames and 1e4 nats a sequence, as the JAX package's f32
+    CTC does (ROADMAP queue 3 item 39); float64 logits keep float64."""
     v = logits.shape[-1]
-    log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)   # [T, B, V]
+    log_probs = F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)),
+                              dim=-1).transpose(0, 1)                   # [T, B, V]
     tlen = target_lengths.to(torch.int64)
     llen = logit_lengths.to(torch.int64).clamp(min=0)
     if log_probs.requires_grad:
