@@ -60,7 +60,8 @@ Then the recipe gate and the solver's paths:
   run, with the port's kernels that its trace holds device time for;
 - the attention backward in a saturated softmax (one-hot rows, as at the
   recipe gate's first layer, also with each row's max in its last key
-  step): dQ and dK exactly 0, as the true gradient, and 1 / l exactly 1;
+  step, and at T 1100, which bf16 runs on the wgmma route): dQ and dK
+  exactly 0, as the true gradient, and 1 / l exactly 1;
 - tests/data/jax_solver_conv_ctc_transformer_test.pkg, which the JAX
   solver wrote, read here without jax and continued one step on the card.
 
@@ -313,7 +314,11 @@ bound (the attention backward at each of the training step's three shapes:
 encoder self-attention, decoder causal self-attention and cross-attention,
 and a `[time]` line with their total a step; the backward's kernels also
 with a cold L2, `cold_ms`, and cold minus warm with its range over
-interleaved rounds), and last `{"ok": true, "device": {...}}`.  Without a
+interleaved rounds; each bf16 backward row with the route its kernels
+took, `design`, both routes' times, `routes_ms`, and the elementwise floor
+of exp2 and the dropout hash, `alu_floor_ms`, with `[bwd routes]` lines
+also at T 64-128, the crossover), and last `{"ok": true, "device":
+{...}}`.  Without a
 CUDA card it exits non-zero and prints no result; every phase that fails
 ends the run the same way.
 
@@ -359,6 +364,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float64: 34e12
 # the attention kernels, forward and backward, compute f32 products on the
 # tensor cores as 3xTF32, three TF32 products each (TF32: 495 TFLOP/s dense)
 MMA_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+# The elementwise floor of each backward kernel beside its operations
+# bound: every visible pair's exp2 on the MUFU unit (16 a clock an SM) and,
+# with dropout, its keep hash on the INT32 units (64 lanes a clock an SM),
+# at 132 SMs and the 1.98 GHz boost clock (the CUDA C++ programming
+# guide's throughput table for compute capability 9.0); HASH_INT_OPS
+# integer operations a pair (`dropout_keep`, csrc/common.cuh: the position
+# sum, the seed's xor, three xor-shifts of two, two multiplies, the compare)
+EX2_PER_S = 16 * 132 * 1.98e9
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+HASH_INT_OPS = 11
 TOL_LN = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # backward: max abs error over max(1, largest plain magnitude).  f32 sums
@@ -632,6 +647,13 @@ def read_counters() -> dict:
 
 # --------------------------------------------------------------- phase 1
 
+ATTENTION_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+                     "flash_attention_bwd_wgmma.cu")
+# the forward's 12 and the mma.sync backward's 36 (f32 and bf16), the wgmma
+# backward's 18 (bf16): D 32, 64, 128, with and without dropout
+ATTENTION_KERNELS = 66
+
+
 def attention_ptxas(log: str) -> list:
     """(kernel, registers, spill bytes) of each instantiation of the
     attention kernels, forward and backward, from nvcc's -Xptxas -v output
@@ -639,7 +661,7 @@ def attention_ptxas(log: str) -> list:
     import re
 
     out = []
-    for source in ("flash_attention.cu", "flash_attention_bwd.cu"):
+    for source in ATTENTION_SOURCES:
         sec = log[log.index(f"== nvcc {source}"):]
         end = sec.find("== nvcc", 1)
         name, spill = None, 0
@@ -650,8 +672,9 @@ def attention_ptxas(log: str) -> list:
                 d, drop = re.search(r"Li(\d+)ELb(\d)", fn).groups()
                 kind = ("fwd" if "_fwd_" in fn else "dkv" if "_dkv_" in fn
                         else "stats" if "_stats_" in fn else "dq")
-                name = (f"{kind} {'bf16' if 'Bf16Ops' in fn else 'f32'} D{d}"
-                        + (" dropout" if drop == "1" else ""))
+                dtype = ("bf16 wgmma" if "_wgmma_" in fn else "bf16" if "Bf16Ops" in fn
+                         else "f32")
+                name = f"{kind} {dtype} D{d}" + (" dropout" if drop == "1" else "")
             elif "spill stores" in line:
                 spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
             elif "Used" in line and name:
@@ -681,6 +704,14 @@ def ptxas_report(log: str, source: str) -> list:
     return out
 
 
+def serialized_products(log: str) -> list:
+    """ptxas's "Potential Performance Loss" notes on the wgmma backward
+    (wgmma.mma_async serialized: for want of registers, or where other
+    instructions write a product's accumulators in flight), one line each."""
+    return [line.strip() for line in log.splitlines()
+            if "Potential Performance Loss" in line and "_wgmma_" in line]
+
+
 def phase_build():
     """The CUDA kernels (nvcc, a process per source) and, alongside them,
     the native CTC decoder (g++)."""
@@ -699,12 +730,17 @@ def phase_build():
     print(f"[build] {so.name} (sm_90a) and {native_so.name} (g++) in {secs:.1f}s")
     print(nvidia_smi())
     log = so.parent / so.name.replace("libopenasr_kernels-", "build-").replace(".so", ".log")
-    report = attention_ptxas(log.read_text())
+    text = log.read_text()
+    report = attention_ptxas(text)
     print("[ptxas] attention registers (spill bytes): " + ", ".join(
         f"{n} {r} ({sp})" for n, r, sp in report))
-    require(len(report) == 48, f"{len(report)} attention kernels in the build log, not 48")
+    require(len(report) == ATTENTION_KERNELS,
+            f"{len(report)} attention kernels in the build log, not {ATTENTION_KERNELS}")
     require(all(sp == 0 for _, _, sp in report), "an attention kernel spills registers")
-    text = log.read_text()
+    serialized = serialized_products(text)
+    print(f"[ptxas] wgmma backward: {len(serialized)} notes of serialized products"
+          + "".join(f"\n  {line}" for line in serialized))
+    require(not serialized, "ptxas serialized the wgmma backward's products")
     for source, keys in (("fbank.cu", ("fbank_fft", "fbank_folded")),
                          ("layer_norm.cu", ("layer_norm_bwd", "column_sum"))):
         rows = [(short_name(n), r, sp) for n, r, sp in ptxas_report(text, source)
@@ -2179,6 +2215,7 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng, chunk_mask=No
     import torch.nn.functional as F
 
     from openasr_torch.kernels.flash_attention import (
+        bwd_route,
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_reference,
@@ -2207,8 +2244,15 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng, chunk_mask=No
     # every query, dK and dV over every key; five Tq.Tk.D products over the
     # valid pairs (S, dP, dV, dK, dQ)
     nbytes = 4 * qo_bytes + 2 * kv_bytes + 2 * es * b * tk * h * d + stat_bytes + 4 * b
+    route = bwd_route(dtype, tq, tk)
+    routes = {}
+    if dtype == torch.bfloat16:
+        routes = {"routes_ms": bwd_routes_ms(args)}
     return {
         "shape": [b, tq, tk, h, d],
+        "design": BWD_ROUTES[route],
+        "source": BWD_SOURCES[route],
+        **routes,
         "ms": device_ms(lambda: flash_attention_bwd(*args)),
         **(cold_l2_ms(lambda: flash_attention_bwd(*args)) if cold else {}),
         "plain_ms": device_ms(lambda: flash_attention_bwd_reference(*args)),
@@ -2220,6 +2264,58 @@ def attention_bwd_times(b, h, d, tq, tk, causal, lens, dtype, rng, chunk_mask=No
                                                    seed, chunk_mask),) + args[6:],
         "pairs": pairs, "qo_bytes": qo_bytes, "kv_bytes": kv_bytes, "stat_bytes": stat_bytes,
     }
+
+
+BWD_ROUTES = ("mma.sync", "wgmma")
+BWD_SOURCES = ("openasr_torch/kernels/csrc/flash_attention_bwd.cu",
+               "openasr_torch/kernels/csrc/flash_attention_bwd_wgmma.cu")
+
+
+def bwd_routes_ms(args) -> dict:
+    """Device ms of the backward's three kernels (statistics, dK/dV, dQ)
+    on each route, bf16, at `flash_attention_bwd`'s arguments `args`
+    (`bwd_route` picks one by Tq and Tk); printed as a `[bwd routes]`
+    line."""
+    from openasr_torch.kernels.flash_attention import (
+        bwd_route,
+        flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda,
+        flash_bwd_stats_cuda,
+    )
+
+    q, k, v, out, lse, dout, kv, causal, _, rate, seed, chunk_mask = args
+    b, tq, h, d = q.shape
+    sm_scale = 1.0 / math.sqrt(d)
+
+    def on_route(r):
+        st = flash_bwd_stats_cuda(q, k, v, dout, kv, causal, sm_scale, rate, seed, chunk_mask,
+                                  route=r)
+        a = (q, k, v, out, lse, dout, st, kv, causal, sm_scale, rate, seed, chunk_mask)
+        flash_bwd_dkv_cuda(*a, route=r)
+        flash_bwd_dq_cuda(*a, route=r)
+
+    ms = {name: device_ms(lambda: on_route(r)) for r, name in enumerate(BWD_ROUTES)}
+    print(f"[bwd routes] [{b}, {tq}, {k.shape[1]}, {h}, {d}] causal={causal} "
+          f"lengths={kv is not None} chunk={chunk_mask} bf16 dropout {rate}: "
+          + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+          + f" ms; taken: {BWD_ROUTES[bwd_route(q.dtype, tq, k.shape[1])]}")
+    return ms
+
+
+def bwd_crossover() -> list:
+    """Both routes of the bf16 backward at [64, T, T, 8, 64], no mask,
+    dropout 0.1, about flash_attention.WGMMA_MIN_T (T 64-128): the
+    crossover that `bwd_route` encodes.  No rows (the `[bwd routes]`
+    lines)."""
+    from openasr_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.RandomState(SEED + 29)
+    for t in (64, 72, 80, 96, 128):
+        q, k, v, dout = (torch.from_numpy(rng.randn(64, t, 8, 64).astype(np.float32)).to(
+            "cuda", torch.bfloat16) for _ in range(4))
+        out, lse = flash_attention(q, k, v, dropout_rate=DROPOUT, dropout_seed=DROPOUT_SEED)
+        bwd_routes_ms((q, k, v, out, lse, dout, None, False, None, DROPOUT, DROPOUT_SEED, None))
+    return []
 
 
 def dx_only_reading(n, dm, dtype, rng, errs, timed) -> dict:
@@ -2261,6 +2357,26 @@ def dx_only_reading(n, dm, dtype, rng, errs, timed) -> dict:
                                       (xl, gl, bl), dy),
             # x, dy read and dx written; mean, rstd, gamma read
             **bound(3 * n * dm * es + 2 * n * 4 + dm * 4, 9 * n * dm, torch.float32)}
+
+
+def alu_floor(pairs, kernels, dropout) -> dict:
+    """The elementwise floor of `kernels` backward kernels over `pairs`
+    visible pairs: each kernel's larger of its exp2 time at the MUFU rate
+    and, with dropout, its hash time at the INT32 rate."""
+    ex2_ms = pairs / EX2_PER_S * 1e3
+    hash_ms = pairs * HASH_INT_OPS / INT32_OPS_PER_S * 1e3 if dropout else 0.0
+    return {"alu_floor_ms": kernels * max(ex2_ms, hash_ms),
+            "alu_floor_by": "INT32 (dropout hash)" if hash_ms > ex2_ms else "MUFU (exp2)"}
+
+
+def bwd_design_keys(at, kernels=3) -> dict:
+    """Row keys of the backward's design at one shape of
+    `attention_bwd_times`: the route its kernels took (and, in bf16, both
+    routes' times), their source and the elementwise floor of `kernels`
+    kernels."""
+    return {"design": at["design"], "source": at["source"],
+            **({"routes_ms": at["routes_ms"]} if "routes_ms" in at else {}),
+            **alu_floor(at["pairs"], kernels, at["kernel_args"][10] > 0)}
 
 
 BWD_NOTES = {
@@ -2318,8 +2434,8 @@ def split_bwd_rows(at, suffix, dtype, errs, launches_of, notes, cold=True) -> li
         rows.append({
             "name": f"{kernel}{suffix}[{name}]",
             "route": "cuda",
-            "source": "openasr_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": replaces,
+            **bwd_design_keys(at, kernels=1),
             "shape": at["shape"],
             **launches_of(kernel),
             **(stats_row_errs(errs[(kernel, dtype)]) if alone
@@ -2452,6 +2568,7 @@ def train_rows(shapes, errs, launches, per, tp_ln):
                 **{key: at[key] for key in ("ms", "cold_ms", "cold_extra_ms",
                                             "cold_extra_range_ms", "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")},
+                **bwd_design_keys(at),
                 **BWD_NOTES,
                 "ops_peak_tflops": MMA_PEAK_FLOPS[dtype] / 1e12,
             })
@@ -2547,6 +2664,7 @@ def head_dim_rows(shapes, errs, launches):
             "launches_are": "dK/dV launches of the head-dim-16 test config's two steps",
             **bwd_errs(err, TOL_FLASH_BWD[dtype]),
             **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **bwd_design_keys(at),
             "at_32_ms": bwd_32,
         })
     return rows
@@ -2771,16 +2889,17 @@ def phase_recipe_gate() -> dict:
             "decode_s": decode_s}
 
 
-def saturated_qk(b, t, h, d, lens, gen, last_step):
+def saturated_qk(b, t, h, d, lens, gen, last_step, step=32):
     """(q, k) [B, T, H, D] f32 with every softmax row one-hot: each query
     near one valid key, both scaled by 300 (scores of about 5e5, leading
     the others by about 1e5).  Query t matches key t mod length, or, with
-    `last_step`, a key in its row's last 32-key step of the kernels' walk,
-    so the row's max arrives after the earlier steps' running max."""
+    `last_step`, a key in its row's last `step`-key step of the kernels'
+    walk (32 on the mma.sync route, 64 on the wgmma route at D 64), so the
+    row's max arrives after the earlier steps' running max."""
     k = torch.randn(b, t, h, d, generator=gen) * 300.0
     n = lens[:, None].long()
     pos = torch.arange(t)[None, :]
-    first = (n - 1) // 32 * 32 if last_step else torch.zeros_like(n)
+    first = (n - 1) // step * step if last_step else torch.zeros_like(n)
     match = first + pos % (n - first)
     return k[torch.arange(b)[:, None], match] + torch.randn(b, t, h, d, generator=gen), k
 
@@ -2788,30 +2907,39 @@ def saturated_qk(b, t, h, d, lens, gen, last_step):
 def check_saturated_attention():
     """The attention backward where every softmax row is one-hot (as the
     recipe gate's layer 0 reaches 4e4 at its initialization), at the gate's
-    layer-0 shape and at Tk 139 with each row's max in its last key step
-    (step 5 of 5, or 4 of 4): the true dQ and dK are 0.  The statistics
+    layer-0 shape, at Tk 139 with each row's max in its last 32-key step
+    (step 5 of 5, or 4 of 4), and at T 1100 with each row's max in its last
+    64-key step (step 18 of 18, or 17 of 17), which bf16 runs on the wgmma
+    route (every tile of it: 128-row blocks, query steps of 32 and key steps
+    of 64, ragged at the end): the true dQ and dK are 0.  The statistics
     pass gives 1 / l = 1 exactly on every such row (the max's exp2(0) = 1,
     the rest vanishing beside it, also after a rescale from an earlier
-    step's max), and dK/dV and dQ take P and delta from the same products,
-    so their dQ and dK are exactly 0.  dV against the plain version to the
-    backward tolerance."""
+    step's max), and dK/dV and dQ take P and delta from the same products
+    (on the wgmma route dK/dV's S^T = K Q^T as the statistics pass's S = Q
+    K^T), so their dQ and dK are exactly 0.  dV against the plain version
+    to the backward tolerance."""
     from openasr_torch.kernels.flash_attention import (
+        bwd_route,
         flash_attention,
         flash_attention_reference,
         flash_bwd_stats,
     )
 
     g = torch.Generator().manual_seed(SEED)
-    cases = [  # b, t, h, d, lengths, the max in the last key step
-        (26, 17, 4, 32, [17, 15, 13] * 8 + [17, 9], False),
-        (8, 139, 8, 64, [139, 128, 100, 97, 139, 65, 120, 139], True),
+    cases = [  # b, t, h, d, lengths, the max in the last key step of `step` keys
+        (26, 17, 4, 32, [17, 15, 13] * 8 + [17, 9], False, 32),
+        (8, 139, 8, 64, [139, 128, 100, 97, 139, 65, 120, 139], True, 32),
+        (2, 1100, 8, 64, [1100, 1037], True, 64),
     ]
-    for b, t, h, d, lengths, last_step in cases:
+    for b, t, h, d, lengths, last_step, step in cases:
         lens = torch.tensor(lengths, dtype=torch.int32)
-        q, k = saturated_qk(b, t, h, d, lens, g, last_step)
+        q, k = saturated_qk(b, t, h, d, lens, g, last_step, step)
         v, dout = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
-        where = f"B{b} T{t} D{d}" + (", the max in the last key step" if last_step else "")
+        where = f"B{b} T{t} D{d}" + (f", the max in the last {step}-key step" if last_step
+                                      else "")
         for dtype in DTYPES:
+            where_route = (f"{where}, {['mma.sync', 'wgmma'][bwd_route(dtype, t, t)]} "
+                           "route")
             for rate in (0.0, DROPOUT):
                 grads = {}
                 for name, fn in (("kernel", flash_attention), ("plain", flash_attention_reference)):
@@ -2825,8 +2953,8 @@ def check_saturated_attention():
                 kq, kk, kv = grads["kernel"]
                 pq, pk, pv = grads["plain"]
                 dv_err = max_err(kv, pv) / max(1.0, float(pv.abs().max()))
-                print(f"[saturated softmax] {where}, {DTYPE_NAME[dtype]}, dropout {rate}: max "
-                      f"|dQ|, |dK| kernel {float(kq.abs().max()):.3e}, "
+                print(f"[saturated softmax] {where_route}, {DTYPE_NAME[dtype]}, dropout {rate}: "
+                      f"max |dQ|, |dK| kernel {float(kq.abs().max()):.3e}, "
                       f"{float(kk.abs().max()):.3e} (plain {float(pq.abs().max()):.3e}, "
                       f"{float(pk.abs().max()):.3e}; true 0); 1 / l in "
                       f"[{float(inv_l.min()):.9g}, {float(inv_l.max()):.9g}]; dV kernel vs "
@@ -2834,10 +2962,10 @@ def check_saturated_attention():
                 require(float(pq.abs().max()) == 0.0 and float(pk.abs().max()) == 0.0,
                         "the plain backward left a residue in a saturated softmax")
                 require(bool((inv_l == 1.0).all()),
-                        f"1 / l is not exactly 1 on a one-hot row ({where}, "
+                        f"1 / l is not exactly 1 on a one-hot row ({where_route}, "
                         f"{DTYPE_NAME[dtype]}, dropout {rate})")
                 require(float(kq.abs().max()) == 0.0 and float(kk.abs().max()) == 0.0,
-                        f"the kernels left a residue in a saturated softmax ({where}, "
+                        f"the kernels left a residue in a saturated softmax ({where_route}, "
                         f"{DTYPE_NAME[dtype]}, dropout {rate})")
                 require(dv_err <= TOL_FLASH_BWD[dtype], f"dV off by {dv_err:.3g}")
 
@@ -3527,6 +3655,7 @@ def cif_rows(cif, errs, launches):
             **bwd_errs(err, TOL_FLASH_BWD[dtype]),
             **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")},
+            **bwd_design_keys(at),
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool causal "
                           "and key mask) forward + backward minus forward (graph replay)",
         })
@@ -4086,6 +4215,7 @@ def lm_rows(lm, errs, launches):
             **bwd_errs(err, TOL_FLASH_BWD[dtype]),
             **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")},
+            **bwd_design_keys(at),
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, is_causal=True) "
                           "forward + backward minus forward (graph replay)",
         })
@@ -4300,6 +4430,7 @@ def streaming_rows(stream, errs, launches):
             "stats_max_scaled_err": errs[("chunk_stats", dtype)][1],
             **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")},
+            **bwd_design_keys(at),
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
                           "and chunk mask) forward + backward minus forward (graph replay)",
         })
@@ -5246,6 +5377,7 @@ def wave_rows(wave, errs, launches):
             **bwd_errs(err, TOL_FLASH_BWD[dtype]),
             **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")},
+            **bwd_design_keys(at),
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
                           "mask) forward + backward minus forward (graph replay)",
         })
@@ -5679,6 +5811,7 @@ def text_rows(text, errs, launches):
             **bwd_errs(err, TOL_FLASH_BWD[dtype]),
             **{key: at[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by")},
+            **bwd_design_keys(at),
             "library_is": "F.scaled_dot_product_attention (dropout_p 0.1, a bool key-padding "
                           "mask) forward + backward minus forward (graph replay)",
         })
@@ -7904,6 +8037,7 @@ def main() -> int:
                 ("train", lambda: train_rows(shapes, errs, launches, per,
                                              tp["tp_flagship_sp"]["ln"])),
                 ("head dim", lambda: head_dim_rows(shapes, errs, launches)),
+                ("bwd routes", bwd_crossover),
                 ("fbank", lambda: fbank_rows(wbatch, wtest, errs, launches)),
                 ("cif", lambda: cif_rows(cif, errs, launches)),
                 ("lm", lambda: lm_rows(lm, errs, launches)),

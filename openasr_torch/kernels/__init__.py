@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("layer_norm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "fbank.cu")
+SOURCES = ("layer_norm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_wgmma.cu", "fbank.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -133,6 +134,7 @@ def library() -> ctypes.CDLL:
             f, i,                    # sm_scale, causal
             i, i, i,                 # chunk (0: off), left chunks, phase
             u32, u32, f, i,          # dropout seed, keep threshold, scale, on
+            i,                       # route: 0 mma.sync, 1 wgmma (bf16)
             i, i, p,                 # dtype, device, stream
         ]
         # q, k, v, dout, the stats (written by the stats pass, read by the

@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper (sm_90a): the row statistics, dK/dV
-// and dQ on the tensor cores.
+// and dQ on the tensor cores, and the C entry points of both routes.
 //
 // Replaces the Pallas TPU kernels
 // openasr_tpu/kernels/flash_attention.py:_bwd_dkv_kernel (:238) and
@@ -37,15 +37,32 @@
 // A query row that sees no key has m = 1 / l = delta = 0, so its P, its
 // dQ and its share of dK and dV are 0.
 //
-// Bound on the H100 at the training path's shapes (T 32-139, D 64): bytes,
-// in bf16 and in f32 alike.  Reading q, k, v, dO once and writing dq, dk,
-// dv once takes longer at 3.35 TB/s than the Tq x Tk x D products (two in
-// the statistics, four in dK/dV, three in dQ) at 989 TFLOP/s in bf16, or in
-// f32 as 3xTF32 at a third of TF32's 495 TFLOP/s.
+// Bounds on the H100.  At the flagship's training shapes (T 32-139, D 64):
+// bytes, in bf16 and in f32 alike; reading q, k, v, dO once and writing dq,
+// dk, dv once takes longer at 3.35 TB/s than the Tq x Tk x D products (two
+// in the statistics, four in dK/dV, three in dQ) at 989 TFLOP/s in bf16, or
+// in f32 as 3xTF32 at a third of TF32's 495 TFLOP/s.  At long T (wav2vec's
+// T' up to 3000): those products.  And under every shape an elementwise
+// floor that neither bound counts: each kernel's exp2 of every visible pair
+// on the MUFU units (16 a clock an SM) and, with dropout, its keep hash
+// (11 integer operations a pair, `dropout_keep`, on the INT32 units at 64
+// lanes a clock an SM); at wav2vec's 2.6e8 pairs the hash alone is 0.17 ms
+// a kernel, more than the bf16 products of the statistics pass or dQ.
 //
-// Design, FA2's backward on mma.sync (not wgmma: at these shapes the loads,
-// not the tensor cores' rate, set the time).  A block owns 64 rows and
-// walks the other side 32 rows a step, at every D.
+// Two routes, the three kernels of a backward always on the same one
+// (flash_attention.py:bwd_route; P and delta must be the same bits):
+// - f32, and bf16 below 72 queries or keys (WGMMA_MIN_T), the mma.sync
+//   kernels below: the loads set their time at these shapes, which 64-row
+//   tiles and double-buffered cp.async steps serve;
+// - bf16 from 72 queries and keys on, the wgmma kernels of
+//   flash_attention_bwd_wgmma.cu: TMA-fed rings, asynchronous products
+//   from shared-memory and register operands, dK/dV computing S^T once for
+//   dV and dK, and each step's elementwise work (the masks, exp2, the hash)
+//   on two warpgroups that take turns with the tensor cores; the hash stays
+//   the one floor it cannot hide (PERF.md).
+//
+// Design of the mma.sync route: FA2's backward on mma.sync.  A block owns
+// 64 rows and walks the other side 32 rows a step, at every D.
 // - Statistics: one block of 4 warps per (64-query tile, head, batch),
 //   warp w owning queries q0 + 16w..+15.  One walk over the key steps, up
 //   to kv_length and, under causal, the tile's diagonal, K and V each
@@ -107,8 +124,7 @@
 
 #include <type_traits>
 
-#include "common.cuh"
-#include "flash_tiles.cuh"
+#include "flash_bwd.cuh"
 
 namespace openasr {
 namespace {
@@ -117,23 +133,6 @@ constexpr int kRows = 64;          // keys (dK/dV) or queries (dQ, statistics) p
 constexpr int kDkvThreads = 256;   // 8 warps: 4 on dV, 4 on dK, 16 keys each
 constexpr int kDqThreads = 128;    // 4 warps, 16 queries each
 constexpr int kWalk = 32;          // rows per step of a walk
-constexpr int kStats = 3;          // row statistics: m, 1 / l, delta ([3][B][H][Tq])
-constexpr float kNegInf = -1.0e30f;  // a masked score, in log2 units
-
-// The weights, in every kernel and the same bits: P = exp2(s' - m) / l,
-// s' = S scale log2(e), from the row's max m and 1 / l (the statistics
-// pass's).  Each product and difference is rounded where written, so no
-// contraction differs between the kernels and the row's max gives
-// exp2(0) = 1 exactly.
-__device__ __forceinline__ float weight(float s, float scale_log2, float m, float inv_l) {
-  return __fmul_rn(exp2f(__fsub_rn(__fmul_rn(s, scale_log2), m)), inv_l);
-}
-// An entry of dS = P o (dP o D - delta) * scale, with delta = rowsum(P o
-// dP o D) from the same P and dP (the statistics pass's): where P is
-// one-hot, dP o D - delta is exactly 0.
-__device__ __forceinline__ float grad_entry(float p, float dpd, float delta, float sm_scale) {
-  return __fmul_rn(__fmul_rn(p, __fsub_rn(dpd, delta)), sm_scale);
-}
 
 // S = Q K^T and dP = dO V^T of one walk step, [16 queries, kWalk keys] a
 // warp: the rows qw.. of the staged Q and dO tiles against the staged K
@@ -670,21 +669,8 @@ __global__ void __launch_bounds__(kDqThreads, 3)
 
 // ---------------------------------------------------------------- launch
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  float* stats;  // written by the statistics pass, read by dK/dV and dQ
-  const int* kv_lengths;
-  void *dq, *dk, *dv;
-  int B, H, Tq, Tk;
-  Strides qs, ks, vs, ds;
-  float sm_scale;
-  Mask mask;
-  Dropout drop;
-  int device;
-};
-
 template <typename Ops, int D, bool kDropout>
-cudaError_t launch_stats(const Args& a, cudaStream_t stream) {
+cudaError_t launch_stats(const BwdArgs& a, cudaStream_t stream) {
   using E = typename Ops::Elem;
   constexpr size_t smem = QueryTiles<Ops, D>::kSmem;
   auto kernel = flash_attention_bwd_stats_kernel<Ops, D, kDropout>;
@@ -700,7 +686,7 @@ cudaError_t launch_stats(const Args& a, cudaStream_t stream) {
 }
 
 template <typename Ops, int D, bool kDropout>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   using E = typename Ops::Elem;
   // K, V tiles; Q, dO and the row statistics double-buffered
   constexpr size_t smem = (2 * kRows + 4 * kWalk) * Tiles<Ops, D>::kStride * sizeof(E) +
@@ -719,7 +705,7 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
 }
 
 template <typename Ops, int D, bool kDropout>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   using E = typename Ops::Elem;
   constexpr size_t smem = QueryTiles<Ops, D>::kSmem;
   auto kernel = [] {
@@ -741,7 +727,7 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
 
 // which = 0: dK/dV, 1: dQ, 2: the statistics
 template <typename Ops, int D>
-cudaError_t launch_one(int which, const Args& a, cudaStream_t stream) {
+cudaError_t launch_one(int which, const BwdArgs& a, cudaStream_t stream) {
   if (which == 0)
     return a.drop.on ? launch_dkv<Ops, D, true>(a, stream) : launch_dkv<Ops, D, false>(a, stream);
   if (which == 1)
@@ -751,7 +737,7 @@ cudaError_t launch_one(int which, const Args& a, cudaStream_t stream) {
 }
 
 template <typename Ops>
-cudaError_t dispatch_d(int which, int D, const Args& a, cudaStream_t stream) {
+cudaError_t dispatch_d(int which, int D, const BwdArgs& a, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch_one<Ops, 32>(which, a, stream);
@@ -764,22 +750,28 @@ cudaError_t dispatch_d(int which, int D, const Args& a, cudaStream_t stream) {
   }
 }
 
+// route 0: the mma.sync kernels above (f32, bf16); 1: the wgmma kernels
+// (flash_attention_bwd_wgmma.cu, bf16).  The three kernels of one
+// backward take the same route, so P and delta agree bit for bit.
 int run(int which, const void* q, const void* k, const void* v, const void* dout, void* stats,
         const void* kv_lengths, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk,
         int D, const long long* strides, float sm_scale, const Mask& mask,
         unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale, int dropout,
-        int dtype, int device, void* stream) {
+        int route, int dtype, int device, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  Args a{q, k, v, dout,
-         static_cast<float*>(stats), static_cast<const int*>(kv_lengths), dq, dk, dv,
-         B, H, Tq, Tk,
-         {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
-         {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]},
-         sm_scale, mask, {dropout != 0, dropout_seed, keep_thresh, drop_scale}, device};
+  BwdArgs a{q, k, v, dout,
+            static_cast<float*>(stats), static_cast<const int*>(kv_lengths), dq, dk, dv,
+            B, H, Tq, Tk,
+            {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
+            {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]},
+            sm_scale, mask, {dropout != 0, dropout_seed, keep_thresh, drop_scale}, device};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return dtype == kBFloat16 ? launch_bwd_wgmma(which, D, a, s) : cudaErrorInvalidValue;
+  if (route != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kFloat32:
       return dispatch_d<Tf32x3Ops>(which, D, a, s);
@@ -804,17 +796,19 @@ extern "C" {
 // given in `strides` as q, k, v, dout triples (12 values), with unit stride
 // along D, 16-byte aligned rows (each pointer and stride a multiple of 16
 // bytes); kv_lengths: [B] int32 or null.  Mask (causal; chunk,
-// left_chunks, phase) and dropout arguments as in the forward.
+// left_chunks, phase) and dropout arguments as in the forward; route 0
+// the mma.sync kernels (f32, bf16), 1 the wgmma kernels (bf16), the same
+// for the three kernels of one backward.
 int openasr_flash_attention_bwd_stats(
     const void* q, const void* k, const void* v, const void* dout, void* stats_out,
     const void* kv_lengths, int B, int H, int Tq, int Tk, int D, const long long* strides,
     float sm_scale, int causal, int chunk, int left_chunks, int phase,
     unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale, int dropout,
-    int dtype, int device, void* stream) {
+    int route, int dtype, int device, void* stream) {
   return openasr::run(2, q, k, v, dout, stats_out, kv_lengths, nullptr, nullptr, nullptr, B, H,
                       Tq, Tk, D, strides, sm_scale,
                       {causal, chunk, left_chunks, phase}, dropout_seed, keep_thresh,
-                      drop_scale, dropout, dtype, device, stream);
+                      drop_scale, dropout, route, dtype, device, stream);
 }
 
 // dk, dv of attention; arguments as above, stats: the statistics pass's
@@ -824,11 +818,11 @@ int openasr_flash_attention_bwd_dkv(
     const void* kv_lengths, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
     const long long* strides, float sm_scale, int causal, int chunk, int left_chunks,
     int phase, unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale,
-    int dropout, int dtype, int device, void* stream) {
+    int dropout, int route, int dtype, int device, void* stream) {
   return openasr::run(0, q, k, v, dout, const_cast<void*>(stats), kv_lengths, nullptr, dk, dv,
                       B, H, Tq, Tk, D, strides, sm_scale,
                       {causal, chunk, left_chunks, phase}, dropout_seed, keep_thresh,
-                      drop_scale, dropout, dtype, device, stream);
+                      drop_scale, dropout, route, dtype, device, stream);
 }
 
 // dq of attention; arguments as above, dq: contiguous [B, Tq, H, D].
@@ -837,11 +831,11 @@ int openasr_flash_attention_bwd_dq(
     const void* kv_lengths, void* dq, int B, int H, int Tq, int Tk, int D,
     const long long* strides, float sm_scale, int causal, int chunk, int left_chunks,
     int phase, unsigned int dropout_seed, unsigned int keep_thresh, float drop_scale,
-    int dropout, int dtype, int device, void* stream) {
+    int dropout, int route, int dtype, int device, void* stream) {
   return openasr::run(1, q, k, v, dout, const_cast<void*>(stats), kv_lengths, dq, nullptr,
                       nullptr, B, H, Tq, Tk, D, strides, sm_scale,
                       {causal, chunk, left_chunks, phase}, dropout_seed,
-                      keep_thresh, drop_scale, dropout, dtype, device, stream);
+                      keep_thresh, drop_scale, dropout, route, dtype, device, stream);
 }
 
 }  // extern "C"

@@ -243,6 +243,24 @@ def padded_head_dim(d: int) -> int:
                      f"{HEAD_DIMS[-1]}")
 
 
+# The bf16 backward's two routes, one for all three kernels of a backward
+# (their P and delta must be the same bits): 0, the mma.sync kernels of
+# csrc/flash_attention_bwd.cu (64-row tiles, f32 and bf16); 1, the wgmma
+# kernels of csrc/flash_attention_bwd_wgmma.cu (128-row blocks fed by TMA,
+# bf16).  The wgmma route from WGMMA_MIN_T queries and keys on: measured on
+# an H100 (PERF.md; chip_smoke.py's `[bwd routes]`), the mma.sync kernels
+# were 1.05x faster at [64, 64, 64] and 1.09x at the cross-attention's
+# [82, 32, 139], the wgmma ones 1.31x faster at [64, 72, 72] and more from
+# there.
+WGMMA_MIN_T = 72
+
+
+def bwd_route(dtype, tq: int, tk: int) -> int:
+    """The backward's route at these lengths: 1 (wgmma) for bf16 from
+    WGMMA_MIN_T queries and keys on, else 0 (mma.sync)."""
+    return int(dtype == torch.bfloat16 and min(tq, tk) >= WGMMA_MIN_T)
+
+
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
     """[B, T, H, D] -> [B, T, H, dp], zero columns past D (t itself when D is
     dp already)."""
@@ -386,17 +404,19 @@ def flash_bwd_stats(q, k, v, dout, kv_lengths=None, causal=False, sm_scale=None,
 
 
 def flash_bwd_stats_cuda(q, k, v, dout, kv_lengths, causal, sm_scale, dropout_rate,
-                         dropout_seed, chunk_mask=None):
+                         dropout_seed, chunk_mask=None, *, route=None):
     """The statistics pass: the CUDA implementation of
-    `torch.ops.openasr.flash_bwd_stats`."""
+    `torch.ops.openasr.flash_bwd_stats`.  `route`: `bwd_route`'s by
+    default (chip_smoke.py times both)."""
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp != d:
         return flash_bwd_stats_cuda(*(pad_head_dim(t, dp) for t in (q, k, v, dout)),
                                     kv_lengths, causal, sm_scale, dropout_rate,
-                                    dropout_seed, chunk_mask)
+                                    dropout_seed, chunk_mask, route=route)
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    route = bwd_route(q.dtype, tq, tk) if route is None else route
     # every row is written, (0, 0, 0) where it has no valid key
     stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=q.device)
     dout, _, lens, lens_ptr, strides = _bwd_inputs(q, k, v, dout, dout, stats, kv_lengths)
@@ -405,7 +425,7 @@ def flash_bwd_stats_cuda(q, k, v, dout, kv_lengths, causal, sm_scale, dropout_ra
     code = kernels.library().openasr_flash_attention_bwd_stats(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         lens_ptr, b, h, tq, tk, d, strides, float(sm_scale), *_mask_args(causal, chunk_mask),
-        *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
+        *_dropout_args(dropout_rate, dropout_seed), route, kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(code, "flash_bwd_stats")
@@ -467,18 +487,21 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, stats, kv_lengths=None,
 
 
 def flash_bwd_dkv_cuda(q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
-                       dropout_rate, dropout_seed, chunk_mask=None):
+                       dropout_rate, dropout_seed, chunk_mask=None, *, route=None):
     """The dK/dV kernel: the CUDA implementation of
-    `torch.ops.openasr.flash_bwd_dkv`."""
+    `torch.ops.openasr.flash_bwd_dkv`; `route` as in `flash_bwd_stats_cuda`
+    (the statistics' own)."""
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp != d:
         dk, dv = flash_bwd_dkv_cuda(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
-            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed, chunk_mask)
+            stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed, chunk_mask,
+            route=route)
         return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    route = bwd_route(q.dtype, tq, tk) if route is None else route
     dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
@@ -488,7 +511,7 @@ def flash_bwd_dkv_cuda(q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_sc
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         lens_ptr, dk.data_ptr(), dv.data_ptr(),
         b, h, tq, tk, d, strides, float(sm_scale), *_mask_args(causal, chunk_mask),
-        *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
+        *_dropout_args(dropout_rate, dropout_seed), route, kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(code, "flash_attention_bwd_dkv")
@@ -508,18 +531,20 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, stats, kv_lengths=None,
 
 
 def flash_bwd_dq_cuda(q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_scale,
-                      dropout_rate, dropout_seed, chunk_mask=None):
+                      dropout_rate, dropout_seed, chunk_mask=None, *, route=None):
     """The dQ kernel: the CUDA implementation of
-    `torch.ops.openasr.flash_bwd_dq`."""
+    `torch.ops.openasr.flash_bwd_dq`; `route` as in `flash_bwd_stats_cuda`
+    (the statistics' own)."""
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp != d:
         return flash_bwd_dq_cuda(
             *(pad_head_dim(t, dp) for t in (q, k, v, out)), lse, pad_head_dim(dout, dp),
             stats, kv_lengths, causal, sm_scale, dropout_rate, dropout_seed,
-            chunk_mask)[..., :d].contiguous()
+            chunk_mask, route=route)[..., :d].contiguous()
     b, tq, h, d = q.shape
     tk = k.shape[1]
+    route = bwd_route(q.dtype, tq, tk) if route is None else route
     dout, stats, lens, lens_ptr, strides = _bwd_inputs(q, k, v, out, dout, stats, kv_lengths)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if b * tq * tk * h == 0:
@@ -528,7 +553,7 @@ def flash_bwd_dq_cuda(q, k, v, out, lse, dout, stats, kv_lengths, causal, sm_sca
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         lens_ptr, dq.data_ptr(),
         b, h, tq, tk, d, strides, float(sm_scale), *_mask_args(causal, chunk_mask),
-        *_dropout_args(dropout_rate, dropout_seed), kernels.dtype_code(q.dtype),
+        *_dropout_args(dropout_rate, dropout_seed), route, kernels.dtype_code(q.dtype),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(code, "flash_attention_bwd_dq")

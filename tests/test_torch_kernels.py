@@ -23,6 +23,7 @@ from openasr_torch.kernels.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_reference,
     flash_attention_reference,
+    bwd_route,
     flash_bwd_stats,
     flash_bwd_stats_reference,
     pad_head_dim,
@@ -359,19 +360,19 @@ def test_statistics_check_holds_inverse_row_sum_relative():
         "inf")
 
 
-def _saturated_qk(b, t, h, d, lens, gen, last_step):
+def _saturated_qk(b, t, h, d, lens, gen, last_step, step=32):
     """(q, k) [B, T, H, D] f32 where each query lies near one valid key and
     both are scaled by 300: the matching score (about 5e5) leads the others
     by about 1e5, so every softmax row is one-hot.  `last_step`: each
-    query's key lies in its row's last 32-key step of the kernels' walk, so
-    the row's max arrives after earlier steps' (and l and delta were summed
-    against a smaller running max first); else query t matches key t mod
-    length."""
+    query's key lies in its row's last `step`-key step of the kernels' walk
+    (32 for the mma.sync kernels, 64 for the wgmma ones), so the row's max
+    arrives after earlier steps' (and l and delta were summed against a
+    smaller running max first); else query t matches key t mod length."""
     k = torch.randn(b, t, h, d, generator=gen) * 300.0
     n = lens[:, None].long()
     pos = torch.arange(t)[None, :]
     if last_step:
-        first = (n - 1) // 32 * 32
+        first = (n - 1) // step * step
         match = first + pos % (n - first)
     else:
         match = pos % n
@@ -714,6 +715,112 @@ def test_flash_bwd_stats_kernel_matches_plain(cuda_card, dtype, rate, b, tq, tk,
         for i, n in enumerate(lengths):
             if n == 0:
                 assert not got[:, i].any()
+
+
+# The routes of the backward at the shapes PERF.md times (B, Tq, Tk): the
+# training batches of the flagship's encoder, decoder and cross-attention,
+# the CIF decoder, the Transformer LM, the streaming chunk mode, the text
+# CTC model, bench_flash's two shapes and wav2vec's largest batch.
+ROUTE_SHAPES = [
+    # name, tq, tk, bf16 route
+    ("encoder (5+6)", 139, 139, 1),
+    ("decoder", 32, 32, 0),
+    ("cross", 32, 139, 0),
+    ("CIF decoder (5+6c)", 32, 32, 0),
+    ("LM (5+6l)", 64, 64, 0),
+    ("chunk mode (5+6ch)", 339, 339, 1),
+    ("text CTC (5+6p)", 120, 120, 1),
+    ("bench_flash (8, 256)", 256, 256, 1),
+    ("bench_flash (16, 2048)", 2048, 2048, 1),
+    ("wav2vec (5+6w)", 2802, 2802, 1),
+    ("the crossover", 71, 2048, 0),
+    ("the crossover", 72, 72, 1),
+]
+
+
+@pytest.mark.parametrize("name,tq,tk,route", ROUTE_SHAPES)
+def test_bwd_route_of_each_timed_shape(name, tq, tk, route):
+    """bf16 takes the wgmma kernels where the crossover measured on the card
+    puts them, the same route for all three kernels (a function of Tq and
+    Tk alone); f32 always the mma.sync kernels."""
+    assert bwd_route(torch.bfloat16, tq, tk) == route, name
+    assert bwd_route(torch.bfloat16, tk, tq) == route, name
+    assert bwd_route(torch.float32, tq, tk) == 0
+
+
+# The wgmma route (bf16, `bwd_route` 1): blocks of 128 keys or queries,
+# query steps of 64 (32 at D 128) and key steps of 64, ragged at both ends;
+# key padding (a length of 0 too), causal, the chunk mask, D 32, 64 and
+# 128, Tq != Tk both ways
+WGMMA_CASES = [
+    # b, tq, tk, h, d, causal, kv_lengths, chunk mask (chunk, left, phase)
+    (2, 1100, 1100, 4, 64, False, [1100, 1037], None),
+    (2, 1100, 1100, 4, 64, True, None, None),
+    (2, 1100, 1100, 4, 64, False, [1100, 700], (16, 4, 1)),
+    (2, 1100, 1100, 4, 32, False, [1100, 1037], None),
+    (2, 1100, 1100, 4, 128, True, [900, 1100], None),
+    (2, 600, 1100, 4, 64, False, [1100, 517], None),
+    (2, 1100, 517, 4, 128, False, [517, 0], None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,lengths,chunk", WGMMA_CASES)
+def test_flash_bwd_wgmma_route_matches_plain(cuda_card, rate, b, tq, tk, h, d, causal,
+                                             lengths, chunk):
+    """The bf16 backward on the wgmma route against the plain backward on
+    the same forward outputs, at the backward's tolerance of 5e-2 of max(1,
+    |grad|), with a non-contiguous dO; padded keys get exactly zero
+    gradients; the statistics pass alone to 1e-4 as on the other route."""
+    from openasr_torch.ops.masks import ChunkMask
+
+    assert bwd_route(torch.bfloat16, tq, tk) == 1
+    q, k, v, dout = _bwd_case(b, tq, tk, h, d, torch.bfloat16, tq + 3 * tk + d)
+    lens = None if lengths is None else torch.tensor(lengths, device="cuda")
+    mask = None if chunk is None else ChunkMask(*chunk)
+    seed = 987654321 if rate else 0
+    out, lse = flash_attention_reference(q, k, v, lens, causal, None, rate, seed, mask)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, lens, causal, None, rate, seed, mask)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, dout, lens, causal, None, rate,
+                                         seed, mask)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= 5e-2 * max(
+            1.0, w.float().abs().max().item())
+    if lens is not None:
+        for i, n in enumerate(lengths):
+            assert not got[1][i, n:].any() and not got[2][i, n:].any()
+    (m, inv, delta) = flash_bwd_stats(q, k, v, dout, lens, causal, None, rate, seed, mask)
+    m_w, inv_w, delta_w = flash_bwd_stats_reference(q, k, v, dout, lens, causal, None, rate,
+                                                    seed, mask)
+    assert (m - m_w).abs().max().item() <= 1e-4 * max(1.0, m_w.abs().max().item())
+    assert torch.equal(inv == 0, inv_w == 0)
+    assert ((inv - inv_w).abs() <= 1e-4 * inv_w).all()
+    assert (delta - delta_w).abs().max().item() <= 1e-4 * max(1.0, delta_w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bwd_wgmma_route_saturated_and_deterministic(cuda_card, rate):
+    """The wgmma route where every softmax row is one-hot with its max in
+    the row's last 64-key step: the statistics pass's S = Q K^T and dK/dV's
+    S^T = K Q^T are the same bits, so 1 / l is exactly 1 and dQ and dK are
+    exactly 0; and two calls give bit-identical gradients (no atomics)."""
+    b, t, h, d, lengths = 2, 1100, 4, 64, [1100, 1037]
+    gen = torch.Generator().manual_seed(t)
+    q, k = _saturated_qk(b, t, h, d, torch.tensor(lengths), gen, True, step=64)
+    v, dout = (torch.randn(b, t, h, d, generator=gen) for _ in range(2))
+    q, k, v, dout = (x.to("cuda", torch.bfloat16) for x in (q, k, v, dout))
+    lens = torch.tensor(lengths, device="cuda")
+    seed = 987654321 if rate else 0
+    out, lse = flash_attention_reference(q, k, v, lens, False, None, rate, seed)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None, rate, seed)
+    second = flash_attention_bwd(q, k, v, out, lse, dout, lens, False, None, rate, seed)
+    assert not first[0].any() and not first[1].any()
+    assert (flash_bwd_stats(q, k, v, dout, lens, False, None, rate, seed)[1] == 1.0).all()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
